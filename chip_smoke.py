@@ -1,0 +1,629 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --phases device,build,kernels   # a subset
+    python3 chip_smoke.py --layers 12     # cut the engine's depth
+    python3 chip_smoke.py --profile       # + where the device time goes
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. device  — require CUDA, print the card's name and power limit, turn
+             TF32 off for matmuls and cuDNN.
+2. build   — compile both CUDA kernels from ``src/repro_torch/kernels/csrc``
+             (one ``nvcc`` per source, in parallel) into ``build/kernels``.
+3. kernels — each kernel against its plain PyTorch version on the card, at
+             the slice's shapes, in f32 and bf16, with a windowed case, an
+             idle row, masked / lost / over-capacity / foreign / empty
+             experts; run twice and require bitwise-equal outputs; time
+             kernel and plain version at the decode shapes.
+4. model   — qwen2-moe-a2.7b at full width, 2 layers, f32: one chunk step
+             and one decode step on the card against the same weights on
+             the CPU (plain versions); logits within tolerance, greedy
+             tokens equal.
+5. engine  — qwen2-moe-a2.7b at full width in bf16, depth cut to 16 of
+             its 24 layers, behind the collocated ``InferenceEngine``
+             (2 DP ranks, fused MoE).  Start-up writes ``weights.npz``
+             and the per-rank shard files, 2.3 GB a layer plus 1.3 GB
+             (~57 GB at 24 layers, ~38 GB at 16): a run may write at most
+             45 GiB to its disk, so ``--layers`` trades depth for it.  8
+             requests without a fault, then the same workload with an L6
+             attn+moe fault on physical 1 mid-step at step 6, revived in
+             place.  The kernels' launch counts are read from the faulted
+             run.
+6. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+
+Imports nothing of JAX and nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+PHASES = ("device", "build", "kernels", "model", "engine")
+HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+KERNEL_META = {
+    "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention.py:82"),
+    "moe_fused": ("src/repro_torch/kernels/csrc/moe_fused.cu",
+                  "src/repro/kernels/moe_fused.py:122"),
+}
+# card-vs-plain tolerances (allclose: |got - want| <= atol + rtol |want|).
+# f32: both accumulate in f32 in different orders.  bf16: the plain
+# versions round intermediates to bf16 where the kernels keep f32 (the
+# attention probabilities before p @ V; the expert outputs and each of
+# the k weighted adds), a few bf16 ulps at |y| ~ 1.
+TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
+MODEL_LOGIT_ATOL = 1e-3       # f32, 2 layers at full width, card vs CPU
+ENGINE_LAYERS = 16            # of 24: bounded by the disk a run may write
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# -- helpers ------------------------------------------------------------------
+
+def time_ms(torch, fn, reps: int = 25) -> float:
+    """Median device time of one call, each call after a 128 MB write that
+    evicts the 50 MB L2 (the serving path finds its operands cold).  A
+    ~2 ms device sleep ahead of each call keeps the stream busy while the
+    host enqueues it, so the events time the device work, not the host's
+    launch overhead (``fn`` must not synchronise)."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(4_000_000)
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        times.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in times]))
+
+
+def compare(name, got, want, dtype_name):
+    atol, rtol = TOL[dtype_name]
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    err = float(np.abs(g - w).max()) if g.size else 0.0
+    bad = np.abs(g - w) > atol + rtol * np.abs(w)
+    log(f"  {name:<44} max_abs_err {err:.3e}  (atol {atol:g}, rtol {rtol:g})"
+        f"  {'ok' if not bad.any() else 'FAIL'}")
+    if bad.any() or not np.isfinite(g).all():
+        raise AssertionError(f"{name}: {int(bad.sum())} elements outside "
+                             f"tolerance, max_abs_err {err}")
+    return err
+
+
+# -- phase 1-2 ----------------------------------------------------------------
+
+def phase_device(torch):
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    log(smi[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"device: {torch.cuda.get_device_name(0)}, "
+        f"{torch.cuda.device_count()} visible; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}; TF32 off for matmul and cuDNN "
+        f"(f32 products run in full f32)")
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s for {list(logs)} into "
+        f"{build.build_dir()}")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+
+# -- phase 3: kernels ---------------------------------------------------------
+
+def paged_case(torch, *, B, H, Hkv, Dh, bs, nb, max_blk, max_len, window,
+               idle, dtype, seed):
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+    q = torch.from_numpy(rng.normal(size=(B, H, Dh)).astype(np.float32))
+    kp = torch.from_numpy(
+        rng.normal(size=(nb, bs, Hkv, Dh)).astype(np.float32))
+    vp = torch.from_numpy(
+        rng.normal(size=(nb, bs, Hkv, Dh)).astype(np.float32))
+    tables = np.stack([rng.permutation(nb - 1)[:max_blk] for _ in range(B)])
+    seq = rng.integers(1, max_len + 1, size=B)
+    if idle:
+        seq[1] = 0
+    start = np.maximum(seq - window, 0) if window else None
+    args = [q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype),
+            torch.from_numpy(tables.astype(np.int32)).to(dev),
+            torch.from_numpy(seq.astype(np.int32)).to(dev),
+            None if start is None else
+            torch.from_numpy(start.astype(np.int32)).to(dev)]
+    valid = (seq - (start if start is not None else 0)).clip(min=0)
+    return args, int(valid.sum())
+
+
+def paged_bound_ms(args, n_valid, dtype_name):
+    q, kp = args[0], args[1]
+    B, H, Dh = q.shape
+    Hkv = kp.shape[2]
+    el = q.element_size()
+    nbytes = (2 * n_valid * Hkv * Dh * el + 2 * q.numel() * el
+              + args[3].numel() * 4 + 2 * B * 4)
+    flops = 4 * n_valid * H * Dh
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def moe_case(torch, *, T, E, e_local, off, D, Fd, k, cap, dtype, seed,
+             hot=0, dead_p=0.15):
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+    x = rng.normal(size=(T, D)).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn((e_local, D, Fd), generator=gen, device=dev) / D ** 0.5
+    u = torch.randn((e_local, D, Fd), generator=gen, device=dev) / D ** 0.5
+    d = torch.randn((e_local, Fd, D), generator=gen, device=dev) / Fd ** 0.5
+    # routing: distinct experts per token; ``hot`` tokens all pick expert
+    # 5 first (overflows cap); ~dead_p of the copies are on dead replicas
+    phys = np.stack([rng.permutation(E)[:k] for _ in range(T)])
+    for t in range(min(hot, T)):
+        phys[t][phys[t] == 5] = phys[t, 0]
+        phys[t, 0] = 5
+    z = rng.normal(size=(T, k))
+    w = np.exp(z) / np.exp(z).sum(-1, keepdims=True)
+    alive = rng.random(size=(T, k)) >= dead_p
+    xt = torch.from_numpy(x).to(dev, dtype)
+    args = (xt, g.to(dtype).contiguous(), u.to(dtype).contiguous(),
+            d.to(dtype).contiguous(),
+            torch.from_numpy(w.astype(np.float32)).to(dev),
+            torch.from_numpy(phys.astype(np.int32)).to(dev),
+            torch.from_numpy(alive).to(dev))
+    return args, dict(cap=cap, expert_offset=off, e_local=e_local)
+
+
+def moe_bound_ms(args, kw, dtype_name):
+    from repro_torch.kernels.moe_fused import moe_group_tokens
+    x, gate = args[0], args[1]
+    T, D = x.shape
+    Fd = gate.shape[2]
+    k = args[5].shape[1]
+    _, wgt, _ = moe_group_tokens(args[5], args[6], args[4], **kw)
+    live_slots = int((wgt != 0).sum())
+    live_experts = int((wgt != 0).any(dim=1).sum())
+    el = x.element_size()
+    nbytes = (live_experts * 3 * D * Fd * el + 2 * T * D * el
+              + T * k * (4 + 4 + 1))
+    flops = live_slots * 6 * D * Fd
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+            live_experts, live_slots)
+
+
+def phase_kernels(torch, shapes):
+    from repro_torch.kernels.moe_fused import moe_fused_cuda, moe_fused_plain
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_plain)
+    S = shapes
+    out = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    log("kernels: paged_attention vs paged_attention_plain on the card")
+    errs = []
+    timed = None
+    paged_cases = [
+        # name, B, H, Hkv, Dh, window, idle, max_len
+        ("decode", S["max_batch"], 16, 16, 128, 0, True, 288),
+        ("chunk+window", S["chunk"], 16, 16, 128, 64, True, 288),
+        ("gqa Dh=96", 6, 16, 4, 96, 0, True, 200),
+        ("gqa Dh=256 window", 5, 8, 2, 256, 40, False, 300),
+    ]
+    for dtype in (f32, bf16):
+        dn = str(dtype).split(".")[1]
+        for i, (name, B, H, Hkv, Dh, window, idle, max_len) in enumerate(
+                paged_cases):
+            args, n_valid = paged_case(
+                torch, B=B, H=H, Hkv=Hkv, Dh=Dh, bs=S["block_size"],
+                nb=S["num_blocks"] + 1, max_blk=S["max_blk"],
+                max_len=max_len, window=window, idle=idle, dtype=dtype,
+                seed=i)
+            got = paged_attention_cuda(*args)
+            again = paged_attention_cuda(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_attention {name}: not bitwise "
+                                     f"equal run to run")
+            if idle and got[1].abs().max().item() != 0.0:
+                raise AssertionError("paged_attention: idle row not 0")
+            want = paged_attention_plain(*args)
+            errs.append(compare(f"{name} B={B} H={H}/{Hkv} Dh={Dh} {dn}",
+                                got, want, dn))
+            if name == "decode" and dtype is bf16:
+                timed = (args, n_valid, dn)
+    args, n_valid, dn = timed
+    bound, by = paged_bound_ms(args, n_valid, dn)
+    out["paged_attention"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: paged_attention_cuda(*args)),
+        plain_ms=time_ms(torch, lambda: paged_attention_plain(*args)),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape=f"decode B={args[0].shape[0]} H=16 Dh=128 bf16, "
+              f"{n_valid} valid K/V rows")
+
+    log("kernels: moe_fused vs moe_fused_plain on the card")
+    errs = []
+    moe_cases = [
+        # name, T, e_local, offset, hot tokens
+        ("decode", S["max_batch"], 64, 0, 0),
+        ("chunk, overflow on expert 5", S["chunk"], 64, 0, 12),
+        ("chunk, foreign half (offset 32)", S["chunk"], 32, 32, 10),
+    ]
+    for dtype in (f32, bf16):
+        dn = str(dtype).split(".")[1]
+        for i, (name, T, e_local, off, hot) in enumerate(moe_cases):
+            args, kw = moe_case(torch, T=T, E=64, e_local=e_local, off=off,
+                                D=S["d_model"], Fd=S["d_ff"], k=S["top_k"],
+                                cap=S["cap"], dtype=dtype, seed=10 + i,
+                                hot=hot)
+            got = moe_fused_cuda(*args, **kw)
+            again = moe_fused_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"moe_fused {name}: not bitwise equal "
+                                     f"run to run")
+            want = moe_fused_plain(*args, **kw)
+            _, _, live_e, live_s = moe_bound_ms(args, kw, dn)
+            errs.append(compare(
+                f"{name} T={T} ({live_e} experts, {live_s} slots) {dn}",
+                got, want, dn))
+            if i == 0 and dtype is bf16:
+                timed = (args, kw, dn)
+        del args, got, again, want
+    args, kw, dn = timed
+    bound, by, live_e, live_s = moe_bound_ms(args, kw, dn)
+    out["moe_fused"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: moe_fused_cuda(*args, **kw)),
+        plain_ms=time_ms(torch, lambda: moe_fused_plain(*args, **kw)),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape=f"decode T={args[0].shape[0]} D=2048 F=1408 E=64 k=4 cap=8 "
+              f"bf16, {live_e} experts / {live_s} slots live")
+    for name, r in out.items():
+        log(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    del timed, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 4: model, card against CPU -------------------------------------------
+
+def _map(tree, fn):
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def phase_model(torch, seed):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2,
+                              moe_impl="fused")
+    bs, nblk, max_blk, width, batch = 16, 16, 4, 32, 8
+    trash = nblk
+    cpu = Model(cfg, torch.float32, device="cpu")
+    card = Model(cfg, torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    p_cpu = cpu.init(seed)
+    p_card = _map(p_cpu, lambda t: t.to("cuda"))
+    log(f"model: qwen2-moe-a2.7b full width, 2 layers, f32; weights from "
+        f"seed {seed} in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    # chunk: request A = 20 prompt tokens (blocks 0-1), B = 9 (block 2),
+    # rows 29-31 idle; decode: A in slot 0, B in slot 3, others idle
+    lens, blocks = {"a": 20, "b": 9}, {"a": [0, 1], "b": [2]}
+    prompts = {n: rng.integers(0, cfg.vocab_size, L) for n, L in lens.items()}
+    tok = np.zeros(width, np.int32)
+    tables = np.zeros((width, max_blk), np.int32)
+    seq = np.zeros(width, np.int32)
+    wb = np.full(width, trash, np.int32)
+    wo = np.zeros(width, np.int32)
+    row, last = 0, {}
+    for n in ("a", "b"):
+        for pos in range(lens[n]):
+            tok[row] = prompts[n][pos]
+            tables[row, :len(blocks[n])] = blocks[n]
+            seq[row], wb[row], wo[row] = pos + 1, blocks[n][pos // bs], \
+                pos % bs
+            last[n] = row
+            row += 1
+    chunk_page = dict(tables=tables, seq_lens=seq, write_bid=wb,
+                      write_off=wo)
+    caches = {"cpu": cpu.init_paged_cache(width, nblk, bs),
+              "cuda": card.init_paged_cache(width, nblk, bs)}
+    models = {"cpu": (cpu, p_cpu), "cuda": (card, p_card)}
+
+    def both(tokens, page):
+        res = {}
+        for dev, (m, p) in models.items():
+            tt = torch.from_numpy(tokens).to(dev)
+            pg = {k: torch.from_numpy(v).to(dev) for k, v in page.items()}
+            logits, _ = m.decode_step_paged(p, caches[dev], tt, pg)
+            res[dev] = logits.float().cpu().numpy()
+        err = float(np.abs(res["cuda"] - res["cpu"]).max())
+        if not np.isfinite(res["cuda"]).all() or err > MODEL_LOGIT_ATOL:
+            raise AssertionError(f"model logits: card vs CPU max_abs_err "
+                                 f"{err} > {MODEL_LOGIT_ATOL}")
+        return res, err
+
+    res, err_c = both(tok, chunk_page)
+    rows = [last["a"], last["b"]]
+    greedy = res["cpu"][rows].argmax(-1)
+    if not (res["cuda"][rows].argmax(-1) == greedy).all():
+        raise AssertionError("model: chunk-step greedy tokens differ")
+    slots = {"a": 0, "b": 3}
+    dtok = np.zeros(batch, np.int32)
+    dt = np.zeros((batch, max_blk), np.int32)
+    ds = np.zeros(batch, np.int32)
+    dwb = np.full(batch, trash, np.int32)
+    dwo = np.zeros(batch, np.int32)
+    for n, g in zip(("a", "b"), greedy):
+        s, pos = slots[n], lens[n]
+        dtok[s] = g
+        dt[s, :len(blocks[n])] = blocks[n]
+        ds[s], dwb[s], dwo[s] = pos + 1, blocks[n][pos // bs], pos % bs
+    res, err_d = both(dtok, dict(tables=dt, seq_lens=ds, write_bid=dwb,
+                                 write_off=dwo))
+    live = [slots["a"], slots["b"]]
+    if not (res["cuda"][live].argmax(-1)
+            == res["cpu"][live].argmax(-1)).all():
+        raise AssertionError("model: decode-step greedy tokens differ")
+    log(f"  logits card vs CPU: chunk max_abs_err {err_c:.3e}, decode "
+        f"{err_d:.3e} (atol {MODEL_LOGIT_ATOL:g}); greedy tokens equal "
+        f"({greedy.tolist()} -> {res['cpu'][live].argmax(-1).tolist()})")
+    del models, p_card, p_cpu, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# -- phase 5: engine --------------------------------------------------------------
+
+def _prompts(vocab, seed):
+    """Four prompts of 128-256 tokens, then four more that each share the
+    leading 64 tokens (4 blocks) of one of the first four."""
+    rng = np.random.default_rng(seed)
+    first = [list(map(int, rng.integers(0, vocab, int(n))))
+             for n in rng.integers(128, 257, 4)]
+    later = [p[:64] + list(map(int, rng.integers(0, vocab, int(n) - 64)))
+             for p, n in zip(first, rng.integers(128, 257, 4))]
+    return first, later
+
+
+def _serve(torch, eng, vocab, seed, new_tokens):
+    first, later = _prompts(vocab, seed)
+    reqs = [eng.submit(p, new_tokens) for p in first]
+    steps = []      # (seconds, new tokens, prefill chunks, recovered)
+
+    def one():
+        n0 = sum(len(r.output_tokens) for r in eng.all_requests)
+        c0 = eng.prefill_stats()["prefill_chunks"]
+        r0 = len(eng.reports)
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0,
+                      sum(len(r.output_tokens) for r in eng.all_requests)
+                      - n0, eng.prefill_stats()["prefill_chunks"] - c0,
+                      len(eng.reports) > r0))
+
+    t_all = time.perf_counter()
+    one()
+    one()
+    reqs += [eng.submit(p, new_tokens) for p in later]
+    for _ in range(2000):
+        if not eng.unfinished:
+            break
+        one()
+    wall = time.perf_counter() - t_all
+    dec = [(s, n) for s, n, c, rec in steps if c == 0 and not rec and n]
+    tok_s = sum(n for _, n in dec) / max(sum(s for s, _ in dec), 1e-9)
+    total = sum(len(r.output_tokens) for r in reqs)
+    return reqs, dict(steps=len(steps), wall_s=wall, out_tokens=total,
+                      e2e_tok_s=total / wall, decode_tok_s=tok_s,
+                      decode_steps=len(dec))
+
+
+def _trace(torch, fn):
+    """Run ``fn`` under ``torch.profiler`` (device activity only, so the
+    host pays little for it); print the kernels that took the most
+    device time and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    log(f"  trace: device busy {busy:.3f} s of {wall:.3f} s wall "
+        f"({100 * busy / wall:.1f}%); {sum(r[1] for r in rows)} device "
+        f"ops; top by device time:")
+    for us, n, key in rows[:15]:
+        log(f"    {us / 1e3:10.2f} ms {n:7d}x  {key[:100]}")
+    return out
+
+
+def phase_engine(torch, seed, layers, profile=False):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.fault_codes import Severity
+    from repro_torch.core.weights import RecoveryPolicy
+    from repro_torch.kernels import launches
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = get_config("qwen2-moe-a2.7b")
+    if layers != cfg.num_layers:
+        log(f"engine: depth cut from {cfg.num_layers} to {layers} layers, "
+            f"width kept (start-up writes ~2.3 GB of checkpoint and shard "
+            f"files a layer)")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    m = cfg.moe
+    log(f"engine: {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}x{cfg.head_dim} heads, "
+        f"{m.num_experts}+{m.num_redundant_experts} experts of d_ff "
+        f"{m.expert_d_ff}, {m.num_shared_experts} shared, top-{m.top_k}, "
+        f"vocab {cfg.vocab_size}")
+    workdir = ROOT / "build" / "smoke_engine"
+    shutil.rmtree(workdir, ignore_errors=True)
+    new_tokens = 32
+
+    def make():
+        t0 = time.perf_counter()
+        eng = InferenceEngine(cfg, EngineConfig(
+            mode="collocated", num_dp=2, moe_impl="fused", max_batch=8,
+            max_seq=512, block_size=16, num_blocks=256, seed=seed,
+            workdir=str(workdir),
+            policy=RecoveryPolicy(allow_role_switch=False)))
+        log(f"  engine up in {time.perf_counter() - t0:.1f} s; {eng.dtype} "
+            f"weights "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card; "
+            f"init_timings " + json.dumps(
+                {k: round(v, 4) for k, v in eng.init_timings.items()}))
+        return eng
+
+    try:
+        eng = make()
+        serve = lambda: _serve(torch, eng, cfg.vocab_size, seed,  # noqa: E731
+                               new_tokens)
+        reqs, clean = _trace(torch, serve) if profile else serve()
+        if any(r.state.value != "finished" for r in reqs) or eng.reports:
+            raise AssertionError("engine (no fault): not every request "
+                                 "finished")
+        log("  no fault: " + json.dumps(
+            {k: round(v, 3) for k, v in clean.items()}))
+        del eng, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        eng = make()
+        eng.injector.schedule(6, 1, severity=Severity.L6,
+                              component="attn+moe", mid_step=True)
+        launches.clear()
+        reqs, fault = _serve(torch, eng, cfg.vocab_size, seed, new_tokens)
+        counts = dict(launches)
+        log("  with fault: " + json.dumps(
+            {k: round(v, 3) for k, v in fault.items()}))
+        states = [r.state.value for r in reqs]
+        if any(s != "finished" for s in states):
+            raise AssertionError(f"engine (fault): requests {states}")
+        if not eng.reports:
+            raise AssertionError("engine: the fault was not handled")
+        rep = eng.reports[0]
+        log(f"  recovery: {rep.summary()}")
+        log("  recovery timings " + json.dumps(
+            {k: round(v, 6) for k, v in rep.timings.items()}))
+        mask = eng.runtime.expert_mask.cpu().numpy()
+        masked = [int(e) for e in np.flatnonzero(~mask)]
+        if rep.scenario != "moe+missing_experts" or \
+                masked != list(range(32, 60)):
+            raise AssertionError(f"engine: scenario {rep.scenario}, "
+                                 f"masked {masked}")
+        if rep.compile_source != "precompiled":
+            raise AssertionError(f"engine: compile_source "
+                                 f"{rep.compile_source}")
+        hits = eng.prefill_stats()["prefix_cache_hits"]
+        if hits <= 0:
+            raise AssertionError("engine: the prefix cache was never hit")
+        if min(counts.get(k, 0) for k in KERNEL_META) <= 0:
+            raise AssertionError(f"engine: kernel launches {counts}")
+        log(f"  scenario {rep.scenario}, logical experts {masked[0]}-"
+            f"{masked[-1]} masked, compile_source {rep.compile_source}, "
+            f"migrated {rep.migrated}, prefix_cache_hits {hits}, "
+            f"launches {counts}")
+        log(f"  decode tokens/s: {clean['decode_tok_s']:.1f} without the "
+            f"fault, {fault['decode_tok_s']:.1f} with it")
+        del eng, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+# -- main ---------------------------------------------------------------------------
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--layers", type=int, default=ENGINE_LAYERS)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the engine's run without a fault")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
+    for p in phases:
+        if p not in PHASES:
+            raise SystemExit(f"unknown phase {p!r}; phases: {PHASES}")
+
+    import torch
+    phase_device(torch)
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+    shapes = dict(max_batch=8, chunk=32, block_size=16, num_blocks=256,
+                  max_blk=512 // 16, d_model=2048, d_ff=1408, top_k=4,
+                  cap=8)
+    t_start = time.perf_counter()
+    if "build" in phases:
+        phase_build()
+    results = {}
+    if "kernels" in phases:
+        results = phase_kernels(torch, shapes)
+    if "model" in phases:
+        phase_model(torch, args.seed)
+    counts = {}
+    if "engine" in phases:
+        counts = phase_engine(torch, args.seed, args.layers,
+                              args.profile)
+    log(f"phases {phases} passed in {time.perf_counter() - t_start:.1f} s")
+    kernels = []
+    for name, (src, replaces) in KERNEL_META.items():
+        r = results.get(name, {})
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=counts.get(name, 0), max_abs_err=r.get("max_abs_err"),
+            ms=r.get("ms"), plain_ms=r.get("plain_ms"),
+            bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
+            library_ms=r.get("library_ms")))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

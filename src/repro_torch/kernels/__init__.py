@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels of the serving path, with their plain
+PyTorch versions.
+
+* ``paged_attention`` — one-token decode attention over the paged KV
+  pool (``csrc/paged_attention.cu``).
+* ``moe_fused`` — the routed experts' SwiGLU FFN and weighted combine
+  over the slot tables of one sort pass (``csrc/moe_fused.cu``).
+
+``ops`` dispatches by the tensors' device: CUDA tensors launch the
+kernel, CPU tensors run the plain version.  ``launches`` counts the
+kernel launches, so a run can show that its path went through them.
+"""
+from collections import Counter
+
+launches: Counter = Counter()

@@ -1,0 +1,40 @@
+"""Public wrappers of the kernels, dispatched by the tensors' device.
+
+A CUDA tensor launches the hand-written kernel; a CPU tensor runs its
+plain PyTorch version (``repro.kernels.ops`` decides by the JAX backend
+instead, through ``_on_cpu``).  There is no fallback from one to the
+other: a launcher that cannot take its inputs raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.moe_fused import moe_fused_cuda, moe_fused_plain
+from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                 paged_attention_plain)
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+def paged_attention(q, k_pool, v_pool, block_table, seq_lens,
+                    start_lens=None):
+    """Decode attention over a paged pool.  ``start_lens`` (optional,
+    (B,)) is the first valid position per row — the sliding-window lower
+    bound; None attends from position 0."""
+    fn = paged_attention_plain if on_cpu(q) else paged_attention_cuda
+    return fn(q, k_pool, v_pool, block_table, seq_lens, start_lens)
+
+
+def moe_dispatch_ffn_combine(x, gate_w, up_w, down_w, weights, phys, alive,
+                             expert_offset: int, *, cap: int, e_local: int):
+    """Fused MoE dispatch -> grouped SwiGLU FFN -> weighted combine over
+    the expert slots ``[expert_offset, expert_offset + e_local)``."""
+    fn = moe_fused_plain if on_cpu(x) else moe_fused_cuda
+    return fn(x, gate_w, up_w, down_w, weights, phys, alive, cap=cap,
+              expert_offset=expert_offset, e_local=e_local)

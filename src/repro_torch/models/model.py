@@ -1,0 +1,157 @@
+"""The attention+MoE model of the serving path.
+
+Mirrors the attention+MoE branch of ``repro.models.model.Model``: the
+same layer groups, the same parameter layout (repeated layers stacked on
+a leading ``(L, ...)`` axis, so checkpoint keys match) and the same paged
+decode step.  A Python loop over the layers replaces ``lax.scan``.
+Every decode and chunk step is :meth:`Model.decode_step_paged`; a
+prefill chunk is the same call over chunk-width virtual slots.
+
+Other families (dense, SSM, hybrid, audio, VLM), MLA attention and the
+decode megakernel are later slices of the port and raise here.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import ffn as Fn
+from repro_torch.models import moe as MoE
+from repro_torch.models.layers import (embed_init, padded_vocab_size,
+                                       rms_norm, take_layer)
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
+                 device=None):
+        cfg.validate()
+        if cfg.family != "moe" or cfg.moe is None:
+            raise NotImplementedError(
+                f"family {cfg.family!r}: only attention+MoE models are "
+                f"ported so far (ROADMAP Queue 1 item 10)")
+        if cfg.attention_type != "gqa":
+            raise NotImplementedError(
+                f"attention_type {cfg.attention_type!r}: MLA and "
+                f"deepseek-v3 are queued (ROADMAP Queue 1 item 3)")
+        if cfg.decode_impl == "megakernel":
+            raise NotImplementedError(
+                "decode_impl='megakernel' is queued (ROADMAP Queue 2 "
+                "item 3, decode_megakernel)")
+        self.cfg = cfg
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.vpad = padded_vocab_size(cfg)
+
+    # -- structure -----------------------------------------------------------
+
+    def layer_groups(self):
+        """(group_name, n_layers, mixer, ffn_kind, cross) per stack."""
+        cfg = self.cfg
+        groups = []
+        if cfg.moe.first_k_dense:
+            groups.append(("dense_layers", cfg.moe.first_k_dense, "attn",
+                           "dense_first", False))
+        groups.append(("layers", cfg.num_layers - cfg.moe.first_k_dense,
+                       "attn", "moe", False))
+        return groups
+
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """Every mixer of the ported family is attention, so prompt tokens
+        can run as virtual decode slots against the paged pools."""
+        return True
+
+    def default_runtime(self) -> MoE.MoERuntime:
+        return MoE.default_runtime(self.cfg.moe, self.device)
+
+    # -- init ----------------------------------------------------------------
+
+    def init(self, seed: int) -> Dict[str, Any]:
+        """Random weights from ``seed``, drawn on the model's device."""
+        cfg, dtype = self.cfg, self.dtype
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        D = cfg.d_model
+        params: Dict[str, Any] = {
+            "embed": embed_init(gen, self.vpad, D, dtype),
+            "final_norm": torch.ones(D, dtype=dtype, device=self.device),
+            "lm_head": embed_init(gen, self.vpad, D, dtype).T.contiguous(),
+        }
+        for name, n, _, ffn_kind, _ in self.layer_groups():
+            p: Dict[str, Any] = {
+                "ln1": torch.ones((n, D), dtype=dtype, device=self.device),
+                "mixer": A.gqa_init(gen, cfg, dtype, (n,)),
+                "ln2": torch.ones((n, D), dtype=dtype, device=self.device),
+            }
+            if ffn_kind == "moe":
+                p["moe"] = MoE.moe_init(gen, cfg, dtype, n)
+            else:
+                p["ffn"] = Fn.ffn_init(gen, D, cfg.moe.dense_d_ff or cfg.d_ff,
+                                       cfg.activation, dtype, (n,))
+            params[name] = p
+        return params
+
+    # -- moe application -------------------------------------------------------
+
+    def _moe(self, p, x, runtime, cap):
+        y = MoE.moe_apply_local(p, self.cfg, x, runtime, cap=cap)
+        return y + MoE.shared_expert_apply(p, self.cfg, x)
+
+    def _cap(self, n_tokens: int) -> int:
+        return MoE.capacity(n_tokens * self.cfg.moe.top_k,
+                            MoE.physical_experts(self.cfg.moe),
+                            self.cfg.moe.capacity_factor,
+                            floor=self.cfg.moe.min_capacity)
+
+    # -- paged serving cache ---------------------------------------------------
+
+    def init_paged_cache(self, batch: int, num_blocks: int, block_size: int,
+                         dtype: Optional[torch.dtype] = None, device=None):
+        """Per-layer-group K/V pools with **no batch axis** (requests own
+        physical blocks through block tables), plus one trailing *trash*
+        block (id ``num_blocks``) that idle rows write into.  ``batch`` is
+        unused by attention pools; it is kept so callers can tell pool
+        leaves from per-slot state by varying it."""
+        del batch
+        dtype = dtype or self.dtype
+        device = self.device if device is None else device
+        return {name: A.gqa_paged_pools(self.cfg, num_blocks + 1, block_size,
+                                        dtype, device, (n,))
+                for name, n, _, _, _ in self.layer_groups()}
+
+    @torch.no_grad()
+    def decode_step_paged(self, params, cache, token, page, runtime=None):
+        """One decode step against the paged cache.
+
+        token: (B,) int; ``page`` carries the per-step paging arrays
+        (``tables`` (B, max_blk), ``seq_lens`` (B,) valid length including
+        this step's token, ``write_bid``/``write_off`` (B,) where it
+        lands; idle rows point at the trash block with seq_len 0), all
+        int32 on the model's device.  The pools are updated in place.
+        Returns ``(logits, cache)``.
+        """
+        cfg = self.cfg
+        runtime = runtime if runtime is not None else self.default_runtime()
+        x = params["embed"][token.long()]                # (B, D)
+        cap = self._cap(x.shape[0])
+        for name, n, _, ffn_kind, _ in self.layer_groups():
+            pools = cache[name]
+            for i in range(n):
+                x = self._block_decode_paged(
+                    take_layer(params[name], i), x,
+                    {"k": pools["k"][i], "v": pools["v"][i]}, page,
+                    runtime, cap, ffn_kind)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return x @ params["lm_head"], cache
+
+    def _block_decode_paged(self, p, x, pools, page, runtime, cap, ffn_kind):
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = x + A.gqa_decode_paged(p["mixer"], cfg, h, pools, page)
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if ffn_kind == "moe":
+            return x + self._moe(p["moe"], h2, runtime, cap)
+        return x + Fn.ffn_apply(p["ffn"], h2, cfg.activation)
