@@ -10,27 +10,36 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  — require CUDA, print the card's name and power limit, turn
              TF32 off for matmuls and cuDNN.
-2. build   — compile both CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build   — compile the four CUDA kernels from ``src/repro_torch/kernels/csrc``
              (one ``nvcc`` per source, in parallel) into ``build/kernels``.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-             the slice's shapes, in f32 and bf16, with a windowed case, an
-             idle row, masked / lost / over-capacity / foreign / empty
-             experts; run twice and require bitwise-equal outputs; time
-             kernel and plain version at the decode shapes.
+             the slice's shapes, in f32 and bf16: paged attention and the
+             fused MoE (a windowed case, an idle row, masked / lost /
+             over-capacity / foreign / empty experts); router top-k
+             (well-separated logits, ties, masked columns); the decode
+             megastep at full width, decode (B=8) and chunk (B=40) rows,
+             with a window, an idle row, masked and lost experts, a dead
+             replica, an over-capacity expert and a foreign half bank,
+             its slot tables exactly those of the plain sort pass.  Every
+             kernel runs twice and must be bitwise equal; kernel and plain
+             version are timed at the decode shapes (the megastep also
+             beside the composed chain of the same block).
 4. model   — qwen2-moe-a2.7b at full width, 2 layers, f32: one chunk step
              and one decode step on the card against the same weights on
-             the CPU (plain versions); logits within tolerance, greedy
-             tokens equal.
+             the CPU (plain versions), once per decode implementation
+             (composed, megakernel); logits within tolerance, greedy
+             tokens equal, and the two implementations agree on the card.
 5. engine  — qwen2-moe-a2.7b at full width in bf16, depth cut to 16 of
              its 24 layers, behind the collocated ``InferenceEngine``
              (2 DP ranks, fused MoE).  Start-up writes ``weights.npz``
              and the per-rank shard files, 2.3 GB a layer plus 1.3 GB
              (~57 GB at 24 layers, ~38 GB at 16): a run may write at most
-             45 GiB to its disk, so ``--layers`` trades depth for it.  8
+             45 GiB to its disk, so ``--layers`` trades depth for it.  For
+             each decode implementation (composed, then megakernel), 8
              requests without a fault, then the same workload with an L6
              attn+moe fault on physical 1 mid-step at step 6, revived in
-             place.  The kernels' launch counts are read from the faulted
-             run.
+             place.  Each implementation's kernels' launch counts are read
+             from its faulted run, counted from 0 just before it.
 6. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -57,13 +66,25 @@ KERNEL_META = {
                         "src/repro/kernels/paged_attention.py:82"),
     "moe_fused": ("src/repro_torch/kernels/csrc/moe_fused.cu",
                   "src/repro/kernels/moe_fused.py:122"),
+    "decode_megastep": ("src/repro_torch/kernels/csrc/decode_megastep.cu",
+                        "src/repro/kernels/decode_megakernel.py:349"),
+    "router_topk": ("src/repro_torch/kernels/csrc/router_topk.cu",
+                    "src/repro/kernels/router_topk.py:53"),
 }
+# which decode implementation's engine run counts each kernel's launches
+KERNEL_PATH = {"paged_attention": "composed", "moe_fused": "composed",
+               "decode_megastep": "megakernel", "router_topk": "megakernel"}
+IMPLS = ("composed", "megakernel")
 # card-vs-plain tolerances (allclose: |got - want| <= atol + rtol |want|).
 # f32: both accumulate in f32 in different orders.  bf16: the plain
 # versions round intermediates to bf16 where the kernels keep f32 (the
 # attention probabilities before p @ V; the expert outputs and each of
 # the k weighted adds), a few bf16 ulps at |y| ~ 1.
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
+# the megastep chains attention and eight products; f32 as
+# tests/test_decode_megakernel.py, bf16 as above
+MEGA_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (3e-2, 3e-2)}
+ROUTER_RTOL = 2e-5            # weights; indices must be equal
 MODEL_LOGIT_ATOL = 1e-3       # f32, 2 layers at full width, card vs CPU
 ENGINE_LAYERS = 16            # of 24: bounded by the disk a run may write
 
@@ -97,8 +118,23 @@ def time_ms(torch, fn, reps: int = 25) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in times]))
 
 
-def compare(name, got, want, dtype_name):
-    atol, rtol = TOL[dtype_name]
+def kernel_breakdown(torch, fn, reps: int = 20):
+    """Mean device time of each kernel ``fn`` launches, in µs, largest
+    first (``fn`` must not synchronise)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(((e.self_device_time_total / reps, e.key)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+
+
+def compare(name, got, want, dtype_name, tol=TOL):
+    atol, rtol = tol[dtype_name]
     g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
     err = float(np.abs(g - w).max()) if g.size else 0.0
     bad = np.abs(g - w) > atol + rtol * np.abs(w)
@@ -309,10 +345,278 @@ def phase_kernels(torch, shapes):
         bound_ms=bound, bound_by=by, library_ms=None,
         shape=f"decode T={args[0].shape[0]} D=2048 F=1408 E=64 k=4 cap=8 "
               f"bf16, {live_e} experts / {live_s} slots live")
+    del timed, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["router_topk"] = kernels_router(torch)
+    out["decode_megastep"] = kernels_megastep(torch, shapes)
     for name, r in out.items():
         log(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']})" + ("" if r["library_ms"] is None else
+                                    f", library {r['library_ms']:.4f} ms"))
+    return out
+
+
+def router_case(torch, T, E, masked, seed):
+    """Well-separated logits (each row a permutation of 0.25-spaced
+    values); row 0 all equal and row 1 with three equal maxima, so the
+    lowest index must win."""
+    rng = np.random.default_rng(seed)
+    logits = (np.stack([rng.permutation(E) for _ in range(T)]) * 0.25
+              - 5.0).astype(np.float32)
+    logits[0] = 1.0
+    logits[1, [9, 4, 30]] = logits[1].max() + 1.0
+    mask = np.ones(E, bool)
+    mask[list(masked)] = False
+    return (torch.from_numpy(logits).cuda(), torch.from_numpy(mask).cuda())
+
+
+def kernels_router(torch):
+    from repro_torch.kernels.router_topk import (router_topk_cuda,
+                                                 router_topk_plain)
+    log("kernels: router_topk vs router_topk_plain on the card")
+    E, k = 60, 4
+    errs, timed = [], None
+    for T, masked in ((40, ()), (40, (5, 33)), (4096, ()), (4096, (7,))):
+        logits, mask = router_case(torch, T, E, masked, seed=T)
+        w, idx = router_topk_cuda(logits, mask, k)
+        w2, idx2 = router_topk_cuda(logits, mask, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(w, w2) and torch.equal(idx, idx2)):
+            raise AssertionError("router_topk: not bitwise equal run to run")
+        want_w, want_idx = router_topk_plain(logits, mask, k)
+        if not torch.equal(idx, want_idx):
+            raise AssertionError(f"router_topk T={T}: indices differ")
+        if idx[0].tolist() != [e for e in range(E) if e not in masked][:k] \
+                or idx[1, :3].tolist() != [4, 9, 30]:
+            raise AssertionError("router_topk: ties not broken to the "
+                                 "lowest index")
+        rel = ((w - want_w).abs() / want_w.abs().clamp_min(1e-30)).max()
+        errs.append(float((w - want_w).abs().max()))
+        log(f"  T={T} E={E} k={k} masked {list(masked)}: indices equal, "
+            f"weights max_rel_err {float(rel):.3e} (rtol {ROUTER_RTOL:g})"
+            f"  {'ok' if rel <= ROUTER_RTOL else 'FAIL'}")
+        if rel > ROUTER_RTOL:
+            raise AssertionError("router_topk: weights outside tolerance")
+        if T == 40 and not masked:
+            timed = (logits, mask)
+    logits, mask = timed
+    T = logits.shape[0]
+
+    def library():   # the closest PyTorch pair: softmax, then topk
+        g = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)
+        return torch.topk(g, k, dim=-1)
+
+    nbytes = T * E * 4 + E + T * k * 8
+    flops = T * E * (5 + 2 * k)     # masked softmax, then k argmax passes
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    return dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: router_topk_cuda(logits, mask, k)),
+        plain_ms=time_ms(torch, lambda: router_topk_plain(logits, mask, k)),
+        bound_ms=1e3 * max(t_b, t_o),
+        bound_by="bytes" if t_b >= t_o else "operations",
+        library_ms=time_ms(torch, library),
+        shape=f"chunk T={T} E={E} k={k} f32 (library: softmax + topk)")
+
+
+QWEN = dict(D=2048, H=16, Hkv=16, Dh=128, E_log=60, R=4, F=1408, Fs=5632,
+            k=4)
+
+
+def megastep_case(torch, S, *, B, dtype, seed, window=0, masked=(),
+                  lost=(), dead=(), hot=None, e_local=64, off=0):
+    """Full-width qwen2-moe-a2.7b block operands on the card.  Row 1 is
+    idle; ``dead`` experts lost their first replica (count 1, the
+    redundant slot survives); ``hot`` adds ~3 to one expert's logit on
+    every row (over capacity at B=40); ``e_local``/``off`` pick the bank
+    slice.  Returns (args, kw, valid K/V rows)."""
+    Q = QWEN
+    D, H, Hkv, Dh, E_log, R = (Q[n] for n in ("D", "H", "Hkv", "Dh",
+                                               "E_log", "R"))
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def dev(a):
+        return torch.from_numpy(a).cuda()
+
+    nb, bs, max_blk = S["num_blocks"] + 1, S["block_size"], S["max_blk"]
+    tables = np.stack([rng.permutation(nb - 1)[:max_blk] for _ in range(B)])
+    seq = rng.integers(1, 289, size=B)
+    seq[1] = 0
+    start = np.maximum(seq - window, 0) if window else np.zeros(B, int)
+    u = np.where(rng.random(D) < 0.5, -1.0, 1.0)
+    x = rng.normal(size=(B, D)) * (0.3 if hot is not None else 1.0)
+    if hot is not None:
+        x = x + u
+    router = torch.randn((D, E_log), generator=gen, device="cuda") / D ** 0.5
+    if hot is not None:
+        router[:, hot] += torch.from_numpy(3.0 * u / D).float().cuda()
+    ar = np.arange(E_log)
+    l2p = np.stack([ar, np.where(ar < R, E_log + ar, 0)], 1)
+    rcnt = np.where(ar < R, 2, 1)
+    for e in dead:
+        l2p[e, 0], rcnt[e] = l2p[e, 1], 1
+    rcnt[list(lost)] = 0
+    mask = np.ones(E_log, bool)
+    mask[list(masked)] = False
+    F, Fs = Q["F"], Q["Fs"]
+    args = [randn(B, H, Dh), randn(nb, bs, Hkv, Dh), randn(nb, bs, Hkv, Dh),
+            dev(tables.astype(np.int32)), dev(seq.astype(np.int32)),
+            dev(start.astype(np.int32)), dev(x.astype(np.float32)).to(dtype),
+            randn(H * Dh, D, scale=(H * Dh) ** -0.5),
+            (1.0 + 0.1 * randn(D).float()).to(dtype), router.to(dtype),
+            dev(l2p.astype(np.int32)), dev(rcnt.astype(np.int32)),
+            dev(mask), randn(e_local, D, F, scale=D ** -0.5),
+            randn(e_local, D, F, scale=D ** -0.5),
+            randn(e_local, F, D, scale=F ** -0.5), off,
+            randn(D, Fs, scale=D ** -0.5), randn(D, Fs, scale=D ** -0.5),
+            randn(Fs, D, scale=Fs ** -0.5)]
+    from repro_torch.models.moe import capacity
+    kw = dict(top_k=Q["k"], cap=capacity(B * Q["k"], 64, 1.25, floor=8),
+              e_local=e_local)
+    return args, kw, int((seq - start).clip(min=0).sum())
+
+
+def megastep_bound_ms(args, kw, route, n_valid, dtype_name):
+    """Bytes: w_post, router, shared experts, the experts with a live
+    slot, the valid K/V rows, q, x, y, h2; operations: the products."""
+    q, x = args[0], args[6]
+    B, H, Dh = q.shape
+    D = x.shape[1]
+    Hkv = args[1].shape[2]
+    E_log = args[9].shape[1]
+    F, Fs = args[13].shape[2], args[17].shape[1]
+    el = x.element_size()
+    live_slots = int((route["wgt"] != 0).sum())
+    live_experts = int((route["wgt"] != 0).any(dim=1).sum())
+    nbytes = el * (H * Dh * D + D * E_log + 3 * D * Fs
+                   + live_experts * 3 * D * F + 2 * n_valid * Hkv * Dh
+                   + B * H * Dh + 3 * B * D + D)
+    flops = (4 * n_valid * H * Dh + 2 * B * H * Dh * D + 2 * B * D * E_log
+             + 6 * B * D * Fs + 6 * live_slots * D * F)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+            live_experts, live_slots)
+
+
+def composed_block(torch):
+    """The port's composed chain for the same block (the CUDA attention
+    and fused MoE kernels, cuBLAS for the products): the yardstick the
+    megastep replaces."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_fused import moe_fused_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.ffn import ffn_apply
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.moe import MoERuntime, route, select_replicas
+    moe_cfg = get_config("qwen2-moe-a2.7b").moe
+
+    def block(args, kw):
+        (q, kp, vp, bt, sl, st, x, w_post, ln2, router, l2p, rc, mask, g, u,
+         d, off, sg, su, sd) = args
+        o = paged_attention_cuda(q, kp, vp, bt, sl, st)
+        x2 = x + o.reshape(x.shape[0], -1) @ w_post
+        h2 = rms_norm(x2, ln2)
+        rt = MoERuntime(l2p, rc, mask)
+        w, sel = route(router, h2, rt, moe_cfg)
+        phys, alive = select_replicas(sel, rt)
+        y = moe_fused_cuda(h2, g, u, d, w, phys, alive, cap=kw["cap"],
+                           expert_offset=off, e_local=kw["e_local"])
+        return x2 + y + ffn_apply({"w_gate": sg, "w_up": su, "w_down": sd},
+                                  h2, "swiglu")
+    return block
+
+
+def kernels_megastep(torch, S):
+    from repro_torch.kernels.decode_megastep import (decode_megastep_cuda,
+                                                     decode_megastep_plain)
+    from repro_torch.kernels.moe_fused import moe_group_tokens
+    from repro_torch.kernels.router_topk import router_topk_plain
+    from repro_torch.models.moe import MoERuntime, select_replicas
+    log("kernels: decode_megastep vs decode_megastep_plain on the card "
+        "(qwen2-moe-a2.7b block at full width)")
+    cases = [
+        # name, kwargs of megastep_case
+        ("decode", dict(B=S["max_batch"])),
+        ("decode, window 64, masked 10/20, lost 5, dead replica of 1",
+         dict(B=S["max_batch"], window=64, masked=(10, 20), lost=(5,),
+              dead=(1,))),
+        ("chunk, expert 40 over capacity, half bank at offset 32",
+         dict(B=S["chunk"] + S["max_batch"], hot=40, e_local=32, off=32)),
+        ("chunk, window 64, experts 32-59 masked",
+         dict(B=S["chunk"] + S["max_batch"], window=64,
+              masked=tuple(range(32, 60)))),
+    ]
+    errs, timed = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for i, (name, case) in enumerate(cases):
+            args, kw, n_valid = megastep_case(torch, S, dtype=dtype,
+                                              seed=20 + i, **case)
+            y, h2, route = decode_megastep_cuda(*args, **kw,
+                                                return_route=True)
+            y2, h22 = decode_megastep_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(h2, h22)):
+                raise AssertionError(f"decode_megastep {name}: not bitwise "
+                                     f"equal run to run")
+            # route stage: its slot tables are the reference sort pass
+            # over its own routing; its routing is the plain router's
+            rt = MoERuntime(args[10], args[11], args[12])
+            phys, alive = select_replicas(route["sel"].long(), rt)
+            tables = moe_group_tokens(phys, alive, route["w"],
+                                      expert_offset=args[16],
+                                      e_local=kw["e_local"], cap=kw["cap"])
+            for key, want in zip(("tok_idx", "wgt", "slot_of"), tables):
+                if not torch.equal(route[key], want):
+                    raise AssertionError(f"decode_megastep {name}: {key} "
+                                         f"differs from moe_group_tokens")
+            pw, psel = router_topk_plain(h2.float() @ args[9].float(),
+                                         args[12], kw["top_k"])
+            if not torch.equal(route["sel"], psel):
+                raise AssertionError(f"decode_megastep {name}: routing "
+                                     f"differs from router_topk_plain")
+            want_y, want_h2 = decode_megastep_plain(*args, **kw)
+            dropped = int((route["slot_of"] < 0).sum())
+            errs.append(compare(f"{name} B={args[0].shape[0]} h2 {dn}", h2,
+                                want_h2, dn, MEGA_TOL))
+            errs.append(compare(f"{name} B={args[0].shape[0]} y {dn} "
+                                f"({dropped} copies dropped)", y, want_y,
+                                dn, MEGA_TOL))
+            if i == 0 and dtype is torch.bfloat16:
+                timed = (args, kw, route, n_valid, dn)
+            del args, y, y2, h2, h22, want_y, want_h2, route
+            gc.collect()
+            torch.cuda.empty_cache()
+    args, kw, route, n_valid, dn = timed
+    bound, by, live_e, live_s = megastep_bound_ms(args, kw, route, n_valid,
+                                                  dn)
+    block = composed_block(torch)
+    mega = lambda: decode_megastep_cuda(*args, **kw)  # noqa: E731
+    # in turns: composed, megastep, megastep, composed
+    turns = [time_ms(torch, fn) for fn in (lambda: block(args, kw), mega,
+                                           mega, lambda: block(args, kw))]
+    out = dict(
+        max_abs_err=max(errs), ms=(turns[1] + turns[2]) / 2,
+        plain_ms=time_ms(torch, lambda: decode_megastep_plain(*args, **kw)),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape=f"decode B={args[0].shape[0]} D=2048 H=16 Dh=128 E=64 F=1408 "
+              f"Fs=5632 k=4 cap={kw['cap']} bf16, {n_valid} valid K/V rows, "
+              f"{live_e} experts / {live_s} slots live")
+    log(f"  decode_megastep in turns with the composed chain of the same "
+        f"block (CUDA attention + fused MoE, cuBLAS products): composed "
+        f"{turns[0]:.4f}, megastep {turns[1]:.4f}, megastep {turns[2]:.4f}, "
+        f"composed {turns[3]:.4f} ms")
+    log("  decode_megastep's kernels (torch.profiler, mean of 20 calls, "
+        "L2 warm):")
+    for us, key in kernel_breakdown(torch, mega):
+        log(f"    {us:9.2f} us  {key[:90]}")
     del timed, args
     gc.collect()
     torch.cuda.empty_cache()
@@ -329,15 +633,14 @@ def _map(tree, fn):
 def phase_model(torch, seed):
     import dataclasses
     from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2,
-                              moe_impl="fused")
+    base = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2,
+                               moe_impl="fused")
     bs, nblk, max_blk, width, batch = 16, 16, 4, 32, 8
     trash = nblk
-    cpu = Model(cfg, torch.float32, device="cpu")
-    card = Model(cfg, torch.float32, device="cuda")
     t0 = time.perf_counter()
-    p_cpu = cpu.init(seed)
+    p_cpu = Model(base, torch.float32, device="cpu").init(seed)
     p_card = _map(p_cpu, lambda t: t.to("cuda"))
     log(f"model: qwen2-moe-a2.7b full width, 2 layers, f32; weights from "
         f"seed {seed} in {time.perf_counter() - t0:.1f} s")
@@ -345,7 +648,8 @@ def phase_model(torch, seed):
     # chunk: request A = 20 prompt tokens (blocks 0-1), B = 9 (block 2),
     # rows 29-31 idle; decode: A in slot 0, B in slot 3, others idle
     lens, blocks = {"a": 20, "b": 9}, {"a": [0, 1], "b": [2]}
-    prompts = {n: rng.integers(0, cfg.vocab_size, L) for n, L in lens.items()}
+    prompts = {n: rng.integers(0, base.vocab_size, L)
+               for n, L in lens.items()}
     tok = np.zeros(width, np.int32)
     tables = np.zeros((width, max_blk), np.int32)
     seq = np.zeros(width, np.int32)
@@ -362,49 +666,76 @@ def phase_model(torch, seed):
             row += 1
     chunk_page = dict(tables=tables, seq_lens=seq, write_bid=wb,
                       write_off=wo)
-    caches = {"cpu": cpu.init_paged_cache(width, nblk, bs),
-              "cuda": card.init_paged_cache(width, nblk, bs)}
-    models = {"cpu": (cpu, p_cpu), "cuda": (card, p_card)}
-
-    def both(tokens, page):
-        res = {}
-        for dev, (m, p) in models.items():
-            tt = torch.from_numpy(tokens).to(dev)
-            pg = {k: torch.from_numpy(v).to(dev) for k, v in page.items()}
-            logits, _ = m.decode_step_paged(p, caches[dev], tt, pg)
-            res[dev] = logits.float().cpu().numpy()
-        err = float(np.abs(res["cuda"] - res["cpu"]).max())
-        if not np.isfinite(res["cuda"]).all() or err > MODEL_LOGIT_ATOL:
-            raise AssertionError(f"model logits: card vs CPU max_abs_err "
-                                 f"{err} > {MODEL_LOGIT_ATOL}")
-        return res, err
-
-    res, err_c = both(tok, chunk_page)
     rows = [last["a"], last["b"]]
-    greedy = res["cpu"][rows].argmax(-1)
-    if not (res["cuda"][rows].argmax(-1) == greedy).all():
-        raise AssertionError("model: chunk-step greedy tokens differ")
     slots = {"a": 0, "b": 3}
-    dtok = np.zeros(batch, np.int32)
-    dt = np.zeros((batch, max_blk), np.int32)
-    ds = np.zeros(batch, np.int32)
-    dwb = np.full(batch, trash, np.int32)
-    dwo = np.zeros(batch, np.int32)
-    for n, g in zip(("a", "b"), greedy):
-        s, pos = slots[n], lens[n]
-        dtok[s] = g
-        dt[s, :len(blocks[n])] = blocks[n]
-        ds[s], dwb[s], dwo[s] = pos + 1, blocks[n][pos // bs], pos % bs
-    res, err_d = both(dtok, dict(tables=dt, seq_lens=ds, write_bid=dwb,
-                                 write_off=dwo))
     live = [slots["a"], slots["b"]]
-    if not (res["cuda"][live].argmax(-1)
-            == res["cpu"][live].argmax(-1)).all():
-        raise AssertionError("model: decode-step greedy tokens differ")
-    log(f"  logits card vs CPU: chunk max_abs_err {err_c:.3e}, decode "
-        f"{err_d:.3e} (atol {MODEL_LOGIT_ATOL:g}); greedy tokens equal "
-        f"({greedy.tolist()} -> {res['cpu'][live].argmax(-1).tolist()})")
-    del models, p_card, p_cpu, caches
+    card_logits = {}
+    for impl in IMPLS:
+        cfg = dataclasses.replace(base, decode_impl=impl)
+        cpu = Model(cfg, torch.float32, device="cpu")
+        card = Model(cfg, torch.float32, device="cuda")
+        caches = {"cpu": cpu.init_paged_cache(width, nblk, bs),
+                  "cuda": card.init_paged_cache(width, nblk, bs)}
+        models = {"cpu": (cpu, p_cpu), "cuda": (card, p_card)}
+
+        def both(tokens, page):
+            res = {}
+            for dev, (m, p) in models.items():
+                tt = torch.from_numpy(tokens).to(dev)
+                pg = {k: torch.from_numpy(v).to(dev) for k, v in page.items()}
+                logits, _ = m.decode_step_paged(p, caches[dev], tt, pg)
+                res[dev] = logits.float().cpu().numpy()
+            err = float(np.abs(res["cuda"] - res["cpu"]).max())
+            if not np.isfinite(res["cuda"]).all() or err > MODEL_LOGIT_ATOL:
+                raise AssertionError(f"model {impl} logits: card vs CPU "
+                                     f"max_abs_err {err} > "
+                                     f"{MODEL_LOGIT_ATOL}")
+            return res, err
+
+        launches.clear()
+        res_c, err_c = both(tok, chunk_page)
+        greedy = res_c["cpu"][rows].argmax(-1)
+        if not (res_c["cuda"][rows].argmax(-1) == greedy).all():
+            raise AssertionError(f"model {impl}: chunk-step greedy tokens "
+                                 f"differ")
+        dtok = np.zeros(batch, np.int32)
+        dt = np.zeros((batch, max_blk), np.int32)
+        ds = np.zeros(batch, np.int32)
+        dwb = np.full(batch, trash, np.int32)
+        dwo = np.zeros(batch, np.int32)
+        for n, g in zip(("a", "b"), greedy):
+            s, pos = slots[n], lens[n]
+            dtok[s] = g
+            dt[s, :len(blocks[n])] = blocks[n]
+            ds[s], dwb[s], dwo[s] = pos + 1, blocks[n][pos // bs], pos % bs
+        res_d, err_d = both(dtok, dict(tables=dt, seq_lens=ds, write_bid=dwb,
+                                       write_off=dwo))
+        if not (res_d["cuda"][live].argmax(-1)
+                == res_d["cpu"][live].argmax(-1)).all():
+            raise AssertionError(f"model {impl}: decode-step greedy tokens "
+                                 f"differ")
+        used = [k for k, path in KERNEL_PATH.items() if path == impl]
+        if min(launches.get(k, 0) for k in used) <= 0:
+            raise AssertionError(f"model {impl}: kernel launches "
+                                 f"{dict(launches)}")
+        log(f"  {impl}: logits card vs CPU: chunk max_abs_err {err_c:.3e}, "
+            f"decode {err_d:.3e} (atol {MODEL_LOGIT_ATOL:g}); greedy tokens "
+            f"equal ({greedy.tolist()} -> "
+            f"{res_d['cpu'][live].argmax(-1).tolist()}); launches "
+            f"{dict(launches)}")
+        card_logits[impl] = (res_c["cuda"], res_d["cuda"])
+        del models, cpu, card, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+    (mc, md), (cc, cd) = card_logits["megakernel"], card_logits["composed"]
+    err = max(float(np.abs(mc - cc).max()), float(np.abs(md - cd).max()))
+    same = ((mc[rows].argmax(-1) == cc[rows].argmax(-1)).all()
+            and (md[live].argmax(-1) == cd[live].argmax(-1)).all())
+    log(f"  megakernel vs composed on the card: max_abs_err {err:.3e} (atol "
+        f"{MODEL_LOGIT_ATOL:g}); greedy tokens {'equal' if same else 'DIFFER'}")
+    if err > MODEL_LOGIT_ATOL or not same:
+        raise AssertionError("model: megakernel and composed disagree")
+    del p_card, p_cpu
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -501,12 +832,12 @@ def phase_engine(torch, seed, layers, profile=False):
     shutil.rmtree(workdir, ignore_errors=True)
     new_tokens = 32
 
-    def make():
+    def make(impl):
         t0 = time.perf_counter()
         eng = InferenceEngine(cfg, EngineConfig(
             mode="collocated", num_dp=2, moe_impl="fused", max_batch=8,
             max_seq=512, block_size=16, num_blocks=256, seed=seed,
-            workdir=str(workdir),
+            workdir=str(workdir), decode_impl=impl,
             policy=RecoveryPolicy(allow_role_switch=False)))
         log(f"  engine up in {time.perf_counter() - t0:.1f} s; {eng.dtype} "
             f"weights "
@@ -515,60 +846,87 @@ def phase_engine(torch, seed, layers, profile=False):
                 {k: round(v, 4) for k, v in eng.init_timings.items()}))
         return eng
 
+    counts, rates, streams = {}, {}, {}
     try:
-        eng = make()
-        serve = lambda: _serve(torch, eng, cfg.vocab_size, seed,  # noqa: E731
-                               new_tokens)
-        reqs, clean = _trace(torch, serve) if profile else serve()
-        if any(r.state.value != "finished" for r in reqs) or eng.reports:
-            raise AssertionError("engine (no fault): not every request "
-                                 "finished")
-        log("  no fault: " + json.dumps(
-            {k: round(v, 3) for k, v in clean.items()}))
-        del eng, reqs
-        gc.collect()
-        torch.cuda.empty_cache()
+        for impl in IMPLS:
+            # the first engine writes weights.npz into the workdir; every
+            # later one loads it
+            log(f"engine: decode_impl={impl!r}")
+            eng = make(impl)
+            serve = lambda: _serve(torch, eng, cfg.vocab_size,  # noqa: E731
+                                   seed, new_tokens)
+            reqs, clean = _trace(torch, serve) if profile else serve()
+            if any(r.state.value != "finished" for r in reqs) or eng.reports:
+                raise AssertionError(f"engine {impl} (no fault): not every "
+                                     f"request finished")
+            streams[impl] = [list(r.output_tokens) for r in reqs]
+            log("  no fault: " + json.dumps(
+                {k: round(v, 3) for k, v in clean.items()}))
+            del eng, reqs
+            gc.collect()
+            torch.cuda.empty_cache()
 
-        eng = make()
-        eng.injector.schedule(6, 1, severity=Severity.L6,
-                              component="attn+moe", mid_step=True)
-        launches.clear()
-        reqs, fault = _serve(torch, eng, cfg.vocab_size, seed, new_tokens)
-        counts = dict(launches)
-        log("  with fault: " + json.dumps(
-            {k: round(v, 3) for k, v in fault.items()}))
-        states = [r.state.value for r in reqs]
-        if any(s != "finished" for s in states):
-            raise AssertionError(f"engine (fault): requests {states}")
-        if not eng.reports:
-            raise AssertionError("engine: the fault was not handled")
-        rep = eng.reports[0]
-        log(f"  recovery: {rep.summary()}")
-        log("  recovery timings " + json.dumps(
-            {k: round(v, 6) for k, v in rep.timings.items()}))
-        mask = eng.runtime.expert_mask.cpu().numpy()
-        masked = [int(e) for e in np.flatnonzero(~mask)]
-        if rep.scenario != "moe+missing_experts" or \
-                masked != list(range(32, 60)):
-            raise AssertionError(f"engine: scenario {rep.scenario}, "
-                                 f"masked {masked}")
-        if rep.compile_source != "precompiled":
-            raise AssertionError(f"engine: compile_source "
-                                 f"{rep.compile_source}")
-        hits = eng.prefill_stats()["prefix_cache_hits"]
-        if hits <= 0:
-            raise AssertionError("engine: the prefix cache was never hit")
-        if min(counts.get(k, 0) for k in KERNEL_META) <= 0:
-            raise AssertionError(f"engine: kernel launches {counts}")
-        log(f"  scenario {rep.scenario}, logical experts {masked[0]}-"
-            f"{masked[-1]} masked, compile_source {rep.compile_source}, "
-            f"migrated {rep.migrated}, prefix_cache_hits {hits}, "
-            f"launches {counts}")
-        log(f"  decode tokens/s: {clean['decode_tok_s']:.1f} without the "
-            f"fault, {fault['decode_tok_s']:.1f} with it")
-        del eng, reqs
-        gc.collect()
-        torch.cuda.empty_cache()
+            eng = make(impl)
+            eng.injector.schedule(6, 1, severity=Severity.L6,
+                                  component="attn+moe", mid_step=True)
+            launches.clear()
+            reqs, fault = _serve(torch, eng, cfg.vocab_size, seed,
+                                 new_tokens)
+            path_counts = dict(launches)
+            log("  with fault: " + json.dumps(
+                {k: round(v, 3) for k, v in fault.items()}))
+            states = [r.state.value for r in reqs]
+            if any(s != "finished" for s in states):
+                raise AssertionError(f"engine {impl} (fault): requests "
+                                     f"{states}")
+            if not eng.reports:
+                raise AssertionError(f"engine {impl}: the fault was not "
+                                     f"handled")
+            rep = eng.reports[0]
+            log(f"  recovery: {rep.summary()}")
+            log("  recovery timings " + json.dumps(
+                {k: round(v, 6) for k, v in rep.timings.items()}))
+            mask = eng.runtime.expert_mask.cpu().numpy()
+            masked = [int(e) for e in np.flatnonzero(~mask)]
+            if rep.scenario != "moe+missing_experts" or \
+                    masked != list(range(32, 60)):
+                raise AssertionError(f"engine {impl}: scenario "
+                                     f"{rep.scenario}, masked {masked}")
+            if rep.compile_source != "precompiled":
+                raise AssertionError(f"engine {impl}: compile_source "
+                                     f"{rep.compile_source}")
+            hits = eng.prefill_stats()["prefix_cache_hits"]
+            if hits <= 0:
+                raise AssertionError(f"engine {impl}: the prefix cache was "
+                                     f"never hit")
+            used = [k for k, path in KERNEL_PATH.items() if path == impl]
+            if min(path_counts.get(k, 0) for k in used) <= 0:
+                raise AssertionError(f"engine {impl}: kernel launches "
+                                     f"{path_counts}")
+            counts.update({k: path_counts[k] for k in used})
+            log(f"  scenario {rep.scenario}, logical experts {masked[0]}-"
+                f"{masked[-1]} masked, compile_source {rep.compile_source}, "
+                f"migrated {rep.migrated}, prefix_cache_hits {hits}, "
+                f"launches {path_counts}")
+            rates[impl] = (clean, fault)
+            del eng, reqs
+            gc.collect()
+            torch.cuda.empty_cache()
+        for impl, (clean, fault) in rates.items():
+            log(f"engine {impl}: decode tokens/s {clean['decode_tok_s']:.3f} "
+                f"without the fault, {fault['decode_tok_s']:.3f} with it; "
+                f"end-to-end tokens/s {clean['e2e_tok_s']:.3f} and "
+                f"{fault['e2e_tok_s']:.3f}")
+        # bf16 rounds in another order on the two paths, so greedy streams
+        # may part; the f32 model phase is where tokens must match
+        pairs = list(zip(streams["megakernel"], streams["composed"]))
+        same = sum(a == b for m, c in pairs for a, b in zip(m, c))
+        prefix = sum(next((i for i, (a, b) in enumerate(zip(m, c)) if a != b),
+                          min(len(m), len(c))) for m, c in pairs)
+        log(f"engine: the megakernel run shares {same} of "
+            f"{sum(len(c) for c in streams['composed'])} greedy output "
+            f"tokens with the composed run, position by position "
+            f"({prefix} in the requests' common prefixes; not checked)")
         return counts
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -582,7 +940,7 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=ENGINE_LAYERS)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace the engine's run without a fault")
+                    help="trace each engine run without a fault")
     args = ap.parse_args()
     phases = args.phases.split(",")
     for p in phases:

@@ -5,6 +5,12 @@ PyTorch versions.
   pool (``csrc/paged_attention.cu``).
 * ``moe_fused`` — the routed experts' SwiGLU FFN and weighted combine
   over the slot tables of one sort pass (``csrc/moe_fused.cu``).
+* ``router_topk`` — masked softmax, top-k and renormalisation of router
+  logits (``csrc/router_topk.cu``; its row function is also the
+  megastep's route stage).
+* ``decode_megastep`` — one attention+MoE block's whole decode step as
+  one C call that enqueues a fixed chain of kernels
+  (``csrc/decode_megastep.cu``).
 
 ``ops`` dispatches by the tensors' device: CUDA tensors launch the
 kernel, CPU tensors run the plain version.  ``launches`` counts the

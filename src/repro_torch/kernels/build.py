@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` — no
 PyTorch headers, so one file builds in seconds.  Libraries land in
 ``build/kernels/`` at the repository root (or ``$REPRO_TORCH_BUILD_DIR``),
-named by a hash of their source and flags, so an edited kernel rebuilds
-and an unchanged one is reused.  Nothing here runs at import time: the
+named by a hash of their source, every ``csrc/*.cuh`` header and the
+flags, so an edited kernel or header rebuilds and an unchanged one is
+reused.  Nothing here runs at import time: the
 first launch builds, or :func:`build_all` builds every kernel at once,
 one ``nvcc`` process per source, all started together.
 """
@@ -22,7 +23,8 @@ from typing import Any, Dict, Iterable, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("paged_attention", "moe_fused")
+KERNELS = ("paged_attention", "moe_fused", "router_topk",
+           "decode_megastep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,8 +54,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared by several sources
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 

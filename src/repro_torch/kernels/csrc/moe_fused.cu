@@ -33,28 +33,13 @@
 // No float atomics anywhere: outputs are bitwise equal from run to run,
 // which the engine's token-identity guarantees need.  The GEMMs are plain
 // FMA loops (a first, simple version; wgmma and TMA come later).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kRows = 8;    // slots per CTA
 constexpr int kCols = 128;  // output columns per CTA (one per thread)
 constexpr int kCombineThreads = 256;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Which of the tile's slots hold a live copy; false for the whole tile
 // lets the CTA return before touching the expert's weights.
@@ -175,13 +160,6 @@ __global__ void __launch_bounds__(kCombineThreads) combine_kernel(
     }
     y[(long long)t * D + d] = from_float<T>(acc);
   }
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 template <typename T>

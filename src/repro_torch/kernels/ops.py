@@ -9,9 +9,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_megastep import (decode_megastep_cuda,
+                                                 decode_megastep_plain)
 from repro_torch.kernels.moe_fused import moe_fused_cuda, moe_fused_plain
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
+from repro_torch.kernels.router_topk import (router_topk_cuda,
+                                             router_topk_plain)
 
 
 def on_cpu(t: torch.Tensor) -> bool:
@@ -38,3 +42,28 @@ def moe_dispatch_ffn_combine(x, gate_w, up_w, down_w, weights, phys, alive,
     fn = moe_fused_plain if on_cpu(x) else moe_fused_cuda
     return fn(x, gate_w, up_w, down_w, weights, phys, alive, cap=cap,
               expert_offset=expert_offset, e_local=e_local)
+
+
+def router_topk(logits, expert_mask, k: int):
+    """Masked softmax -> top-k -> renormalise over (T, E) logits.
+    Returns (weights (T, k) f32, indices (T, k) int32)."""
+    fn = router_topk_plain if on_cpu(logits) else router_topk_cuda
+    return fn(logits, expert_mask, k)
+
+
+def decode_megastep(q, k_pool, v_pool, block_table, seq_lens, start_lens,
+                    x, w_post, ln2_w, router_w, l2p, replica_count,
+                    expert_mask, gate_w, up_w, down_w, expert_offset,
+                    shared_gate=None, shared_up=None, shared_down=None, *,
+                    top_k: int, cap: int, e_local: int, eps: float = 1e-5):
+    """One attention+MoE block's decode step: paged attention -> output
+    projection -> residual -> norm -> router top-k -> replica select ->
+    routed (+ shared) expert SwiGLU -> combine -> residual.  The paging
+    arrays, ``expert_offset`` and the MoERuntime arrays are data, so
+    recovery edits never change what is launched.  ``shared_*`` are the
+    shared experts' SwiGLU weights or None.  Returns ``(y, h2)``."""
+    fn = decode_megastep_plain if on_cpu(x) else decode_megastep_cuda
+    return fn(q, k_pool, v_pool, block_table, seq_lens, start_lens, x,
+              w_post, ln2_w, router_w, l2p, replica_count, expert_mask,
+              gate_w, up_w, down_w, expert_offset, shared_gate, shared_up,
+              shared_down, top_k=top_k, cap=cap, e_local=e_local, eps=eps)

@@ -5,10 +5,12 @@ same layer groups, the same parameter layout (repeated layers stacked on
 a leading ``(L, ...)`` axis, so checkpoint keys match) and the same paged
 decode step.  A Python loop over the layers replaces ``lax.scan``.
 Every decode and chunk step is :meth:`Model.decode_step_paged`; a
-prefill chunk is the same call over chunk-width virtual slots.
+prefill chunk is the same call over chunk-width virtual slots.  With
+``decode_impl="megakernel"`` each attention+MoE block runs through
+``ops.decode_megastep``; dense first-k blocks keep the composed chain.
 
-Other families (dense, SSM, hybrid, audio, VLM), MLA attention and the
-decode megakernel are later slices of the port and raise here.
+Other families (dense, SSM, hybrid, audio, VLM) and MLA attention are
+later slices of the port and raise here.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as Fn
 from repro_torch.models import moe as MoE
@@ -36,15 +39,16 @@ class Model:
         if cfg.attention_type != "gqa":
             raise NotImplementedError(
                 f"attention_type {cfg.attention_type!r}: MLA and "
-                f"deepseek-v3 are queued (ROADMAP Queue 1 item 3)")
-        if cfg.decode_impl == "megakernel":
-            raise NotImplementedError(
-                "decode_impl='megakernel' is queued (ROADMAP Queue 2 "
-                "item 3, decode_megakernel)")
+                f"deepseek-v3, with the megastep at the latent width, are "
+                f"queued (ROADMAP Queue 1 item 1c)")
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
         self.vpad = padded_vocab_size(cfg)
+        # the megastep's expert_offset, as device data like the JAX
+        # package's traced int32 (this model holds the whole bank)
+        self.expert_offset = torch.zeros(1, dtype=torch.int32,
+                                         device=self.device)
 
     # -- structure -----------------------------------------------------------
 
@@ -137,6 +141,12 @@ class Model:
         runtime = runtime if runtime is not None else self.default_runtime()
         x = params["embed"][token.long()]                # (B, D)
         cap = self._cap(x.shape[0])
+        if cfg.decode_impl == "megakernel":
+            # every layer attends over the same window: its lower bounds
+            # (zeros without a window) are computed once per step
+            starts = A.window_starts(cfg, page["seq_lens"])
+            page = dict(page, starts=torch.zeros_like(page["seq_lens"])
+                        if starts is None else starts)
         for name, n, _, ffn_kind, _ in self.layer_groups():
             pools = cache[name]
             for i in range(n):
@@ -149,9 +159,38 @@ class Model:
 
     def _block_decode_paged(self, p, x, pools, page, runtime, cap, ffn_kind):
         cfg = self.cfg
+        if cfg.decode_impl == "megakernel" and ffn_kind == "moe":
+            return self._block_decode_megastep(p, x, pools, page, runtime,
+                                               cap)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + A.gqa_decode_paged(p["mixer"], cfg, h, pools, page)
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if ffn_kind == "moe":
             return x + self._moe(p["moe"], h2, runtime, cap)
         return x + Fn.ffn_apply(p["ffn"], h2, cfg.activation)
+
+    def _block_decode_megastep(self, p, x, pools, page, runtime, cap):
+        """One attention+MoE block through ``ops.decode_megastep``: the
+        attention -> residual -> norm -> route -> expert FFN (routed +
+        shared) -> combine chain is one call (its plain version on the
+        CPU).  The QKV projection, rope and the pool write stay outside,
+        shared with the composed path, so the §3.3 row-level undo
+        manifest is unchanged.  Paging arrays and MoERuntime tables ride
+        in as data: recovery edits change nothing that is launched."""
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = A.gqa_decode_qkv(p["mixer"], cfg, h, page)
+        A.gqa_write_token(pools, page, k, v)
+        moe_p = p["moe"]
+        shared = moe_p.get("shared")
+        y, _ = ops.decode_megastep(
+            q, pools["k"], pools["v"], page["tables"], page["seq_lens"],
+            page["starts"], x, p["mixer"]["wo"], p["ln2"], moe_p["router"],
+            runtime.logical_to_physical, runtime.replica_count,
+            runtime.expert_mask, moe_p["gate"], moe_p["up"], moe_p["down"],
+            self.expert_offset, shared["w_gate"] if shared else None,
+            shared["w_up"] if shared else None,
+            shared["w_down"] if shared else None,
+            top_k=cfg.moe.top_k, cap=cap,
+            e_local=MoE.physical_experts(cfg.moe), eps=cfg.norm_eps)
+        return y

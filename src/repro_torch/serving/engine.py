@@ -199,8 +199,6 @@ def check_ported(ec: EngineConfig) -> None:
          "Queue 1 item 7: the overlap pipeline"),
         (ec.spec_window > 1, f"spec_window={ec.spec_window}",
          "Queue 1 item 7: speculation"),
-        (ec.decode_impl == "megakernel", "decode_impl='megakernel'",
-         "Queue 2 item 3: decode_megakernel"),
         (ec.admission == "serial", "admission='serial'",
          "Queue 1: the serial whole-prompt prefill with flash_attention"),
     ]

@@ -54,3 +54,86 @@ def moe_inputs(T, k, e_phys, e_local, D, F, seed=0, alive_p=0.85):
     w = (np.exp(z) / np.exp(z).sum(-1, keepdims=True)).astype(np.float32)
     alive = rng.random(size=(T, k)) < alive_p
     return x, g, u, d, phys, w, alive
+
+
+MEGASTEP_CASES = {
+    # id: overrides of megastep_inputs (tests/test_decode_megakernel.py:69)
+    "plain": dict(),
+    "shared": dict(Fs=40),
+    "lost": dict(lost=3),
+    "masked": dict(masked=4),
+    "windowed": dict(window=True),
+    "ep_offset": dict(E=3, offset=2, E_log=6),
+    "mla_shaped": dict(Hkv=1, Dh=24, H=6),
+}
+# the D=7168 deploy shape (tests/test_decode_megakernel.py:116)
+DEPLOY = dict(B=2, H=2, Hkv=1, Dh=16, bs=4, nb=6, max_blk=2, D=7168,
+              E_log=4, E=4, K=2, F=64, Fs=64, cap=4)
+
+
+def megastep_inputs(*, B=3, H=4, Hkv=2, Dh=16, bs=4, nb=10, max_blk=3,
+                    D=32, E_log=5, E=7, K=2, F=48, Fs=0, cap=5, seed=0,
+                    lost=None, masked=None, window=False, offset=0):
+    """The operands of ``decode_megastep`` in the reference's order, as
+    numpy arrays (None for absent shared experts, an int offset), and its
+    keyword arguments.  Two replicas for the first two logical experts;
+    ``lost`` drops every replica of one expert, ``masked`` masks one;
+    seq_lens include 0 (an idle row)."""
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, scale):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    q = normal((B, H, Dh), 0.3)
+    k_pool = normal((nb, bs, Hkv, Dh), 0.3)
+    v_pool = normal((nb, bs, Hkv, Dh), 0.3)
+    bt = rng.integers(0, nb, size=(B, max_blk)).astype(np.int32)
+    sl = rng.integers(0, max_blk * bs + 1, size=B).astype(np.int32)
+    sl[min(1, B - 1)] = 0
+    st = (np.maximum(sl - 6, 0) if window else np.zeros(B)).astype(np.int32)
+    x = normal((B, D), 0.2)
+    w_post = normal((H * Dh, D), 0.1)
+    ln2 = np.full(D, 1.1, np.float32)
+    router = normal((D, E_log), 0.2)
+    ar = np.arange(E_log)
+    l2p = np.stack([ar, np.where(ar < 2, E_log + ar, 0)], 1).astype(np.int32)
+    rcnt = np.where(ar < 2, 2, 1).astype(np.int32)
+    mask = np.ones(E_log, bool)
+    if lost is not None:
+        rcnt[lost] = 0
+    if masked is not None:
+        mask[masked] = False
+    g, u, d = normal((E, D, F), 0.05), normal((E, D, F), 0.05), \
+        normal((E, F, D), 0.05)
+    if Fs:
+        sg, su, sd = normal((D, Fs), 0.05), normal((D, Fs), 0.05), \
+            normal((Fs, D), 0.05)
+    else:
+        sg = su = sd = None
+    args = [q, k_pool, v_pool, bt, sl, st, x, w_post, ln2, router, l2p,
+            rcnt, mask, g, u, d, offset, sg, su, sd]
+    return args, dict(top_k=K, cap=cap, e_local=E)
+
+
+ROUTER_CASES = {
+    # id: (T, E, k, masked columns, tied rows)
+    "e60": (40, 60, 4, (), False),
+    "ragged_t": (300, 60, 4, (), False),   # T not a multiple of block_t
+    "masked": (37, 60, 4, (3, 17, 59), False),
+    "tie": (12, 60, 4, (5,), True),
+}
+
+
+def router_inputs(T, E, k, masked, tie, seed=0):
+    """Well-separated logits (each row a permutation of 0.25-spaced
+    values); with ``tie``, row 0 is all equal and row 1 has three equal
+    maxima, so the lowest index must win."""
+    rng = np.random.default_rng(seed)
+    logits = np.stack([rng.permutation(E) for _ in range(T)]) * 0.25 - 5.0
+    logits = logits.astype(np.float32)
+    if tie:
+        logits[0] = 1.0
+        logits[1, [9, 4, 30]] = logits[1].max() + 1.0
+    mask = np.ones(E, bool)
+    mask[list(masked)] = False
+    return logits, mask

@@ -8,11 +8,19 @@ import pytest
 import torch
 
 from repro_torch.kernels import launches
-from repro_torch.kernels.moe_fused import moe_fused_cuda, moe_fused_plain
+from repro_torch.kernels.decode_megastep import (decode_megastep_cuda,
+                                                 decode_megastep_plain)
+from repro_torch.kernels.moe_fused import (moe_fused_cuda, moe_fused_plain,
+                                           moe_group_tokens)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
-from test_torch_cases import (MOE_FUSED_GRID, PAGED_CASES, moe_inputs,
-                         paged_inputs, t as _t)
+from repro_torch.kernels.router_topk import (router_topk_cuda,
+                                             router_topk_plain)
+from repro_torch.models.moe import MoERuntime, select_replicas
+from test_torch_cases import (DEPLOY, MEGASTEP_CASES, MOE_FUSED_GRID,
+                              PAGED_CASES, ROUTER_CASES, megastep_inputs,
+                              moe_inputs, paged_inputs, router_inputs,
+                              t as _t)
 
 
 @pytest.fixture
@@ -64,3 +72,74 @@ def test_moe_fused_cuda_vs_plain(card, T, k, e_phys, e_local, off, D, F,
                                want.float().cpu().numpy(), rtol=tol,
                                atol=tol)
     assert torch.equal(got, again)       # bitwise run to run
+
+
+MEGASTEP_CARD_CASES = dict(MEGASTEP_CASES, deploy=DEPLOY,
+                           deploy_lost_masked=dict(DEPLOY, lost=2, masked=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(MEGASTEP_CARD_CASES))
+def test_decode_megastep_cuda_vs_plain(card, case, dtype):
+    args, kw = megastep_inputs(**MEGASTEP_CARD_CASES[case])
+    floats = {0, 1, 2, 6, 7, 8, 9, 13, 14, 15, 17, 18, 19}
+    args = [a if a is None or isinstance(a, int) else
+            _t(a).to(card, dtype) if i in floats else _t(a).to(card)
+            for i, a in enumerate(args)]
+    n0 = (launches["decode_megastep"], launches["router_topk"])
+    y, h2, route = decode_megastep_cuda(*args, **kw, return_route=True)
+    y2, h22 = decode_megastep_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert (launches["decode_megastep"], launches["router_topk"]) == \
+        (n0[0] + 2, n0[1] + 2)
+    assert torch.equal(y, y2) and torch.equal(h2, h22)   # bitwise
+    want_y, want_h2 = decode_megastep_plain(*args, **kw)
+    # f32 as tests/test_decode_megakernel.py.  bf16 keeps 8 significant
+    # bits and y sums terms as large as its largest entries (~10 at the
+    # deploy shape, where an entry near 0 is a difference of such terms),
+    # so y's absolute tolerance scales with that magnitude
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    y_scale = 1.0 if dtype == torch.float32 else \
+        max(1.0, float(want_y.float().abs().max()))
+    for got, want, atol in ((h2, want_h2, tol), (y, want_y, tol * y_scale)):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=tol,
+                                   atol=atol)
+    # the route stage: the kernel's own routing through the reference
+    # replica select and sort pass gives its slot tables exactly
+    rt = MoERuntime(args[10], args[11], args[12])
+    phys, alive = select_replicas(route["sel"].long(), rt)
+    tok_idx, wgt, slot_of = moe_group_tokens(
+        phys, alive, route["w"], expert_offset=args[16],
+        e_local=kw["e_local"], cap=kw["cap"])
+    assert torch.equal(route["tok_idx"], tok_idx)
+    assert torch.equal(route["wgt"], wgt)
+    assert torch.equal(route["slot_of"], slot_of)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ROUTER_CASES))
+def test_router_topk_cuda_vs_plain(card, case):
+    T, E, k, masked, tie = ROUTER_CASES[case]
+    logits, mask = (_t(a).to(card) for a in router_inputs(T, E, k, masked,
+                                                          tie))
+    n0 = launches["router_topk"]
+    w, idx = router_topk_cuda(logits, mask, k)
+    w2, idx2 = router_topk_cuda(logits, mask, k)
+    torch.cuda.synchronize()
+    assert launches["router_topk"] == n0 + 2
+    assert torch.equal(w, w2) and torch.equal(idx, idx2)
+    want_w, want_idx = router_topk_plain(logits, mask, k)
+    assert torch.equal(idx, want_idx)
+    np.testing.assert_allclose(w.cpu().numpy(), want_w.cpu().numpy(),
+                               rtol=2e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_router_topk_cuda_fully_masked_row_is_finite(card):
+    logits = torch.zeros((2, 60), device=card)
+    w, idx = router_topk_cuda(logits, torch.zeros(60, dtype=torch.bool,
+                                                  device=card), 4)
+    assert idx.tolist() == [[0, 1, 2, 3]] * 2
+    assert (w == 0).all()

@@ -156,9 +156,11 @@ def test_admission_counters_match(pair):
 
 @pytest.mark.parametrize("option", [
     dict(mode="disaggregated"), dict(overlap=True), dict(spec_window=2),
-    dict(decode_impl="megakernel"), dict(admission="serial")])
+    dict(decode_impl="megakernel", arch="deepseek-v3"),   # MLA: Queue 1 1c
+    dict(admission="serial")])
 def test_unported_options_raise(tmp_path, option):
-    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    option = dict(option)
+    cfg = get_smoke_config(option.pop("arch", "qwen2-moe-a2.7b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine(cfg, EngineConfig(workdir=str(tmp_path), **option),
                         device="cpu")
