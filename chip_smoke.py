@@ -4,13 +4,14 @@
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases device,build,kernels   # a subset
     python3 chip_smoke.py --layers 12     # cut the engine's depth
+    python3 chip_smoke.py --paths serial  # serve one engine path
     python3 chip_smoke.py --profile       # + where the device time goes
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  — require CUDA, print the card's name and power limit, turn
              TF32 off for matmuls and cuDNN.
-2. build   — compile the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build   — compile the six CUDA kernels from ``src/repro_torch/kernels/csrc``
              (one ``nvcc`` per source, in parallel) into ``build/kernels``.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the slice's shapes, in f32 and bf16: paged attention and the
@@ -20,26 +21,34 @@ Phases, in order; any failure raises and the script exits non-zero:
              megastep at full width, decode (B=8) and chunk (B=40) rows,
              with a window, an idle row, masked and lost experts, a dead
              replica, an over-capacity expert and a foreign half bank,
-             its slot tables exactly those of the plain sort pass.  Every
+             its slot tables exactly those of the plain sort pass; the
+             grouped expert FFN over the dense capacity buffer at decode
+             (C=8) and prefill (C=20) capacity; whole-prompt attention at
+             S = 16, 200, 256 and 512, with and without window 6.  Every
              kernel runs twice and must be bitwise equal; kernel and plain
-             version are timed at the decode shapes (the megastep also
-             beside the composed chain of the same block).
+             version are timed at the main path's shapes (the megastep
+             also beside the composed chain of the same block), and
+             beside a library call where one computes the same function.
 4. model   — qwen2-moe-a2.7b at full width, 2 layers, f32: one chunk step
              and one decode step on the card against the same weights on
              the CPU (plain versions), once per decode implementation
-             (composed, megakernel); logits within tolerance, greedy
+             (composed, megakernel), and one whole-prompt prefill
+             (dense-scatter MoE) installed into the pools, then a decode
+             step; logits and installed K/V rows within tolerance, greedy
              tokens equal, and the two implementations agree on the card.
 5. engine  — qwen2-moe-a2.7b at full width in bf16, depth cut to 16 of
              its 24 layers, behind the collocated ``InferenceEngine``
-             (2 DP ranks, fused MoE).  Start-up writes ``weights.npz``
-             and the per-rank shard files, 2.3 GB a layer plus 1.3 GB
-             (~57 GB at 24 layers, ~38 GB at 16): a run may write at most
-             45 GiB to its disk, so ``--layers`` trades depth for it.  For
-             each decode implementation (composed, then megakernel), 8
-             requests without a fault, then the same workload with an L6
-             attn+moe fault on physical 1 mid-step at step 6, revived in
-             place.  Each implementation's kernels' launch counts are read
-             from its faulted run, counted from 0 just before it.
+             (2 DP ranks).  Start-up writes ``weights.npz`` and the
+             per-rank shard files, 2.3 GB a layer plus 1.3 GB (~57 GB at
+             24 layers, ~38 GB at 16): a run may write at most 45 GiB to
+             its disk, so ``--layers`` trades depth for it.  Three paths:
+             chunked admission with the fused MoE and each decode
+             implementation (composed, megakernel), and serial admission
+             (whole-prompt prefills) with the model's dense-scatter MoE.
+             Each serves 8 requests without a fault, then the same
+             workload with an L6 attn+moe fault on physical 1 mid-step at
+             step 6, revived in place.  Each path's kernels' launch counts
+             are read from its faulted run, counted from 0 just before it.
 6. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -70,11 +79,22 @@ KERNEL_META = {
                         "src/repro/kernels/decode_megakernel.py:349"),
     "router_topk": ("src/repro_torch/kernels/csrc/router_topk.cu",
                     "src/repro/kernels/router_topk.py:53"),
+    "expert_ffn": ("src/repro_torch/kernels/csrc/expert_ffn.cu",
+                   "src/repro/kernels/expert_ffn.py:41"),
+    "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
+                      "src/repro/kernels/flash_prefill.py:83"),
 }
-# which decode implementation's engine run counts each kernel's launches
-KERNEL_PATH = {"paged_attention": "composed", "moe_fused": "composed",
-               "decode_megastep": "megakernel", "router_topk": "megakernel"}
+# the engine paths each kernel runs on; its launches are counted there
+KERNEL_PATH = {"paged_attention": ("composed", "serial"),
+               "moe_fused": ("composed",),
+               "decode_megastep": ("megakernel",),
+               "router_topk": ("megakernel",),
+               "expert_ffn": ("serial",), "flash_prefill": ("serial",)}
 IMPLS = ("composed", "megakernel")
+# the engine paths: EngineConfig options of each
+PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
+         "megakernel": dict(moe_impl="fused", decode_impl="megakernel"),
+         "serial": dict(admission="serial", decode_impl="composed")}
 # card-vs-plain tolerances (allclose: |got - want| <= atol + rtol |want|).
 # f32: both accumulate in f32 in different orders.  bf16: the plain
 # versions round intermediates to bf16 where the kernels keep f32 (the
@@ -85,6 +105,9 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
 # tests/test_decode_megakernel.py, bf16 as above
 MEGA_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (3e-2, 3e-2)}
 ROUTER_RTOL = 2e-5            # weights; indices must be equal
+# tests/test_kernels.py's tolerances for the two kernels of the serial path
+FFN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
 MODEL_LOGIT_ATOL = 1e-3       # f32, 2 layers at full width, card vs CPU
 ENGINE_LAYERS = 16            # of 24: bounded by the disk a run may write
 
@@ -350,6 +373,8 @@ def phase_kernels(torch, shapes):
     torch.cuda.empty_cache()
     out["router_topk"] = kernels_router(torch)
     out["decode_megastep"] = kernels_megastep(torch, shapes)
+    out["expert_ffn"] = kernels_expert_ffn(torch)
+    out["flash_prefill"] = kernels_flash_prefill(torch)
     for name, r in out.items():
         log(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -623,6 +648,137 @@ def kernels_megastep(torch, S):
     return out
 
 
+def kernels_expert_ffn(torch):
+    """The dense-scatter MoE's expert FFN at the serial path's shapes: all
+    64 experts of a qwen2-moe-a2.7b layer over a capacity buffer of C=8
+    rows (decode) and C=20 (a 256-token prefill bucket)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.expert_ffn import (expert_ffn_cuda,
+                                                expert_ffn_plain)
+    log("kernels: expert_ffn vs expert_ffn_plain on the card (64 experts, "
+        "D=2048, F=1408)")
+    E, D, Fd = 64, QWEN["D"], QWEN["F"]
+    errs, timed = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for C in (8, 20):
+            gen = torch.Generator(device="cuda").manual_seed(30 + C)
+
+            def randn(*shape, scale=1.0):
+                return (torch.randn(shape, generator=gen, device="cuda")
+                        * scale).to(dtype)
+            args = (randn(E, C, D), randn(E, D, Fd, scale=D ** -0.5),
+                    randn(E, D, Fd, scale=D ** -0.5),
+                    randn(E, Fd, D, scale=Fd ** -0.5))
+            got = expert_ffn_cuda(*args)
+            again = expert_ffn_cuda(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"expert_ffn C={C}: not bitwise equal "
+                                     f"run to run")
+            errs.append(compare(f"E={E} C={C} D={D} F={Fd} {dn}", got,
+                                expert_ffn_plain(*args), dn, FFN_TOL))
+            if dtype is torch.bfloat16:
+                timed[C] = args
+            del got, again
+
+    def library(x, g, u, d):    # the closest torch.bmm chain
+        return torch.bmm(F.silu(torch.bmm(x, g)) * torch.bmm(x, u), d)
+
+    rows = {}
+    for C, args in timed.items():
+        el = args[0].element_size()
+        nbytes = el * (3 * E * D * Fd + 2 * E * C * D)
+        flops = 6 * E * C * D * Fd
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
+        rows[C] = dict(
+            max_abs_err=max(errs),
+            ms=time_ms(torch, lambda: expert_ffn_cuda(*args)),
+            plain_ms=time_ms(torch, lambda: expert_ffn_plain(*args)),
+            bound_ms=1e3 * max(t_b, t_o),
+            bound_by="bytes" if t_b >= t_o else "operations",
+            library_ms=time_ms(torch, lambda: library(*args)),
+            shape=f"E={E} C={C} D={D} F={Fd} bf16 (library: silu(bmm) * "
+                  f"bmm, then bmm)")
+        if C != 8:
+            r = rows[C]
+            log(f"  expert_ffn at C={C}: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), library {r['library_ms']:.4f} ms")
+        log(f"  expert_ffn's kernels at C={C} (torch.profiler, mean of 20 "
+            f"calls, L2 warm):")
+        for us, key in kernel_breakdown(torch, lambda: expert_ffn_cuda(*args)):
+            log(f"    {us:9.2f} us  {key[:90]}")
+    del timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows[8]
+
+
+def flash_bound_ms(S, H, Hkv, Dh, window, el, dtype_name):
+    """Bytes: q, k, v and out once; operations: QK^T and PV over the
+    (query, key) pairs this mask leaves visible."""
+    i = np.arange(S)
+    visible = int(np.minimum(i + 1, window).sum() if window
+                  else (i + 1).sum())
+    nbytes = el * (2 * S * H * Dh + 2 * S * Hkv * Dh)
+    flops = 4 * visible * H * Dh
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def kernels_flash_prefill(torch):
+    """Whole-prompt attention at the serial path's buckets (B=1, H=Hkv=16,
+    Dh=128), causal, with and without the sliding window 6."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
+                                                   flash_prefill_plain)
+    log("kernels: flash_prefill vs flash_prefill_plain on the card (B=1, "
+        "H=Hkv=16, Dh=128)")
+    H = Hkv = QWEN["H"]
+    Dh = QWEN["Dh"]
+    errs, timed = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for S in (16, 200, 256, 512):
+            for window in (0, 6):
+                gen = torch.Generator(device="cuda").manual_seed(S + window)
+                q, k, v = (torch.randn((1, S, h, Dh), generator=gen,
+                                       device="cuda").to(dtype)
+                           for h in (H, Hkv, Hkv))
+                pos = torch.arange(S, dtype=torch.int32, device="cuda")
+                kw = dict(causal=True, window=window)
+                got = flash_prefill_cuda(q, k, v, pos, pos, **kw)
+                again = flash_prefill_cuda(q, k, v, pos, pos, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"flash_prefill S={S}: not bitwise "
+                                         f"equal run to run")
+                want = flash_prefill_plain(q, k, v, pos, pos, **kw)
+                errs.append(compare(f"S={S} window {window} {dn}", got,
+                                    want, dn, FLASH_TOL))
+                if S == 256 and not window and dtype is torch.bfloat16:
+                    timed = (q, k, v, pos)
+    q, k, v, pos = timed
+    S = q.shape[1]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    bound, by = flash_bound_ms(S, H, Hkv, Dh, 0, q.element_size(),
+                               "bfloat16")
+    return dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: flash_prefill_cuda(q, k, v, pos, pos)),
+        plain_ms=time_ms(torch, lambda: flash_prefill_plain(q, k, v, pos,
+                                                            pos)),
+        bound_ms=bound, bound_by=by, library_ms=time_ms(torch, library),
+        shape=f"B=1 S={S} H=Hkv={H} Dh={Dh} causal bf16 (library: "
+              f"scaled_dot_product_attention)")
+
+
 # -- phase 4: model, card against CPU -------------------------------------------
 
 def _map(tree, fn):
@@ -714,7 +870,7 @@ def phase_model(torch, seed):
                 == res_d["cpu"][live].argmax(-1)).all():
             raise AssertionError(f"model {impl}: decode-step greedy tokens "
                                  f"differ")
-        used = [k for k, path in KERNEL_PATH.items() if path == impl]
+        used = [k for k, paths in KERNEL_PATH.items() if impl in paths]
         if min(launches.get(k, 0) for k in used) <= 0:
             raise AssertionError(f"model {impl}: kernel launches "
                                  f"{dict(launches)}")
@@ -735,9 +891,80 @@ def phase_model(torch, seed):
         f"{MODEL_LOGIT_ATOL:g}); greedy tokens {'equal' if same else 'DIFFER'}")
     if err > MODEL_LOGIT_ATOL or not same:
         raise AssertionError("model: megakernel and composed disagree")
+    model_prefill(torch, base, p_cpu, p_card, seed)
     del p_card, p_cpu
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def model_prefill(torch, base, p_cpu, p_card, seed):
+    """The serial path's model calls, card against CPU: one whole-prompt
+    prefill of 200 tokens (bucket 256) with the dense-scatter MoE, its
+    K/V installed into the pools, then one decode step on top."""
+    import dataclasses
+    from repro_torch.kernels import launches
+    from repro_torch.models.model import Model
+    from repro_torch.serving import cache_ops
+    from repro_torch.serving.executor import next_bucket
+    from repro_torch.serving.kvcache import padded_block_ids
+    cfg = dataclasses.replace(base, moe_impl="gather_psum",
+                              decode_impl="composed")
+    bs, nblk, max_blk, batch, n = 16, 20, 16, 8, 200
+    bucket = next_bucket(n, 512)
+    blocks = list(range(nblk - 1, nblk - 1 - (n + bs) // bs, -1))
+    bids = padded_block_ids(blocks, bucket // bs, nblk)
+    rng = np.random.default_rng(seed + 1)
+    tokens = np.zeros((1, bucket), np.int32)
+    tokens[0, :n] = rng.integers(0, cfg.vocab_size, n)
+    page = dict(tables=np.zeros((batch, max_blk), np.int32),
+                seq_lens=np.zeros(batch, np.int32),
+                write_bid=np.full(batch, nblk, np.int32),
+                write_off=np.zeros(batch, np.int32))
+    page["tables"][0, :len(blocks)] = blocks
+    page["seq_lens"][0] = n + 1
+    page["write_bid"][0], page["write_off"][0] = blocks[n // bs], n % bs
+    launches.clear()
+    res = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_card)):
+        m = Model(cfg, torch.float32, device=dev)
+        cache = m.init_paged_cache(batch, nblk, bs)
+        axes = cache_ops.infer_paged_axes(m, nblk, bs)
+        last, raw = m.prefill_paged(p, {
+            "tokens": torch.from_numpy(tokens).to(dev),
+            "lengths": torch.tensor([n], dtype=torch.int32, device=dev)})
+        cache_ops.install_prefill(cache, raw, axes, bids, 0)
+        last = last.float().cpu().numpy()
+        if dev == "cpu":
+            first = int(last[0].argmax())
+        tok = torch.zeros(batch, dtype=torch.int32, device=dev)
+        tok[0] = first
+        logits, _ = m.decode_step_paged(
+            p, cache, tok, {k: torch.from_numpy(v).to(dev)
+                            for k, v in page.items()})
+        rows = {key: cache["layers"][key][:, blocks].float().cpu().numpy()
+                for key in ("k", "v")}
+        res[dev] = (last, rows, logits.float().cpu().numpy()[:1])
+        del m, cache, raw
+    (lc, rc, dc), (lg, rg, dg) = res["cpu"], res["cuda"]
+    errs = {"last logits": float(np.abs(lg - lc).max()),
+            "installed K/V": max(float(np.abs(rg[k] - rc[k]).max())
+                                 for k in rc),
+            "decode logits": float(np.abs(dg - dc).max())}
+    greedy = (int(lg[0].argmax()) == first
+              and int(dg[0].argmax()) == int(dc[0].argmax()))
+    counts = {k: launches.get(k, 0) for k in ("flash_prefill", "expert_ffn",
+                                              "paged_attention")}
+    log(f"  serial prefill ({n} tokens, bucket {bucket}, dense-scatter "
+        f"MoE), card vs CPU: " + ", ".join(f"{k} max_abs_err {v:.3e}"
+                                          for k, v in errs.items())
+        + f" (atol {MODEL_LOGIT_ATOL:g}); greedy tokens "
+        f"{'equal' if greedy else 'DIFFER'} ({first} -> "
+        f"{int(dc[0].argmax())}); launches {counts}")
+    if max(errs.values()) > MODEL_LOGIT_ATOL or not greedy \
+            or not all(np.isfinite(lg).ravel()):
+        raise AssertionError("model: the serial prefill disagrees")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"model: serial prefill launches {counts}")
 
 
 # -- phase 5: engine --------------------------------------------------------------
@@ -756,19 +983,20 @@ def _prompts(vocab, seed):
 def _serve(torch, eng, vocab, seed, new_tokens):
     first, later = _prompts(vocab, seed)
     reqs = [eng.submit(p, new_tokens) for p in first]
-    steps = []      # (seconds, new tokens, prefill chunks, recovered)
+    steps = []      # (seconds, new tokens, prefill tokens, recovered)
+    computed = lambda: eng.prefill_stats()[  # noqa: E731
+        "prefill_tokens_computed"]
 
     def one():
         n0 = sum(len(r.output_tokens) for r in eng.all_requests)
-        c0 = eng.prefill_stats()["prefill_chunks"]
+        c0 = computed()
         r0 = len(eng.reports)
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0,
                       sum(len(r.output_tokens) for r in eng.all_requests)
-                      - n0, eng.prefill_stats()["prefill_chunks"] - c0,
-                      len(eng.reports) > r0))
+                      - n0, computed() - c0, len(eng.reports) > r0))
 
     t_all = time.perf_counter()
     one()
@@ -809,7 +1037,7 @@ def _trace(torch, fn):
     return out
 
 
-def phase_engine(torch, seed, layers, profile=False):
+def phase_engine(torch, seed, layers, paths, profile=False):
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core.fault_codes import Severity
@@ -832,41 +1060,40 @@ def phase_engine(torch, seed, layers, profile=False):
     shutil.rmtree(workdir, ignore_errors=True)
     new_tokens = 32
 
-    def make(impl):
+    def make(path):
         t0 = time.perf_counter()
         eng = InferenceEngine(cfg, EngineConfig(
-            mode="collocated", num_dp=2, moe_impl="fused", max_batch=8,
-            max_seq=512, block_size=16, num_blocks=256, seed=seed,
-            workdir=str(workdir), decode_impl=impl,
-            policy=RecoveryPolicy(allow_role_switch=False)))
+            mode="collocated", num_dp=2, max_batch=8, max_seq=512,
+            block_size=16, num_blocks=256, seed=seed, workdir=str(workdir),
+            policy=RecoveryPolicy(allow_role_switch=False), **PATHS[path]))
         log(f"  engine up in {time.perf_counter() - t0:.1f} s; {eng.dtype} "
             f"weights "
             f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card; "
-            f"init_timings " + json.dumps(
+            f"moe_impl {eng.cfg.moe_impl!r}; init_timings " + json.dumps(
                 {k: round(v, 4) for k, v in eng.init_timings.items()}))
         return eng
 
     counts, rates, streams = {}, {}, {}
     try:
-        for impl in IMPLS:
+        for path in paths:
             # the first engine writes weights.npz into the workdir; every
             # later one loads it
-            log(f"engine: decode_impl={impl!r}")
-            eng = make(impl)
+            log(f"engine: path {path!r}: " + json.dumps(PATHS[path]))
+            eng = make(path)
             serve = lambda: _serve(torch, eng, cfg.vocab_size,  # noqa: E731
                                    seed, new_tokens)
             reqs, clean = _trace(torch, serve) if profile else serve()
             if any(r.state.value != "finished" for r in reqs) or eng.reports:
-                raise AssertionError(f"engine {impl} (no fault): not every "
+                raise AssertionError(f"engine {path} (no fault): not every "
                                      f"request finished")
-            streams[impl] = [list(r.output_tokens) for r in reqs]
+            streams[path] = [list(r.output_tokens) for r in reqs]
             log("  no fault: " + json.dumps(
                 {k: round(v, 3) for k, v in clean.items()}))
             del eng, reqs
             gc.collect()
             torch.cuda.empty_cache()
 
-            eng = make(impl)
+            eng = make(path)
             eng.injector.schedule(6, 1, severity=Severity.L6,
                                   component="attn+moe", mid_step=True)
             launches.clear()
@@ -877,10 +1104,10 @@ def phase_engine(torch, seed, layers, profile=False):
                 {k: round(v, 3) for k, v in fault.items()}))
             states = [r.state.value for r in reqs]
             if any(s != "finished" for s in states):
-                raise AssertionError(f"engine {impl} (fault): requests "
+                raise AssertionError(f"engine {path} (fault): requests "
                                      f"{states}")
             if not eng.reports:
-                raise AssertionError(f"engine {impl}: the fault was not "
+                raise AssertionError(f"engine {path}: the fault was not "
                                      f"handled")
             rep = eng.reports[0]
             log(f"  recovery: {rep.summary()}")
@@ -890,43 +1117,50 @@ def phase_engine(torch, seed, layers, profile=False):
             masked = [int(e) for e in np.flatnonzero(~mask)]
             if rep.scenario != "moe+missing_experts" or \
                     masked != list(range(32, 60)):
-                raise AssertionError(f"engine {impl}: scenario "
+                raise AssertionError(f"engine {path}: scenario "
                                      f"{rep.scenario}, masked {masked}")
             if rep.compile_source != "precompiled":
-                raise AssertionError(f"engine {impl}: compile_source "
+                raise AssertionError(f"engine {path}: compile_source "
                                      f"{rep.compile_source}")
-            hits = eng.prefill_stats()["prefix_cache_hits"]
-            if hits <= 0:
-                raise AssertionError(f"engine {impl}: the prefix cache was "
+            stats = eng.prefill_stats()
+            hits = stats["prefix_cache_hits"]
+            # serial admission installs whole prompts: no prefix cache
+            if eng.ecfg.admission == "chunked" and hits <= 0:
+                raise AssertionError(f"engine {path}: the prefix cache was "
                                      f"never hit")
-            used = [k for k, path in KERNEL_PATH.items() if path == impl]
+            used = [k for k, ps in KERNEL_PATH.items() if path in ps]
             if min(path_counts.get(k, 0) for k in used) <= 0:
-                raise AssertionError(f"engine {impl}: kernel launches "
+                raise AssertionError(f"engine {path}: kernel launches "
                                      f"{path_counts}")
-            counts.update({k: path_counts[k] for k in used})
+            for k in used:     # summed over the paths a kernel runs on
+                counts[k] = counts.get(k, 0) + path_counts[k]
             log(f"  scenario {rep.scenario}, logical experts {masked[0]}-"
                 f"{masked[-1]} masked, compile_source {rep.compile_source}, "
                 f"migrated {rep.migrated}, prefix_cache_hits {hits}, "
+                f"prefill tokens {stats['prefill_tokens_computed']}, "
                 f"launches {path_counts}")
-            rates[impl] = (clean, fault)
+            rates[path] = (clean, fault)
             del eng, reqs
             gc.collect()
             torch.cuda.empty_cache()
-        for impl, (clean, fault) in rates.items():
-            log(f"engine {impl}: decode tokens/s {clean['decode_tok_s']:.3f} "
-                f"without the fault, {fault['decode_tok_s']:.3f} with it; "
-                f"end-to-end tokens/s {clean['e2e_tok_s']:.3f} and "
-                f"{fault['e2e_tok_s']:.3f}")
-        # bf16 rounds in another order on the two paths, so greedy streams
+        for path, (clean, fault) in rates.items():
+            log(f"engine {path}: decode tokens/s "
+                f"{clean['decode_tok_s']:.3f} without the fault, "
+                f"{fault['decode_tok_s']:.3f} with it; end-to-end tokens/s "
+                f"{clean['e2e_tok_s']:.3f} and {fault['e2e_tok_s']:.3f}")
+        # bf16 rounds in another order on each path, so greedy streams
         # may part; the f32 model phase is where tokens must match
-        pairs = list(zip(streams["megakernel"], streams["composed"]))
-        same = sum(a == b for m, c in pairs for a, b in zip(m, c))
-        prefix = sum(next((i for i, (a, b) in enumerate(zip(m, c)) if a != b),
-                          min(len(m), len(c))) for m, c in pairs)
-        log(f"engine: the megakernel run shares {same} of "
-            f"{sum(len(c) for c in streams['composed'])} greedy output "
-            f"tokens with the composed run, position by position "
-            f"({prefix} in the requests' common prefixes; not checked)")
+        for other in [p for p in streams
+                      if p != "composed" and "composed" in streams]:
+            pairs = list(zip(streams[other], streams["composed"]))
+            same = sum(a == b for m, c in pairs for a, b in zip(m, c))
+            prefix = sum(next((i for i, (a, b) in enumerate(zip(m, c))
+                               if a != b), min(len(m), len(c)))
+                         for m, c in pairs)
+            log(f"engine: the {other} run shares {same} of "
+                f"{sum(len(c) for c in streams['composed'])} greedy output "
+                f"tokens with the composed run, position by position "
+                f"({prefix} in the requests' common prefixes; not checked)")
         return counts
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -938,6 +1172,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--layers", type=int, default=ENGINE_LAYERS)
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help="engine paths to serve, of " + ", ".join(PATHS))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace each engine run without a fault")
@@ -946,6 +1182,9 @@ def main() -> int:
     for p in phases:
         if p not in PHASES:
             raise SystemExit(f"unknown phase {p!r}; phases: {PHASES}")
+    for p in args.paths.split(","):
+        if p not in PATHS:
+            raise SystemExit(f"unknown path {p!r}; paths: {tuple(PATHS)}")
 
     import torch
     phase_device(torch)
@@ -965,7 +1204,7 @@ def main() -> int:
     counts = {}
     if "engine" in phases:
         counts = phase_engine(torch, args.seed, args.layers,
-                              args.profile)
+                              args.paths.split(","), args.profile)
     log(f"phases {phases} passed in {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():

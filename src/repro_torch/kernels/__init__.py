@@ -11,6 +11,10 @@ PyTorch versions.
 * ``decode_megastep`` — one attention+MoE block's whole decode step as
   one C call that enqueues a fixed chain of kernels
   (``csrc/decode_megastep.cu``).
+* ``expert_ffn`` — the grouped expert SwiGLU over the dense-scatter
+  MoE's capacity buffer (``csrc/expert_ffn.cu``).
+* ``flash_prefill`` — causal GQA attention over a whole prompt, with
+  positions and a sliding window (``csrc/flash_prefill.cu``).
 
 ``ops`` dispatches by the tensors' device: CUDA tensors launch the
 kernel, CPU tensors run the plain version.  ``launches`` counts the

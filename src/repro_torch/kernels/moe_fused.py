@@ -14,9 +14,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import build, launches
+from repro_torch.kernels.expert_ffn import expert_ffn_plain
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
@@ -78,15 +78,6 @@ def moe_group_tokens(phys, alive, weights, *, expert_offset: int,
     slot_of.scatter_(0, order, torch.where(keep, flat, -1).to(torch.int32))
     return (tok_idx[:E_cap].view(e_local, cap),
             wgt[:E_cap].view(e_local, cap), slot_of.view(T, k))
-
-
-def expert_ffn_plain(x, gate_w, up_w, down_w):
-    """Grouped expert SwiGLU, f32 accumulate; the hidden activation is
-    cast to x's type before ``@down``.  x: (E, C, D) -> (E, C, D)."""
-    h = F.silu(torch.einsum("ecd,edf->ecf", x.float(), gate_w.float()))
-    h = h * torch.einsum("ecd,edf->ecf", x.float(), up_w.float())
-    y = torch.einsum("ecf,efd->ecd", h.to(x.dtype).float(), down_w.float())
-    return y.to(x.dtype)
 
 
 def moe_fused_plain(x, gate_w, up_w, down_w, weights, phys, alive, *,

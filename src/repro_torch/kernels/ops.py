@@ -11,6 +11,9 @@ import torch
 
 from repro_torch.kernels.decode_megastep import (decode_megastep_cuda,
                                                  decode_megastep_plain)
+from repro_torch.kernels.expert_ffn import expert_ffn_cuda, expert_ffn_plain
+from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
+                                               flash_prefill_plain)
 from repro_torch.kernels.moe_fused import moe_fused_cuda, moe_fused_plain
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
@@ -42,6 +45,22 @@ def moe_dispatch_ffn_combine(x, gate_w, up_w, down_w, weights, phys, alive,
     fn = moe_fused_plain if on_cpu(x) else moe_fused_cuda
     return fn(x, gate_w, up_w, down_w, weights, phys, alive, cap=cap,
               expert_offset=expert_offset, e_local=e_local)
+
+
+def expert_ffn(x, gate_w, up_w, down_w):
+    """Grouped expert SwiGLU over a dense capacity buffer:
+    (E, C, D) -> (E, C, D), f32 accumulate, h cast to x's type."""
+    fn = expert_ffn_plain if on_cpu(x) else expert_ffn_cuda
+    return fn(x, gate_w, up_w, down_w)
+
+
+def flash_prefill(q, k, v, q_pos=None, kv_pos=None, *, causal: bool = True,
+                  window: int = 0):
+    """Whole-prompt GQA attention, q (B, Sq, H, Dh) over k / v (B, Skv,
+    Hkv, Dh), masked by positions (None: ``arange``): causal, and within
+    ``window`` where it is > 0."""
+    fn = flash_prefill_plain if on_cpu(q) else flash_prefill_cuda
+    return fn(q, k, v, q_pos, kv_pos, causal=causal, window=window)
 
 
 def router_topk(logits, expert_mask, k: int):

@@ -8,6 +8,9 @@ Every decode and chunk step is :meth:`Model.decode_step_paged`; a
 prefill chunk is the same call over chunk-width virtual slots.  With
 ``decode_impl="megakernel"`` each attention+MoE block runs through
 ``ops.decode_megastep``; dense first-k blocks keep the composed chain.
+A whole-prompt prefill (serial admission) is :meth:`Model.prefill_paged`:
+the full-sequence forward, its attention through ``ops.flash_prefill``,
+returning each layer's raw K/V rows for ``cache_ops.install_prefill``.
 
 Other families (dense, SSM, hybrid, audio, VLM) and MLA attention are
 later slices of the port and raise here.
@@ -109,6 +112,74 @@ class Model:
                             MoE.physical_experts(self.cfg.moe),
                             self.cfg.moe.capacity_factor,
                             floor=self.cfg.moe.min_capacity)
+
+    # -- full-sequence forward (whole-prompt prefill) --------------------------
+
+    def _block_fwd(self, p, x, positions, *, ffn_kind, runtime, cap):
+        """One block over a whole sequence.  x: (B, S, D).  Returns (x,
+        cache entry): the block's raw (B, S, Hkv, Dh) K (rope applied)
+        and V."""
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        out, entry = self._gqa_fwd_cache(p["mixer"], h, positions)
+        x = x + out
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if ffn_kind == "moe":
+            y = self._moe(p["moe"], h2.reshape(-1, h2.shape[-1]), runtime,
+                          cap)
+            return x + y.reshape(x.shape), entry
+        return x + Fn.ffn_apply(p["ffn"], h2, cfg.activation), entry
+
+    def _gqa_fwd_cache(self, p, h, positions):
+        out, (k, v) = A.gqa_forward_with_kv(p, self.cfg, h, positions)
+        return out, {"k": k, "v": v}
+
+    def _trunk(self, params, x, positions, runtime):
+        """Every layer group, layer by layer.  Returns (x, caches): per
+        group the stacked (L, B, S, Hkv, Dh) raw K and V."""
+        cap = self._cap(x.shape[0] * x.shape[1])
+        caches: Dict[str, Any] = {}
+        for name, n, _, ffn_kind, _ in self.layer_groups():
+            entries = []
+            for i in range(n):
+                x, entry = self._block_fwd(
+                    take_layer(params[name], i), x, positions,
+                    ffn_kind=ffn_kind, runtime=runtime, cap=cap)
+                entries.append(entry)
+            caches[name] = {key: torch.stack([e[key] for e in entries])
+                            for key in ("k", "v")}
+        return x, caches
+
+    def _embed_inputs(self, params, batch):
+        x = params["embed"][batch["tokens"].long()]
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        return x, positions
+
+    def logits_full(self, params, batch, runtime=None):
+        """Full-sequence forward over ``batch["tokens"]`` (B, S).  Returns
+        (logits (B, S, vocab), raw per-layer K/V caches)."""
+        cfg = self.cfg
+        runtime = runtime if runtime is not None else self.default_runtime()
+        x, positions = self._embed_inputs(params, batch)
+        x, caches = self._trunk(params, x, positions, runtime)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return x @ params["lm_head"], caches
+
+    @torch.no_grad()
+    def prefill_paged(self, params, batch, runtime=None):
+        """Prefill for the paged serving cache.  ``batch``: ``tokens`` (B,
+        S) and optionally ``lengths`` (B,), the real prompt lengths.
+        Returns ``(last_logits, raw)``: the logits at each row's last real
+        position and, per layer group, the raw K/V rows (L, B, S, Hkv, Dh)
+        that ``cache_ops.install_prefill`` writes into pool blocks."""
+        logits, caches = self.logits_full(params, batch, runtime)
+        if "lengths" in batch:
+            rows = torch.arange(logits.shape[0], device=logits.device)
+            last = logits[rows, batch["lengths"].long() - 1]
+        else:
+            last = logits[:, -1]
+        return last, caches
 
     # -- paged serving cache ---------------------------------------------------
 

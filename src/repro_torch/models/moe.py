@@ -11,9 +11,9 @@ Mirrors ``repro.models.moe``:
   table (drop a dead replica, mask a lost expert): a data change.
 * The local dispatch -> FFN -> combine has two implementations with the
   same semantics: :func:`dispatch_compute_combine` (dense scatter into a
-  capacity buffer, plain PyTorch) and :func:`dispatch_compute_combine_fused`
-  (the fused CUDA kernel), selected by a 'fused' suffix on
-  ``cfg.moe_impl``.
+  capacity buffer, its expert FFN through the ``expert_ffn`` kernel)
+  and :func:`dispatch_compute_combine_fused` (the fused CUDA kernel),
+  selected by a 'fused' suffix on ``cfg.moe_impl``.
 """
 from __future__ import annotations
 
@@ -21,7 +21,6 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.kernels import ops
@@ -116,10 +115,10 @@ def capacity(tokens_times_k: int, e_phys: int, cf: float,
 
 
 def experts_compute(gate_w, up_w, down_w, buf):
-    """Batched expert FFN. buf: (E_local, C, D) -> (E_local, C, D)."""
-    h = F.silu(torch.einsum("ecd,edf->ecf", buf, gate_w))
-    h = h * torch.einsum("ecd,edf->ecf", buf, up_w)
-    return torch.einsum("ecf,efd->ecd", h, down_w)
+    """Batched expert FFN through ``ops.expert_ffn`` (the CUDA kernel on
+    the card, its plain version on the CPU).  buf: (E_local, C, D) ->
+    (E_local, C, D)."""
+    return ops.expert_ffn(buf, gate_w, up_w, down_w)
 
 
 def dispatch_compute_combine(x_flat, weights, phys, alive, gate_w, up_w,

@@ -74,6 +74,38 @@ def copy_block_prefixes(cache, axes_leaves: List[Optional[int]], copies):
     return cache
 
 
+def install_prefill(cache, raw, axes_leaves: List[Optional[int]],
+                    block_ids, slot: int):
+    """Write one prefilled request into the paged cache, in place.
+
+    ``raw`` is ``Model.prefill_paged``'s output for a batch of 1: pool
+    leaves carry (L, 1, S, *rest) raw K/V rows, written block-wise at
+    ``block_ids`` (nblk,) — ids past the request's table point at the
+    trash block; per-slot state leaves carry (L, 1, ...) state for batch
+    slot ``slot``.  Where ``block_ids`` repeat (the trash block), only the
+    last of the repeats is written, so the scatter has no duplicate
+    index and the trash rows are the same on every device and every run
+    (a CUDA scatter with duplicates keeps an arbitrary one)."""
+    ids = np.asarray(block_ids, np.int64)
+    nblk = ids.shape[0]
+    last = {int(b): j for j, b in enumerate(ids)}     # the last repeat wins
+    keep = np.asarray(sorted(last.values()), np.int64)
+    for c, r, ax in zip(cache_leaves(cache), cache_leaves(raw), axes_leaves):
+        if ax is None:
+            L, bs = c.shape[0], c.shape[2]
+            S = r.shape[2]
+            assert nblk * bs >= S, (nblk, bs, S)
+            rb = torch.zeros((L, nblk * bs) + tuple(r.shape[3:]),
+                             dtype=c.dtype, device=c.device)
+            rb[:, :S] = r[:, 0]
+            rb = rb.view((L, nblk, bs) + tuple(r.shape[3:]))
+            k = _index(keep, c.device)
+            c[:, _index(ids[keep], c.device)] = rb[:, k]
+        else:
+            c.narrow(ax, slot, 1).copy_(r)
+    return cache
+
+
 def capture_pool_rows(cache, axes_leaves: List[Optional[int]], bids,
                       offs) -> Dict[str, Any]:
     """Gather (a copy of) the step's pool write set before the step

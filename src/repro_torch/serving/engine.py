@@ -6,10 +6,10 @@ tables), so injected hardware failures destroy real state and recovery
 manipulates real data structures and real weight files.
 
 This is ``repro.serving.engine.InferenceEngine`` in collocated lockstep
-mode (§2.2: every device hosts attention plus an EP expert shard), the
-main path of the port's first slice.  ``EngineConfig`` keeps every field
-and every check of the JAX package's; options of later slices raise
-``NotImplementedError`` naming their ROADMAP item.
+mode (§2.2: every device hosts attention plus an EP expert shard), with
+chunked admission or serial whole-prompt prefills.  ``EngineConfig``
+keeps every field and every check of the JAX package's; options of later
+slices raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -31,8 +31,8 @@ from repro_torch.core.graph_cache import GraphCache
 from repro_torch.core.weights import DenseFFNGroups, RecoveryPolicy
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.serving.cache_ops import infer_paged_axes
-from repro_torch.serving.executor import DPExecutor
+from repro_torch.serving.cache_ops import infer_paged_axes, install_prefill
+from repro_torch.serving.executor import DPExecutor, next_bucket
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.weights_util import (assemble, expert_checksums,
@@ -64,6 +64,23 @@ def _step_closure(model: Model, phase: str, version: int):
     return fn
 
 
+def _prefill_closure(model: Model, version: int):
+    def fn(params, tokens, lengths, runtime):
+        batch = {"tokens": tokens, "lengths": lengths}
+        return model.prefill_paged(params, batch, runtime)
+    fn.__name__ = f"prefill_v{version}"
+    fn.__qualname__ = fn.__name__
+    return fn
+
+
+def _install_closure(axes_leaves, bucket: int):
+    def fn(cache, raw, block_ids, slot):
+        return install_prefill(cache, raw, axes_leaves, block_ids, slot)
+    fn.__name__ = f"install_b{bucket}"
+    fn.__qualname__ = fn.__name__
+    return fn
+
+
 class _Ctx:
     """What an executor sees during compute: weights + step functions."""
 
@@ -77,6 +94,12 @@ class _Ctx:
 
     def chunk_fn(self):
         return self.engine.get_compiled("chunk")
+
+    def prefill_fn(self, bucket: int):
+        return self.engine.get_compiled("prefill", bucket)
+
+    def install_fn(self, bucket: int):
+        return self.engine.get_compiled("install", bucket)
 
 
 @dataclass
@@ -199,8 +222,6 @@ def check_ported(ec: EngineConfig) -> None:
          "Queue 1 item 7: the overlap pipeline"),
         (ec.spec_window > 1, f"spec_window={ec.spec_window}",
          "Queue 1 item 7: speculation"),
-        (ec.admission == "serial", "admission='serial'",
-         "Queue 1: the serial whole-prompt prefill with flash_attention"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -316,7 +337,8 @@ class InferenceEngine:
 
         # initial graph registration (Fig. 1 "Read Cache"/"Compile")
         v = self.domain.version
-        for phase in ("decode", "chunk"):
+        phases = ("decode", "chunk") if self._chunking else ("decode",)
+        for phase in phases:
             _, tm = self.graph_cache.get_or_compile(
                 (phase, v, None), _step_closure(self.model, phase, v))
             t["read_cache"] = t.get("read_cache", 0.0) + tm.read_cache_s
@@ -324,13 +346,7 @@ class InferenceEngine:
 
         if ec.precompile_failure_scenarios:
             with _Timer(t, "precompile_failure_scenarios"):
-                # §3.6: the post-failure domain version's steps, ready
-                # before any fault (chunked admission re-prefills
-                # migrated requests through the chunk step)
-                for phase in ("decode", "chunk"):
-                    self.graph_cache.precompile(
-                        (phase, v + 1, None),
-                        _step_closure(self.model, phase, v + 1))
+                self._precompile_failure_graphs()
 
         with _Timer(t, "other"):
             from repro_torch.core.revive import RecoveryManager
@@ -346,16 +362,49 @@ class InferenceEngine:
             num_blocks=ec.num_blocks, block_size=ec.block_size,
             sampling=ec.sampling, ep_rank=i, shard=shard,
             paged_axes=self.paged_axes,
+            admission=ec.admission,
             prefill_chunk=ec.prefill_chunk,
             token_budget=(ec.token_budget if ec.token_budget is not None
                           else ec.max_batch + ec.prefill_chunk),
             prefix_cache=ec.prefix_cache,
             pool_undo=ec.pool_undo)
 
-    def get_compiled(self, phase: str):
-        v = self.domain.version
-        fn, _ = self.graph_cache.get_or_compile(
-            (phase, v, None), _step_closure(self.model, phase, v))
+    def _precompile_failure_graphs(self) -> None:
+        """§3.6: the post-failure domain version's steps, ready before any
+        fault.  Chunked admission re-prefills migrated requests through
+        the chunk step; serial admission through the whole-prompt prefill
+        of the most common bucket and its install."""
+        v = self.domain.version + 1
+        self.graph_cache.precompile(
+            ("decode", v, None), _step_closure(self.model, "decode", v))
+        if self._chunking:
+            self.graph_cache.precompile(
+                ("chunk", v, None), _step_closure(self.model, "chunk", v))
+            return
+        b = next_bucket(16, self.ecfg.max_seq)
+        self.graph_cache.precompile(("prefill", v, b),
+                                    _prefill_closure(self.model, v))
+        if ("install", 0, b) not in self.graph_cache:
+            self.graph_cache.precompile(
+                ("install", 0, b), _install_closure(self.paged_axes, b))
+
+    @property
+    def _chunking(self) -> bool:
+        return (self.ecfg.admission == "chunked"
+                and self.model.supports_chunked_prefill)
+
+    def get_compiled(self, phase: str, bucket: Optional[int] = None):
+        # the install scatter has no collectives: it is domain-version
+        # independent and survives every comm rebuild
+        v = 0 if phase == "install" else self.domain.version
+        key = (phase, v, bucket if phase in ("prefill", "install") else None)
+        if phase == "install":
+            fn = _install_closure(self.paged_axes, bucket)
+        elif phase == "prefill":
+            fn = _prefill_closure(self.model, v)
+        else:
+            fn = _step_closure(self.model, phase, v)
+        fn, _ = self.graph_cache.get_or_compile(key, fn)
         return fn
 
     # -- request API ----------------------------------------------------------------

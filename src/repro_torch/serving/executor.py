@@ -16,9 +16,13 @@ admission, block allocation, prefix-cache sharing, all logged) then
 uncommitted log, which recovery rolls back (§3.3) — block tables from
 the op log, pools by scattering the captured write-set rows back.
 
+Under serial admission each admitted prompt is instead one whole-prompt
+prefill (``Model.prefill_paged`` at a power-of-two bucket of its length)
+installed into its blocks (``cache_ops.install_prefill``).
+
 This is ``repro.serving.executor.DPExecutor`` on the lockstep path.  The
-overlap pipeline, speculation windows, whole-prompt installs and
-KV-block streaming are later slices of the port.
+overlap pipeline, speculation windows and KV-block streaming are later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -34,23 +38,35 @@ from repro_torch.serving.cache_ops import (capture_pool_rows, clone_cache,
                                            restore_pool_rows)
 from repro_torch.serving.kvcache import (build_chunk_context,
                                          build_page_context,
-                                         max_blocks_per_seq)
+                                         max_blocks_per_seq,
+                                         padded_block_ids)
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import SamplingParams, sample
 from repro_torch.serving.scheduler import LocalScheduler, StepPlan
 
 
+def next_bucket(n: int, max_seq: int, min_bucket: int = 16) -> int:
+    """The whole-prompt prefill width of an ``n``-token prompt: the next
+    power of two from ``min_bucket``, capped at ``max_seq``."""
+    b = min_bucket
+    while b < n:
+        b *= 2
+    return min(b, max_seq)
+
+
 class _Pending:
-    """One launched step: its plan and the device logits of its chunk
-    and decode launches, forced by ``finish_compute``."""
+    """One launched step: its plan, the device logits of its chunk and
+    decode launches, forced by ``finish_compute``, and the requests its
+    whole-prompt prefills finished."""
     __slots__ = ("plan", "step_no", "chunk_logits", "decode_logits",
-                 "t_launch")
+                 "prefill_finished", "t_launch")
 
     def __init__(self, plan: StepPlan, step_no: int):
         self.plan = plan
         self.step_no = step_no
         self.chunk_logits = None
         self.decode_logits = None
+        self.prefill_finished: List[Request] = []
         self.t_launch = 0.0
 
 
@@ -65,6 +81,7 @@ class DPExecutor:
                  paged_axes: List[Optional[int]],
                  ep_rank: Optional[int] = None,
                  shard: Optional[Dict[str, torch.Tensor]] = None,
+                 admission: str = "chunked",
                  prefill_chunk: int = 32,
                  token_budget: Optional[int] = None,
                  prefix_cache: bool = True,
@@ -89,12 +106,17 @@ class DPExecutor:
         self.block_manager = BlockManager(num_blocks, block_size)
         self.block_log = BlockLog()
         self.pool_undo = pool_undo
-        self.chunk_tokens = prefill_chunk
+        # serial admission installs whole prompts instead of chunking them
+        chunk = (prefill_chunk if admission == "chunked"
+                 and model.supports_chunked_prefill else 0)
+        self.chunk_tokens = chunk
         self.scheduler = LocalScheduler(
             max_batch, max_seq, self.block_manager,
-            token_budget=token_budget, chunk_tokens=prefill_chunk,
-            prefix_cache=prefix_cache,
-            window=model.cfg.sliding_window or None)
+            token_budget=(token_budget if admission == "chunked" else None),
+            chunk_tokens=chunk,
+            prefix_cache=prefix_cache and chunk > 0,
+            window=model.cfg.sliding_window or None,
+            max_prefills=1 if admission == "serial" else None)
         self.cache = model.init_paged_cache(max_batch, num_blocks,
                                             block_size)
         self.paged_axes = paged_axes
@@ -162,8 +184,9 @@ class DPExecutor:
                         ) -> Tuple[np.ndarray, np.ndarray]:
         """Every (block, offset) pool row the planned step writes: decode
         destinations for all batch slots (idle slots hit the trash row),
-        each chunk token's slot (idle chunk rows hit the trash row), and
-        COW destination rows."""
+        each chunk token's slot (idle chunk rows hit the trash row), every
+        row of every padded block a whole-prompt install scatters (trash
+        repeats included), and COW destination rows."""
         bs = self.block_size
         tables = self.scheduler.block_tables
         bids: List[int] = []
@@ -190,6 +213,13 @@ class DPExecutor:
             for _ in range(self.chunk_tokens - n):   # idle chunk rows
                 bids.append(self.trash_block)
                 offs.append(0)
+        for req in plan.prefills:
+            nblk = max_blocks_per_seq(
+                next_bucket(len(req.tokens_so_far), self.max_seq), bs)
+            pb = padded_block_ids(tables[req.req_id].blocks, nblk,
+                                  self.trash_block)
+            bids.extend(np.repeat(pb, bs).tolist())
+            offs.extend(list(range(bs)) * nblk)
         for _, dst, n in plan.cow_copies:
             bids.extend([dst] * n)
             offs.extend(range(n))
@@ -222,6 +252,9 @@ class DPExecutor:
                 params, self.cache, torch.from_numpy(tokens).to(self.device),
                 self._to_device(page), runtime)
 
+        for req in plan.prefills:
+            self._prefill_install(ctx, req, pend)
+
         if plan.decode:
             page = build_page_context(
                 plan.decode, self.scheduler.block_tables,
@@ -234,6 +267,36 @@ class DPExecutor:
 
         pend.t_launch = time.perf_counter()
         return pend
+
+    def _prefill_install(self, ctx, req: Request, pend: _Pending) -> None:
+        """One whole-prompt prefill at its bucket, its K/V installed into
+        the request's blocks, its first token sampled (the prefill's
+        logits are forced here, as in the JAX package)."""
+        toks = req.tokens_so_far
+        bucket = next_bucket(len(toks), self.max_seq)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :len(toks)] = toks
+        lengths = np.asarray([len(toks)], np.int32)
+        last_logits, raw = ctx.prefill_fn(bucket)(
+            ctx.params, torch.from_numpy(padded).to(self.device),
+            torch.from_numpy(lengths).to(self.device), ctx.runtime)
+        bids = padded_block_ids(
+            self.scheduler.block_tables[req.req_id].blocks,
+            max_blocks_per_seq(bucket, self.block_size), self.trash_block)
+        self.cache = ctx.install_fn(bucket)(self.cache, raw, bids,
+                                            req.batch_slot)
+        req.prefill_pos = len(toks)
+        self.scheduler.note_prefill_done(len(toks))
+        tok = int(sample(_host(last_logits), self.sampling,
+                         step=req.num_tokens)[0])
+        req.output_tokens.append(tok)
+        req.note_token()
+        req.state = RequestState.RUNNING
+        self.last_token[req.batch_slot] = tok
+        if req.done:
+            self.scheduler.finish(req, self.block_log)
+            req.finish_time = time.monotonic()
+            pend.prefill_finished.append(req)
 
     def finish_compute(self, pend: _Pending) -> List[Request]:
         """Force the step's logits and commit its outcome on the host
@@ -266,6 +329,8 @@ class DPExecutor:
                         req.finish_time = time.monotonic()
                         finished.append(req)
                 row += piece.length
+
+        finished.extend(pend.prefill_finished)
 
         if pend.decode_logits is not None:
             logits = _host(pend.decode_logits)

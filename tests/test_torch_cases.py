@@ -137,3 +137,43 @@ def router_inputs(T, E, k, masked, tie, seed=0):
     mask = np.ones(E, bool)
     mask[list(masked)] = False
     return logits, mask
+
+
+EXPERT_FFN_GRID = [
+    # E, C, D, F  (tests/test_kernels.py:38, plus ragged C and F tiles)
+    (2, 64, 128, 256),
+    (3, 100, 256, 384),
+    (8, 128, 512, 128),
+    (5, 3, 96, 200),
+]
+
+
+def expert_ffn_inputs(E, C, D, F, seed=0):
+    rng = np.random.default_rng(seed)
+    return ((rng.normal(size=(E, C, D)) * 0.1).astype(np.float32),
+            (rng.normal(size=(E, D, F)) * 0.05).astype(np.float32),
+            (rng.normal(size=(E, D, F)) * 0.05).astype(np.float32),
+            (rng.normal(size=(E, F, D)) * 0.05).astype(np.float32))
+
+
+FLASH_CASES = {
+    # name: (B, S, H, Hkv, Dh, causal, window, kv position shift)
+    "mha": (1, 128, 4, 4, 64, True, 0, 0),        # tests/test_kernels.py:222
+    "gqa": (2, 128, 8, 2, 64, True, 0, 0),
+    "wide": (1, 256, 16, 8, 128, True, 0, 0),
+    "not_causal": (2, 128, 8, 2, 64, False, 0, 0),
+    "bucket_200": (1, 200, 16, 16, 128, True, 0, 0),   # S not a tile multiple
+    "window6": (1, 64, 16, 16, 128, True, 6, 0),
+    "dh96_g16": (1, 40, 32, 2, 96, True, 9, 0),
+    "dh256": (1, 48, 4, 1, 256, True, 0, 0),
+    "no_key_rows": (1, 24, 4, 2, 32, True, 0, 5),  # first rows see nothing
+}
+
+
+def flash_inputs(B, S, H, Hkv, Dh, shift, seed=0):
+    rng = np.random.default_rng(seed)
+    pos = np.arange(S, dtype=np.int32)
+    return (rng.normal(size=(B, S, H, Dh)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, Dh)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, Dh)).astype(np.float32),
+            pos, pos + np.int32(shift))

@@ -10,6 +10,9 @@ import torch
 from repro_torch.kernels import launches
 from repro_torch.kernels.decode_megastep import (decode_megastep_cuda,
                                                  decode_megastep_plain)
+from repro_torch.kernels.expert_ffn import expert_ffn_cuda, expert_ffn_plain
+from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
+                                               flash_prefill_plain)
 from repro_torch.kernels.moe_fused import (moe_fused_cuda, moe_fused_plain,
                                            moe_group_tokens)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -17,10 +20,11 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
 from repro_torch.kernels.router_topk import (router_topk_cuda,
                                              router_topk_plain)
 from repro_torch.models.moe import MoERuntime, select_replicas
-from test_torch_cases import (DEPLOY, MEGASTEP_CASES, MOE_FUSED_GRID,
-                              PAGED_CASES, ROUTER_CASES, megastep_inputs,
-                              moe_inputs, paged_inputs, router_inputs,
-                              t as _t)
+from test_torch_cases import (DEPLOY, EXPERT_FFN_GRID, FLASH_CASES,
+                              MEGASTEP_CASES, MOE_FUSED_GRID, PAGED_CASES,
+                              ROUTER_CASES, expert_ffn_inputs, flash_inputs,
+                              megastep_inputs, moe_inputs, paged_inputs,
+                              router_inputs, t as _t)
 
 
 @pytest.fixture
@@ -143,3 +147,48 @@ def test_router_topk_cuda_fully_masked_row_is_finite(card):
                                                   device=card), 4)
     assert idx.tolist() == [[0, 1, 2, 3]] * 2
     assert (w == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F", EXPERT_FFN_GRID)
+def test_expert_ffn_cuda_vs_plain(card, E, C, D, F, dtype):
+    x, g, u, d = (_t(a).to(card, dtype)
+                  for a in expert_ffn_inputs(E, C, D, F))
+    n0 = launches["expert_ffn"]
+    got = expert_ffn_cuda(x, g, u, d)
+    again = expert_ffn_cuda(x, g, u, d)
+    torch.cuda.synchronize()
+    assert launches["expert_ffn"] == n0 + 2
+    assert torch.equal(got, again)       # bitwise run to run
+    want = expert_ffn_plain(x, g, u, d)
+    # tests/test_kernels.py:52's tolerances
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_prefill_cuda_vs_plain(card, case, dtype):
+    B, S, H, Hkv, Dh, causal, window, shift = FLASH_CASES[case]
+    q, k, v, qpos, kvpos = flash_inputs(B, S, H, Hkv, Dh, shift)
+    q, k, v = (_t(a).to(card, dtype) for a in (q, k, v))
+    qpos, kvpos = _t(qpos).to(card), _t(kvpos).to(card)
+    kw = dict(causal=causal, window=window)
+    n0 = launches["flash_prefill"]
+    got = flash_prefill_cuda(q, k, v, qpos, kvpos, **kw)
+    again = flash_prefill_cuda(q, k, v, qpos, kvpos, **kw)
+    torch.cuda.synchronize()
+    assert launches["flash_prefill"] == n0 + 2
+    assert torch.equal(got, again)       # bitwise run to run
+    want = flash_prefill_plain(q, k, v, qpos, kvpos, **kw)
+    # f32: tests/test_kernels.py:237; bf16: q, k, v and out are rounded
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    if shift:
+        assert not got[:, :shift].any()  # rows that see no key give 0

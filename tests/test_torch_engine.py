@@ -2,12 +2,15 @@
 port's collocated lockstep engine must serve the same token streams and
 revive the same way as ``repro.serving.engine.InferenceEngine``.
 
-The config is collocated, ``num_dp=2``, ``moe_impl="fused"``, no role
-switch (as tests/test_recovery.py:109).  Cases: greedy without a fault,
-temperature 0.8 without a fault, and greedy with an L6 ``attn+moe``
-fault mid-step on physical 1 — once on the fully replicated bank of
-test_recovery.py:109 (redundant experts cover the loss) and once on the
-smoke bank (an expert is lost and masked).
+The config is collocated, ``num_dp=2``, no role switch (as
+tests/test_recovery.py:109).  Chunked admission with ``moe_impl="fused"``:
+greedy without a fault, temperature 0.8 without a fault, and greedy with
+an L6 ``attn+moe`` fault mid-step on physical 1 — once on the fully
+replicated bank of test_recovery.py:109 (redundant experts cover the
+loss) and once on the smoke bank (an expert is lost and masked).  Serial
+admission (whole-prompt prefills) with the model's dense-scatter
+``moe_impl``: greedy without a fault, and greedy with the same fault on
+the smoke bank, whose migrated requests re-prefill whole.
 """
 import dataclasses
 import os
@@ -30,12 +33,17 @@ from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.sampling import SamplingParams
 
 CASES = {
-    # name: (bank, temperature, fault)
-    "greedy": ("replicated", 0.0, False),
-    "temp0.8": ("replicated", 0.8, False),
-    "fault_redundant": ("replicated", 0.0, True),
-    "fault_missing": ("smoke", 0.0, True),
+    # name: (bank, temperature, fault, admission)
+    "greedy": ("replicated", 0.0, False, "chunked"),
+    "temp0.8": ("replicated", 0.8, False, "chunked"),
+    "fault_redundant": ("replicated", 0.0, True, "chunked"),
+    "fault_missing": ("smoke", 0.0, True, "chunked"),
+    "serial_greedy": ("replicated", 0.0, False, "serial"),
+    "serial_fault_missing": ("smoke", 0.0, True, "serial"),
 }
+# chunked cases run the fused MoE; serial ones keep the model's default
+# dense-scatter ``gather_psum`` (its expert FFN is the expert_ffn kernel)
+MOE_IMPL = {"chunked": "fused", "serial": None}
 
 
 def _cfg(get_smoke, bank):
@@ -75,11 +83,12 @@ def shared(tmp_path_factory):
 
 @pytest.fixture(scope="module", params=list(CASES))
 def pair(request, shared):
-    bank, temp, fault = CASES[request.param]
+    bank, temp, fault, admission = CASES[request.param]
     root = shared / request.param
     weights = shared / f"weights_{bank}.npz"
     common = dict(mode="collocated", num_dp=2, max_batch=2, max_seq=64,
-                  block_size=8, num_blocks=64, moe_impl="fused")
+                  block_size=8, num_blocks=64, admission=admission,
+                  moe_impl=MOE_IMPL[admission])
 
     jdir = root / "jax"
     jdir.mkdir(parents=True)
@@ -118,14 +127,16 @@ def test_token_streams_identical(pair):
 def test_recovery_reports_match(pair):
     name, jeng, _, peng, _ = pair
     assert len(peng.reports) == len(jeng.reports) == int(CASES[name][2])
+    assert peng.cfg.moe_impl == jeng.cfg.moe_impl
     for p, j in zip(peng.reports, jeng.reports):
         assert p.scenario == j.scenario
         assert p.moe_plan.kind.value == j.moe_plan.kind.value
         assert p.migrated == j.migrated
         assert p.blocks_rolled_back == j.blocks_rolled_back
         assert p.compile_source == j.compile_source == "precompiled"
-    if name == "fault_missing":
+    if name in ("fault_missing", "serial_fault_missing"):
         assert peng.reports[0].scenario == "moe+missing_experts"
+        assert peng.reports[0].migrated > 0
     if name == "fault_redundant":
         assert peng.reports[0].scenario == "moe+redundant_experts"
 
@@ -142,12 +153,15 @@ def test_final_runtime_matches(pair):
 
 
 def test_admission_counters_match(pair):
-    _, jeng, _, peng, _ = pair
+    name, jeng, _, peng, _ = pair
     ps, js = peng.prefill_stats(), jeng.prefill_stats()
     for key in ("prefill_tokens_computed", "prefill_tokens_cached",
                 "prefill_chunks", "prefix_cache_hits"):
         assert ps[key] == js[key], key
-    assert ps["prefix_cache_hits"] > 0
+    if CASES[name][3] == "chunked":
+        assert ps["prefix_cache_hits"] > 0
+    else:        # whole prompts, one per step: no chunks, no cache
+        assert ps["prefill_chunks"] == ps["prefix_cache_hits"] == 0
     ph, jh = dataclasses.asdict(peng.health()), dataclasses.asdict(
         jeng.health())
     ph.pop("soft_signals"), jh.pop("soft_signals")   # wall-clock based
@@ -156,8 +170,7 @@ def test_admission_counters_match(pair):
 
 @pytest.mark.parametrize("option", [
     dict(mode="disaggregated"), dict(overlap=True), dict(spec_window=2),
-    dict(decode_impl="megakernel", arch="deepseek-v3"),   # MLA: Queue 1 1c
-    dict(admission="serial")])
+    dict(decode_impl="megakernel", arch="deepseek-v3")])  # MLA: Queue 1 1c
 def test_unported_options_raise(tmp_path, option):
     option = dict(option)
     cfg = get_smoke_config(option.pop("arch", "qwen2-moe-a2.7b"))
@@ -195,3 +208,45 @@ def test_engine_without_card_needs_explicit_cpu(tmp_path, monkeypatch):
         InferenceEngine(get_smoke_config("qwen2-moe-a2.7b"),
                         EngineConfig(workdir=str(tmp_path)))
     assert not os.listdir(tmp_path)
+
+
+def _parity_engine(tmp_path, sub, **over):
+    """tests/test_chunked_prefill.py:25's config: the qwen2-moe smoke
+    model with capacity to spare (no copy is dropped at any chunk or
+    bucket width), one DP rank, sampling at temperature 0.8."""
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=4, num_redundant_experts=2, top_k=2,
+        capacity_factor=8.0, min_capacity=64))
+    return cfg, InferenceEngine(cfg, EngineConfig(
+        mode="collocated", num_dp=1, max_batch=4, max_seq=64, block_size=8,
+        num_blocks=64, workdir=str(tmp_path / sub),
+        sampling=SamplingParams(temperature=0.8, top_p=0.9, seed=3),
+        **over), device="cpu")
+
+
+def test_chunked_nocache_serial_token_parity(tmp_path):
+    """The port's own three-way parity (tests/test_chunked_prefill.py:60):
+    chunked admission with and without the prefix cache and serial
+    whole-prompt prefills serve the same tokens on a mixed long/short
+    workload."""
+    cfg, chunked = _parity_engine(tmp_path, "c")
+    _, nocache = _parity_engine(tmp_path, "n", prefix_cache=False)
+    _, serial = _parity_engine(tmp_path, "s", admission="serial")
+    rng = np.random.default_rng(1)
+    sysp = list(rng.integers(0, cfg.vocab_size, 20))
+    prompts = [list(rng.integers(0, cfg.vocab_size, 45)),
+               sysp + list(rng.integers(0, cfg.vocab_size, 5)),
+               sysp + list(rng.integers(0, cfg.vocab_size, 9)),
+               list(rng.integers(0, cfg.vocab_size, 3))]
+    outs = []
+    for eng in (chunked, nocache, serial):
+        reqs = [eng.submit([int(x) for x in p], 8) for p in prompts]
+        eng.run(max_steps=400)
+        assert all(r.state.value == "finished" for r in reqs)
+        outs.append([list(r.output_tokens) for r in reqs])
+    assert outs[0] == outs[1] == outs[2]
+    stats = chunked.prefill_stats()
+    assert stats["prefill_chunks"] >= 2          # the 45-token prompt chunked
+    assert stats["prefill_tokens_cached"] > 0    # shared prefix hit
+    assert serial.prefill_stats()["prefill_chunks"] == 0
