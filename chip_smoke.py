@@ -3,16 +3,17 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases device,build,kernels   # a subset
-    python3 chip_smoke.py --layers 12     # cut the engine's depth
-    python3 chip_smoke.py --paths serial  # serve one engine path
+    python3 chip_smoke.py --layers 12     # cut the qwen engines' depth
+    python3 chip_smoke.py --paths ssm     # serve one engine path
     python3 chip_smoke.py --profile       # + where the device time goes
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  — require CUDA, print the card's name and power limit, turn
              TF32 off for matmuls and cuDNN.
-2. build   — compile the six CUDA kernels from ``src/repro_torch/kernels/csrc``
-             (one ``nvcc`` per source, in parallel) into ``build/kernels``.
+2. build   — compile the seven CUDA kernels from
+             ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
+             parallel) into ``build/kernels``.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the slice's shapes, in f32 and bf16: paged attention and the
              fused MoE (a windowed case, an idle row, masked / lost /
@@ -24,7 +25,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              its slot tables exactly those of the plain sort pass; the
              grouped expert FFN over the dense capacity buffer at decode
              (C=8) and prefill (C=20) capacity; whole-prompt attention at
-             S = 16, 200, 256 and 512, with and without window 6.  Every
+             S = 16, 200, 256 and 512, with and without window 6; the
+             selective scan at falcon-mamba-7b's width (d_inner 8192, N
+             16), a prefill row at S = 200, 256 and 512 and the decode
+             step of 8 slots from their state.  Every
              kernel runs twice and must be bitwise equal; kernel and plain
              version are timed at the main path's shapes (the megastep
              also beside the composed chain of the same block), and
@@ -36,19 +40,28 @@ Phases, in order; any failure raises and the script exits non-zero:
              (dense-scatter MoE) installed into the pools, then a decode
              step; logits and installed K/V rows within tolerance, greedy
              tokens equal, and the two implementations agree on the card.
-5. engine  — qwen2-moe-a2.7b at full width in bf16, depth cut to 16 of
-             its 24 layers, behind the collocated ``InferenceEngine``
-             (2 DP ranks).  Start-up writes ``weights.npz`` and the
-             per-rank shard files, 2.3 GB a layer plus 1.3 GB (~57 GB at
-             24 layers, ~38 GB at 16): a run may write at most 45 GiB to
-             its disk, so ``--layers`` trades depth for it.  Three paths:
+             Then falcon-mamba-7b at full width, 2 layers, f32: a
+             whole-prompt prefill at bucket 256, its state installed, two
+             decode steps; logits and state within tolerance, greedy
+             tokens equal.
+5. engine  — behind the collocated ``InferenceEngine`` (2 DP ranks), in
+             bf16.  qwen2-moe-a2.7b at full width, depth cut to 16 of its
+             24 layers: start-up writes ``weights.npz`` and the per-rank
+             shard files, 2.3 GB a layer plus 1.3 GB (~57 GB at 24 layers,
+             ~38 GB at 16), and a run may write at most 45 GiB to its
+             disk, so ``--layers`` trades depth for it.  Three qwen paths:
              chunked admission with the fused MoE and each decode
              implementation (composed, megakernel), and serial admission
              (whole-prompt prefills) with the model's dense-scatter MoE.
-             Each serves 8 requests without a fault, then the same
-             workload with an L6 attn+moe fault on physical 1 mid-step at
-             step 6, revived in place.  Each path's kernels' launch counts
-             are read from its faulted run, counted from 0 just before it.
+             Then, once the qwen workdir is gone, the ``ssm`` path:
+             falcon-mamba-7b at full width and full depth (64 layers; a
+             14.55 GB ``weights.npz``, no shards), whose chunked admission
+             falls back to whole-prompt installs.  Each path serves 8
+             requests without a fault, then the same workload with an L6
+             fault on physical 1 mid-step at step 6 (``attn+moe`` on the
+             qwen paths, ``attn`` on the ssm path), revived in place.
+             Each path's kernels' launch counts are read from its faulted
+             run, counted from 0 just before it.
 6. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -83,18 +96,25 @@ KERNEL_META = {
                    "src/repro/kernels/expert_ffn.py:41"),
     "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill.py:83"),
+    "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:52"),
 }
 # the engine paths each kernel runs on; its launches are counted there
 KERNEL_PATH = {"paged_attention": ("composed", "serial"),
                "moe_fused": ("composed",),
                "decode_megastep": ("megakernel",),
                "router_topk": ("megakernel",),
-               "expert_ffn": ("serial",), "flash_prefill": ("serial",)}
+               "expert_ffn": ("serial",), "flash_prefill": ("serial",),
+               "ssm_scan": ("ssm",)}
 IMPLS = ("composed", "megakernel")
-# the engine paths: EngineConfig options of each
+# the engine paths: EngineConfig options of each.  ``ssm`` serves
+# falcon-mamba-7b, whose chunked admission falls back to whole-prompt
+# installs (a Mamba mixer cannot chunk); the others qwen2-moe-a2.7b.
 PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "megakernel": dict(moe_impl="fused", decode_impl="megakernel"),
-         "serial": dict(admission="serial", decode_impl="composed")}
+         "serial": dict(admission="serial", decode_impl="composed"),
+         "ssm": dict()}
+PATH_ARCH = {"ssm": "falcon-mamba-7b"}        # default: qwen2-moe-a2.7b
 # card-vs-plain tolerances (allclose: |got - want| <= atol + rtol |want|).
 # f32: both accumulate in f32 in different orders.  bf16: the plain
 # versions round intermediates to bf16 where the kernels keep f32 (the
@@ -108,7 +128,14 @@ ROUTER_RTOL = 2e-5            # weights; indices must be equal
 # tests/test_kernels.py's tolerances for the two kernels of the serial path
 FFN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
+# the selective scan (atol, rtol): tests/test_kernels.py:89's f32
+# tolerance for both types, since both versions cast the bf16 inputs to
+# f32 before any product and then compute the same sums in f32
+SSM_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-5, 1e-4)}
 MODEL_LOGIT_ATOL = 1e-3       # f32, 2 layers at full width, card vs CPU
+# the f32 Mamba state after a whole prompt, card vs CPU (atol, rtol): the
+# products before the scan sum in other orders
+STATE_TOL = (1e-4, 1e-3)
 ENGINE_LAYERS = 16            # of 24: bounded by the disk a run may write
 
 
@@ -375,6 +402,7 @@ def phase_kernels(torch, shapes):
     out["decode_megastep"] = kernels_megastep(torch, shapes)
     out["expert_ffn"] = kernels_expert_ffn(torch)
     out["flash_prefill"] = kernels_flash_prefill(torch)
+    out["ssm_scan"] = kernels_ssm_scan(torch)
     for name, r in out.items():
         log(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -779,6 +807,90 @@ def kernels_flash_prefill(torch):
               f"scaled_dot_product_attention)")
 
 
+FALCON = dict(d_inner=8192, N=16)
+
+
+def ssm_case(torch, B, S, *, with_h0, dtype, seed):
+    """falcon-mamba-7b's scan operands at full width, drawn as
+    tests/test_kernels.py draws them: dt = softplus(z - 2), A = -exp(0.3
+    z); h0 (the slot state) in the working type."""
+    d, N = FALCON["d_inner"], FALCON["N"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    args = [(randn(B, S, d) * 0.1).to(dtype),
+            torch.nn.functional.softplus(randn(B, S, d) - 2).to(dtype),
+            -torch.exp(randn(d, N) * 0.3),
+            (randn(B, S, N) * 0.2).to(dtype), (randn(B, S, N) * 0.2).to(dtype),
+            (randn(B, d, N) * 0.5).to(dtype) if with_h0 else None]
+    return args
+
+
+def ssm_bound_ms(args):
+    """Bytes: u, dt, A, B, C and h0 once, y and h_final (f32) once;
+    operations: ~7 f32 operations per (row, step, channel, state)."""
+    u, _, A, Bm, _, h0 = args
+    B, S, d = u.shape
+    N = A.shape[1]
+    el = u.element_size()
+    nbytes = (2 * B * S * d * el + d * N * 4 + 2 * B * S * N * el
+              + (0 if h0 is None else h0.numel() * h0.element_size())
+              + B * S * d * 4 + B * d * N * 4)
+    flops = 7 * B * S * d * N
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def kernels_ssm_scan(torch):
+    """The selective scan at the ssm path's shapes: a whole-prompt prefill
+    of one row (d_inner 8192, N 16) at buckets 200, 256 and 512 from a
+    zero state, and the decode step of 8 slots from their state."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
+    log("kernels: ssm_scan vs ssm_scan_plain on the card (falcon-mamba-7b: "
+        "d_inner 8192, N 16)")
+    cases = [("prefill", 1, S, False) for S in (200, 256, 512)]
+    cases.append(("decode", 8, 1, True))
+    errs, timed = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for i, (name, B, S, with_h0) in enumerate(cases):
+            args = ssm_case(torch, B, S, with_h0=with_h0, dtype=dtype,
+                            seed=40 + i)
+            y, h = ssm_scan_cuda(*args)
+            y2, h2 = ssm_scan_cuda(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(h, h2)):
+                raise AssertionError(f"ssm_scan {name} S={S}: not bitwise "
+                                     f"equal run to run")
+            want_y, want_h = ssm_scan_plain(*args)
+            for part, got, want in (("y", y, want_y), ("h_final", h, want_h)):
+                errs.append(compare(f"{name} B={B} S={S} {part} {dn}", got,
+                                    want, dn, SSM_TOL))
+            if dtype is torch.bfloat16 and S in (256, 1):
+                timed[name] = args
+            del y, y2, h, h2, want_y, want_h
+    rows = {}
+    for name, args in timed.items():
+        bound, by = ssm_bound_ms(args)
+        rows[name] = dict(
+            max_abs_err=max(errs),
+            ms=time_ms(torch, lambda: ssm_scan_cuda(*args)),
+            plain_ms=time_ms(torch, lambda: ssm_scan_plain(*args)),
+            bound_ms=bound, bound_by=by, library_ms=None,
+            shape=f"{name} B={args[0].shape[0]} S={args[0].shape[1]} "
+                  f"d=8192 N=16 bf16 (library: none, no PyTorch call "
+                  f"computes a selective scan)")
+    r = rows["decode"]
+    log(f"  ssm_scan at decode B=8 S=1 from a bf16 h0: kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library: none")
+    del timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows["prefill"]
+
+
 # -- phase 4: model, card against CPU -------------------------------------------
 
 def _map(tree, fn):
@@ -895,6 +1007,7 @@ def phase_model(torch, seed):
     del p_card, p_cpu
     gc.collect()
     torch.cuda.empty_cache()
+    model_ssm(torch, seed)
 
 
 def model_prefill(torch, base, p_cpu, p_card, seed):
@@ -965,6 +1078,88 @@ def model_prefill(torch, base, p_cpu, p_card, seed):
         raise AssertionError("model: the serial prefill disagrees")
     if min(counts.values()) <= 0:
         raise AssertionError(f"model: serial prefill launches {counts}")
+
+
+def model_ssm(torch, seed):
+    """The ssm path's model calls, card against CPU: falcon-mamba-7b at
+    full width, 2 layers, f32; one whole-prompt prefill of 200 tokens at
+    bucket 256, its final state installed into slot 2 of 8, then two
+    greedy decode steps."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.models.model import Model
+    from repro_torch.serving import cache_ops
+    from repro_torch.serving.executor import next_bucket
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), num_layers=2)
+    batch, nblk, bs, slot, n = 8, 4, 16, 2, 200
+    bucket = next_bucket(n, 512)
+    t0 = time.perf_counter()
+    p_cpu = Model(cfg, torch.float32, device="cpu").init(seed)
+    p_card = _map(p_cpu, lambda t: t.to("cuda"))
+    log(f"model: falcon-mamba-7b full width, 2 layers, f32; weights from "
+        f"seed {seed} in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed + 2)
+    tokens = np.zeros((1, bucket), np.int32)
+    tokens[0, :n] = rng.integers(0, cfg.vocab_size, n)
+    page = dict(tables=np.zeros((batch, 1), np.int32),
+                seq_lens=np.zeros(batch, np.int32),
+                write_bid=np.full(batch, nblk, np.int32),
+                write_off=np.zeros(batch, np.int32))
+    launches.clear()
+    res = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_card)):
+        m = Model(cfg, torch.float32, device=dev)
+        cache = m.init_paged_cache(batch, nblk, bs)
+        axes = cache_ops.infer_paged_axes(m, nblk, bs)
+        last, raw = m.prefill_paged(p, {
+            "tokens": torch.from_numpy(tokens).to(dev),
+            "lengths": torch.tensor([n], dtype=torch.int32, device=dev)})
+        # a state-only cache: no pool rows, so every block id is trash
+        cache_ops.install_prefill(cache, raw, axes,
+                                  np.full(bucket // bs, nblk), slot)
+        # a copy: on the CPU .float().cpu() is the cache itself, which
+        # the decode steps below update in place
+        state = {k: v[:, slot].float().cpu().clone().numpy()
+                 for k, v in cache["layers"].items()}
+        logits = [last.float().cpu().numpy()[0]]
+        if dev == "cpu":
+            greedy = [int(logits[0].argmax())]
+        for step in range(2):
+            tok = torch.zeros(batch, dtype=torch.int32, device=dev)
+            tok[slot] = greedy[step]
+            page["seq_lens"][slot] = n + 1 + step
+            out, _ = m.decode_step_paged(
+                p, cache, tok, {k: torch.from_numpy(v).to(dev)
+                                for k, v in page.items()})
+            logits.append(out.float().cpu().numpy()[slot])
+            if dev == "cpu":
+                greedy.append(int(logits[-1].argmax()))
+        res[dev] = (logits, state)
+        del m, cache, raw
+    (lc, sc), (lg, sg) = res["cpu"], res["cuda"]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(lg, lc))
+    atol, rtol = STATE_TOL
+    state_err = {k: float(np.abs(sg[k] - sc[k]).max()) for k in sc}
+    state_ok = all(np.allclose(sg[k], sc[k], atol=atol, rtol=rtol)
+                   for k in sc)
+    same = [int(a.argmax()) for a in lg] == greedy
+    count = launches.get("ssm_scan", 0)
+    log(f"  ssm prefill ({n} tokens, bucket {bucket}) + 2 decode steps, "
+        f"card vs CPU: logits max_abs_err {err:.3e} (atol "
+        f"{MODEL_LOGIT_ATOL:g}); installed state max_abs_err " + ", ".join(
+            f"{k} {v:.3e}" for k, v in state_err.items())
+        + f" (atol {atol:g}, rtol {rtol:g}); greedy tokens "
+        f"{'equal' if same else 'DIFFER'} ({greedy}); launches "
+        f"{{'ssm_scan': {count}}}")
+    if err > MODEL_LOGIT_ATOL or not state_ok or not same \
+            or not all(np.isfinite(a).all() for a in lg):
+        raise AssertionError("model: the ssm prefill and decode disagree")
+    if count != 3 * cfg.num_layers:   # one a layer, on the card's calls
+        raise AssertionError(f"model: ssm_scan launches {count}")
+    del p_card, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # -- phase 5: engine --------------------------------------------------------------
@@ -1038,13 +1233,61 @@ def _trace(torch, fn):
 
 
 def phase_engine(torch, seed, layers, paths, profile=False):
+    """Serve each path twice, without and with a fault; the qwen paths
+    share one workdir (the first writes ``weights.npz``, the others load
+    it), which is removed before the ssm path writes its own.  Returns the
+    kernels' launch counts, each summed over the paths it runs on."""
+    counts, rates, streams = {}, {}, {}
+    groups = [[p for p in paths if p not in PATH_ARCH]]
+    groups += [[p] for p in paths if p in PATH_ARCH]
+    for group in (g for g in groups if g):
+        arch = PATH_ARCH.get(group[0], "qwen2-moe-a2.7b")
+        workdir = ROOT / "build" / f"smoke_engine_{arch}"
+        shutil.rmtree(workdir, ignore_errors=True)
+        try:
+            cfg = engine_config(arch, layers)
+            for path in group:
+                path_counts, rates[path], streams[path] = serve_path(
+                    torch, cfg, path, workdir, seed, profile)
+                for k, v in path_counts.items():
+                    counts[k] = counts.get(k, 0) + v
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+    for path, (clean, fault) in rates.items():
+        log(f"engine {path}: decode tokens/s "
+            f"{clean['decode_tok_s']:.3f} without the fault, "
+            f"{fault['decode_tok_s']:.3f} with it; end-to-end tokens/s "
+            f"{clean['e2e_tok_s']:.3f} and {fault['e2e_tok_s']:.3f}")
+    # bf16 rounds in another order on each path, so greedy streams may
+    # part; the f32 model phase is where tokens must match
+    for other in [p for p in streams if p not in ("composed", "ssm")
+                  and "composed" in streams]:
+        pairs = list(zip(streams[other], streams["composed"]))
+        same = sum(a == b for m, c in pairs for a, b in zip(m, c))
+        prefix = sum(next((i for i, (a, b) in enumerate(zip(m, c))
+                           if a != b), min(len(m), len(c)))
+                     for m, c in pairs)
+        log(f"engine: the {other} run shares {same} of "
+            f"{sum(len(c) for c in streams['composed'])} greedy output "
+            f"tokens with the composed run, position by position "
+            f"({prefix} in the requests' common prefixes; not checked)")
+    return counts
+
+
+def engine_config(arch, layers):
+    """qwen2-moe-a2.7b at full width with its depth cut to ``layers``;
+    falcon-mamba-7b whole (width and all 64 layers)."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.core.fault_codes import Severity
-    from repro_torch.core.weights import RecoveryPolicy
-    from repro_torch.kernels import launches
-    from repro_torch.serving.engine import EngineConfig, InferenceEngine
-    cfg = get_config("qwen2-moe-a2.7b")
+    cfg = get_config(arch)
+    if cfg.moe is None:
+        mb = cfg.mamba
+        log(f"engine: {cfg.name}: {cfg.num_layers} Mamba layers, d_model "
+            f"{cfg.d_model}, d_inner {mb.expand * cfg.d_model}, d_state "
+            f"{mb.d_state}, d_conv {mb.d_conv}, dt_rank "
+            f"{mb.resolved_dt_rank(cfg.d_model)}, vocab {cfg.vocab_size}; "
+            f"full width and depth")
+        return cfg
     if layers != cfg.num_layers:
         log(f"engine: depth cut from {cfg.num_layers} to {layers} layers, "
             f"width kept (start-up writes ~2.3 GB of checkpoint and shard "
@@ -1056,114 +1299,106 @@ def phase_engine(torch, seed, layers, paths, profile=False):
         f"{m.num_experts}+{m.num_redundant_experts} experts of d_ff "
         f"{m.expert_d_ff}, {m.num_shared_experts} shared, top-{m.top_k}, "
         f"vocab {cfg.vocab_size}")
-    workdir = ROOT / "build" / "smoke_engine"
-    shutil.rmtree(workdir, ignore_errors=True)
+    return cfg
+
+
+def serve_path(torch, cfg, path, workdir, seed, profile):
+    """One engine path: 8 requests without a fault, then with an L6 fault
+    on physical 1 mid-step at step 6 (``attn+moe`` on an MoE model, where
+    the lost experts are masked; ``attn`` on the ssm path), revived in
+    place.  Returns (launch counts of the faulted run, (clean, fault)
+    rates, the clean run's output streams)."""
+    from repro_torch.core.fault_codes import Severity
+    from repro_torch.core.weights import RecoveryPolicy
+    from repro_torch.kernels import launches
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
     new_tokens = 32
 
-    def make(path):
+    def make():
         t0 = time.perf_counter()
         eng = InferenceEngine(cfg, EngineConfig(
             mode="collocated", num_dp=2, max_batch=8, max_seq=512,
             block_size=16, num_blocks=256, seed=seed, workdir=str(workdir),
             policy=RecoveryPolicy(allow_role_switch=False), **PATHS[path]))
+        disk = sum(f.stat().st_size for f in workdir.rglob("*")
+                   if f.is_file())
         log(f"  engine up in {time.perf_counter() - t0:.1f} s; {eng.dtype} "
             f"weights "
             f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card; "
+            f"start-up files {disk / 1e9:.2f} GB on disk; "
             f"moe_impl {eng.cfg.moe_impl!r}; init_timings " + json.dumps(
                 {k: round(v, 4) for k, v in eng.init_timings.items()}))
         return eng
 
-    counts, rates, streams = {}, {}, {}
-    try:
-        for path in paths:
-            # the first engine writes weights.npz into the workdir; every
-            # later one loads it
-            log(f"engine: path {path!r}: " + json.dumps(PATHS[path]))
-            eng = make(path)
-            serve = lambda: _serve(torch, eng, cfg.vocab_size,  # noqa: E731
-                                   seed, new_tokens)
-            reqs, clean = _trace(torch, serve) if profile else serve()
-            if any(r.state.value != "finished" for r in reqs) or eng.reports:
-                raise AssertionError(f"engine {path} (no fault): not every "
-                                     f"request finished")
-            streams[path] = [list(r.output_tokens) for r in reqs]
-            log("  no fault: " + json.dumps(
-                {k: round(v, 3) for k, v in clean.items()}))
-            del eng, reqs
-            gc.collect()
-            torch.cuda.empty_cache()
+    log(f"engine: path {path!r}: " + json.dumps(PATHS[path]))
+    eng = make()
+    serve = lambda: _serve(torch, eng, cfg.vocab_size,  # noqa: E731
+                           seed, new_tokens)
+    reqs, clean = _trace(torch, serve) if profile else serve()
+    if any(r.state.value != "finished" for r in reqs) or eng.reports:
+        raise AssertionError(f"engine {path} (no fault): not every request "
+                             f"finished")
+    streams = [list(r.output_tokens) for r in reqs]
+    log("  no fault: " + json.dumps(
+        {k: round(v, 3) for k, v in clean.items()}))
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
 
-            eng = make(path)
-            eng.injector.schedule(6, 1, severity=Severity.L6,
-                                  component="attn+moe", mid_step=True)
-            launches.clear()
-            reqs, fault = _serve(torch, eng, cfg.vocab_size, seed,
-                                 new_tokens)
-            path_counts = dict(launches)
-            log("  with fault: " + json.dumps(
-                {k: round(v, 3) for k, v in fault.items()}))
-            states = [r.state.value for r in reqs]
-            if any(s != "finished" for s in states):
-                raise AssertionError(f"engine {path} (fault): requests "
-                                     f"{states}")
-            if not eng.reports:
-                raise AssertionError(f"engine {path}: the fault was not "
-                                     f"handled")
-            rep = eng.reports[0]
-            log(f"  recovery: {rep.summary()}")
-            log("  recovery timings " + json.dumps(
-                {k: round(v, 6) for k, v in rep.timings.items()}))
-            mask = eng.runtime.expert_mask.cpu().numpy()
-            masked = [int(e) for e in np.flatnonzero(~mask)]
-            if rep.scenario != "moe+missing_experts" or \
-                    masked != list(range(32, 60)):
-                raise AssertionError(f"engine {path}: scenario "
-                                     f"{rep.scenario}, masked {masked}")
-            if rep.compile_source != "precompiled":
-                raise AssertionError(f"engine {path}: compile_source "
-                                     f"{rep.compile_source}")
-            stats = eng.prefill_stats()
-            hits = stats["prefix_cache_hits"]
-            # serial admission installs whole prompts: no prefix cache
-            if eng.ecfg.admission == "chunked" and hits <= 0:
-                raise AssertionError(f"engine {path}: the prefix cache was "
-                                     f"never hit")
-            used = [k for k, ps in KERNEL_PATH.items() if path in ps]
-            if min(path_counts.get(k, 0) for k in used) <= 0:
-                raise AssertionError(f"engine {path}: kernel launches "
-                                     f"{path_counts}")
-            for k in used:     # summed over the paths a kernel runs on
-                counts[k] = counts.get(k, 0) + path_counts[k]
-            log(f"  scenario {rep.scenario}, logical experts {masked[0]}-"
-                f"{masked[-1]} masked, compile_source {rep.compile_source}, "
-                f"migrated {rep.migrated}, prefix_cache_hits {hits}, "
-                f"prefill tokens {stats['prefill_tokens_computed']}, "
-                f"launches {path_counts}")
-            rates[path] = (clean, fault)
-            del eng, reqs
-            gc.collect()
-            torch.cuda.empty_cache()
-        for path, (clean, fault) in rates.items():
-            log(f"engine {path}: decode tokens/s "
-                f"{clean['decode_tok_s']:.3f} without the fault, "
-                f"{fault['decode_tok_s']:.3f} with it; end-to-end tokens/s "
-                f"{clean['e2e_tok_s']:.3f} and {fault['e2e_tok_s']:.3f}")
-        # bf16 rounds in another order on each path, so greedy streams
-        # may part; the f32 model phase is where tokens must match
-        for other in [p for p in streams
-                      if p != "composed" and "composed" in streams]:
-            pairs = list(zip(streams[other], streams["composed"]))
-            same = sum(a == b for m, c in pairs for a, b in zip(m, c))
-            prefix = sum(next((i for i, (a, b) in enumerate(zip(m, c))
-                               if a != b), min(len(m), len(c)))
-                         for m, c in pairs)
-            log(f"engine: the {other} run shares {same} of "
-                f"{sum(len(c) for c in streams['composed'])} greedy output "
-                f"tokens with the composed run, position by position "
-                f"({prefix} in the requests' common prefixes; not checked)")
-        return counts
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    eng = make()
+    moe = cfg.moe is not None
+    eng.injector.schedule(6, 1, severity=Severity.L6,
+                          component="attn+moe" if moe else "attn",
+                          mid_step=True)
+    launches.clear()
+    reqs, fault = _serve(torch, eng, cfg.vocab_size, seed, new_tokens)
+    path_counts = dict(launches)
+    log("  with fault: " + json.dumps(
+        {k: round(v, 3) for k, v in fault.items()}))
+    states = [r.state.value for r in reqs]
+    if any(s != "finished" for s in states):
+        raise AssertionError(f"engine {path} (fault): requests {states}")
+    if not eng.reports:
+        raise AssertionError(f"engine {path}: the fault was not handled")
+    rep = eng.reports[0]
+    log(f"  recovery: {rep.summary()}")
+    log("  recovery timings " + json.dumps(
+        {k: round(v, 6) for k, v in rep.timings.items()}))
+    if moe:
+        mask = eng.runtime.expert_mask.cpu().numpy()
+        masked = [int(e) for e in np.flatnonzero(~mask)]
+        if rep.scenario != "moe+missing_experts" or \
+                masked != list(range(32, 60)):
+            raise AssertionError(f"engine {path}: scenario {rep.scenario}, "
+                                 f"masked {masked}")
+        what = f"logical experts {masked[0]}-{masked[-1]} masked"
+    else:
+        if rep.scenario != "attn" or rep.migrated < 1:
+            raise AssertionError(f"engine {path}: scenario {rep.scenario}, "
+                                 f"migrated {rep.migrated}")
+        what = "no experts"
+    if rep.compile_source != "precompiled":
+        raise AssertionError(f"engine {path}: compile_source "
+                             f"{rep.compile_source}")
+    stats = eng.prefill_stats()
+    hits = stats["prefix_cache_hits"]
+    # whole-prompt installs (serial, or a model that cannot chunk) bypass
+    # the prefix cache
+    if (eng.ecfg.admission == "chunked"
+            and eng.model.supports_chunked_prefill and hits <= 0):
+        raise AssertionError(f"engine {path}: the prefix cache was never "
+                             f"hit")
+    used = [k for k, ps in KERNEL_PATH.items() if path in ps]
+    if min(path_counts.get(k, 0) for k in used) <= 0:
+        raise AssertionError(f"engine {path}: kernel launches {path_counts}")
+    log(f"  scenario {rep.scenario}, {what}, compile_source "
+        f"{rep.compile_source}, migrated {rep.migrated}, prefix_cache_hits "
+        f"{hits}, prefill tokens {stats['prefill_tokens_computed']}, "
+        f"launches {path_counts}")
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: path_counts[k] for k in used}, (clean, fault), streams
 
 
 # -- main ---------------------------------------------------------------------------

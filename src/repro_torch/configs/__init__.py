@@ -1,22 +1,25 @@
 """Architecture registry of the port.
 
-The port serves the attention+MoE family; it carries the two configs of
-that family the JAX package serves (``qwen2-moe-a2.7b`` and the paper's
-``deepseek-v3``).  ``get_config(name)`` returns the full-size config,
+The port serves the attention+MoE family, with the two configs of that
+family the JAX package serves (``qwen2-moe-a2.7b`` and the paper's
+``deepseek-v3``), and the attention-free Mamba family
+(``falcon-mamba-7b``).  ``get_config(name)`` returns the full-size config,
 ``get_smoke_config`` the reduced same-family variant the CPU tests use.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import (
+    MambaConfig,
     MLAConfig,
     MoEConfig,
     ModelConfig,
     reduced,
 )
 from repro_torch.configs.deepseek_v3 import CONFIG as _deepseek
+from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as _qwen_moe
 
-_REGISTRY = {c.name: c for c in (_qwen_moe, _deepseek)}
+_REGISTRY = {c.name: c for c in (_qwen_moe, _deepseek, _falcon_mamba)}
 
 ALL_ARCHS = tuple(_REGISTRY)
 
@@ -35,6 +38,7 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 __all__ = [
     "ALL_ARCHS",
+    "MambaConfig",
     "MLAConfig",
     "MoEConfig",
     "ModelConfig",

@@ -15,6 +15,8 @@ PyTorch versions.
   MoE's capacity buffer (``csrc/expert_ffn.cu``).
 * ``flash_prefill`` — causal GQA attention over a whole prompt, with
   positions and a sliding window (``csrc/flash_prefill.cu``).
+* ``ssm_scan`` — the Mamba-1 selective scan over a whole prompt, and the
+  one-token state update of decode (``csrc/ssm_scan.cu``).
 
 ``ops`` dispatches by the tensors' device: CUDA tensors launch the
 kernel, CPU tensors run the plain version.  ``launches`` counts the

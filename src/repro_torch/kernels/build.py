@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("paged_attention", "moe_fused", "router_topk",
-           "decode_megastep", "expert_ffn", "flash_prefill")
+           "decode_megastep", "expert_ffn", "flash_prefill", "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

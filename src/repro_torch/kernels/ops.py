@@ -19,6 +19,7 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 from repro_torch.kernels.router_topk import (router_topk_cuda,
                                              router_topk_plain)
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
 
 
 def on_cpu(t: torch.Tensor) -> bool:
@@ -61,6 +62,14 @@ def flash_prefill(q, k, v, q_pos=None, kv_pos=None, *, causal: bool = True,
     ``window`` where it is > 0."""
     fn = flash_prefill_plain if on_cpu(q) else flash_prefill_cuda
     return fn(q, k, v, q_pos, kv_pos, causal=causal, window=window)
+
+
+def ssm_scan(u, dt, A, B_ssm, C_ssm, h0=None):
+    """Mamba-1 selective scan over u / dt (B, S, d), A (d, N), B / C (B,
+    S, N), from ``h0`` (B, d, N) or zero.  Returns (y (B, S, d) f32,
+    h_final (B, d, N) f32)."""
+    fn = ssm_scan_plain if on_cpu(u) else ssm_scan_cuda
+    return fn(u, dt, A, B_ssm, C_ssm, h0)
 
 
 def router_topk(logits, expert_mask, k: int):

@@ -12,7 +12,13 @@ A whole-prompt prefill (serial admission) is :meth:`Model.prefill_paged`:
 the full-sequence forward, its attention through ``ops.flash_prefill``,
 returning each layer's raw K/V rows for ``cache_ops.install_prefill``.
 
-Other families (dense, SSM, hybrid, audio, VLM) and MLA attention are
+The attention-free Mamba family (``family="ssm"``, falcon-mamba) is
+ported too: its blocks hold only ``ln1`` and the Mamba mixer, its paged
+cache is per-slot ``conv``/``ssm`` state with a batch axis, a whole
+prompt's forward returns each layer's final state, and both paths run the
+recurrence through ``ops.ssm_scan``.  It cannot chunk its prefill.
+
+The dense, hybrid (Jamba), audio and VLM families and MLA attention are
 later slices of the port and raise here.
 """
 from __future__ import annotations
@@ -26,6 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as Fn
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MoE
 from repro_torch.models.layers import (embed_init, padded_vocab_size,
                                        rms_norm, take_layer)
@@ -35,11 +42,16 @@ class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                  device=None):
         cfg.validate()
-        if cfg.family != "moe" or cfg.moe is None:
+        unported = {
+            "dense": "Queue 1 item 10", "vlm": "Queue 1 item 10",
+            "audio": "Queue 1 item 10",
+            "hybrid": "Queue 1 item 1h, the Jamba hybrid period"}
+        if cfg.family in unported:
             raise NotImplementedError(
-                f"family {cfg.family!r}: only attention+MoE models are "
-                f"ported so far (ROADMAP Queue 1 item 10)")
-        if cfg.attention_type != "gqa":
+                f"family {cfg.family!r}: only attention+MoE and Mamba "
+                f"models are ported so far (ROADMAP "
+                f"{unported[cfg.family]})")
+        if cfg.family == "moe" and cfg.attention_type != "gqa":
             raise NotImplementedError(
                 f"attention_type {cfg.attention_type!r}: MLA and "
                 f"deepseek-v3, with the megastep at the latent width, are "
@@ -58,6 +70,8 @@ class Model:
     def layer_groups(self):
         """(group_name, n_layers, mixer, ffn_kind, cross) per stack."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            return [("layers", cfg.num_layers, "mamba", None, False)]
         groups = []
         if cfg.moe.first_k_dense:
             groups.append(("dense_layers", cfg.moe.first_k_dense, "attn",
@@ -68,11 +82,17 @@ class Model:
 
     @property
     def supports_chunked_prefill(self) -> bool:
-        """Every mixer of the ported family is attention, so prompt tokens
-        can run as virtual decode slots against the paged pools."""
-        return True
+        """Chunked prefill runs prompt tokens as virtual decode slots
+        against the paged pools, which needs every mixer to be attention.
+        A Mamba mixer carries per-slot state that must be threaded
+        through the prompt in order, so its models keep whole-prompt
+        prefills."""
+        return all(mixer == "attn"
+                   for _, _, mixer, _, _ in self.layer_groups())
 
-    def default_runtime(self) -> MoE.MoERuntime:
+    def default_runtime(self) -> Optional[MoE.MoERuntime]:
+        if self.cfg.moe is None:
+            return None
         return MoE.default_runtime(self.cfg.moe, self.device)
 
     # -- init ----------------------------------------------------------------
@@ -87,15 +107,18 @@ class Model:
             "final_norm": torch.ones(D, dtype=dtype, device=self.device),
             "lm_head": embed_init(gen, self.vpad, D, dtype).T.contiguous(),
         }
-        for name, n, _, ffn_kind, _ in self.layer_groups():
+        for name, n, mixer, ffn_kind, _ in self.layer_groups():
             p: Dict[str, Any] = {
-                "ln1": torch.ones((n, D), dtype=dtype, device=self.device),
-                "mixer": A.gqa_init(gen, cfg, dtype, (n,)),
-                "ln2": torch.ones((n, D), dtype=dtype, device=self.device),
-            }
+                "ln1": torch.ones((n, D), dtype=dtype, device=self.device)}
+            if mixer == "mamba":        # a Mamba block has no FFN
+                p["mixer"] = M.mamba_init(gen, cfg, dtype, (n,))
+            else:
+                p["mixer"] = A.gqa_init(gen, cfg, dtype, (n,))
+                p["ln2"] = torch.ones((n, D), dtype=dtype,
+                                      device=self.device)
             if ffn_kind == "moe":
                 p["moe"] = MoE.moe_init(gen, cfg, dtype, n)
-            else:
+            elif ffn_kind is not None:
                 p["ffn"] = Fn.ffn_init(gen, D, cfg.moe.dense_d_ff or cfg.d_ff,
                                        cfg.activation, dtype, (n,))
             params[name] = p
@@ -108,6 +131,8 @@ class Model:
         return y + MoE.shared_expert_apply(p, self.cfg, x)
 
     def _cap(self, n_tokens: int) -> int:
+        if self.cfg.moe is None:
+            return 0
         return MoE.capacity(n_tokens * self.cfg.moe.top_k,
                             MoE.physical_experts(self.cfg.moe),
                             self.cfg.moe.capacity_factor,
@@ -115,12 +140,17 @@ class Model:
 
     # -- full-sequence forward (whole-prompt prefill) --------------------------
 
-    def _block_fwd(self, p, x, positions, *, ffn_kind, runtime, cap):
+    def _block_fwd(self, p, x, positions, *, mixer, ffn_kind, runtime, cap):
         """One block over a whole sequence.  x: (B, S, D).  Returns (x,
         cache entry): the block's raw (B, S, Hkv, Dh) K (rope applied)
-        and V."""
+        and V, or a Mamba block's final (B, ...) ``conv`` and ``ssm``
+        state."""
         cfg = self.cfg
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if mixer == "mamba":
+            out, state = M.mamba_forward(p["mixer"], cfg, h,
+                                         return_state=True)
+            return x + out, state._asdict()
         out, entry = self._gqa_fwd_cache(p["mixer"], h, positions)
         x = x + out
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -136,18 +166,19 @@ class Model:
 
     def _trunk(self, params, x, positions, runtime):
         """Every layer group, layer by layer.  Returns (x, caches): per
-        group the stacked (L, B, S, Hkv, Dh) raw K and V."""
+        group the stacked (L, B, S, Hkv, Dh) raw K and V, or the stacked
+        (L, B, ...) Mamba state."""
         cap = self._cap(x.shape[0] * x.shape[1])
         caches: Dict[str, Any] = {}
-        for name, n, _, ffn_kind, _ in self.layer_groups():
+        for name, n, mixer, ffn_kind, _ in self.layer_groups():
             entries = []
             for i in range(n):
                 x, entry = self._block_fwd(
-                    take_layer(params[name], i), x, positions,
+                    take_layer(params[name], i), x, positions, mixer=mixer,
                     ffn_kind=ffn_kind, runtime=runtime, cap=cap)
                 entries.append(entry)
             caches[name] = {key: torch.stack([e[key] for e in entries])
-                            for key in ("k", "v")}
+                            for key in entries[0]}
         return x, caches
 
     def _embed_inputs(self, params, batch):
@@ -172,7 +203,11 @@ class Model:
         S) and optionally ``lengths`` (B,), the real prompt lengths.
         Returns ``(last_logits, raw)``: the logits at each row's last real
         position and, per layer group, the raw K/V rows (L, B, S, Hkv, Dh)
-        that ``cache_ops.install_prefill`` writes into pool blocks."""
+        that ``cache_ops.install_prefill`` writes into pool blocks, or the
+        final Mamba state (L, B, ...) that it copies into the request's
+        batch slot.  As in the JAX package, a Mamba prompt padded to its
+        bucket runs its padding tokens through the recurrence too: the
+        state is the one after the bucket, not after the prompt."""
         logits, caches = self.logits_full(params, batch, runtime)
         if "lengths" in batch:
             rows = torch.arange(logits.shape[0], device=logits.device)
@@ -187,15 +222,22 @@ class Model:
                          dtype: Optional[torch.dtype] = None, device=None):
         """Per-layer-group K/V pools with **no batch axis** (requests own
         physical blocks through block tables), plus one trailing *trash*
-        block (id ``num_blocks``) that idle rows write into.  ``batch`` is
-        unused by attention pools; it is kept so callers can tell pool
-        leaves from per-slot state by varying it."""
-        del batch
+        block (id ``num_blocks``) that idle rows write into; a Mamba
+        group keeps fixed-size per-slot ``conv``/``ssm`` state with a
+        batch axis, (L, batch, ...).  Callers tell pool leaves from
+        per-slot state by varying ``batch``."""
         dtype = dtype or self.dtype
         device = self.device if device is None else device
-        return {name: A.gqa_paged_pools(self.cfg, num_blocks + 1, block_size,
-                                        dtype, device, (n,))
-                for name, n, _, _, _ in self.layer_groups()}
+        caches = {}
+        for name, n, mixer, _, _ in self.layer_groups():
+            if mixer == "mamba":
+                caches[name] = M.mamba_init_state(self.cfg, batch, dtype,
+                                                  device, (n,))
+            else:
+                caches[name] = A.gqa_paged_pools(
+                    self.cfg, num_blocks + 1, block_size, dtype, device,
+                    (n,))
+        return caches
 
     @torch.no_grad()
     def decode_step_paged(self, params, cache, token, page, runtime=None):
@@ -205,36 +247,41 @@ class Model:
         (``tables`` (B, max_blk), ``seq_lens`` (B,) valid length including
         this step's token, ``write_bid``/``write_off`` (B,) where it
         lands; idle rows point at the trash block with seq_len 0), all
-        int32 on the model's device.  The pools are updated in place.
-        Returns ``(logits, cache)``.
+        int32 on the model's device.  The pools, and a Mamba model's
+        per-slot state (every slot's, idle ones too, as in the JAX
+        package), are updated in place.  Returns ``(logits, cache)``.
         """
         cfg = self.cfg
         runtime = runtime if runtime is not None else self.default_runtime()
         x = params["embed"][token.long()]                # (B, D)
         cap = self._cap(x.shape[0])
-        if cfg.decode_impl == "megakernel":
+        if cfg.decode_impl == "megakernel" and cfg.moe is not None:
             # every layer attends over the same window: its lower bounds
             # (zeros without a window) are computed once per step
             starts = A.window_starts(cfg, page["seq_lens"])
             page = dict(page, starts=torch.zeros_like(page["seq_lens"])
                         if starts is None else starts)
-        for name, n, _, ffn_kind, _ in self.layer_groups():
-            pools = cache[name]
+        for name, n, mixer, ffn_kind, _ in self.layer_groups():
             for i in range(n):
                 x = self._block_decode_paged(
                     take_layer(params[name], i), x,
-                    {"k": pools["k"][i], "v": pools["v"][i]}, page,
-                    runtime, cap, ffn_kind)
+                    take_layer(cache[name], i), page, runtime, cap, mixer,
+                    ffn_kind)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x @ params["lm_head"], cache
 
-    def _block_decode_paged(self, p, x, pools, page, runtime, cap, ffn_kind):
+    def _block_decode_paged(self, p, x, csl, page, runtime, cap, mixer,
+                            ffn_kind):
+        """One block's decode step.  ``csl`` is the layer's slice of the
+        cache: its K/V pools, or its Mamba state."""
         cfg = self.cfg
         if cfg.decode_impl == "megakernel" and ffn_kind == "moe":
-            return self._block_decode_megastep(p, x, pools, page, runtime,
+            return self._block_decode_megastep(p, x, csl, page, runtime,
                                                cap)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        x = x + A.gqa_decode_paged(p["mixer"], cfg, h, pools, page)
+        if mixer == "mamba":
+            return x + M.mamba_decode(p["mixer"], cfg, h, csl)
+        x = x + A.gqa_decode_paged(p["mixer"], cfg, h, csl, page)
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if ffn_kind == "moe":
             return x + self._moe(p["moe"], h2, runtime, cap)

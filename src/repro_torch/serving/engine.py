@@ -7,7 +7,10 @@ manipulates real data structures and real weight files.
 
 This is ``repro.serving.engine.InferenceEngine`` in collocated lockstep
 mode (§2.2: every device hosts attention plus an EP expert shard), with
-chunked admission or serial whole-prompt prefills.  ``EngineConfig``
+chunked admission or serial whole-prompt prefills.  A model without
+experts (the Mamba family) has no expert map, runtime or shards: the
+engine forces collocated mode, as the JAX package does, and a fault
+revives its attention side alone.  ``EngineConfig``
 keeps every field and every check of the JAX package's; options of later
 slices raise ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -257,11 +260,11 @@ class InferenceEngine:
         ``dtype``: the weights' and pools' type (bf16 on the card, f32 on
         the CPU unless given)."""
         self.ecfg = engine_cfg or EngineConfig()
-        check_ported(self.ecfg)
         if cfg.moe is None:
-            raise NotImplementedError(
-                "dense models are not ported yet (ROADMAP Queue 1 item 10)")
-        if self.ecfg.moe_impl is not None:
+            # no expert ranks: disaggregated degenerates to collocated
+            self.ecfg.mode = "collocated"
+        check_ported(self.ecfg)
+        if self.ecfg.moe_impl is not None and cfg.moe is not None:
             cfg = dataclasses.replace(cfg, moe_impl=self.ecfg.moe_impl)
         if self.ecfg.decode_impl is not None:
             cfg = dataclasses.replace(cfg, decode_impl=self.ecfg.decode_impl)
@@ -310,21 +313,24 @@ class InferenceEngine:
             else:
                 self.params = self.model.init(ec.seed)
                 save_checkpoint(self.ckpt_path, self.params)
-            self.ep_size = ec.num_dp
+            moe = self.cfg.moe
+            self.ep_size = ec.num_dp if moe is not None else 0
             self.shards = split_experts(self.params, self.ep_size)
             save_shard_checkpoints(ec.workdir, self.shards)
-            self.expert_map = ExpertMap(self.cfg.moe, self.ep_size,
-                                        device=self.device)
-            self.runtime = self.expert_map.runtime()
+            self.expert_map = (ExpertMap(moe, self.ep_size,
+                                         device=self.device)
+                               if moe is not None else None)
+            self.runtime = (self.expert_map.runtime()
+                            if moe is not None else None)
             self.shard_alive = [True] * self.ep_size
             self._resident = [True] * self.ep_size
             self.dense_groups = (DenseFFNGroups(max(2, self.ep_size // 2))
-                                 if self.cfg.moe.first_k_dense else None)
+                                 if moe is not None and moe.first_k_dense
+                                 else None)
 
         with _Timer(t, "executor_processes"):
             self.dp_executors: List[DPExecutor] = [
-                self._make_dp_executor(i, shard=self.shards[i])
-                for i in range(ec.num_dp)]
+                self._make_dp_executor(i) for i in range(ec.num_dp)]
             for ex in self.dp_executors:
                 self.monitor.register(ex.physical_id, self.step_no)
 
@@ -354,13 +360,17 @@ class InferenceEngine:
         self.init_timings = t
         return t
 
-    def _make_dp_executor(self, i: int, *, shard) -> DPExecutor:
+    def _make_dp_executor(self, i: int) -> DPExecutor:
+        """Rank ``i``; collocated, it also hosts EP rank ``i``'s shard
+        (a model without experts has none)."""
         ec = self.ecfg
+        moe = self.cfg.moe is not None
         return DPExecutor(
             physical_id=i, dp_rank=i, model=self.model,
             max_batch=ec.max_batch, max_seq=ec.max_seq,
             num_blocks=ec.num_blocks, block_size=ec.block_size,
-            sampling=ec.sampling, ep_rank=i, shard=shard,
+            sampling=ec.sampling, ep_rank=i if moe else None,
+            shard=self.shards[i] if moe else None,
             paged_axes=self.paged_axes,
             admission=ec.admission,
             prefill_chunk=ec.prefill_chunk,
@@ -436,7 +446,7 @@ class InferenceEngine:
         least = min(healthy, key=lambda e: e.scheduler.num_requests)
         ex = least
         digests = None
-        if (len(healthy) > 1 and self.ecfg.prefix_cache
+        if (len(healthy) > 1 and self._chunking and self.ecfg.prefix_cache
                 and len(req.tokens_so_far) > self.ecfg.block_size):
             from repro_torch.core.block_log import prompt_digests
             digests = prompt_digests(tuple(req.tokens_so_far),
@@ -464,7 +474,8 @@ class InferenceEngine:
             serving=bool(healthy_dp),
             healthy_dp=len(healthy_dp), total_dp=len(self.dp_executors),
             healthy_moe=0, total_moe=0,
-            expert_coverage=self.expert_map.coverage(),
+            expert_coverage=(self.expert_map.coverage()
+                             if self.expert_map is not None else 1.0),
             queue_depth=sum(ex.scheduler.num_requests
                             for ex in healthy_dp),
             unfinished=self.unfinished,

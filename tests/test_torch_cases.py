@@ -177,3 +177,26 @@ def flash_inputs(B, S, H, Hkv, Dh, shift, seed=0):
             rng.normal(size=(B, S, Hkv, Dh)).astype(np.float32),
             rng.normal(size=(B, S, Hkv, Dh)).astype(np.float32),
             pos, pos + np.int32(shift))
+
+
+SSM_CASES = {
+    # id: (B, S, d, N, block_d, chunk, with h0)   (tests/test_kernels.py:74)
+    "s64_d256": (1, 64, 256, 16, 256, 32, False),
+    "s128_d512": (2, 128, 512, 16, 128, 64, False),
+    "s96_n8": (2, 96, 256, 8, 256, 32, False),
+    "h0": (3, 40, 328, 16, 8, 8, True),    # d not a multiple of a CTA's 16
+}
+
+
+def ssm_inputs(B, S, d, N, with_h0, seed=0):
+    """u, dt, A, B, C (and h0 or None) as tests/test_kernels.py draws them:
+    dt = softplus(z - 2), A = -exp(0.3 z)."""
+    rng = np.random.default_rng(seed + S * d)
+    u = (rng.normal(size=(B, S, d)) * 0.1).astype(np.float32)
+    dt = np.logaddexp(rng.normal(size=(B, S, d)) - 2, 0).astype(np.float32)
+    A = -np.exp(rng.normal(size=(d, N)) * 0.3).astype(np.float32)
+    Bs = (rng.normal(size=(B, S, N)) * 0.2).astype(np.float32)
+    Cs = (rng.normal(size=(B, S, N)) * 0.2).astype(np.float32)
+    h0 = ((rng.normal(size=(B, d, N)) * 0.5).astype(np.float32)
+          if with_h0 else None)
+    return u, dt, A, Bs, Cs, h0

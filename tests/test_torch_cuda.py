@@ -19,12 +19,14 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 from repro_torch.kernels.router_topk import (router_topk_cuda,
                                              router_topk_plain)
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
 from repro_torch.models.moe import MoERuntime, select_replicas
 from test_torch_cases import (DEPLOY, EXPERT_FFN_GRID, FLASH_CASES,
                               MEGASTEP_CASES, MOE_FUSED_GRID, PAGED_CASES,
-                              ROUTER_CASES, expert_ffn_inputs, flash_inputs,
-                              megastep_inputs, moe_inputs, paged_inputs,
-                              router_inputs, t as _t)
+                              ROUTER_CASES, SSM_CASES, expert_ffn_inputs,
+                              flash_inputs, megastep_inputs, moe_inputs,
+                              paged_inputs, router_inputs, ssm_inputs,
+                              t as _t)
 
 
 @pytest.fixture
@@ -192,3 +194,34 @@ def test_flash_prefill_cuda_vs_plain(card, case, dtype):
                                atol=tol)
     if shift:
         assert not got[:, :shift].any()  # rows that see no key give 0
+
+
+# falcon-mamba-7b at full width (d_inner 8192, N 16): a 256-token prefill
+# bucket from zero, and the decode step of 8 slots from their state
+SSM_CARD_CASES = dict(SSM_CASES, prefill_d8192=(1, 256, 8192, 16, 0, 0, False),
+                      decode_d8192=(8, 1, 8192, 16, 0, 0, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(SSM_CARD_CASES))
+def test_ssm_scan_cuda_vs_plain(card, case, dtype):
+    B, S, d, N, _, _, with_h0 = SSM_CARD_CASES[case]
+    u, dt, A, Bs, Cs, h0 = ssm_inputs(B, S, d, N, with_h0)
+    u, dt, Bs, Cs = (_t(a).to(card, dtype) for a in (u, dt, Bs, Cs))
+    A = _t(A).to(card)
+    h0 = None if h0 is None else _t(h0).to(card, dtype)   # the slot state
+    n0 = launches["ssm_scan"]
+    got = ssm_scan_cuda(u, dt, A, Bs, Cs, h0)
+    again = ssm_scan_cuda(u, dt, A, Bs, Cs, h0)
+    torch.cuda.synchronize()
+    assert launches["ssm_scan"] == n0 + 2
+    want = ssm_scan_plain(u, dt, A, Bs, Cs, h0)
+    # tests/test_kernels.py:89 for both types: both versions cast the bf16
+    # inputs to f32 before any product and then compute the same sums
+    rtol, atol = 1e-4, 1e-5
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.float32
+        assert torch.equal(g, a)         # bitwise run to run
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=rtol, atol=atol)
