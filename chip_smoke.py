@@ -24,8 +24,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              replica, an over-capacity expert and a foreign half bank,
              its slot tables exactly those of the plain sort pass; the
              grouped expert FFN over the dense capacity buffer at decode
-             (C=8) and prefill (C=20) capacity; whole-prompt attention at
-             S = 16, 200, 256 and 512, with and without window 6; the
+             (C=8) and prefill (C=20, 40) capacity; whole-prompt attention
+             at S = 16, 200, 256 and 512, with and without window 6; the
              selective scan at falcon-mamba-7b's width (d_inner 8192, N
              16), a prefill row at S = 200, 256 and 512 and the decode
              step of 8 slots from their state.  Every
@@ -679,7 +679,7 @@ def kernels_megastep(torch, S):
 def kernels_expert_ffn(torch):
     """The dense-scatter MoE's expert FFN at the serial path's shapes: all
     64 experts of a qwen2-moe-a2.7b layer over a capacity buffer of C=8
-    rows (decode) and C=20 (a 256-token prefill bucket)."""
+    rows (decode), C=20 (a 256-token prefill bucket) and C=40 (512)."""
     import torch.nn.functional as F
     from repro_torch.kernels.expert_ffn import (expert_ffn_cuda,
                                                 expert_ffn_plain)
@@ -689,7 +689,7 @@ def kernels_expert_ffn(torch):
     errs, timed = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for C in (8, 20):
+        for C in (8, 20, 40):
             gen = torch.Generator(device="cuda").manual_seed(30 + C)
 
             def randn(*shape, scale=1.0):
@@ -708,7 +708,7 @@ def kernels_expert_ffn(torch):
                                 expert_ffn_plain(*args), dn, FFN_TOL))
             if dtype is torch.bfloat16:
                 timed[C] = args
-            del got, again
+            del got, again, args
 
     def library(x, g, u, d):    # the closest torch.bmm chain
         return torch.bmm(F.silu(torch.bmm(x, g)) * torch.bmm(x, u), d)
@@ -719,7 +719,7 @@ def kernels_expert_ffn(torch):
         nbytes = el * (3 * E * D * Fd + 2 * E * C * D)
         flops = 6 * E * C * D * Fd
         t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
-        rows[C] = dict(
+        rows[C] = r = dict(
             max_abs_err=max(errs),
             ms=time_ms(torch, lambda: expert_ffn_cuda(*args)),
             plain_ms=time_ms(torch, lambda: expert_ffn_plain(*args)),
@@ -728,11 +728,11 @@ def kernels_expert_ffn(torch):
             library_ms=time_ms(torch, lambda: library(*args)),
             shape=f"E={E} C={C} D={D} F={Fd} bf16 (library: silu(bmm) * "
                   f"bmm, then bmm)")
-        if C != 8:
-            r = rows[C]
-            log(f"  expert_ffn at C={C}: kernel {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}), library {r['library_ms']:.4f} ms")
+        log(f"  expert_ffn at C={C}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {nbytes / r['ms'] / 1e6:.0f} GB/s of the "
+            f"bound's bytes), "
+            f"library {r['library_ms']:.4f} ms")
         log(f"  expert_ffn's kernels at C={C} (torch.profiler, mean of 20 "
             f"calls, L2 warm):")
         for us, key in kernel_breakdown(torch, lambda: expert_ffn_cuda(*args)):
@@ -765,7 +765,7 @@ def kernels_flash_prefill(torch):
         "H=Hkv=16, Dh=128)")
     H = Hkv = QWEN["H"]
     Dh = QWEN["Dh"]
-    errs, timed = [], None
+    errs, timed = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for S in (16, 200, 256, 512):
@@ -785,26 +785,35 @@ def kernels_flash_prefill(torch):
                 want = flash_prefill_plain(q, k, v, pos, pos, **kw)
                 errs.append(compare(f"S={S} window {window} {dn}", got,
                                     want, dn, FLASH_TOL))
-                if S == 256 and not window and dtype is torch.bfloat16:
-                    timed = (q, k, v, pos)
-    q, k, v, pos = timed
-    S = q.shape[1]
+                if S >= 256 and not window and dtype is torch.bfloat16:
+                    timed[S] = (q, k, v, pos)
+    rows = {}
+    for S, (q, k, v, pos) in timed.items():
+        def library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
 
-    def library():
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True)
+        def kernel():
+            return flash_prefill_cuda(q, k, v, pos, pos)
 
-    bound, by = flash_bound_ms(S, H, Hkv, Dh, 0, q.element_size(),
-                               "bfloat16")
-    return dict(
-        max_abs_err=max(errs),
-        ms=time_ms(torch, lambda: flash_prefill_cuda(q, k, v, pos, pos)),
-        plain_ms=time_ms(torch, lambda: flash_prefill_plain(q, k, v, pos,
-                                                            pos)),
-        bound_ms=bound, bound_by=by, library_ms=time_ms(torch, library),
-        shape=f"B=1 S={S} H=Hkv={H} Dh={Dh} causal bf16 (library: "
-              f"scaled_dot_product_attention)")
+        bound, by = flash_bound_ms(S, H, Hkv, Dh, 0, q.element_size(),
+                                   "bfloat16")
+        rows[S] = r = dict(
+            max_abs_err=max(errs), ms=time_ms(torch, kernel),
+            plain_ms=time_ms(torch, lambda: flash_prefill_plain(q, k, v, pos,
+                                                                pos)),
+            bound_ms=bound, bound_by=by, library_ms=time_ms(torch, library),
+            shape=f"B=1 S={S} H=Hkv={H} Dh={Dh} causal bf16 (library: "
+                  f"scaled_dot_product_attention)")
+        log(f"  flash_prefill at S={S}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), library {r['library_ms']:.4f} ms")
+        log(f"  flash_prefill's kernels at S={S} (torch.profiler, mean of 20 "
+            f"calls, L2 warm):")
+        for us, key in kernel_breakdown(torch, kernel):
+            log(f"    {us:9.2f} us  {key[:90]}")
+    return rows[256]
 
 
 FALCON = dict(d_inner=8192, N=16)

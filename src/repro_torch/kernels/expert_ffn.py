@@ -1,5 +1,6 @@
 """Grouped expert SwiGLU FFN: the plain PyTorch version and the launcher of
-the CUDA kernel (``csrc/expert_ffn.cu``).
+the CUDA kernel (``csrc/expert_ffn.cu``: bf16 on the tensor cores, f32 on
+FMA).
 
 Both compute ``repro.kernels.ref.expert_ffn_ref`` over a dense capacity
 buffer: per expert, ``silu(x @ gate) * (x @ up)`` accumulated in f32 and
@@ -44,6 +45,10 @@ def expert_ffn_cuda(x, gate_w, up_w, down_w):
     build.check_arg("gate_w", gate_w, x.dtype, (E, D, Fd), dev)
     build.check_arg("up_w", up_w, x.dtype, (E, D, Fd), dev)
     build.check_arg("down_w", down_w, x.dtype, (E, Fd, D), dev)
+    for name, t in (("x", x), ("gate_w", gate_w), ("up_w", up_w),
+                    ("down_w", down_w)):
+        if t.data_ptr() % 16:                # the kernel's cp.async reads
+            raise ValueError(f"expert_ffn: {name} is not 16-byte aligned")
     lib = build.load("expert_ffn", _PROTOTYPES)
     y = torch.empty_like(x)
     if y.numel() == 0:

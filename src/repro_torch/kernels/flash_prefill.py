@@ -1,5 +1,7 @@
 """Whole-prompt GQA attention: the plain PyTorch version and the launcher
-of the CUDA kernel (``csrc/flash_prefill.cu``).
+of the CUDA kernel (``csrc/flash_prefill.cu``: bf16 on the tensor cores,
+where p is rounded to V's type before p @ V as ``repro``'s
+``flash_attention`` does; f32 on FMA with p in f32).
 
 Both compute ``repro.kernels.ref.flash_prefill_ref`` — q (B, Sq, H, Dh)
 attends over k / v (B, Skv, Hkv, Dh), scores scaled by 1/sqrt(Dh),
@@ -25,7 +27,7 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
     "flash_prefill": ([_VP] * 6 + [_CI] * 8 + [ctypes.c_float, _CI, _VP],
                       _CI),
-    "flash_prefill_smem_bytes": ([_CI, _CI], ctypes.c_longlong),
+    "flash_prefill_smem_bytes": ([_CI] * 7, ctypes.c_longlong),
 }
 
 
@@ -89,7 +91,8 @@ def flash_prefill_cuda(q, k, v, q_pos=None, kv_pos=None, *,
         if t.data_ptr() % 16:
             raise ValueError(f"flash_prefill: {name} is not 16-byte aligned")
     lib = build.load("flash_prefill", _PROTOTYPES)
-    smem = lib.flash_prefill_smem_bytes(H // Hkv, Dh)
+    smem = lib.flash_prefill_smem_bytes(B, Sq, Skv, H, Hkv, Dh,
+                                        build.DTYPE_CODES[q.dtype])
     if smem > build.MAX_SMEM_BYTES:
         raise ValueError(f"flash_prefill: {H // Hkv} heads per KV head at "
                          f"Dh={Dh} need {smem} B of shared memory")

@@ -153,7 +153,9 @@ def test_router_topk_cuda_fully_masked_row_is_finite(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("E,C,D,F", EXPERT_FFN_GRID)
+# plus D and F that are no multiple of 8: rows not 16-byte aligned, which
+# the bf16 kernel copies element by element
+@pytest.mark.parametrize("E,C,D,F", EXPERT_FFN_GRID + [(3, 13, 36, 44)])
 def test_expert_ffn_cuda_vs_plain(card, E, C, D, F, dtype):
     x, g, u, d = (_t(a).to(card, dtype)
                   for a in expert_ffn_inputs(E, C, D, F))
@@ -171,11 +173,56 @@ def test_expert_ffn_cuda_vs_plain(card, E, C, D, F, dtype):
                                atol=tol)
 
 
+# the serial path's shapes: qwen2-moe-a2.7b's 64 experts (D=2048, F=1408)
+# at the capacity of decode (8) and of the 256- and 512-token buckets (20,
+# 40), and at capacities that are no multiple of 8: 37 (five row blocks in
+# one warp), 67 (two warp columns) and 150 (two gate/up passes)
+FFN_MAIN_C = [8, 20, 40, 37, 67, 150]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", list(FLASH_CASES))
+@pytest.mark.parametrize("C", FFN_MAIN_C)
+def test_expert_ffn_cuda_vs_plain_main_shapes(card, C, dtype):
+    E, D, F = 64, 2048, 1408
+    gen = torch.Generator(device=card).manual_seed(C)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=card)
+                * scale).to(dtype)
+    x = randn(E, C, D)
+    g = randn(E, D, F, scale=D ** -0.5)
+    u = randn(E, D, F, scale=D ** -0.5)
+    d = randn(E, F, D, scale=F ** -0.5)
+    n0 = launches["expert_ffn"]
+    got = expert_ffn_cuda(x, g, u, d)
+    again = expert_ffn_cuda(x, g, u, d)
+    torch.cuda.synchronize()
+    assert launches["expert_ffn"] == n0 + 2
+    assert torch.equal(got, again)       # bitwise run to run
+    want = expert_ffn_plain(x, g, u, d)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+# plus a head dim that is no multiple of 16 (zero-padded to 64 in the bf16
+# kernel) with three query heads per KV head and a window, and the serial
+# path's prefill buckets at qwen2-moe-a2.7b's widths
+FLASH_CARD_CASES = dict(
+    FLASH_CASES, dh40_g3=(1, 70, 6, 2, 40, True, 5, 0),
+    s256=(1, 256, 16, 16, 128, True, 0, 0),
+    s256_window6=(1, 256, 16, 16, 128, True, 6, 0),
+    s512=(1, 512, 16, 16, 128, True, 0, 0),
+    s512_window6=(1, 512, 16, 16, 128, True, 6, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_CARD_CASES))
 def test_flash_prefill_cuda_vs_plain(card, case, dtype):
-    B, S, H, Hkv, Dh, causal, window, shift = FLASH_CASES[case]
+    B, S, H, Hkv, Dh, causal, window, shift = FLASH_CARD_CASES[case]
     q, k, v, qpos, kvpos = flash_inputs(B, S, H, Hkv, Dh, shift)
     q, k, v = (_t(a).to(card, dtype) for a in (q, k, v))
     qpos, kvpos = _t(qpos).to(card), _t(kvpos).to(card)
