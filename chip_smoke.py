@@ -30,9 +30,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              16), a prefill row at S = 200, 256 and 512 and the decode
              step of 8 slots from their state.  Every
              kernel runs twice and must be bitwise equal; kernel and plain
-             version are timed at the main path's shapes (the megastep
-             also beside the composed chain of the same block), and
-             beside a library call where one computes the same function.
+             version are timed at the main path's shapes (the fused MoE at
+             T = 8 and 40 with its device time split between its kernels
+             and its sort pass, the megastep at B = 8 and 40 also beside
+             the composed chain of the same block), and beside a library
+             call where one computes the same function.
 4. model   — qwen2-moe-a2.7b at full width, 2 layers, f32: one chunk step
              and one decode step on the card against the same weights on
              the CPU (plain versions), once per decode implementation
@@ -137,6 +139,10 @@ MODEL_LOGIT_ATOL = 1e-3       # f32, 2 layers at full width, card vs CPU
 # products before the scan sum in other orders
 STATE_TOL = (1e-4, 1e-3)
 ENGINE_LAYERS = 16            # of 24: bounded by the disk a run may write
+# the kernels phase's shapes: the engine phase's batch, chunk and paging,
+# qwen2-moe-a2.7b's widths
+SHAPES = dict(max_batch=8, chunk=32, block_size=16, num_blocks=256,
+              max_blk=512 // 16, d_model=2048, d_ff=1408, top_k=4, cap=8)
 
 
 def log(msg: str) -> None:
@@ -181,6 +187,22 @@ def kernel_breakdown(torch, fn, reps: int = 20):
     return sorted(((e.self_device_time_total / reps, e.key)
                    for e in prof.key_averages()
                    if e.self_device_time_total > 0), reverse=True)
+
+
+def kernel_sequence(torch, fn):
+    """The kernels of one call of ``fn``, in launch order, each with its
+    device time in µs (after a warm-up call; ``fn`` must not
+    synchronise): where a chain's stages that share a kernel name go."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")),
+                 key=lambda e: e.time_range.start)
+    return [(e.time_range.elapsed_us(), e.name) for e in evs]
 
 
 def compare(name, got, want, dtype_name, tol=TOL):
@@ -308,6 +330,38 @@ def moe_bound_ms(args, kw, dtype_name):
             live_experts, live_slots)
 
 
+# moe_fused's cases on the card (name, T, e_local, offset, hot tokens);
+# the decode step (T=8) and the chunk step (T = chunk + max_batch = 40)
+# are timed
+MOE_TIMED = ("decode", "chunk step")
+
+
+def moe_cases(S):
+    return [("decode", S["max_batch"], 64, 0, 0),
+            ("chunk, overflow on expert 5", S["chunk"], 64, 0, 12),
+            ("chunk, foreign half (offset 32)", S["chunk"], 32, 32, 10),
+            ("chunk step", S["chunk"] + S["max_batch"], 64, 0, 0)]
+
+
+def moe_breakdown(torch, fn, T):
+    """moe_fused's device time split between the kernels of moe_fused.cu
+    and the sort pass (moe_group_tokens and the launcher's allocations:
+    plain PyTorch operations on the device)."""
+    rows = kernel_breakdown(torch, fn)
+    ours = [(us, k) for us, k in rows
+            if "ffn_mma" in k or "combine" in k]
+    sort = [(us, k) for us, k in rows if (us, k) not in ours]
+    total = sum(us for us, _ in rows)
+    log(f"  moe_fused's device time at T={T} (torch.profiler, mean of 20 "
+        f"calls, L2 warm): {total:.2f} us; kernels "
+        f"{sum(us for us, _ in ours):.2f} us, sort pass "
+        f"{sum(us for us, _ in sort):.2f} us "
+        f"({100 * sum(us for us, _ in sort) / max(total, 1e-9):.1f}%)")
+    for us, key in rows:
+        log(f"    {us:9.2f} us  {'kernel' if (us, key) in ours else 'sort':6}"
+            f"  {key[:84]}")
+
+
 def phase_kernels(torch, shapes):
     from repro_torch.kernels.moe_fused import moe_fused_cuda, moe_fused_plain
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -359,15 +413,10 @@ def phase_kernels(torch, shapes):
 
     log("kernels: moe_fused vs moe_fused_plain on the card")
     errs = []
-    moe_cases = [
-        # name, T, e_local, offset, hot tokens
-        ("decode", S["max_batch"], 64, 0, 0),
-        ("chunk, overflow on expert 5", S["chunk"], 64, 0, 12),
-        ("chunk, foreign half (offset 32)", S["chunk"], 32, 32, 10),
-    ]
+    timed = {}
     for dtype in (f32, bf16):
         dn = str(dtype).split(".")[1]
-        for i, (name, T, e_local, off, hot) in enumerate(moe_cases):
+        for i, (name, T, e_local, off, hot) in enumerate(moe_cases(S)):
             args, kw = moe_case(torch, T=T, E=64, e_local=e_local, off=off,
                                 D=S["d_model"], Fd=S["d_ff"], k=S["top_k"],
                                 cap=S["cap"], dtype=dtype, seed=10 + i,
@@ -383,18 +432,24 @@ def phase_kernels(torch, shapes):
             errs.append(compare(
                 f"{name} T={T} ({live_e} experts, {live_s} slots) {dn}",
                 got, want, dn))
-            if i == 0 and dtype is bf16:
-                timed = (args, kw, dn)
+            if name in MOE_TIMED and dtype is bf16:
+                timed[T] = (args, kw, dn)
         del args, got, again, want
-    args, kw, dn = timed
-    bound, by, live_e, live_s = moe_bound_ms(args, kw, dn)
-    out["moe_fused"] = dict(
-        max_abs_err=max(errs),
-        ms=time_ms(torch, lambda: moe_fused_cuda(*args, **kw)),
-        plain_ms=time_ms(torch, lambda: moe_fused_plain(*args, **kw)),
-        bound_ms=bound, bound_by=by, library_ms=None,
-        shape=f"decode T={args[0].shape[0]} D=2048 F=1408 E=64 k=4 cap=8 "
-              f"bf16, {live_e} experts / {live_s} slots live")
+    rows = {}
+    for T, (args, kw, dn) in timed.items():
+        bound, by, live_e, live_s = moe_bound_ms(args, kw, dn)
+        rows[T] = r = dict(
+            max_abs_err=max(errs),
+            ms=time_ms(torch, lambda: moe_fused_cuda(*args, **kw)),
+            plain_ms=time_ms(torch, lambda: moe_fused_plain(*args, **kw)),
+            bound_ms=bound, bound_by=by, library_ms=None,
+            shape=f"T={T} D=2048 F=1408 E=64 k=4 cap=8 bf16, {live_e} "
+                  f"experts / {live_s} slots live")
+        log(f"  moe_fused at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+        moe_breakdown(torch, lambda: moe_fused_cuda(*args, **kw), T)
+    out["moe_fused"] = rows[S["max_batch"]]
     del timed, args
     gc.collect()
     torch.cuda.empty_cache()
@@ -536,6 +591,27 @@ def megastep_case(torch, S, *, B, dtype, seed, window=0, masked=(),
     return args, kw, int((seq - start).clip(min=0).sum())
 
 
+# the megastep's cases on the card (name, kwargs of megastep_case); the
+# decode step (B=8) and the chunk step (B=40) are timed
+MEGA_TIMED = ("decode", "chunk step")
+
+
+def megastep_cases(S):
+    return [
+        # name, kwargs of megastep_case
+        ("decode", dict(B=S["max_batch"])),
+        ("decode, window 64, masked 10/20, lost 5, dead replica of 1",
+         dict(B=S["max_batch"], window=64, masked=(10, 20), lost=(5,),
+              dead=(1,))),
+        ("chunk, expert 40 over capacity, half bank at offset 32",
+         dict(B=S["chunk"] + S["max_batch"], hot=40, e_local=32, off=32)),
+        ("chunk, window 64, experts 32-59 masked",
+         dict(B=S["chunk"] + S["max_batch"], window=64,
+              masked=tuple(range(32, 60)))),
+        ("chunk step", dict(B=S["chunk"] + S["max_batch"])),
+    ]
+
+
 def megastep_bound_ms(args, kw, route, n_valid, dtype_name):
     """Bytes: w_post, router, shared experts, the experts with a live
     slot, the valid K/V rows, q, x, y, h2; operations: the products."""
@@ -560,8 +636,9 @@ def megastep_bound_ms(args, kw, route, n_valid, dtype_name):
 
 def composed_block(torch):
     """The port's composed chain for the same block (the CUDA attention
-    and fused MoE kernels, cuBLAS for the products): the yardstick the
-    megastep replaces."""
+    and fused MoE kernels, cuBLAS for the other products): the yardstick
+    the megastep replaces.  Its ``moe_fused`` runs on the tensor cores in
+    bf16, as the megastep's expert products do."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe_fused import moe_fused_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
@@ -594,22 +671,10 @@ def kernels_megastep(torch, S):
     from repro_torch.models.moe import MoERuntime, select_replicas
     log("kernels: decode_megastep vs decode_megastep_plain on the card "
         "(qwen2-moe-a2.7b block at full width)")
-    cases = [
-        # name, kwargs of megastep_case
-        ("decode", dict(B=S["max_batch"])),
-        ("decode, window 64, masked 10/20, lost 5, dead replica of 1",
-         dict(B=S["max_batch"], window=64, masked=(10, 20), lost=(5,),
-              dead=(1,))),
-        ("chunk, expert 40 over capacity, half bank at offset 32",
-         dict(B=S["chunk"] + S["max_batch"], hot=40, e_local=32, off=32)),
-        ("chunk, window 64, experts 32-59 masked",
-         dict(B=S["chunk"] + S["max_batch"], window=64,
-              masked=tuple(range(32, 60)))),
-    ]
-    errs, timed = [], None
+    errs, timed = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for i, (name, case) in enumerate(cases):
+        for i, (name, case) in enumerate(megastep_cases(S)):
             args, kw, n_valid = megastep_case(torch, S, dtype=dtype,
                                               seed=20 + i, **case)
             y, h2, route = decode_megastep_cuda(*args, **kw,
@@ -642,38 +707,61 @@ def kernels_megastep(torch, S):
             errs.append(compare(f"{name} B={args[0].shape[0]} y {dn} "
                                 f"({dropped} copies dropped)", y, want_y,
                                 dn, MEGA_TOL))
-            if i == 0 and dtype is torch.bfloat16:
-                timed = (args, kw, route, n_valid, dn)
+            if name in MEGA_TIMED and dtype is torch.bfloat16:
+                timed[args[0].shape[0]] = (args, kw, route, n_valid, dn)
             del args, y, y2, h2, h22, want_y, want_h2, route
             gc.collect()
             torch.cuda.empty_cache()
-    args, kw, route, n_valid, dn = timed
-    bound, by, live_e, live_s = megastep_bound_ms(args, kw, route, n_valid,
-                                                  dn)
     block = composed_block(torch)
-    mega = lambda: decode_megastep_cuda(*args, **kw)  # noqa: E731
-    # in turns: composed, megastep, megastep, composed
-    turns = [time_ms(torch, fn) for fn in (lambda: block(args, kw), mega,
-                                           mega, lambda: block(args, kw))]
-    out = dict(
-        max_abs_err=max(errs), ms=(turns[1] + turns[2]) / 2,
-        plain_ms=time_ms(torch, lambda: decode_megastep_plain(*args, **kw)),
-        bound_ms=bound, bound_by=by, library_ms=None,
-        shape=f"decode B={args[0].shape[0]} D=2048 H=16 Dh=128 E=64 F=1408 "
-              f"Fs=5632 k=4 cap={kw['cap']} bf16, {n_valid} valid K/V rows, "
-              f"{live_e} experts / {live_s} slots live")
-    log(f"  decode_megastep in turns with the composed chain of the same "
-        f"block (CUDA attention + fused MoE, cuBLAS products): composed "
-        f"{turns[0]:.4f}, megastep {turns[1]:.4f}, megastep {turns[2]:.4f}, "
-        f"composed {turns[3]:.4f} ms")
-    log("  decode_megastep's kernels (torch.profiler, mean of 20 calls, "
-        "L2 warm):")
-    for us, key in kernel_breakdown(torch, mega):
-        log(f"    {us:9.2f} us  {key[:90]}")
+    rows = {}
+    for B, (args, kw, route, n_valid, dn) in timed.items():
+        bound, by, live_e, live_s = megastep_bound_ms(args, kw, route,
+                                                      n_valid, dn)
+        mega = lambda: decode_megastep_cuda(*args, **kw)  # noqa: E731
+        # in turns: composed, megastep, megastep, composed
+        turns = [time_ms(torch, fn) for fn in (lambda: block(args, kw), mega,
+                                               mega, lambda: block(args, kw))]
+        rows[B] = r = dict(
+            max_abs_err=max(errs), ms=(turns[1] + turns[2]) / 2,
+            plain_ms=time_ms(torch,
+                             lambda: decode_megastep_plain(*args, **kw)),
+            bound_ms=bound, bound_by=by, library_ms=None,
+            shape=f"B={B} D=2048 H=16 Dh=128 E=64 F=1408 Fs=5632 k=4 "
+                  f"cap={kw['cap']} bf16, {n_valid} valid K/V rows, "
+                  f"{live_e} experts / {live_s} slots live")
+        log(f"  decode_megastep at {r['shape']}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+        log(f"  decode_megastep at B={B} in turns with the composed chain of "
+            f"the same block (CUDA attention + moe_fused, now on the tensor "
+            f"cores in bf16, + cuBLAS products): composed {turns[0]:.4f}, "
+            f"megastep {turns[1]:.4f}, megastep {turns[2]:.4f}, composed "
+            f"{turns[3]:.4f} ms")
+        log(f"  decode_megastep's kernels at B={B} (torch.profiler, mean of "
+            f"20 calls, L2 warm):")
+        for us, key in kernel_breakdown(torch, mega):
+            log(f"    {us:9.2f} us  {key[:90]}")
+        log(f"  decode_megastep's launches at B={B}, one call in order "
+            f"(torch.profiler):")
+        for us, key in kernel_sequence(torch, mega):
+            log(f"    {us:9.2f} us  {key[:90]}")
     del timed, args
     gc.collect()
     torch.cuda.empty_cache()
-    return out
+    return rows[S["max_batch"]]
+
+
+def expert_ffn_args(torch, C, dtype):
+    """A qwen2-moe-a2.7b layer's 64 experts over a C-row capacity buffer."""
+    E, D, Fd = 64, QWEN["D"], QWEN["F"]
+    gen = torch.Generator(device="cuda").manual_seed(30 + C)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+    return (randn(E, C, D), randn(E, D, Fd, scale=D ** -0.5),
+            randn(E, D, Fd, scale=D ** -0.5),
+            randn(E, Fd, D, scale=Fd ** -0.5))
 
 
 def kernels_expert_ffn(torch):
@@ -690,14 +778,7 @@ def kernels_expert_ffn(torch):
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for C in (8, 20, 40):
-            gen = torch.Generator(device="cuda").manual_seed(30 + C)
-
-            def randn(*shape, scale=1.0):
-                return (torch.randn(shape, generator=gen, device="cuda")
-                        * scale).to(dtype)
-            args = (randn(E, C, D), randn(E, D, Fd, scale=D ** -0.5),
-                    randn(E, D, Fd, scale=D ** -0.5),
-                    randn(E, Fd, D, scale=Fd ** -0.5))
+            args = expert_ffn_args(torch, C, dtype)
             got = expert_ffn_cuda(*args)
             again = expert_ffn_cuda(*args)
             torch.cuda.synchronize()
@@ -1434,15 +1515,12 @@ def main() -> int:
     phase_device(torch)
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
-    shapes = dict(max_batch=8, chunk=32, block_size=16, num_blocks=256,
-                  max_blk=512 // 16, d_model=2048, d_ff=1408, top_k=4,
-                  cap=8)
     t_start = time.perf_counter()
     if "build" in phases:
         phase_build()
     results = {}
     if "kernels" in phases:
-        results = phase_kernels(torch, shapes)
+        results = phase_kernels(torch, SHAPES)
     if "model" in phases:
         phase_model(torch, args.seed)
     counts = {}

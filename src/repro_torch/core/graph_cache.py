@@ -18,6 +18,12 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 
+# The tiers of a lookup that built the step's graph during the step (today
+# the first lookup of a key; once steps are captured as CUDA graphs, the
+# capture too): such a step's wall time is no straggler sample.
+FRESH_SOURCES = ("cached", "cold")
+
+
 @dataclass
 class CompileTiming:
     source: str            # 'precompiled' | 'cached' | 'cold'
@@ -33,6 +39,11 @@ class GraphCache:
         self.persist_dir = persist_dir
         self._exec: Dict[Tuple, Any] = {}
         self.timings: list[CompileTiming] = []
+
+    def fresh_since(self, n: int) -> bool:
+        """Whether a lookup after the first ``n`` timings built a graph
+        (a tier in :data:`FRESH_SOURCES`)."""
+        return any(t.source in FRESH_SOURCES for t in self.timings[n:])
 
     def __contains__(self, key) -> bool:
         return key in self._exec

@@ -21,9 +21,10 @@
 // PyTorch operation in between), each reading what the previous one wrote
 // to a device workspace:
 //   1. attention (paged_attention.cuh): one CTA per (row, KV head) -> o in T;
-//   2. gemm: o @ w_post, f32 partial sums;
-//   3. norm: one CTA per row: y = T(x + T(proj)), the sum of squares in a
-//      fixed tree, h2 = T(T(y * rsqrt) * ln2);
+//   2. o @ w_post, f32 partial sums over splits of K;
+//   3. norm: one CTA per row: y = T(x + T(proj)), the proj partials summed
+//      in split order, the sum of squares in a fixed tree,
+//      h2 = T(T(y * rsqrt) * ln2);
 //   4. gemm: the router logits h2 @ router, f32 partial sums;
 //   5. route_slots: one CTA; each warp takes rows, sums a row's logit
 //      partials in split order and runs router_topk.cuh's row function ->
@@ -31,26 +32,43 @@
 //      and thread e scans the copies in b-major, k-minor order and fills
 //      expert e's first cap slots, so drop semantics equal
 //      moe_group_tokens; it also writes the inverse map slot_of;
-//   6. gemm (gate and up share the A tile): the gathered h2 rows of each
-//      expert's slots; a CTA whose slots are all empty returns before it
-//      reads a weight, so only experts with a live copy are read;
-//   7. gemm: the shared experts' gate and up over every row;
-//   8./9. gemm with the SwiGLU h = T(silu(g) * u) formed while the A tile is
-//      staged: routed down, shared down;
-//   10. combine: one CTA per row, y = T(x2 + shared + sum of the row's k
-//      copies in k order).
-// gemm is one FMA kernel for every product: a CTA owns 8 rows x 128 columns
-// (4 per lane, one 8- or 16-byte load per weight row), its 8 warps split
-// its K range, and the K axis is also split across CTAs into f32 partials
-// that the consumer sums in split order: enough splits for two waves where
-// the grid is small, and at most kMaxKc of K per CTA, so that the routed
-// experts' CTAs (how many is known only on the device) end in a short last
-// wave.  Nothing uses float atomics and every sum has a fixed order, so
-// outputs are bitwise equal from run to run.  Routing state, paging arrays
-// and expert_offset are device data: recovery edits change tensors, never
-// the launch.  wgmma, TMA and a persistent cooperative kernel are later work.
+//   6. routed gate/up over the gathered h2 rows of each expert's slots; a
+//      CTA whose expert has no live slot returns before it reads a weight,
+//      so only experts with a live copy are read;
+//   7. the shared experts' gate and up over every row;
+//   8. routed down, and 9. shared down, over h = T(silu(g) * u);
+//   10. combine: a thread per (row, column), y = T(x2 + shared + sum of
+//      the row's k copies in k order).
+// The shared experts (7, 9) read only h2, so they run on a second stream
+// beside 4-6 and 8: forked from the caller's stream by an event after 3
+// and joined back by one before 10, so the call is still one ordered unit
+// on the caller's stream, and no two kernels write the same memory.
+// bf16 (the serving path): the products 2 and 6-9 are the tensor-core tile
+// loop of ffn_mma.cuh.  Routed gate/up takes the whole of D per CTA, so h
+// comes out in T directly into an (E, cap, F) scratch; routed down writes
+// one f32 plane of per-slot outputs.  The shared experts (Fs = 5632 over
+// 128-column tiles: 44 of them) and o @ w_post (16 tiles) would leave most
+// of the 132 SMs idle, so their K is split into ordered f32 partials until
+// a grid holds ~kTcTargetCtas CTAs; the consumers (norm, swiglu for the
+// shared h, combine) sum the splits in split order.  The router product
+// (N = 60, 0.25 MB) stays on the FMA gemm.
+// f32 keeps the FMA gemm for every product (the tensor cores would multiply
+// f32 as TF32): a CTA owns 8 rows x 128 columns (4 per lane, one 8- or
+// 16-byte load per weight row), its 8 warps split its K range, and K is
+// also split across CTAs into f32 partials that the consumer sums in split
+// order: enough splits for two waves where the grid is small, and at most
+// kMaxKc of K per CTA, so that the routed experts' CTAs (how many is known
+// only on the device) end in a short last wave; routed and shared down form
+// SwiGLU from the gate/up partials while they stage their A tile.
+// Nothing uses float atomics and every sum has a fixed order, so outputs
+// are bitwise equal from run to run.  Routing state, paging arrays and
+// expert_offset are device data: recovery edits change tensors, never the
+// launch.
 #include <algorithm>
 
+#include <type_traits>
+
+#include "ffn_mma.cuh"
 #include "paged_attention.cuh"
 #include "router_topk.cuh"
 
@@ -64,6 +82,7 @@ constexpr int kTN = 32 * kVec;     // columns per gemm CTA
 constexpr int kMaxKc = 512;        // most of K one gemm CTA takes (16 KB)
 constexpr int kMinKc = 64;         // least of K one gemm CTA takes
 constexpr int kTargetCtas = 264;   // two CTAs for each of the 132 SMs
+constexpr int kTcTargetCtas = 132; // a tensor-core product: one per SM
 
 __host__ __device__ inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
@@ -290,6 +309,24 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(
         from_float<T>(round_to<T>(y_s[d] * rs) * to_float(ln2[d]));
 }
 
+// --------------------------------------------------------------- swiglu ----
+
+// The shared experts' h = T(silu(g) * u) (bf16 chain), g and u summed over
+// their K splits in split order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) swiglu_kernel(
+    const float* __restrict__ g, const float* __restrict__ u, int splits,
+    long long n, T* __restrict__ h) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  float gs = 0.f, us = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    gs += g[s * n + i];
+    us += u[s * n + i];
+  }
+  h[i] = from_float<T>(gs / (1.f + expf(-gs)) * us);
+}
+
 // ---------------------------------------------------------- route_slots ----
 
 size_t route_slots_smem(int B, int k, int E_log) {
@@ -364,23 +401,23 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(
     const float* __restrict__ wgt, const int* __restrict__ slot_of,
     T* __restrict__ y, int B, int k, int D) {
   const int b = blockIdx.x;
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    const long long at = (long long)b * D + d;
-    float acc = to_float(y[at]);   // x2, written by norm
-    for (int s = 0; s < os_splits; ++s)
-      acc += os[((long long)s * B + b) * D + d];
-    for (int j = 0; j < k; ++j) {
-      const int slot = slot_of[b * k + j];
-      if (slot < 0) continue;
-      const float w = wgt[slot];
-      if (w == 0.f) continue;
-      float o = 0.f;
-      for (int s = 0; s < od_splits; ++s)
-        o += od[((long long)s * slots + slot) * D + d];
-      acc += w * o;
-    }
-    y[at] = from_float<T>(acc);
+  const int d = blockIdx.y * kThreads + threadIdx.x;
+  if (d >= D) return;
+  const long long at = (long long)b * D + d;
+  float acc = to_float(y[at]);   // x2, written by norm
+  for (int s = 0; s < os_splits; ++s)
+    acc += os[((long long)s * B + b) * D + d];
+  for (int j = 0; j < k; ++j) {
+    const int slot = slot_of[b * k + j];
+    if (slot < 0) continue;
+    const float w = wgt[slot];
+    if (w == 0.f) continue;
+    float o = 0.f;
+    for (int s = 0; s < od_splits; ++s)
+      o += od[((long long)s * slots + slot) * D + d];
+    acc += w * o;
   }
+  y[at] = from_float<T>(acc);
 }
 
 // ------------------------------------------------------------ the chain ----
@@ -391,18 +428,36 @@ struct Dims {
 
 struct Layout {
   Split proj, rt, gu, sgu, dn, sdn;
-  size_t o, p1, lg, g, u, gs, us, od, os, total;
+  // g / u: the routed gate/up f32 partials (FMA) or h in T (tensor cores,
+  // u unused); hs: the shared h in T (tensor cores only)
+  size_t o, p1, lg, g, u, gs, us, hs, od, os, total;
 };
+
+// A tensor-core product's K splits: whole kK stages, enough that its
+// column tiles times its splits reach kTcTargetCtas.
+Split tc_split(int K, int M) {
+  const int kc = tc::split_kc(K, cdiv(M, tc::kM), kTcTargetCtas);
+  return {cdiv(K, kc), kc};
+}
 
 Layout layout(const Dims& d, size_t tsize) {
   Layout L{};
+  const bool tcore = tsize == sizeof(__nv_bfloat16);
   const long long rt = cdiv(d.B, kR), ct = cdiv(d.cap, kR);
-  L.proj = split_k(d.H * d.Da, cdiv(d.D, kTN) * rt);
   L.rt = split_k(d.D, cdiv(d.E_log, kTN) * rt);
-  L.gu = split_k(d.D, cdiv(d.F, kTN) * ct * d.E);
-  L.dn = split_k(d.F, cdiv(d.D, kTN) * ct * d.E);
-  L.sgu = d.Fs ? split_k(d.D, cdiv(d.Fs, kTN) * rt) : Split{0, 0};
-  L.sdn = d.Fs ? split_k(d.Fs, cdiv(d.D, kTN) * rt) : Split{0, 0};
+  if (tcore) {
+    L.proj = tc_split(d.H * d.Da, d.D);
+    L.gu = {1, d.D};
+    L.dn = {1, d.F};
+    L.sgu = d.Fs ? tc_split(d.D, d.Fs) : Split{0, 0};
+    L.sdn = d.Fs ? tc_split(d.Fs, d.D) : Split{0, 0};
+  } else {
+    L.proj = split_k(d.H * d.Da, cdiv(d.D, kTN) * rt);
+    L.gu = split_k(d.D, cdiv(d.F, kTN) * ct * d.E);
+    L.dn = split_k(d.F, cdiv(d.D, kTN) * ct * d.E);
+    L.sgu = d.Fs ? split_k(d.D, cdiv(d.Fs, kTN) * rt) : Split{0, 0};
+    L.sdn = d.Fs ? split_k(d.Fs, cdiv(d.D, kTN) * rt) : Split{0, 0};
+  }
   size_t off = 0;
   auto take = [&off](size_t bytes) {
     const size_t at = off;
@@ -414,10 +469,15 @@ Layout layout(const Dims& d, size_t tsize) {
   L.o = take((size_t)d.B * d.H * d.Da * tsize);
   L.p1 = take(L.proj.S * (size_t)d.B * d.D * f);
   L.lg = take(L.rt.S * (size_t)d.B * d.E_log * f);
-  L.g = take(L.gu.S * slots * d.F * f);
-  L.u = take(L.gu.S * slots * d.F * f);
+  if (tcore) {
+    L.g = take(slots * d.F * tsize);
+  } else {
+    L.g = take(L.gu.S * slots * d.F * f);
+    L.u = take(L.gu.S * slots * d.F * f);
+  }
   L.gs = take(L.sgu.S * (size_t)d.B * d.Fs * f);
   L.us = take(L.sgu.S * (size_t)d.B * d.Fs * f);
+  if (tcore) L.hs = take((size_t)d.B * d.Fs * tsize);
   L.od = take(L.dn.S * slots * d.D * f);
   L.os = take(L.sdn.S * (size_t)d.B * d.D * f);
   L.total = off;
@@ -441,8 +501,51 @@ struct Ptrs {
     if (e_ != cudaSuccess) return e_;     \
   } while (0)
 
+// The side stream of this device (made on first use, kept for the
+// process) and the events that fork it from the caller's stream and join
+// it back: the call stays one ordered unit on the caller's stream.
+struct Side {
+  cudaStream_t stream;
+  cudaEvent_t fork, join;
+};
+
+cudaError_t side_stream(Side* out) {
+  constexpr int kMaxDevices = 64;
+  static Side sides[kMaxDevices];
+  static bool made[kMaxDevices];
+  int dev = 0;
+  CHECK(cudaGetDevice(&dev));
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  Side& s = sides[dev];
+  if (!made[dev]) {
+    CHECK(cudaStreamCreateWithFlags(&s.stream, cudaStreamNonBlocking));
+    CHECK(cudaEventCreateWithFlags(&s.fork, cudaEventDisableTiming));
+    CHECK(cudaEventCreateWithFlags(&s.join, cudaEventDisableTiming));
+    made[dev] = true;
+  }
+  *out = s;
+  return cudaSuccess;
+}
+
+// One bf16 product on the tensor-core tile loop (ffn_mma.cuh).
+template <int NA>
+cudaError_t tc_product(const void* a0, const void* a1, const void* b,
+                       const int* rows, const float* wgt, void* out0,
+                       void* out1, int E, int N, int M, int K, Split sp,
+                       int epi, cudaStream_t st) {
+  tc::Ffn f{};
+  f.a0 = static_cast<const tc::bf16*>(a0);
+  f.a1 = static_cast<const tc::bf16*>(a1);
+  f.b = static_cast<const tc::bf16*>(b);
+  f.rows = rows, f.wgt = wgt, f.out0 = out0, f.out1 = out1;
+  f.E = E, f.N = N, f.M = M, f.K = K, f.kc = sp.kc, f.epi = epi;
+  f.vec = tc::aligned16(a0, a1, b, M, K);
+  return tc::dispatch<NA>(f, st);
+}
+
 template <typename T>
 cudaError_t chain(const Ptrs& P, const Dims& d, float eps, cudaStream_t st) {
+  constexpr bool kTc = std::is_same_v<T, __nv_bfloat16>;
   const Layout L = layout(d, sizeof(T));
   auto at = [&P](size_t off) {
     return reinterpret_cast<float*>(P.ws + off);
@@ -455,11 +558,17 @@ cudaError_t chain(const Ptrs& P, const Dims& d, float eps, cudaStream_t st) {
                          d.max_blk, st));
   // 2. o @ w_post
   Gemm g{};
-  g.a = o;
-  g.w0 = P.w_post;
-  g.out0 = at(L.p1);
-  g.M = d.B, g.K = d.H * d.Da, g.N = d.D, g.n_mat = 1;
-  CHECK((gemm<T, false, false>(g, L.proj, st)));
+  if constexpr (kTc) {
+    CHECK(tc_product<1>(P.w_post, nullptr, o, nullptr, nullptr, at(L.p1),
+                        nullptr, 1, d.B, d.D, d.H * d.Da, L.proj,
+                        tc::kEpiPart, st));
+  } else {
+    g.a = o;
+    g.w0 = P.w_post;
+    g.out0 = at(L.p1);
+    g.M = d.B, g.K = d.H * d.Da, g.N = d.D, g.n_mat = 1;
+    CHECK((gemm<T, false, false>(g, L.proj, st)));
+  }
   // 3. residual and norm
   const size_t smem_n = norm_smem(d.D);
   CHECK(allow_smem(norm_kernel<T>, smem_n));
@@ -468,6 +577,47 @@ cudaError_t chain(const Ptrs& P, const Dims& d, float eps, cudaStream_t st) {
       static_cast<const T*>(P.ln2), static_cast<T*>(P.y),
       static_cast<T*>(P.h2), d.B, d.D, eps);
   CHECK(cudaGetLastError());
+  // the shared experts (7, 9) need only h2: they run on a side stream
+  // beside 4-6 and 8, forked here and joined before the combine
+  cudaStream_t side = st;
+  Side sd{};
+  if (d.Fs) {
+    CHECK(side_stream(&sd));
+    side = sd.stream;
+    CHECK(cudaEventRecord(sd.fork, st));
+    CHECK(cudaStreamWaitEvent(side, sd.fork, 0));
+  }
+  if constexpr (kTc) {
+    void* hs = P.ws + L.hs;   // the shared h (B, Fs) in T
+    // 7. shared gate/up over every row, then their h; 9. shared down
+    if (d.Fs) {
+      CHECK(tc_product<2>(P.sgate, P.sup, P.h2, nullptr, nullptr, at(L.gs),
+                          at(L.us), 1, d.B, d.Fs, d.D, L.sgu, tc::kEpiPart,
+                          side));
+      const long long n = (long long)d.B * d.Fs;
+      swiglu_kernel<T><<<cdiv(n, kThreads), kThreads, 0, side>>>(
+          at(L.gs), at(L.us), L.sgu.S, n, static_cast<T*>(hs));
+      CHECK(cudaGetLastError());
+      CHECK(tc_product<1>(P.sdown, nullptr, hs, nullptr, nullptr, at(L.os),
+                          nullptr, 1, d.B, d.D, d.Fs, L.sdn, tc::kEpiPart,
+                          side));
+    }
+  } else if (d.Fs) {
+    // 7. shared gate/up over every row; 9. shared down over SwiGLU(g, u)
+    g = Gemm{};
+    g.a = P.h2;
+    g.w0 = P.sgate, g.w1 = P.sup;
+    g.out0 = at(L.gs), g.out1 = at(L.us);
+    g.M = d.B, g.K = d.D, g.N = d.Fs, g.n_mat = 1;
+    CHECK((gemm<T, false, true>(g, L.sgu, side)));
+    g = Gemm{};
+    g.g = at(L.gs), g.u = at(L.us), g.a_splits = L.sgu.S;
+    g.w0 = P.sdown;
+    g.out0 = at(L.os);
+    g.M = d.B, g.K = d.Fs, g.N = d.D, g.n_mat = 1;
+    CHECK((gemm<T, true, false>(g, L.sdn, side)));
+  }
+  if (d.Fs) CHECK(cudaEventRecord(sd.join, side));
   // 4. router logits
   g = Gemm{};
   g.a = P.h2;
@@ -483,43 +633,37 @@ cudaError_t chain(const Ptrs& P, const Dims& d, float eps, cudaStream_t st) {
       P.tok_idx, P.wgt, P.slot_of, d.B, d.E_log, d.k, d.E, d.cap,
       d.max_rep);
   CHECK(cudaGetLastError());
-  // 6. routed gate/up over each expert's live slots
-  g = Gemm{};
-  g.a = P.h2;
-  g.a_rows = P.tok_idx;
-  g.live = P.wgt;
-  g.w0 = P.gate, g.w1 = P.up;
-  g.out0 = at(L.g), g.out1 = at(L.u);
-  g.M = d.cap, g.K = d.D, g.N = d.F, g.n_mat = d.E;
-  CHECK((gemm<T, false, true>(g, L.gu, st)));
-  // 7. shared gate/up over every row
-  if (d.Fs) {
+  if constexpr (kTc) {
+    void* hr = P.ws + L.g;    // the routed h (E, cap, F) in T
+    // 6. routed gate/up over each expert's live slots -> h
+    CHECK(tc_product<2>(P.gate, P.up, P.h2, P.tok_idx, P.wgt, hr, nullptr,
+                        d.E, d.cap, d.F, d.D, L.gu, tc::kEpiH, st));
+    // 8. routed down -> f32 per-slot outputs
+    CHECK(tc_product<1>(P.down, nullptr, hr, nullptr, P.wgt, at(L.od),
+                        nullptr, d.E, d.cap, d.D, d.F, L.dn, tc::kEpiF32,
+                        st));
+  } else {
+    // 6. routed gate/up over each expert's live slots
     g = Gemm{};
     g.a = P.h2;
-    g.w0 = P.sgate, g.w1 = P.sup;
-    g.out0 = at(L.gs), g.out1 = at(L.us);
-    g.M = d.B, g.K = d.D, g.N = d.Fs, g.n_mat = 1;
-    CHECK((gemm<T, false, true>(g, L.sgu, st)));
-  }
-  // 8. routed down over SwiGLU(g, u)
-  g = Gemm{};
-  g.g = at(L.g), g.u = at(L.u), g.a_splits = L.gu.S;
-  g.live = P.wgt;
-  g.w0 = P.down;
-  g.out0 = at(L.od);
-  g.M = d.cap, g.K = d.F, g.N = d.D, g.n_mat = d.E;
-  CHECK((gemm<T, true, false>(g, L.dn, st)));
-  // 9. shared down
-  if (d.Fs) {
+    g.a_rows = P.tok_idx;
+    g.live = P.wgt;
+    g.w0 = P.gate, g.w1 = P.up;
+    g.out0 = at(L.g), g.out1 = at(L.u);
+    g.M = d.cap, g.K = d.D, g.N = d.F, g.n_mat = d.E;
+    CHECK((gemm<T, false, true>(g, L.gu, st)));
+    // 8. routed down over SwiGLU(g, u)
     g = Gemm{};
-    g.g = at(L.gs), g.u = at(L.us), g.a_splits = L.sgu.S;
-    g.w0 = P.sdown;
-    g.out0 = at(L.os);
-    g.M = d.B, g.K = d.Fs, g.N = d.D, g.n_mat = 1;
-    CHECK((gemm<T, true, false>(g, L.sdn, st)));
+    g.g = at(L.g), g.u = at(L.u), g.a_splits = L.gu.S;
+    g.live = P.wgt;
+    g.w0 = P.down;
+    g.out0 = at(L.od);
+    g.M = d.cap, g.K = d.F, g.N = d.D, g.n_mat = d.E;
+    CHECK((gemm<T, true, false>(g, L.dn, st)));
   }
+  if (d.Fs) CHECK(cudaStreamWaitEvent(st, sd.join, 0));
   // 10. combine into y
-  combine_kernel<T><<<d.B, kThreads, 0, st>>>(
+  combine_kernel<T><<<dim3(d.B, cdiv(d.D, kThreads)), kThreads, 0, st>>>(
       at(L.od), L.dn.S, (long long)d.E * d.cap, d.Fs ? at(L.os) : nullptr,
       d.Fs ? L.sdn.S : 0, P.wgt, P.slot_of, static_cast<T*>(P.y), d.B, d.k,
       d.D);
@@ -543,10 +687,11 @@ long long decode_megastep_workspace_bytes(int B, int H, int Da, int D,
 // The most shared memory any kernel of the chain asks for (the wrapper
 // checks it against the card).
 long long decode_megastep_smem_bytes(int B, int H, int Hkv, int Da, int D,
-                                     int E_log, int k) {
+                                     int E_log, int k, int cap) {
   const size_t sizes[] = {paged::smem_bytes(H / Hkv, Da), norm_smem(D),
-                          route_slots_smem(B, k, E_log), gemm_smem(kMaxKc)};
-  return (long long)*std::max_element(sizes, sizes + 4);
+                          route_slots_smem(B, k, E_log), gemm_smem(kMaxKc),
+                          tc::smem_for(B), tc::smem_for(cap)};
+  return (long long)*std::max_element(sizes, sizes + 6);
 }
 
 // Shapes: q (B, H, Da); k_pool / v_pool (nb, bs, Hkv, Da); tables

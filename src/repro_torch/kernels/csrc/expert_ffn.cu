@@ -19,39 +19,14 @@
 // from L2), down reads it.  Nothing is summed across CTAs and there are no
 // atomics, so the result is bitwise equal from run to run.
 //
-// bf16 (the serving path): one tensor-core kernel does both products, with
-// the operands swapped as usual for skinny products — the weight tile is
-// the mma's M side and the capacity rows its N side:
-//   * A CTA owns one 128-column tile of one expert's weights (of F for
-//     gate/up, of D for down) and covers ALL C capacity rows of that
-//     expert, padded to a multiple of 8 (the mma's N).  So every weight
-//     byte leaves device memory exactly once, whatever C is: 11 x 64 = 704
-//     CTAs for gate/up, 16 x 64 = 1024 for down.  Eight warps split the
-//     128 weight columns (16 each, one m16 tile); up to 64 rows (gate/up,
-//     two accumulators a row) or 128 (down) sit in a warp's registers, and
-//     a second warp column sharing the same staged weight tile doubles
-//     that.  Only past 128 rows for gate/up, 256 for down, does a CTA
-//     stream its weights a second time (not on the serving path, where C
-//     is 8, 20 or 40).
-//   * The reduction (D or F) runs in stages of 64 positions through a ring
-//     of shared-memory stages filled by 16-byte cp.async (zero-filled past
-//     the edges: a +0 product changes no sum).  A stage holds the weight
-//     tile(s) (64 x 128 bf16, 16 KB each) and the matching 64-wide slice
-//     of the capacity rows, streamed beside the weights rather than staged
-//     whole: at C = 40 the whole x tile is 160 KB and would leave one CTA
-//     per SM, while its slices come from L2 (x is read by every F tile of
-//     its expert).  Weights are stored with M contiguous ((E, D, F) and
-//     (E, F, D)), so their A fragments come from ldmatrix.trans; the
-//     activation rows are K-contiguous, plain ldmatrix B fragments.  Rows
-//     are XOR-swizzled by 16-byte chunk so ldmatrix does not conflict.
-//     mma.sync.m16n8k16 bf16 with f32 accumulation; silu(g) * u and the
-//     casts happen in registers in the epilogue.
-//   * Bytes in flight: to cover ~1 us of loaded memory latency at
-//     3.35 TB/s the card needs ~3.4 MB in flight, ~25 KB per SM.  The ring
-//     has 3 stages (2 loading ahead) while a pass has at most 16 rows, else
-//     2 (1 ahead), so the larger stages of wide passes still leave several
-//     CTAs on an SM: 2 to 5 CTAs an SM, each 16 to 64 KB ahead, keep 80 to
-//     130 KB in flight per SM.
+// bf16 (the serving path): the tensor-core tile loop of ffn_mma.cuh, with
+// every expert's C capacity rows as its activation rows (no gather, no
+// empty slots).  A CTA owns one 128-column tile of one expert's weights (of
+// F for gate/up, of D for down) and covers ALL C rows of that expert, so
+// every weight byte leaves device memory exactly once, whatever C is:
+// 11 x 64 = 704 CTAs for gate/up (epilogue: h in bf16), 16 x 64 = 1024 for
+// down (epilogue: y in bf16).  ffn_mma.cuh says how the ring of cp.async
+// stages keeps enough bytes in flight.
 // f32 keeps the FMA kernels below as its own instantiation: the tensor
 // cores would multiply f32 as TF32 (10-bit mantissa), which breaks the
 // 1e-4 tolerance the f32 model phase holds the card to against the CPU.
@@ -68,9 +43,7 @@
 //      rows pass through shared memory, each thread owns one output column
 //      and loops over all of F in order, then casts once.
 #include "common.cuh"
-#include "mma.cuh"
-
-#include <algorithm>
+#include "ffn_mma.cuh"
 
 namespace {
 
@@ -223,219 +196,34 @@ cudaError_t launch_fma(const void* x, const void* gate, const void* up,
   return cudaGetLastError();
 }
 
-// -- bf16: tensor cores ------------------------------------------------------
+}  // namespace
 
+// -- bf16: tensor cores (the tile loop of ffn_mma.cuh) ------------------------
+
+namespace {
 namespace tc {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kM = 128;         // weight columns per CTA: 8 warps x m16
-constexpr int kMW = kM / 16;
-constexpr int kMChunks = kM / 8;
-constexpr int kK = 64;          // reduction positions per stage
-constexpr int kKChunks = kK / 8;
-constexpr int kMaxCols = 2;     // warp columns sharing a staged weight tile
-constexpr int kMaxThreads = 32 * kMW * kMaxCols;
-
-// Ring depth: 3 stages (2 in flight) while a pass has at most 16 rows,
-// else 2, so the larger stages of wide passes still leave several CTAs
-// resident on an SM.
-inline int stages_for(int rows) { return rows <= 16 ? 3 : 2; }
-
-// n8 blocks of capacity rows a warp holds: 8 for gate/up (two
-// accumulators a block, in the 128 registers a thread of 512 gets), 16 for
-// down; with two warp columns a pass covers 128 rows, or 256.
-template <int NA>
-constexpr int kMaxNB = NA == 2 ? 8 : 16;
-
-// A stage: NA weight tiles (kK rows of kM) and `rows` rows of kK.
-template <int NA>
-size_t smem_bytes(int rows) {
-  return (size_t)stages_for(rows) * (NA * kK * kM + rows * kK) *
-         sizeof(bf16);
-}
-
-// Stage rows [r0, r0 + nrows) x columns [c0, c0 + 8 CH) of a row-major
-// matrix (row stride ld) into a swizzled tile of CH chunks a row;
-// positions at or past (rlim, clim) are zeros.  `vec`: rows are 16-byte
-// aligned, so whole chunks go by cp.async; a ragged or unaligned chunk is
-// copied element by element.
-template <int CH>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
-                                           int ld, int nrows, int r0,
-                                           int rlim, int c0, int clim,
-                                           bool vec) {
-  for (int i = threadIdx.x; i < nrows * CH; i += blockDim.x) {
-    const int r = i / CH, j = i % CH;
-    const int gr = r0 + r, gc = c0 + j * 8;
-    bf16* d = dst + swz(r, j, CH);
-    const bf16* s = src + (long long)gr * ld + gc;
-    if (gr < rlim && gc + 8 <= clim && vec) {
-      cp_async16(d, s);
-    } else if (gr < rlim && gc < clim) {
-      __align__(16) bf16 v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        v[e] = gc + e < clim ? s[e] : __float2bfloat16(0.f);
-      }
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(v);
-    } else {
-      cp_async16(d, src, 0);
-    }
-  }
-}
-
-// out[e] (N, M) = epilogue(B[e] (N, K) @ A_a[e] (K, M)) for NA weight
-// matrices A_0 (and A_1): NA = 2 is gate/up (out = silu(x @ gate) *
-// (x @ up)), NA = 1 is down (out = h @ down).  Grid (ceil(M / kM), E);
-// 32 kMW threads per warp column, each warp column holding NB n8 blocks.
-template <int NA, int NB>
-__global__ void __launch_bounds__(kMaxThreads) ffn_mma_kernel(
-    const bf16* __restrict__ a0, const bf16* __restrict__ a1,
-    const bf16* __restrict__ b, bf16* __restrict__ out, int N, int M, int K,
-    int vec, int stages) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
-  const int rows = (blockDim.x / (32 * kMW)) * NB * 8;   // rows a pass
-  const int a_elems = kK * kM;
-  const int stage_elems = NA * a_elems + rows * kK;
-  const int e = blockIdx.y;
-  const int m0 = blockIdx.x * kM;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp % kMW, wn = warp / kMW;
-  const bf16* a_src[2] = {a0 + (long long)e * K * M,
-                          (NA == 2 ? a1 : a0) + (long long)e * K * M};
-  const bf16* b_src = b + (long long)e * N * K;
-  const int nk = (K + kK - 1) / kK;
-
-  auto load = [&](int buf, int kt, int n0) {
-    bf16* st = sm + buf * stage_elems;
-#pragma unroll
-    for (int a = 0; a < NA; ++a) {
-      stage_tile<kMChunks>(st + a * a_elems, a_src[a], M, kK, kt * kK, K,
-                           m0, M, vec);
-    }
-    stage_tile<kKChunks>(st + NA * a_elems, b_src, K, rows, n0, N, kt * kK,
-                         K, vec);
-  };
-
-  for (int n0 = 0; n0 < N; n0 += rows) {
-    float acc[NA][NB][4];
-#pragma unroll
-    for (int a = 0; a < NA; ++a)
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][j][c] = 0.f;
-    __syncthreads();              // every warp is done with the last pass
-#pragma unroll
-    for (int s = 0; s < stages - 1; ++s) {
-      if (s < nk) load(s, s, n0);
-      cp_async_commit();
-    }
-    for (int kt = 0; kt < nk; ++kt) {
-      if (stages == 3) {              // stage kt has landed
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();                // ... for every thread; kt - 1 is free
-      const int next = kt + stages - 1;
-      if (next < nk) load(next % stages, next, n0);
-      cp_async_commit();
-      const bf16* st = sm + (kt % stages) * stage_elems;
-      const bf16* bt = st + NA * a_elems;
-#pragma unroll
-      for (int kk = 0; kk < kK / 16; ++kk) {
-        // A (16 weight columns x 16 positions) from the [k][m] tile,
-        // transposed: matrix q = lane / 8 is k half q / 2, m half q % 2
-        uint32_t af[NA][4];
-        const int ar = kk * 16 + (lane & 7) + ((lane >> 4) << 3);
-        const int ac = wm * 2 + ((lane >> 3) & 1);
-#pragma unroll
-        for (int a = 0; a < NA; ++a) {
-          ldmatrix_x4_trans(af[a], st + a * a_elems + swz(ar, ac, kMChunks));
-        }
-#pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          // B (16 positions x 8 rows) from the [n][k] tile: lanes 0-7
-          // address k 0-7, lanes 8-15 k 8-15
-          uint32_t bfr[2];
-          const int br = (wn * NB + j) * 8 + (lane & 7);
-          ldmatrix_x2(bfr,
-                      bt + swz(br, kk * 2 + ((lane >> 3) & 1), kKChunks));
-#pragma unroll
-          for (int a = 0; a < NA; ++a) {
-            mma_bf16(acc[a][j], af[a], bfr[0], bfr[1]);
-          }
-        }
-      }
-    }
-    cp_async_wait<0>();
-
-    // c[i]: weight column m0 + wm * 16 + g (+8 for i >= 2), capacity row
-    // n0 + (wn * NB + j) * 8 + 2 t (+1 for odd i)
-    const int g = lane >> 2, t = lane & 3;
-    bf16* o = out + (long long)e * N * M;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = m0 + wm * 16 + g + (i >> 1) * 8;
-        const int n = n0 + (wn * NB + j) * 8 + 2 * t + (i & 1);
-        if (m < M && n < N) {
-          float val = acc[0][j][i];
-          if (NA == 2) val = val / (1.f + expf(-val)) * acc[NA - 1][j][i];
-          o[(long long)n * M + m] = __float2bfloat16(val);
-        }
-      }
-    }
-  }
-}
-
-template <int NA, int NB>
-cudaError_t run(const bf16* a0, const bf16* a1, const bf16* b, bf16* out,
-                int E, int N, int M, int K, int vec, int warp_cols,
-                cudaStream_t stream) {
-  const int rows = warp_cols * NB * 8;
-  const size_t smem = smem_bytes<NA>(rows);
-  cudaError_t err = allow_smem(ffn_mma_kernel<NA, NB>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((M + kM - 1) / kM, E);
-  ffn_mma_kernel<NA, NB><<<grid, 32 * kMW * warp_cols, smem, stream>>>(
-      a0, a1, b, out, N, M, K, vec, stages_for(rows));
-  return cudaGetLastError();
-}
-
-// The fewest warp columns that hold all N rows, then the fewest n8 blocks
-// per warp; launched as the instantiation with that many blocks.
-template <int NA, int NB = 1>
-cudaError_t dispatch(const bf16* a0, const bf16* a1, const bf16* b,
-                     bf16* out, int E, int N, int M, int K, int vec,
-                     cudaStream_t stream) {
-  const int blocks = (N + 7) / 8;
-  const int cols =
-      std::min(kMaxCols, (blocks + kMaxNB<NA> - 1) / kMaxNB<NA>);
-  if constexpr (NB < kMaxNB<NA>) {
-    if ((blocks + cols - 1) / cols > NB) {
-      return dispatch<NA, NB + 1>(a0, a1, b, out, E, N, M, K, vec, stream);
-    }
-  }
-  return run<NA, NB>(a0, a1, b, out, E, N, M, K, vec, cols, stream);
-}
 
 cudaError_t launch(const void* x, const void* gate, const void* up,
                    const void* down, void* h, void* y, int E, int C, int D,
                    int F, cudaStream_t stream) {
-  const int vec = D % 8 == 0 && F % 8 == 0;
-  bf16* hb = static_cast<bf16*>(h);
-  cudaError_t err = dispatch<2>(static_cast<const bf16*>(gate),
-                                static_cast<const bf16*>(up),
-                                static_cast<const bf16*>(x), hb, E, C, F, D,
-                                vec, stream);
+  Ffn p{};
+  p.a0 = static_cast<const bf16*>(gate);
+  p.a1 = static_cast<const bf16*>(up);
+  p.b = static_cast<const bf16*>(x);
+  p.out0 = h;
+  p.E = E, p.N = C, p.M = F, p.K = D, p.kc = D;
+  p.epi = kEpiH;
+  p.vec = D % 8 == 0 && F % 8 == 0;
+  cudaError_t err = dispatch<2>(p, stream);
   if (err != cudaSuccess) return err;
-  return dispatch<1>(static_cast<const bf16*>(down), nullptr, hb,
-                     static_cast<bf16*>(y), E, C, D, F, vec, stream);
+  p = Ffn{};
+  p.a0 = static_cast<const bf16*>(down);
+  p.b = static_cast<const bf16*>(h);
+  p.out0 = y;
+  p.E = E, p.N = C, p.M = D, p.K = F, p.kc = F;
+  p.epi = kEpiT;
+  p.vec = D % 8 == 0 && F % 8 == 0;
+  return dispatch<1>(p, stream);
 }
 
 }  // namespace tc

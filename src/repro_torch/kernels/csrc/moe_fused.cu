@@ -17,23 +17,32 @@
 //
 // Design.  The Pallas grid visits every expert and combines with a
 // read-modify-write into y that is race-free only because the TPU runs the
-// grid in order.  Here:
-//   1. gate_up: one CTA per (expert, slot tile of kRows, column tile of
-//      kCols of F).  A CTA whose slots are all empty returns before reading
-//      any weight, so only selected experts are read.  The tile's x rows are
-//      gathered into shared memory (empty slots as zeros); each thread owns
-//      one column f and keeps kRows gate and up sums in registers.
-//      h = silu(x @ gate) * (x @ up) is rounded to x's type (as the TPU
-//      kernel does before @down) and written to an (E, cap, F) f32 scratch.
-//   2. down: the same grid over columns of D; each thread owns one output
-//      column, reads the tile's h rows from shared memory and writes the
-//      per-slot outputs to an (E, cap, D) f32 buffer.
+// grid in order.  Here three kernels, each sum in a fixed order:
+//   1. gate_up: for each (expert, column tile of F) the expert's slot rows
+//      of x, gathered through tok_idx (empty slots as zeros), times gate
+//      and up; h = silu(x @ gate) * (x @ up) is rounded to x's type (as the
+//      TPU kernel does before @down) and written to an (E, cap, F) scratch.
+//      A CTA whose expert has no live slot returns before reading any
+//      weight, so only the selected experts are read.
+//   2. down: for each (expert, column tile of D) the expert's h rows times
+//      down, written as f32 per-slot outputs (E, cap, D).
 //   3. combine: one CTA per token sums its k copies in fixed k order
 //      through slot_of and writes y in x's type.
 // No float atomics anywhere: outputs are bitwise equal from run to run,
-// which the engine's token-identity guarantees need.  The GEMMs are plain
-// FMA loops (a first, simple version; wgmma and TMA come later).
+// which the engine's token-identity guarantees need.
+//
+// bf16 (the serving path): 1 and 2 are the tensor-core tile loop of
+// ffn_mma.cuh.  A CTA owns one 128-column weight tile of one expert and
+// covers all cap slots of it (at cap 8, one n8 block), so each live
+// weight byte is read once: at T = 8, 23 live experts of 64 give 23 x 11
+// gate/up CTAs streaming 1 MB each and 23 x 16 down CTAs of 360 KB.
+// f32 keeps FMA kernels: the tensor cores would multiply f32 as TF32,
+// which breaks the 1e-4 card-vs-CPU tolerance.  In them one CTA takes
+// (expert, slot tile of kRows, column tile of kCols); the tile's x rows
+// are gathered into shared memory, each thread owns one output column and
+// keeps kRows sums in registers.
 #include "common.cuh"
+#include "ffn_mma.cuh"
 
 namespace {
 
@@ -194,21 +203,61 @@ cudaError_t launch(const void* x, const void* gate, const void* up,
   return cudaGetLastError();
 }
 
+namespace tc {
+
+cudaError_t launch(const void* x, const void* gate, const void* up,
+                   const void* down, const int* tok_idx, const float* wgt,
+                   const int* slot_of, void* h_buf, float* out_buf, void* y,
+                   int T_tok, int k, int D, int F, int E, int cap,
+                   cudaStream_t stream) {
+  Ffn p{};
+  p.a0 = static_cast<const bf16*>(gate);
+  p.a1 = static_cast<const bf16*>(up);
+  p.b = static_cast<const bf16*>(x);
+  p.rows = tok_idx;
+  p.wgt = wgt;
+  p.out0 = h_buf;
+  p.E = E, p.N = cap, p.M = F, p.K = D, p.kc = D;
+  p.epi = kEpiH;
+  p.vec = aligned16(gate, up, x, F, D) && aligned16(down, h_buf, nullptr,
+                                                    D, F);
+  const int vec = p.vec;
+  cudaError_t err = dispatch<2>(p, stream);
+  if (err != cudaSuccess) return err;
+  p = Ffn{};
+  p.a0 = static_cast<const bf16*>(down);
+  p.b = static_cast<const bf16*>(h_buf);
+  p.wgt = wgt;
+  p.out0 = out_buf;
+  p.E = E, p.N = cap, p.M = D, p.K = F, p.kc = F;
+  p.epi = kEpiF32;
+  p.vec = vec;
+  err = dispatch<1>(p, stream);
+  if (err != cudaSuccess) return err;
+  combine_kernel<bf16><<<T_tok, kCombineThreads, 0, stream>>>(
+      out_buf, wgt, slot_of, static_cast<bf16*>(y), k, D);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory the two GEMM kernels need (the wrapper checks it).
-long long moe_fused_smem_bytes(int D, int F) {
+// Shared memory the two product kernels need (the wrapper checks it).
+long long moe_fused_smem_bytes(int D, int F, int cap, int dtype) {
+  if (dtype == 1) return (long long)tc::smem_for(cap);
   const long long a = (long long)kRows * D * sizeof(float);
   const long long b = (long long)kRows * F * sizeof(float);
   return a > b ? a : b;
 }
 
 // x (T, D); gate / up (E, D, F); down (E, F, D); tok_idx / wgt (E, cap);
-// slot_of (T, k); scratch h_buf (E, cap, F) f32 and out_buf (E, cap, D)
-// f32; y (T, D) in x's type.  dtype: 0 = f32, 1 = bf16 (x, the expert
-// weights and y share it).  Returns the launches' cudaError_t (0 = ok).
+// slot_of (T, k); scratch h_buf (E, cap, F) in x's type and out_buf (E,
+// cap, D) f32; y (T, D) in x's type.  dtype: 0 = f32, 1 = bf16 (x, the
+// expert weights, h_buf and y share it).  Returns the launches'
+// cudaError_t (0 = ok).
 int moe_fused(const void* x, const void* gate, const void* up,
               const void* down, const void* tok_idx, const void* wgt,
               const void* slot_of, void* h_buf, void* out_buf, void* y,
@@ -217,14 +266,15 @@ int moe_fused(const void* x, const void* gate, const void* up,
   const int* ti = static_cast<const int*>(tok_idx);
   const float* w = static_cast<const float*>(wgt);
   const int* so = static_cast<const int*>(slot_of);
-  float* hb = static_cast<float*>(h_buf);
   float* ob = static_cast<float*>(out_buf);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      dtype == 1 ? launch<__nv_bfloat16>(x, gate, up, down, ti, w, so, hb,
-                                         ob, y, T, k, D, F, E, cap, s)
-                 : launch<float>(x, gate, up, down, ti, w, so, hb, ob, y, T,
-                                 k, D, F, E, cap, s);
+      dtype == 1
+          ? tc::launch(x, gate, up, down, ti, w, so, h_buf, ob, y, T, k, D,
+                       F, E, cap, s)
+          : launch<float>(x, gate, up, down, ti, w, so,
+                          static_cast<float*>(h_buf), ob, y, T, k, D, F, E,
+                          cap, s);
   return (int)err;
 }
 

@@ -33,7 +33,7 @@ _PROTOTYPES = {
     "decode_megastep": ([_VP] * 28 + [_CI] * 14 + [ctypes.c_float, _CI, _VP],
                         _CI),
     "decode_megastep_workspace_bytes": ([_CI] * 10, ctypes.c_longlong),
-    "decode_megastep_smem_bytes": ([_CI] * 7, ctypes.c_longlong),
+    "decode_megastep_smem_bytes": ([_CI] * 8, ctypes.c_longlong),
 }
 
 
@@ -76,8 +76,8 @@ def decode_megastep_cuda(q, k_pool, v_pool, block_table, seq_lens,
                          e_local: int, eps: float = 1e-5,
                          return_route: bool = False):
     """Enqueue the whole block step on PyTorch's current stream: one C
-    call, ten kernels, no synchronisation.  Raises on any input the
-    chain does not take; never falls back.  With ``return_route`` it also
+    call, a fixed chain of kernels, no synchronisation.  Raises on any
+    input the chain does not take; never falls back.  With ``return_route`` it also
     returns the route and slot tables it built: ``{"sel", "w"}`` (B, k)
     and ``{"tok_idx", "wgt"}`` (E, cap), ``"slot_of"`` (B, k)."""
     if x.device.type != "cuda":
@@ -134,7 +134,8 @@ def decode_megastep_cuda(q, k_pool, v_pool, block_table, seq_lens,
         offset = torch.full((1,), int(expert_offset), dtype=torch.int32,
                             device=dev)
     lib = build.load("decode_megastep", _PROTOTYPES)
-    smem = lib.decode_megastep_smem_bytes(B, H, Hkv, Da, D, E_log, top_k)
+    smem = lib.decode_megastep_smem_bytes(B, H, Hkv, Da, D, E_log, top_k,
+                                          cap)
     if smem > build.MAX_SMEM_BYTES:
         raise ValueError(f"decode_megastep: B={B}, D={D}, {H // Hkv} heads "
                          f"per KV head at Da={Da} exceed shared memory")

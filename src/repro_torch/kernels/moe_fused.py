@@ -7,7 +7,7 @@ the copies' expert ids (:func:`moe_group_tokens`, plain PyTorch on
 whichever device the routing lies on) yields per-expert slot tables; the
 plain version gathers, runs the expert SwiGLU as einsums and scatter-adds,
 the kernel does the same work without the (E, cap, D) gather and with a
-deterministic combine.
+deterministic combine (bf16 on the tensor cores, f32 on FMA).
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from repro_torch.kernels.expert_ffn import expert_ffn_plain
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
     "moe_fused": ([_VP] * 10 + [_CI] * 7 + [_VP], _CI),
-    "moe_fused_smem_bytes": ([_CI, _CI], ctypes.c_longlong),
+    "moe_fused_smem_bytes": ([_CI] * 4, ctypes.c_longlong),
 }
 
 
@@ -117,7 +117,8 @@ def moe_fused_cuda(x, gate_w, up_w, down_w, weights, phys, alive, *,
         if t.device != dev or tuple(t.shape) != (T, k):
             raise ValueError(f"moe_fused: {name} must be ({T}, {k}) on {dev}")
     lib = build.load("moe_fused", _PROTOTYPES)
-    smem = lib.moe_fused_smem_bytes(D, Fd)
+    code = build.DTYPE_CODES[x.dtype]
+    smem = lib.moe_fused_smem_bytes(D, Fd, cap, code)
     if smem > build.MAX_SMEM_BYTES:
         raise ValueError(f"moe_fused: D={D}, F={Fd} need {smem} B of "
                          f"shared memory")
@@ -127,13 +128,13 @@ def moe_fused_cuda(x, gate_w, up_w, down_w, weights, phys, alive, *,
     tok_idx, wgt, slot_of = moe_group_tokens(
         phys, alive, weights, expert_offset=expert_offset, e_local=e_local,
         cap=cap)
-    h_buf = torch.empty((E, cap, Fd), dtype=torch.float32, device=dev)
+    h_buf = torch.empty((E, cap, Fd), dtype=x.dtype, device=dev)
     out_buf = torch.empty((E, cap, D), dtype=torch.float32, device=dev)
     err = lib.moe_fused(
         x.data_ptr(), gate_w.data_ptr(), up_w.data_ptr(), down_w.data_ptr(),
         tok_idx.data_ptr(), wgt.data_ptr(), slot_of.data_ptr(),
         h_buf.data_ptr(), out_buf.data_ptr(), y.data_ptr(),
-        T, k, D, Fd, E, cap, build.DTYPE_CODES[x.dtype],
+        T, k, D, Fd, E, cap, code,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"moe_fused launch failed: cudaError {err}")

@@ -538,8 +538,13 @@ class InferenceEngine:
         ctx = _Ctx(self)
         for ex in active:
             t0 = time.perf_counter()
+            n_timings = len(self.graph_cache.timings)
             finished.extend(ex.compute(ctx, self.step_no))
             ex.commit()
+            # a step that built a graph (its first lookup of a key) is no
+            # sample of the device's pace, as repro drops compile steps
+            if self.graph_cache.fresh_since(n_timings):
+                continue
             base = (self.virtual_step_s if self.virtual_step_s is not None
                     else time.perf_counter() - t0)
             self.straggler.record(ex.physical_id,

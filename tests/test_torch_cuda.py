@@ -124,6 +124,132 @@ def test_decode_megastep_cuda_vs_plain(card, case, dtype):
     assert torch.equal(route["slot_of"], slot_of)
 
 
+# the main path's widths (qwen2-moe-a2.7b: D=2048, F=1408, 64 experts,
+# top-4, cap 8) at a decode step (T=8) and a chunk step (T=40), where the
+# bf16 kernel runs on the tensor cores: a hot expert over capacity, a
+# foreign half bank (e_local 32 at offset 32), and D and F that are no
+# multiple of 8, so the gather stages rows element by element
+MOE_MAIN_CASES = {
+    # id: (T, e_local, offset, hot tokens, D, F)
+    "decode": (8, 64, 0, 0, 2048, 1408),
+    "chunk": (40, 64, 0, 0, 2048, 1408),
+    "chunk_hot": (40, 64, 0, 12, 2048, 1408),
+    "chunk_half_bank": (40, 32, 32, 10, 2048, 1408),
+    "chunk_ragged": (40, 64, 0, 6, 2044, 1406),
+}
+
+
+def moe_main_inputs(card, dtype, T, e_local, off, hot, D, F, k=4, E=64,
+                    seed=0):
+    """Full-width operands on the card; routing from numpy: distinct
+    experts per token, ``hot`` tokens pick expert 5 first, ~15% of the
+    copies dead."""
+    rng = np.random.default_rng(seed + T + hot)
+    gen = torch.Generator(device=card).manual_seed(seed + D)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=card)
+                * scale).to(dtype)
+    phys = np.stack([rng.permutation(E)[:k] for _ in range(T)])
+    for t in range(min(hot, T)):
+        phys[t][phys[t] == 5] = phys[t, 0]
+        phys[t, 0] = 5
+    z = rng.normal(size=(T, k))
+    w = (np.exp(z) / np.exp(z).sum(-1, keepdims=True)).astype(np.float32)
+    alive = rng.random(size=(T, k)) >= 0.15
+    return (randn(T, D), randn(e_local, D, F, scale=D ** -0.5),
+            randn(e_local, D, F, scale=D ** -0.5),
+            randn(e_local, F, D, scale=F ** -0.5), _t(w).to(card),
+            _t(phys.astype(np.int32)).to(card), _t(alive).to(card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(MOE_MAIN_CASES))
+def test_moe_fused_cuda_vs_plain_main_shapes(card, case, dtype):
+    T, e_local, off, hot, D, F = MOE_MAIN_CASES[case]
+    args = moe_main_inputs(card, dtype, T, e_local, off, hot, D, F)
+    kw = dict(cap=8, expert_offset=off, e_local=e_local)
+    n0 = launches["moe_fused"]
+    got = moe_fused_cuda(*args, **kw)
+    again = moe_fused_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches["moe_fused"] == n0 + 2
+    assert torch.equal(got, again)       # bitwise run to run
+    _, wgt, slot_of = moe_group_tokens(args[5], args[6], args[4], **kw)
+    if case == "chunk_hot":     # every copy local: drops past the dead
+        assert int((slot_of < 0).sum()) > int((~args[6]).sum())  # overflow
+    assert int((wgt != 0).any(dim=1).sum()) > 0
+    want = moe_fused_plain(*args, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+def megastep_main_inputs(card, dtype, B, seed=0):
+    """A full-width qwen2-moe-a2.7b block (D=2048, 16 x 128 heads, 60
+    routed experts + 4 redundant of F=1408 in a 64-expert bank, Fs=5632
+    shared, top-4) on the card, with an idle row and two replicas of the
+    first four experts; operands in the reference's order."""
+    D, H, Hkv, Dh, E_log, E, F, Fs, K = (2048, 16, 16, 128, 60, 64, 1408,
+                                         5632, 4)
+    bs, nb, max_blk = 16, 257, 32
+    rng = np.random.default_rng(seed + B)
+    gen = torch.Generator(device=card).manual_seed(seed + B)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=card)
+                * scale).to(dtype)
+    tables = np.stack([rng.permutation(nb - 1)[:max_blk] for _ in range(B)])
+    seq = rng.integers(1, 289, size=B)
+    seq[1] = 0
+    ar = np.arange(E_log)
+    l2p = np.stack([ar, np.where(ar < 4, E_log + ar, 0)], 1)
+    rcnt = np.where(ar < 4, 2, 1)
+    args = [randn(B, H, Dh), randn(nb, bs, Hkv, Dh), randn(nb, bs, Hkv, Dh),
+            _t(tables.astype(np.int32)).to(card),
+            _t(seq.astype(np.int32)).to(card),
+            torch.zeros(B, dtype=torch.int32, device=card), randn(B, D),
+            randn(H * Dh, D, scale=(H * Dh) ** -0.5),
+            (1.0 + 0.1 * randn(D).float()).to(dtype),
+            randn(D, E_log, scale=D ** -0.5),
+            _t(l2p.astype(np.int32)).to(card),
+            _t(rcnt.astype(np.int32)).to(card),
+            torch.ones(E_log, dtype=torch.bool, device=card),
+            randn(E, D, F, scale=D ** -0.5), randn(E, D, F, scale=D ** -0.5),
+            randn(E, F, D, scale=F ** -0.5), 0,
+            randn(D, Fs, scale=D ** -0.5), randn(D, Fs, scale=D ** -0.5),
+            randn(Fs, D, scale=Fs ** -0.5)]
+    return args, dict(top_k=K, cap=8, e_local=E)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [8, 40])
+def test_decode_megastep_cuda_vs_plain_main_shapes(card, B, dtype):
+    args, kw = megastep_main_inputs(card, dtype, B)
+    y, h2, route = decode_megastep_cuda(*args, **kw, return_route=True)
+    y2, h22 = decode_megastep_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h2, h22)   # bitwise
+    want_y, want_h2 = decode_megastep_plain(*args, **kw)
+    # the tolerances of test_decode_megastep_cuda_vs_plain
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    y_scale = 1.0 if dtype == torch.float32 else \
+        max(1.0, float(want_y.float().abs().max()))
+    for got, want, atol in ((h2, want_h2, tol), (y, want_y, tol * y_scale)):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=tol,
+                                   atol=atol)
+    rt = MoERuntime(args[10], args[11], args[12])
+    phys, alive = select_replicas(route["sel"].long(), rt)
+    tables = moe_group_tokens(phys, alive, route["w"], expert_offset=0,
+                              e_local=kw["e_local"], cap=kw["cap"])
+    for key, want in zip(("tok_idx", "wgt", "slot_of"), tables):
+        assert torch.equal(route[key], want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(ROUTER_CASES))
 def test_router_topk_cuda_vs_plain(card, case):

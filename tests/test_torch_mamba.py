@@ -416,3 +416,79 @@ def test_engine_recovery_reports_match(pair):
     assert stats["prefill_chunks"] == stats["prefix_cache_hits"] == 0
     assert ("prefill", 1, 16) in peng.graph_cache
     assert ("install", 0, 16) in peng.graph_cache
+
+
+# -- straggler samples: a step that built a graph is no sample -------------------------
+
+# (prompt tokens, engine step it is submitted before, new tokens)
+STRAGGLER_PROBE = [(20, 2, 2), (20, 1, 6), (16, 1, 6), (17, 0, 2), (19, 1, 1)]
+
+
+def _serve_probe(eng, vocab, severity):
+    """Five prompts submitted over the first steps across three ranks; an
+    L6 attention fault scheduled for step 8 on physical 2, after every
+    request has finished, so it never fires."""
+    eng.injector.schedule(8, 2, severity=severity.L6, component="attn",
+                          mid_step=True)
+    rng = np.random.default_rng(3)
+    prompts = [list(map(int, rng.integers(0, vocab, n)))
+               for n, _, _ in STRAGGLER_PROBE]
+    reqs = [None] * len(prompts)
+    for _ in range(150):
+        for i, (_, at, new) in enumerate(STRAGGLER_PROBE):
+            if reqs[i] is None and eng.step_no == at:
+                reqs[i] = eng.submit(prompts[i], new)
+        if all(r is not None for r in reqs) and not eng.unfinished:
+            break
+        eng.step()
+    return reqs
+
+
+def test_straggler_samples_skip_fresh_graph_steps(tmp_path):
+    """Three ranks, so one slow rank could exceed 3x the median: each
+    device's straggler samples are exactly its steps that looked up no
+    new graph key (no "cold" or "cached" timing), counted by calls to
+    ``record``, not read from the rolling window or the wall clock."""
+    common = dict(mode="collocated", num_dp=3, max_batch=3,
+                  block_size=4, num_blocks=29)
+    jdir, pdir = tmp_path / "jax", tmp_path / "torch"
+    jdir.mkdir()
+    jeng = JaxEngine(jax_smoke_config(ARCH), JaxEngineConfig(
+        **common, workdir=str(jdir)))
+    jreqs = _serve_probe(jeng, jeng.cfg.vocab_size, JaxSeverity)
+    pdir.mkdir()
+    (pdir / "weights.npz").write_bytes((jdir / "weights.npz").read_bytes())
+    peng = InferenceEngine(get_smoke_config(ARCH), EngineConfig(
+        **common, workdir=str(pdir)), device="cpu")
+
+    recorded, steps, clean = ({ex.physical_id: 0
+                               for ex in peng.dp_executors}
+                              for _ in range(3))
+    record = peng.straggler.record
+
+    def counted_record(pid, seconds):
+        recorded[pid] += 1
+        record(pid, seconds)
+    peng.straggler.record = counted_record
+    for ex in peng.dp_executors:
+        def counted_compute(ctx, step_no, ex=ex, compute=ex.compute):
+            n = len(peng.graph_cache.timings)
+            out = compute(ctx, step_no)
+            steps[ex.physical_id] += 1
+            fresh = [t for t in peng.graph_cache.timings[n:]
+                     if t.source in ("cold", "cached")]
+            clean[ex.physical_id] += not fresh
+            return out
+        ex.compute = counted_compute
+
+    preqs = _serve_probe(peng, peng.cfg.vocab_size, Severity)
+    assert all(r.state.value == "finished" for r in preqs)
+    assert [r.output_tokens for r in preqs] == \
+        [r.output_tokens for r in jreqs]
+    assert [len(r.output_tokens) for r in preqs] == \
+        [new for _, _, new in STRAGGLER_PROBE]
+    assert recorded == clean
+    # the probe does look keys up for the first time mid-serving (the
+    # prefill buckets 16 and 32 of the live domain), on more than one rank
+    assert sum(steps.values()) > sum(clean.values())
+    assert sum(s > c for s, c in zip(steps.values(), clean.values())) >= 2
