@@ -15,8 +15,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
              parallel) into ``build/kernels``.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-             the slice's shapes, in f32 and bf16: paged attention and the
-             fused MoE (a windowed case, an idle row, masked / lost /
+             the slice's shapes, in f32 and bf16: paged attention (a
+             windowed case, an idle row, the engine's full context of 512
+             positions at B = 8 and 40, one 4090-position row over 64
+             splits, windows that start mid-split or leave whole splits
+             empty) and the fused MoE (masked / lost /
              over-capacity / foreign / empty experts); router top-k
              (well-separated logits, ties, masked columns); the decode
              megastep at full width, decode (B=8) and chunk (B=40) rows,
@@ -27,8 +30,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              (C=8) and prefill (C=20, 40) capacity; whole-prompt attention
              at S = 16, 200, 256 and 512, with and without window 6; the
              selective scan at falcon-mamba-7b's width (d_inner 8192, N
-             16), a prefill row at S = 200, 256 and 512 and the decode
-             step of 8 slots from their state.  Every
+             16), a prefill row at S = 200, 256, 512 and 2048 and the
+             decode step of 8 slots from their state, also in the
+             engine's in-place mode (the bf16 state written where it
+             lies, its storage unchanged).  Every
              kernel runs twice and must be bitwise equal; kernel and plain
              version are timed at the main path's shapes (the fused MoE at
              T = 8 and 40 with its device time split between its kernels
@@ -251,7 +256,10 @@ def phase_build():
 # -- phase 3: kernels ---------------------------------------------------------
 
 def paged_case(torch, *, B, H, Hkv, Dh, bs, nb, max_blk, max_len, window,
-               idle, dtype, seed):
+               idle, dtype, seed, lens=None):
+    """Random q and pools, a random block table per row, and seq_lens
+    drawn from [1, max_len] (or ``lens``); ``window`` > 0 starts each row
+    ``window`` positions before its end.  Returns (args, valid rows)."""
     rng = np.random.default_rng(seed)
     dev = "cuda"
     q = torch.from_numpy(rng.normal(size=(B, H, Dh)).astype(np.float32))
@@ -260,7 +268,8 @@ def paged_case(torch, *, B, H, Hkv, Dh, bs, nb, max_blk, max_len, window,
     vp = torch.from_numpy(
         rng.normal(size=(nb, bs, Hkv, Dh)).astype(np.float32))
     tables = np.stack([rng.permutation(nb - 1)[:max_blk] for _ in range(B)])
-    seq = rng.integers(1, max_len + 1, size=B)
+    seq = (rng.integers(1, max_len + 1, size=B) if lens is None
+           else np.asarray(lens))
     if idle:
         seq[1] = 0
     start = np.maximum(seq - window, 0) if window else None
@@ -369,25 +378,39 @@ def phase_kernels(torch, shapes):
     S = shapes
     out = {}
     f32, bf16 = torch.float32, torch.bfloat16
-    log("kernels: paged_attention vs paged_attention_plain on the card")
+    log("kernels: paged_attention vs paged_attention_plain on the card "
+        "(splits of 64 positions, merged in split order)")
     errs = []
-    timed = None
+    timed = {}
+    mb, nblk = S["max_blk"], S["num_blocks"] + 1
     paged_cases = [
-        # name, B, H, Hkv, Dh, window, idle, max_len
+        # name, B, H, Hkv, Dh, window, idle, max_len, and optionally
+        # max_blk (default the engine's 32) and fixed lens
         ("decode", S["max_batch"], 16, 16, 128, 0, True, 288),
         ("chunk+window", S["chunk"], 16, 16, 128, 64, True, 288),
         ("gqa Dh=96", 6, 16, 4, 96, 0, True, 200),
         ("gqa Dh=256 window", 5, 8, 2, 256, 40, False, 300),
+        # the engine's full context (max_seq 512) at both batch sizes
+        ("full context", S["max_batch"], 16, 16, 128, 0, True, 512),
+        ("full context", S["chunk"] + S["max_batch"], 16, 16, 128, 0, True,
+         512),
+        # one long row: 64 splits and their merge
+        ("long row", 1, 16, 16, 128, 0, False, 4096, 256, [4090]),
+        # a window that starts mid-split (200 = 3 * 64 + 8), and one that
+        # leaves the first six splits empty (430 > 6 * 64)
+        ("window mid-split", 2, 16, 16, 128, 100, False, 0, mb, [300, 290]),
+        ("window, empty splits", 2, 16, 16, 128, 70, False, 0, mb,
+         [500, 451]),
     ]
     for dtype in (f32, bf16):
         dn = str(dtype).split(".")[1]
-        for i, (name, B, H, Hkv, Dh, window, idle, max_len) in enumerate(
-                paged_cases):
+        for i, (name, B, H, Hkv, Dh, window, idle, max_len, *more) in \
+                enumerate(paged_cases):
+            max_blk, lens = more if more else (mb, None)
             args, n_valid = paged_case(
                 torch, B=B, H=H, Hkv=Hkv, Dh=Dh, bs=S["block_size"],
-                nb=S["num_blocks"] + 1, max_blk=S["max_blk"],
-                max_len=max_len, window=window, idle=idle, dtype=dtype,
-                seed=i)
+                nb=nblk, max_blk=max_blk, max_len=max_len, window=window,
+                idle=idle, dtype=dtype, seed=i, lens=lens)
             got = paged_attention_cuda(*args)
             again = paged_attention_cuda(*args)
             torch.cuda.synchronize()
@@ -397,19 +420,31 @@ def phase_kernels(torch, shapes):
             if idle and got[1].abs().max().item() != 0.0:
                 raise AssertionError("paged_attention: idle row not 0")
             want = paged_attention_plain(*args)
-            errs.append(compare(f"{name} B={B} H={H}/{Hkv} Dh={Dh} {dn}",
-                                got, want, dn))
-            if name == "decode" and dtype is bf16:
-                timed = (args, n_valid, dn)
-    args, n_valid, dn = timed
-    bound, by = paged_bound_ms(args, n_valid, dn)
-    out["paged_attention"] = dict(
-        max_abs_err=max(errs),
-        ms=time_ms(torch, lambda: paged_attention_cuda(*args)),
-        plain_ms=time_ms(torch, lambda: paged_attention_plain(*args)),
-        bound_ms=bound, bound_by=by, library_ms=None,
-        shape=f"decode B={args[0].shape[0]} H=16 Dh=128 bf16, "
-              f"{n_valid} valid K/V rows")
+            errs.append(compare(f"{name} B={B} H={H}/{Hkv} Dh={Dh} "
+                                f"({n_valid} rows) {dn}", got, want, dn))
+            if dtype is bf16 and name in ("decode", "full context",
+                                          "long row"):
+                timed[f"{name} B={B}"] = (args, n_valid, dn)
+            del args, got, again, want
+    for key, (args, n_valid, dn) in timed.items():
+        bound, by = paged_bound_ms(args, n_valid, dn)
+        r = dict(
+            max_abs_err=max(errs),
+            ms=time_ms(torch, lambda: paged_attention_cuda(*args)),
+            plain_ms=time_ms(torch, lambda: paged_attention_plain(*args)),
+            bound_ms=bound, bound_by=by, library_ms=None,
+            shape=f"{key} H=16 Dh=128 bf16, {n_valid} valid K/V rows")
+        log(f"  paged_attention at {r['shape']}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+        if key == f"decode B={S['max_batch']}":
+            out["paged_attention"] = r
+            log(f"  paged_attention's kernels at {key} (torch.profiler, mean "
+                f"of 20 calls, L2 warm):")
+            for us, k in kernel_breakdown(
+                    torch, lambda: paged_attention_cuda(*args)):
+                log(f"    {us:9.2f} us  {k[:90]}")
+    del timed
 
     log("kernels: moe_fused vs moe_fused_plain on the card")
     errs = []
@@ -917,16 +952,19 @@ def ssm_case(torch, B, S, *, with_h0, dtype, seed):
     return args
 
 
-def ssm_bound_ms(args):
-    """Bytes: u, dt, A, B, C and h0 once, y and h_final (f32) once;
-    operations: ~7 f32 operations per (row, step, channel, state)."""
+def ssm_bound_ms(args, h_dtype=None, y_dtype=None):
+    """Bytes: u, dt, A, B, C and h0 once, y and h_final once (f32, or the
+    in-place mode's types); operations: ~7 f32 operations per (row, step,
+    channel, state)."""
     u, _, A, Bm, _, h0 = args
     B, S, d = u.shape
     N = A.shape[1]
     el = u.element_size()
+    h_el = 4 if h_dtype is None else h_dtype.itemsize
+    y_el = 4 if y_dtype is None else y_dtype.itemsize
     nbytes = (2 * B * S * d * el + d * N * 4 + 2 * B * S * N * el
               + (0 if h0 is None else h0.numel() * h0.element_size())
-              + B * S * d * 4 + B * d * N * 4)
+              + B * S * d * y_el + B * d * N * h_el)
     flops = 7 * B * S * d * N
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
@@ -934,12 +972,14 @@ def ssm_bound_ms(args):
 
 def kernels_ssm_scan(torch):
     """The selective scan at the ssm path's shapes: a whole-prompt prefill
-    of one row (d_inner 8192, N 16) at buckets 200, 256 and 512 from a
-    zero state, and the decode step of 8 slots from their state."""
+    of one row (d_inner 8192, N 16) at buckets 200, 256, 512 and 2048 from
+    a zero state, and the decode step of 8 slots from their state, in the
+    default mode (f32 y and h_final) and in the engine's in-place mode (the
+    bf16 state written where it lies, y in bf16)."""
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
     log("kernels: ssm_scan vs ssm_scan_plain on the card (falcon-mamba-7b: "
         "d_inner 8192, N 16)")
-    cases = [("prefill", 1, S, False) for S in (200, 256, 512)]
+    cases = [("prefill", 1, S, False) for S in (200, 256, 512, 2048)]
     cases.append(("decode", 8, 1, True))
     errs, timed = [], {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -957,28 +997,89 @@ def kernels_ssm_scan(torch):
             for part, got, want in (("y", y, want_y), ("h_final", h, want_h)):
                 errs.append(compare(f"{name} B={B} S={S} {part} {dn}", got,
                                     want, dn, SSM_TOL))
-            if dtype is torch.bfloat16 and S in (256, 1):
-                timed[name] = args
+            if with_h0:
+                errs += ssm_in_place(torch, args, dn)
+            if dtype is torch.bfloat16:
+                timed[(name, S)] = args
             del y, y2, h, h2, want_y, want_h
     rows = {}
-    for name, args in timed.items():
+    for (name, S), args in timed.items():
         bound, by = ssm_bound_ms(args)
-        rows[name] = dict(
+        rows[(name, S)] = r = dict(
             max_abs_err=max(errs),
             ms=time_ms(torch, lambda: ssm_scan_cuda(*args)),
-            plain_ms=time_ms(torch, lambda: ssm_scan_plain(*args)),
+            # the plain loop at S = 2048 takes ~0.5 s a call
+            plain_ms=(time_ms(torch, lambda: ssm_scan_plain(*args))
+                      if S <= 512 else float("nan")),
             bound_ms=bound, bound_by=by, library_ms=None,
-            shape=f"{name} B={args[0].shape[0]} S={args[0].shape[1]} "
-                  f"d=8192 N=16 bf16 (library: none, no PyTorch call "
-                  f"computes a selective scan)")
-    r = rows["decode"]
-    log(f"  ssm_scan at decode B=8 S=1 from a bf16 h0: kernel "
-        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library: none")
-    del timed
+            shape=f"{name} B={args[0].shape[0]} S={S} d=8192 N=16 bf16 "
+                  f"(library: none, no PyTorch call computes a selective "
+                  f"scan)")
+        log(f"  ssm_scan at {name} B={args[0].shape[0]} S={S}: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    # the decode step as the engine runs it: in place, y in bf16
+    args = timed[("decode", 1)]
+    state = args[5].clone()
+    bf16 = torch.bfloat16
+    bound, by = ssm_bound_ms(args, bf16, bf16)
+    ms = time_ms(torch, lambda: ssm_scan_cuda(*args[:5], state, h_out=state,
+                                              y_dtype=bf16))
+    plain = time_ms(torch, lambda: ssm_scan_plain(
+        *args[:5], state, h_out=state, y_dtype=bf16))
+    log(f"  ssm_scan at decode B=8 S=1 in place (bf16 state, y in bf16): "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
+        f"({by}), library: none")
+    prefill = timed[("prefill", 256)]
+    for what, fn in (
+            ("prefill B=1 S=256", lambda: ssm_scan_cuda(*prefill)),
+            ("decode B=8 in place", lambda: ssm_scan_cuda(
+                *args[:5], state, h_out=state, y_dtype=bf16))):
+        log(f"  ssm_scan's kernels at {what} (torch.profiler, mean of 20 "
+            f"calls, L2 warm):")
+        for us, k in kernel_breakdown(torch, fn):
+            log(f"    {us:9.2f} us  {k[:90]}")
+    del timed, args, state, prefill
     gc.collect()
     torch.cuda.empty_cache()
-    return rows["prefill"]
+    return rows[("prefill", 256)]
+
+
+def ssm_in_place(torch, args, dn):
+    """The decode step's in-place mode against the plain version's: the
+    state written in its own type where it lies (its storage pointer
+    unchanged), y in the inputs' type; bitwise equal run to run."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
+    u, dt, A, Bm, Cm, h0 = args
+    ys, states = [], []
+    for _ in range(2):
+        state = h0.clone()
+        ptr = state.data_ptr()
+        y, h = ssm_scan_cuda(u, dt, A, Bm, Cm, state, h_out=state,
+                             y_dtype=u.dtype)
+        if h.data_ptr() != ptr or state.data_ptr() != ptr:
+            raise AssertionError("ssm_scan in place: the state moved")
+        ys.append(y)
+        states.append(state)
+    torch.cuda.synchronize()
+    if not (torch.equal(ys[0], ys[1]) and torch.equal(*states)):
+        raise AssertionError("ssm_scan in place: not bitwise equal run to "
+                             "run")
+    want_state = h0.clone()
+    want_y, _ = ssm_scan_plain(u, dt, A, Bm, Cm, want_state,
+                               h_out=want_state, y_dtype=u.dtype)
+    B = u.shape[0]
+    # the state is the h_final of the default mode, cast: bitwise the plain
+    # version's; y is the plain version's within the scan's tolerance, and
+    # then one rounding to the state's type
+    if not torch.equal(states[0], want_state):
+        raise AssertionError("ssm_scan in place: state differs from the "
+                             "plain version's")
+    log(f"  decode B={B} in place: state bitwise the plain version's "
+        f"({states[0].dtype}), storage unchanged")
+    tol = SSM_TOL if u.dtype == torch.float32 else TOL
+    return [compare(f"decode B={B} in place y {dn}", ys[0], want_y, dn,
+                    tol)]
 
 
 # -- phase 4: model, card against CPU -------------------------------------------
@@ -1319,6 +1420,12 @@ def _trace(torch, fn):
         f"ops; top by device time:")
     for us, n, key in rows[:15]:
         log(f"    {us / 1e3:10.2f} ms {n:7d}x  {key[:100]}")
+    # the rows PERF.md's attention, scan and copy figures read
+    log("  of which attention, the scan and copies:")
+    for us, n, key in rows:
+        if any(k in key for k in ("paged::", "scan_kernel", "step_kernel",
+                                  "copy", "Memcpy")):
+            log(f"    {us / 1e3:10.2f} ms {n:7d}x  {key[:100]}")
     return out
 
 

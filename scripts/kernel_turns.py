@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the bf16 expert kernels of two checkouts in turns on one GPU.
+"""Time the bf16 kernels of two checkouts in turns on one GPU.
 
     git archive <parent> | tar -x -C build/parent     # any ignored path
     python3 scripts/kernel_turns.py --parent build/parent
@@ -7,16 +7,24 @@
 Runs four child processes one after the other -- the parent checkout,
 this tree, this tree, the parent -- each importing ``repro_torch`` from
 its tree's ``src``, building that tree's kernels into its own
-``build/kernels``, and timing ``moe_fused`` (T = 8, 40),
-``decode_megastep`` (B = 8, 40) and ``expert_ffn`` (C = 8, 20, 40) in
-bf16 at the main path's shapes.  The operands and the timer (median of
-25 calls, each after a write that evicts the L2) are ``chip_smoke.py``'s
-of this tree, so both trees see the same inputs.  Prints the card's name
-and power limit, each turn's times, and a JSON line of them all.
+``build/kernels``, and timing in bf16 at the main path's shapes:
+``paged_attention`` (decode B = 8), ``moe_fused`` (T = 8, 40),
+``decode_megastep`` (B = 8, 40), ``expert_ffn`` (C = 8, 20, 40),
+``ssm_scan`` (prefill B = 1 S = 256 and decode B = 8 from a bf16 state,
+both through the default call), the decode step's scan as that tree's
+``mamba_decode`` runs it (in place where its launcher takes ``h_out``,
+else the scan, a copy into the bf16 state and a cast of y), and that
+tree's ``mamba_decode`` itself over one falcon-mamba-7b layer at full
+width (B = 8; A precomputed where its ``mamba_decode`` takes it, as its
+``Model`` then does).  The operands and the timer (median of 25 calls,
+each after a write that evicts the L2) are ``chip_smoke.py``'s of this
+tree, so both trees see the same inputs.  Prints the card's name and
+power limit, each turn's times, and a JSON line of them all.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -24,6 +32,37 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def decode_scan(ssm, args):
+    """The decode step's scan, copy and cast as the tree's mamba_decode
+    runs them."""
+    u, dt, A, Bm, Cm, state = args
+    if "h_out" in inspect.signature(ssm.ssm_scan_cuda).parameters:
+        return lambda: ssm.ssm_scan_cuda(u, dt, A, Bm, Cm, state,
+                                         h_out=state, y_dtype=u.dtype)
+
+    def seq():
+        y, h = ssm.ssm_scan_cuda(u, dt, A, Bm, Cm, state)
+        state.copy_(h)
+        return y[:, 0].to(u.dtype)
+    return seq
+
+
+def mamba_layer(torch, B):
+    """The tree's mamba_decode over one full-width falcon-mamba-7b layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba
+    cfg = get_config("falcon-mamba-7b")
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    p = mamba.mamba_init(gen, cfg, torch.bfloat16)
+    state = mamba.mamba_init_state(cfg, B, torch.bfloat16, "cuda")
+    x = torch.randn((B, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kw = {}
+    if "A" in inspect.signature(mamba.mamba_decode).parameters:
+        kw["A"] = mamba.ssm_A(p["A_log"])
+    return lambda: mamba.mamba_decode(p, cfg, x, state, **kw)
 
 
 def child(tree: Path) -> dict:
@@ -35,15 +74,27 @@ def child(tree: Path) -> dict:
 
     import chip_smoke as cs
     from repro_torch.kernels import build
+    from repro_torch.kernels import ssm_scan as ssm
     from repro_torch.kernels.decode_megastep import decode_megastep_cuda
     from repro_torch.kernels.expert_ffn import expert_ffn_cuda
     from repro_torch.kernels.moe_fused import moe_fused_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
     if not torch.cuda.is_available():
         raise SystemExit("kernel_turns: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build_all(["moe_fused", "decode_megastep", "expert_ffn"])
+    build.build_all(["paged_attention", "moe_fused", "decode_megastep",
+                     "expert_ffn", "ssm_scan"])
     S, bf16 = cs.SHAPES, torch.bfloat16
-    out = {"moe_fused": {}, "decode_megastep": {}, "expert_ffn": {}}
+    out = {"paged_attention": {}, "moe_fused": {}, "decode_megastep": {},
+           "expert_ffn": {}, "ssm_scan": {}, "decode scan as served": {},
+           "mamba_decode": {}}
+    # chip_smoke.py's timed decode case: B=8, rows of 1-288 positions
+    args, _ = cs.paged_case(
+        torch, B=S["max_batch"], H=16, Hkv=16, Dh=128, bs=S["block_size"],
+        nb=S["num_blocks"] + 1, max_blk=S["max_blk"], max_len=288,
+        window=0, idle=True, dtype=bf16, seed=0)
+    out["paged_attention"][S["max_batch"]] = cs.time_ms(
+        torch, lambda: paged_attention_cuda(*args))
     for i, (name, T, e_local, off, hot) in enumerate(cs.moe_cases(S)):
         if name not in cs.MOE_TIMED:
             continue
@@ -65,6 +116,15 @@ def child(tree: Path) -> dict:
         out["expert_ffn"][C] = cs.time_ms(torch,
                                           lambda: expert_ffn_cuda(*args))
         del args
+    args = cs.ssm_case(torch, 1, 256, with_h0=False, dtype=bf16, seed=41)
+    out["ssm_scan"]["prefill S=256"] = cs.time_ms(
+        torch, lambda: ssm.ssm_scan_cuda(*args))
+    args = cs.ssm_case(torch, 8, 1, with_h0=True, dtype=bf16, seed=44)
+    out["ssm_scan"]["decode B=8"] = cs.time_ms(
+        torch, lambda: ssm.ssm_scan_cuda(*args))
+    out["decode scan as served"][8] = cs.time_ms(torch,
+                                                 decode_scan(ssm, args))
+    out["mamba_decode"][8] = cs.time_ms(torch, mamba_layer(torch, 8))
     return out
 
 

@@ -20,7 +20,9 @@
 // on the caller's stream by one C call (no host synchronisation, no
 // PyTorch operation in between), each reading what the previous one wrote
 // to a device workspace:
-//   1. attention (paged_attention.cuh): one CTA per (row, KV head) -> o in T;
+//   1. attention (paged_attention.cuh): one CTA per (split of kSplitLen
+//      positions, row, KV head), then the ordered merge of a row's splits
+//      -> o in T, the split partials in the workspace;
 //   2. o @ w_post, f32 partial sums over splits of K;
 //   3. norm: one CTA per row: y = T(x + T(proj)), the proj partials summed
 //      in split order, the sum of squares in a fixed tree,
@@ -430,7 +432,7 @@ struct Layout {
   Split proj, rt, gu, sgu, dn, sdn;
   // g / u: the routed gate/up f32 partials (FMA) or h in T (tensor cores,
   // u unused); hs: the shared h in T (tensor cores only)
-  size_t o, p1, lg, g, u, gs, us, hs, od, os, total;
+  size_t o, attn, p1, lg, g, u, gs, us, hs, od, os, total;
 };
 
 // A tensor-core product's K splits: whole kK stages, enough that its
@@ -467,6 +469,7 @@ Layout layout(const Dims& d, size_t tsize) {
   const size_t f = sizeof(float);
   const size_t slots = (size_t)d.E * d.cap;
   L.o = take((size_t)d.B * d.H * d.Da * tsize);
+  L.attn = take(paged::scratch_bytes(d.B, d.H, d.Da, d.bs, d.max_blk));
   L.p1 = take(L.proj.S * (size_t)d.B * d.D * f);
   L.lg = take(L.rt.S * (size_t)d.B * d.E_log * f);
   if (tcore) {
@@ -554,8 +557,8 @@ cudaError_t chain(const Ptrs& P, const Dims& d, float eps, cudaStream_t st) {
 
   // 1. attention -> o (B, H * Da) in T
   CHECK(paged::launch<T>(P.q, P.k_pool, P.v_pool, P.tables, P.seq_lens,
-                         P.start_lens, o, d.B, d.H, d.Hkv, d.Da, d.bs,
-                         d.max_blk, st));
+                         P.start_lens, o, P.ws + L.attn, d.B, d.H, d.Hkv,
+                         d.Da, d.bs, d.max_blk, st));
   // 2. o @ w_post
   Gemm g{};
   if constexpr (kTc) {
@@ -675,23 +678,24 @@ cudaError_t chain(const Ptrs& P, const Dims& d, float eps, cudaStream_t st) {
 extern "C" {
 
 // Device workspace one call needs (the wrapper allocates it).
-long long decode_megastep_workspace_bytes(int B, int H, int Da, int D,
+long long decode_megastep_workspace_bytes(int B, int H, int Hkv, int Da,
+                                          int bs, int max_blk, int D,
                                           int E_log, int E, int F, int Fs,
                                           int cap, int dtype) {
   Dims d{};
-  d.B = B, d.H = H, d.Da = Da, d.D = D, d.E_log = E_log, d.E = E, d.F = F,
-  d.Fs = Fs, d.cap = cap;
+  d.B = B, d.H = H, d.Hkv = Hkv, d.Da = Da, d.bs = bs, d.max_blk = max_blk;
+  d.D = D, d.E_log = E_log, d.E = E, d.F = F, d.Fs = Fs, d.cap = cap;
   return (long long)layout(d, dtype == 1 ? 2 : 4).total;
 }
 
 // The most shared memory any kernel of the chain asks for (the wrapper
 // checks it against the card).
-long long decode_megastep_smem_bytes(int B, int H, int Hkv, int Da, int D,
-                                     int E_log, int k, int cap) {
-  const size_t sizes[] = {paged::smem_bytes(H / Hkv, Da), norm_smem(D),
-                          route_slots_smem(B, k, E_log), gemm_smem(kMaxKc),
-                          tc::smem_for(B), tc::smem_for(cap)};
-  return (long long)*std::max_element(sizes, sizes + 6);
+long long decode_megastep_smem_bytes(int B, int D, int E_log, int k,
+                                     int cap) {
+  const size_t sizes[] = {norm_smem(D), route_slots_smem(B, k, E_log),
+                          gemm_smem(kMaxKc), tc::smem_for(B),
+                          tc::smem_for(cap)};
+  return (long long)*std::max_element(sizes, sizes + 5);
 }
 
 // Shapes: q (B, H, Da); k_pool / v_pool (nb, bs, Hkv, Da); tables

@@ -32,8 +32,8 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
     "decode_megastep": ([_VP] * 28 + [_CI] * 14 + [ctypes.c_float, _CI, _VP],
                         _CI),
-    "decode_megastep_workspace_bytes": ([_CI] * 10, ctypes.c_longlong),
-    "decode_megastep_smem_bytes": ([_CI] * 8, ctypes.c_longlong),
+    "decode_megastep_workspace_bytes": ([_CI] * 13, ctypes.c_longlong),
+    "decode_megastep_smem_bytes": ([_CI] * 5, ctypes.c_longlong),
 }
 
 
@@ -134,11 +134,10 @@ def decode_megastep_cuda(q, k_pool, v_pool, block_table, seq_lens,
         offset = torch.full((1,), int(expert_offset), dtype=torch.int32,
                             device=dev)
     lib = build.load("decode_megastep", _PROTOTYPES)
-    smem = lib.decode_megastep_smem_bytes(B, H, Hkv, Da, D, E_log, top_k,
-                                          cap)
+    smem = lib.decode_megastep_smem_bytes(B, D, E_log, top_k, cap)
     if smem > build.MAX_SMEM_BYTES:
-        raise ValueError(f"decode_megastep: B={B}, D={D}, {H // Hkv} heads "
-                         f"per KV head at Da={Da} exceed shared memory")
+        raise ValueError(f"decode_megastep: B={B}, D={D}, cap={cap} exceed "
+                         f"shared memory")
     code = build.DTYPE_CODES[dt]
     y = torch.empty_like(x)
     h2 = torch.empty_like(x)
@@ -150,7 +149,8 @@ def decode_megastep_cuda(q, k_pool, v_pool, block_table, seq_lens,
                  tok_idx=ints[2 * n:].view(E, cap),
                  w=floats[:n].view(B, top_k), wgt=floats[n:].view(E, cap))
     ws = torch.empty(lib.decode_megastep_workspace_bytes(
-        B, H, Da, D, E_log, E, Fd, Fs, cap, code), dtype=torch.uint8, device=dev)
+        B, H, Hkv, Da, bs, max_blk, D, E_log, E, Fd, Fs, cap, code),
+        dtype=torch.uint8, device=dev)
     if B:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         err = lib.decode_megastep(

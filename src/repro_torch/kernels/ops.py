@@ -64,12 +64,14 @@ def flash_prefill(q, k, v, q_pos=None, kv_pos=None, *, causal: bool = True,
     return fn(q, k, v, q_pos, kv_pos, causal=causal, window=window)
 
 
-def ssm_scan(u, dt, A, B_ssm, C_ssm, h0=None):
+def ssm_scan(u, dt, A, B_ssm, C_ssm, h0=None, *, h_out=None,
+             y_dtype=torch.float32):
     """Mamba-1 selective scan over u / dt (B, S, d), A (d, N), B / C (B,
     S, N), from ``h0`` (B, d, N) or zero.  Returns (y (B, S, d) f32,
-    h_final (B, d, N) f32)."""
+    h_final (B, d, N) f32); with ``h_out`` (which may be ``h0``) h_final
+    is written there in its type, and y comes back in ``y_dtype``."""
     fn = ssm_scan_plain if on_cpu(u) else ssm_scan_cuda
-    return fn(u, dt, A, B_ssm, C_ssm, h0)
+    return fn(u, dt, A, B_ssm, C_ssm, h0, h_out=h_out, y_dtype=y_dtype)
 
 
 def router_topk(logits, expert_mask, k: int):

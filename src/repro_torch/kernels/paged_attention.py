@@ -47,15 +47,16 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, seq_lens,
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
-    "paged_attention": ([_VP] * 7 + [_CI] * 7 + [_VP], _CI),
-    "paged_attention_smem_bytes": ([_CI, _CI], ctypes.c_longlong),
+    "paged_attention": ([_VP] * 8 + [_CI] * 7 + [_VP], _CI),
+    "paged_attention_scratch_bytes": ([_CI] * 5, ctypes.c_longlong),
 }
 
 
 def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens,
                          start_lens=None):
-    """Launch the CUDA kernel on PyTorch's current stream.  Raises on any
-    input the kernel does not take; never falls back."""
+    """Launch the CUDA kernels (split, then merge where a row spans more
+    than one split) on PyTorch's current stream.  Raises on any input the
+    kernels do not take; never falls back."""
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")
@@ -77,18 +78,18 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens,
     if start_lens is not None:
         build.check_arg("start_lens", start_lens, torch.int32, (B,), dev)
     lib = build.load("paged_attention", _PROTOTYPES)
-    smem = lib.paged_attention_smem_bytes(H // Hkv, Dh)
-    if smem > build.MAX_SMEM_BYTES:
-        raise ValueError(f"paged_attention: {H // Hkv} heads per KV head "
-                         f"at Dh={Dh} need {smem} B of shared memory")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    nbytes = lib.paged_attention_scratch_bytes(B, H, Dh, bs, max_blk)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes else None)
     err = lib.paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), seq_lens.data_ptr(),
         None if start_lens is None else start_lens.data_ptr(),
-        out.data_ptr(), B, H, Hkv, Dh, bs, max_blk, build.DTYPE_CODES[q.dtype],
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        B, H, Hkv, Dh, bs, max_blk, build.DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {err}")

@@ -10,7 +10,9 @@ PyTorch, as they are plain ``jnp`` there.
 
 The paged serving cache holds a layer's state as a dict ``{"conv": (B,
 d_conv, d_inner), "ssm": (B, d_inner, N)}``; :func:`mamba_decode` updates
-it in place.
+it in place, the scan writing the new ``ssm`` state into it directly.
+``A = -exp(A_log)`` is the caller's to keep (``Model`` computes it once per
+weight load); without it both functions compute it from ``A_log``.
 """
 from __future__ import annotations
 
@@ -71,6 +73,11 @@ def mamba_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                                device=device)}
 
 
+def ssm_A(A_log):
+    """The scan's A = -exp(A_log) in f32, (..., d_inner, N)."""
+    return -torch.exp(A_log.float())
+
+
 def _ssm_coeffs(p, cfg: ModelConfig, u):
     """Shared input-dependent SSM coefficients.  u: (..., d_inner)."""
     _, N, _, dt_rank = mamba_dims(cfg)
@@ -79,12 +86,13 @@ def _ssm_coeffs(p, cfg: ModelConfig, u):
     B_ssm = proj[..., dt_rank:dt_rank + N].contiguous()
     C_ssm = proj[..., dt_rank + N:].contiguous()
     dt = F.softplus(dt_raw @ p["dt_proj"] + p["dt_bias"])   # (..., d_inner)
-    A = -torch.exp(p["A_log"].float())                      # (d_inner, N)
-    return dt, A, B_ssm, C_ssm
+    return dt, B_ssm, C_ssm
 
 
-def mamba_forward(p, cfg: ModelConfig, x, *, return_state: bool = False):
-    """Full-sequence mamba.  x: (B, S, D) -> (B, S, D) [, MambaState]."""
+def mamba_forward(p, cfg: ModelConfig, x, *, return_state: bool = False,
+                  A=None):
+    """Full-sequence mamba.  x: (B, S, D) -> (B, S, D) [, MambaState].
+    ``A``: :func:`ssm_A` of ``p["A_log"]``, computed here when None."""
     B, S, D = x.shape
     d_inner, N, d_conv, _ = mamba_dims(cfg)
 
@@ -97,7 +105,8 @@ def mamba_forward(p, cfg: ModelConfig, x, *, return_state: bool = False):
                for i in range(d_conv)) + p["conv_b"]
     u = F.silu(conv)
 
-    dt, A, B_ssm, C_ssm = _ssm_coeffs(p, cfg, u)
+    dt, B_ssm, C_ssm = _ssm_coeffs(p, cfg, u)
+    A = ssm_A(p["A_log"]) if A is None else A
     ys, h_final = ops.ssm_scan(u, dt, A, B_ssm, C_ssm)
     y = ys.to(u.dtype) + u * p["D_skip"]
     y = y * F.silu(z)
@@ -113,9 +122,11 @@ def mamba_forward(p, cfg: ModelConfig, x, *, return_state: bool = False):
     return out
 
 
-def mamba_decode(p, cfg: ModelConfig, x, state: Dict[str, torch.Tensor]):
+def mamba_decode(p, cfg: ModelConfig, x, state: Dict[str, torch.Tensor],
+                 A=None):
     """Single-token decode.  x: (B, D) -> (B, D); ``state``'s ``conv`` and
-    ``ssm`` leaves are updated in place."""
+    ``ssm`` leaves are updated in place (the scan writes ``ssm`` in its own
+    type and returns y in x's).  ``A`` as in :func:`mamba_forward`."""
     d_inner, _, _, _ = mamba_dims(cfg)
     xz = x @ p["in_proj"]
     u_raw, z = xz.split(d_inner, dim=-1)                    # (B, d_inner)
@@ -126,10 +137,11 @@ def mamba_decode(p, cfg: ModelConfig, x, state: Dict[str, torch.Tensor]):
     conv = (conv_buf.float() * p["conv_w"].float()).sum(dim=1) + p["conv_b"]
     u = F.silu(conv).to(x.dtype)
 
-    dt, A, B_ssm, C_ssm = _ssm_coeffs(p, cfg, u)
-    y, h = ops.ssm_scan(u[:, None], dt[:, None], A, B_ssm[:, None],
-                        C_ssm[:, None], h0=state["ssm"])
-    y = (y[:, 0].to(x.dtype) + u * p["D_skip"]) * F.silu(z)
+    dt, B_ssm, C_ssm = _ssm_coeffs(p, cfg, u)
+    A = ssm_A(p["A_log"]) if A is None else A
+    y, _ = ops.ssm_scan(u[:, None], dt[:, None], A, B_ssm[:, None],
+                        C_ssm[:, None], h0=state["ssm"], h_out=state["ssm"],
+                        y_dtype=x.dtype)
+    y = (y[:, 0] + u * p["D_skip"]) * F.silu(z)
     state["conv"].copy_(conv_buf)
-    state["ssm"].copy_(h)
     return y @ p["out_proj"]

@@ -64,6 +64,8 @@ class Model:
         # package's traced int32 (this model holds the whole bank)
         self.expert_offset = torch.zeros(1, dtype=torch.int32,
                                          device=self.device)
+        # per Mamba group: (its A_log, that tensor's version, A)
+        self._ssm_A: Dict[str, Any] = {}
 
     # -- structure -----------------------------------------------------------
 
@@ -124,6 +126,16 @@ class Model:
             params[name] = p
         return params
 
+    def ssm_rates(self, params, name: str) -> torch.Tensor:
+        """Mamba group ``name``'s scan rates A = -exp(A_log), (L, d_inner,
+        N) f32, computed once per weight load: again only when ``A_log`` is
+        another tensor (a reload) or was written in place since."""
+        A_log = params[name]["mixer"]["A_log"]
+        hit = self._ssm_A.get(name)
+        if hit is None or hit[0] is not A_log or hit[1] != A_log._version:
+            hit = self._ssm_A[name] = (A_log, A_log._version, M.ssm_A(A_log))
+        return hit[2]
+
     # -- moe application -------------------------------------------------------
 
     def _moe(self, p, x, runtime, cap):
@@ -140,16 +152,17 @@ class Model:
 
     # -- full-sequence forward (whole-prompt prefill) --------------------------
 
-    def _block_fwd(self, p, x, positions, *, mixer, ffn_kind, runtime, cap):
+    def _block_fwd(self, p, x, positions, *, mixer, ffn_kind, runtime, cap,
+                   ssm_A=None):
         """One block over a whole sequence.  x: (B, S, D).  Returns (x,
         cache entry): the block's raw (B, S, Hkv, Dh) K (rope applied)
         and V, or a Mamba block's final (B, ...) ``conv`` and ``ssm``
-        state."""
+        state.  ``ssm_A``: a Mamba block's scan rates."""
         cfg = self.cfg
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if mixer == "mamba":
             out, state = M.mamba_forward(p["mixer"], cfg, h,
-                                         return_state=True)
+                                         return_state=True, A=ssm_A)
             return x + out, state._asdict()
         out, entry = self._gqa_fwd_cache(p["mixer"], h, positions)
         x = x + out
@@ -171,11 +184,13 @@ class Model:
         cap = self._cap(x.shape[0] * x.shape[1])
         caches: Dict[str, Any] = {}
         for name, n, mixer, ffn_kind, _ in self.layer_groups():
+            rates = self.ssm_rates(params, name) if mixer == "mamba" else None
             entries = []
             for i in range(n):
                 x, entry = self._block_fwd(
                     take_layer(params[name], i), x, positions, mixer=mixer,
-                    ffn_kind=ffn_kind, runtime=runtime, cap=cap)
+                    ffn_kind=ffn_kind, runtime=runtime, cap=cap,
+                    ssm_A=None if rates is None else rates[i])
                 entries.append(entry)
             caches[name] = {key: torch.stack([e[key] for e in entries])
                             for key in entries[0]}
@@ -262,25 +277,27 @@ class Model:
             page = dict(page, starts=torch.zeros_like(page["seq_lens"])
                         if starts is None else starts)
         for name, n, mixer, ffn_kind, _ in self.layer_groups():
+            rates = self.ssm_rates(params, name) if mixer == "mamba" else None
             for i in range(n):
                 x = self._block_decode_paged(
                     take_layer(params[name], i), x,
                     take_layer(cache[name], i), page, runtime, cap, mixer,
-                    ffn_kind)
+                    ffn_kind, None if rates is None else rates[i])
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x @ params["lm_head"], cache
 
     def _block_decode_paged(self, p, x, csl, page, runtime, cap, mixer,
-                            ffn_kind):
+                            ffn_kind, ssm_A=None):
         """One block's decode step.  ``csl`` is the layer's slice of the
-        cache: its K/V pools, or its Mamba state."""
+        cache: its K/V pools, or its Mamba state (and ``ssm_A`` the
+        block's scan rates)."""
         cfg = self.cfg
         if cfg.decode_impl == "megakernel" and ffn_kind == "moe":
             return self._block_decode_megastep(p, x, csl, page, runtime,
                                                cap)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if mixer == "mamba":
-            return x + M.mamba_decode(p["mixer"], cfg, h, csl)
+            return x + M.mamba_decode(p["mixer"], cfg, h, csl, A=ssm_A)
         x = x + A.gqa_decode_paged(p["mixer"], cfg, h, csl, page)
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if ffn_kind == "moe":

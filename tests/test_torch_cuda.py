@@ -58,6 +58,53 @@ def test_paged_attention_cuda_vs_plain(card, case, dtype):
     assert torch.equal(got, again)       # bitwise run to run
 
 
+# the split layout's edges (splits of 64 positions): the engine's full
+# context (512 positions) at B = 8 and 40, one long row over 64 splits, a
+# window that starts mid-split (200 = 3 * 64 + 8), one that leaves the
+# first splits empty, and GQA over long windowed rows with an idle one
+PAGED_SPLIT_CASES = {
+    # id: (B, H, Hkv, Dh, bs, max_blk, seq_lens or None, window)
+    "full_context_b8": (8, 16, 16, 128, 16, 32, None, 0),
+    "full_context_b40": (40, 16, 16, 128, 16, 32, None, 0),
+    "long_row": (1, 16, 16, 128, 16, 256, [4090], 0),
+    "window_mid_split": (2, 16, 16, 128, 16, 32, [300, 290], 100),
+    "window_empty_splits": (2, 16, 16, 128, 16, 32, [500, 451], 70),
+    "gqa_long_window": (3, 8, 2, 64, 16, 64, [1024, 700, 0], 300),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(PAGED_SPLIT_CASES))
+def test_paged_attention_cuda_split_edges(card, case, dtype):
+    B, H, Hkv, Dh, bs, max_blk, lens, window = PAGED_SPLIT_CASES[case]
+    rng = np.random.default_rng(7)
+    nb = max_blk + 2
+    tables = np.stack([rng.permutation(nb - 1)[:max_blk] for _ in range(B)])
+    seq = (rng.integers(1, max_blk * bs + 1, size=B) if lens is None
+           else np.asarray(lens))
+    start = np.maximum(seq - window, 0) if window else None
+    args = [_t(rng.normal(size=(B, H, Dh)).astype(np.float32)),
+            _t(rng.normal(size=(nb, bs, Hkv, Dh)).astype(np.float32)),
+            _t(rng.normal(size=(nb, bs, Hkv, Dh)).astype(np.float32)),
+            _t(tables.astype(np.int32)), _t(seq.astype(np.int32)),
+            None if start is None else _t(start.astype(np.int32))]
+    args = [None if a is None else a.to(card) for a in args]
+    for i in range(3):
+        args[i] = args[i].to(dtype)
+    got = paged_attention_cuda(*args)
+    again = paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)       # bitwise run to run
+    want = paged_attention_plain(*args)
+    # the tolerances of test_paged_attention_cuda_vs_plain
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    assert not got[torch.from_numpy(seq == 0)].any()   # idle rows give 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,k,e_phys,e_local,off,D,F,cap", MOE_FUSED_GRID)
@@ -187,11 +234,12 @@ def test_moe_fused_cuda_vs_plain_main_shapes(card, case, dtype):
                                atol=tol)
 
 
-def megastep_main_inputs(card, dtype, B, seed=0):
+def megastep_main_inputs(card, dtype, B, seed=0, max_len=288):
     """A full-width qwen2-moe-a2.7b block (D=2048, 16 x 128 heads, 60
     routed experts + 4 redundant of F=1408 in a 64-expert bank, Fs=5632
-    shared, top-4) on the card, with an idle row and two replicas of the
-    first four experts; operands in the reference's order."""
+    shared, top-4) on the card, with an idle row, rows of up to
+    ``max_len`` positions and two replicas of the first four experts;
+    operands in the reference's order."""
     D, H, Hkv, Dh, E_log, E, F, Fs, K = (2048, 16, 16, 128, 60, 64, 1408,
                                          5632, 4)
     bs, nb, max_blk = 16, 257, 32
@@ -202,7 +250,7 @@ def megastep_main_inputs(card, dtype, B, seed=0):
         return (torch.randn(shape, generator=gen, device=card)
                 * scale).to(dtype)
     tables = np.stack([rng.permutation(nb - 1)[:max_blk] for _ in range(B)])
-    seq = rng.integers(1, 289, size=B)
+    seq = rng.integers(1, max_len + 1, size=B)
     seq[1] = 0
     ar = np.arange(E_log)
     l2p = np.stack([ar, np.where(ar < 4, E_log + ar, 0)], 1)
@@ -228,7 +276,18 @@ def megastep_main_inputs(card, dtype, B, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B", [8, 40])
 def test_decode_megastep_cuda_vs_plain_main_shapes(card, B, dtype):
-    args, kw = megastep_main_inputs(card, dtype, B)
+    check_megastep_main(card, dtype, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_megastep_cuda_vs_plain_full_context(card, dtype):
+    """B=8 with rows of up to the engine's 512 positions (8 splits)."""
+    check_megastep_main(card, dtype, 8, max_len=512)
+
+
+def check_megastep_main(card, dtype, B, max_len=288):
+    args, kw = megastep_main_inputs(card, dtype, B, max_len=max_len)
     y, h2, route = decode_megastep_cuda(*args, **kw, return_route=True)
     y2, h22 = decode_megastep_cuda(*args, **kw)
     torch.cuda.synchronize()
@@ -372,7 +431,9 @@ def test_flash_prefill_cuda_vs_plain(card, case, dtype):
 # falcon-mamba-7b at full width (d_inner 8192, N 16): a 256-token prefill
 # bucket from zero, and the decode step of 8 slots from their state
 SSM_CARD_CASES = dict(SSM_CASES, prefill_d8192=(1, 256, 8192, 16, 0, 0, False),
-                      decode_d8192=(8, 1, 8192, 16, 0, 0, True))
+                      decode_d8192=(8, 1, 8192, 16, 0, 0, True),
+                      prefill_d8192_s512=(1, 512, 8192, 16, 0, 0, False),
+                      prefill_d8192_s2048=(1, 2048, 8192, 16, 0, 0, False))
 
 
 @pytest.mark.cuda
@@ -398,3 +459,36 @@ def test_ssm_scan_cuda_vs_plain(card, case, dtype):
         assert torch.equal(g, a)         # bitwise run to run
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c for c, v in SSM_CARD_CASES.items()
+                                  if v[-1]])
+def test_ssm_scan_cuda_in_place_vs_plain(card, case, dtype):
+    """The decode step's in-place mode, the state aliased as h0 and
+    h_out: the state bitwise the plain in-place mode's and the default
+    mode's h_final cast, in its storage; y the default mode's y cast."""
+    B, S, d, N, _, _, _ = SSM_CARD_CASES[case]
+    u, dt, A, Bs, Cs, h0 = ssm_inputs(B, S, d, N, True)
+    u, dt, Bs, Cs = (_t(a).to(card, dtype) for a in (u, dt, Bs, Cs))
+    A = _t(A).to(card)
+    h0 = _t(h0).to(card, dtype)
+    y_def, h_def = ssm_scan_cuda(u, dt, A, Bs, Cs, h0)
+    states, ys = [], []
+    for _ in range(2):
+        st = h0.clone()
+        ptr = st.data_ptr()
+        n0 = launches["ssm_scan"]
+        y, h = ssm_scan_cuda(u, dt, A, Bs, Cs, st, h_out=st, y_dtype=dtype)
+        assert launches["ssm_scan"] == n0 + 1
+        assert h.data_ptr() == ptr and st.data_ptr() == ptr
+        states.append(st)
+        ys.append(y)
+    torch.cuda.synchronize()
+    assert torch.equal(*states) and torch.equal(*ys)   # bitwise run to run
+    want = h0.clone()
+    ssm_scan_plain(u, dt, A, Bs, Cs, want, h_out=want, y_dtype=dtype)
+    assert torch.equal(states[0], want)
+    assert torch.equal(states[0], h_def.to(dtype))
+    assert ys[0].dtype == dtype and torch.equal(ys[0], y_def.to(dtype))
