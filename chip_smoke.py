@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernels   # a subset
     python3 chip_smoke.py --layers 12     # cut the qwen engines' depth
     python3 chip_smoke.py --paths ssm     # serve one engine path
+    python3 chip_smoke.py --paths mla_composed,mla_megakernel,mla_serial
     python3 chip_smoke.py --profile       # + where the device time goes
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -33,7 +34,18 @@ Phases, in order; any failure raises and the script exits non-zero:
              16), a prefill row at S = 200, 256, 512 and 2048 and the
              decode step of 8 slots from their state, also in the
              engine's in-place mode (the bf16 state written where it
-             lies, its storage unchanged).  Every
+             lies, its storage unchanged).  Then the same at
+             deepseek-v3's shapes: paged attention at the latent layout
+             (Hkv = 1, G = 128, Da = 576, one pool as K and V) at decode
+             B = 8 and chunk B = 40 over the engine's context, over one
+             4090-position row and windowed with an idle row; the
+             megastep at that layout (w_post (73728, 7168), 256 + 32
+             experts, top-8) at B = 8 and 40 with masked and lost
+             experts and a dead replica; whole-prompt attention with
+             Dq = 192, Dv = 128, H = 128 at S = 256 and 512 with and
+             without window 6; the fused MoE at T = 8 and 40 and the
+             expert FFN at C = 8, 9, 18 over 288 experts of D = 7168, F
+             = 2048 (f32 over a third of the bank).  Every
              kernel runs twice and must be bitwise equal; kernel and plain
              version are timed at the main path's shapes (the fused MoE at
              T = 8 and 40 with its device time split between its kernels
@@ -47,29 +59,40 @@ Phases, in order; any failure raises and the script exits non-zero:
              (dense-scatter MoE) installed into the pools, then a decode
              step; logits and installed K/V rows within tolerance, greedy
              tokens equal, and the two implementations agree on the card.
-             Then falcon-mamba-7b at full width, 2 layers, f32: a
+             The same for deepseek-v3 at full width (MLA, 1 dense + 1 MoE
+             layer, its bank cut to 16 + 4 experts with top-8 kept: a
+             288-expert f32 layer is 50.7 GB), its prefill installed into
+             the latent pools.  Then falcon-mamba-7b at full width, 2
+             layers, f32: a
              whole-prompt prefill at bucket 256, its state installed, two
              decode steps; logits and state within tolerance, greedy
              tokens equal.
 5. engine  — behind the collocated ``InferenceEngine`` (2 DP ranks), in
-             bf16.  qwen2-moe-a2.7b at full width, depth cut to 16 of its
-             24 layers: start-up writes ``weights.npz`` and the per-rank
-             shard files, 2.3 GB a layer plus 1.3 GB (~57 GB at 24 layers,
-             ~38 GB at 16), and a run may write at most 45 GiB to its
-             disk, so ``--layers`` trades depth for it.  Three qwen paths:
-             chunked admission with the fused MoE and each decode
+             bf16.  qwen2-moe-a2.7b at full width and all 24 layers:
+             start-up writes ``weights.npz`` once (~1.2 GB a layer plus
+             1.3 GB) and no per-rank shard file; a run may write at most
+             45 GiB to its disk (``--layers`` cuts the depth).  Three qwen
+             paths: chunked admission with the fused MoE and each decode
              implementation (composed, megakernel), and serial admission
              (whole-prompt prefills) with the model's dense-scatter MoE.
-             Then, once the qwen workdir is gone, the ``ssm`` path:
+             Then, once the qwen workdir is gone, the same three paths
+             for deepseek-v3 (``mla_composed``, ``mla_megakernel``,
+             ``mla_serial``) at full width, depth cut from 61 to its 3
+             dense + 1 MoE layers (a ~33 GB ``weights.npz``).  Then, once
+             that workdir is gone too, the ``ssm`` path:
              falcon-mamba-7b at full width and full depth (64 layers; a
              14.55 GB ``weights.npz``, no shards), whose chunked admission
              falls back to whole-prompt installs.  Each path serves 8
              requests without a fault, then the same workload with an L6
              fault on physical 1 mid-step at step 6 (``attn+moe`` on the
-             qwen paths, ``attn`` on the ssm path), revived in place.
+             MoE paths, ``attn`` on the ssm path), revived in place.
              Each path's kernels' launch counts are read from its faulted
-             run, counted from 0 just before it.
-6. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+             run, counted from 0 just before it.  Each engine build prints
+             its start-up files (no ``expert_shard_*.npz``), its memory on
+             the card and the host's MemTotal and MemAvailable.
+6. a ``{"kernels": [...]}`` line (each kernel's row at the qwen or
+   falcon shapes, with its deepseek-v3 rows under ``mla``), then the
+   ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -78,6 +101,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -107,21 +131,31 @@ KERNEL_META = {
                  "src/repro/kernels/ssm_scan.py:52"),
 }
 # the engine paths each kernel runs on; its launches are counted there
-KERNEL_PATH = {"paged_attention": ("composed", "serial"),
-               "moe_fused": ("composed",),
-               "decode_megastep": ("megakernel",),
-               "router_topk": ("megakernel",),
-               "expert_ffn": ("serial",), "flash_prefill": ("serial",),
+# (the megakernel paths run paged_attention too: MLA's first-k dense
+# layers keep the composed chain)
+KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
+                                   "mla_megakernel", "mla_serial"),
+               "moe_fused": ("composed", "mla_composed"),
+               "decode_megastep": ("megakernel", "mla_megakernel"),
+               "router_topk": ("megakernel", "mla_megakernel"),
+               "expert_ffn": ("serial", "mla_serial"),
+               "flash_prefill": ("serial", "mla_serial"),
                "ssm_scan": ("ssm",)}
 IMPLS = ("composed", "megakernel")
 # the engine paths: EngineConfig options of each.  ``ssm`` serves
 # falcon-mamba-7b, whose chunked admission falls back to whole-prompt
-# installs (a Mamba mixer cannot chunk); the others qwen2-moe-a2.7b.
+# installs (a Mamba mixer cannot chunk); the ``mla_*`` paths deepseek-v3
+# (multi-head latent attention); the others qwen2-moe-a2.7b.
 PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "megakernel": dict(moe_impl="fused", decode_impl="megakernel"),
          "serial": dict(admission="serial", decode_impl="composed"),
+         "mla_composed": dict(moe_impl="fused", decode_impl="composed"),
+         "mla_megakernel": dict(moe_impl="fused", decode_impl="megakernel"),
+         "mla_serial": dict(admission="serial", decode_impl="composed"),
          "ssm": dict()}
-PATH_ARCH = {"ssm": "falcon-mamba-7b"}        # default: qwen2-moe-a2.7b
+QWEN_ARCH = "qwen2-moe-a2.7b"
+PATH_ARCH = {"ssm": "falcon-mamba-7b", "mla_composed": "deepseek-v3",
+             "mla_megakernel": "deepseek-v3", "mla_serial": "deepseek-v3"}
 # card-vs-plain tolerances (allclose: |got - want| <= atol + rtol |want|).
 # f32: both accumulate in f32 in different orders.  bf16: the plain
 # versions round intermediates to bf16 where the kernels keep f32 (the
@@ -143,7 +177,7 @@ MODEL_LOGIT_ATOL = 1e-3       # f32, 2 layers at full width, card vs CPU
 # the f32 Mamba state after a whole prompt, card vs CPU (atol, rtol): the
 # products before the scan sum in other orders
 STATE_TOL = (1e-4, 1e-3)
-ENGINE_LAYERS = 16            # of 24: bounded by the disk a run may write
+ENGINE_LAYERS = 24            # qwen2-moe-a2.7b's full depth
 # the kernels phase's shapes: the engine phase's batch, chunk and paging,
 # qwen2-moe-a2.7b's widths
 SHAPES = dict(max_batch=8, chunk=32, block_size=16, num_blocks=256,
@@ -256,10 +290,11 @@ def phase_build():
 # -- phase 3: kernels ---------------------------------------------------------
 
 def paged_case(torch, *, B, H, Hkv, Dh, bs, nb, max_blk, max_len, window,
-               idle, dtype, seed, lens=None):
+               idle, dtype, seed, lens=None, same=False):
     """Random q and pools, a random block table per row, and seq_lens
     drawn from [1, max_len] (or ``lens``); ``window`` > 0 starts each row
-    ``window`` positions before its end.  Returns (args, valid rows)."""
+    ``window`` positions before its end; ``same``: one pool serves as K
+    and V (MLA's latent pool).  Returns (args, valid rows)."""
     rng = np.random.default_rng(seed)
     dev = "cuda"
     q = torch.from_numpy(rng.normal(size=(B, H, Dh)).astype(np.float32))
@@ -273,7 +308,8 @@ def paged_case(torch, *, B, H, Hkv, Dh, bs, nb, max_blk, max_len, window,
     if idle:
         seq[1] = 0
     start = np.maximum(seq - window, 0) if window else None
-    args = [q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype),
+    kp = kp.to(dev, dtype)
+    args = [q.to(dev, dtype), kp, kp if same else vp.to(dev, dtype),
             torch.from_numpy(tables.astype(np.int32)).to(dev),
             torch.from_numpy(seq.astype(np.int32)).to(dev),
             None if start is None else
@@ -287,7 +323,8 @@ def paged_bound_ms(args, n_valid, dtype_name):
     B, H, Dh = q.shape
     Hkv = kp.shape[2]
     el = q.element_size()
-    nbytes = (2 * n_valid * Hkv * Dh * el + 2 * q.numel() * el
+    pools = 1 if args[1] is args[2] else 2      # MLA reads one pool
+    nbytes = (pools * n_valid * Hkv * Dh * el + 2 * q.numel() * el
               + args[3].numel() * 4 + 2 * B * 4)
     flops = 4 * n_valid * H * Dh
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
@@ -295,14 +332,18 @@ def paged_bound_ms(args, n_valid, dtype_name):
 
 
 def moe_case(torch, *, T, E, e_local, off, D, Fd, k, cap, dtype, seed,
-             hot=0, dead_p=0.15):
+             hot=0, dead_p=0.15, direct=False):
+    """``direct``: draw the bank in ``dtype`` (a deepseek-v3 bank of 288
+    experts is 50.7 GB in f32)."""
     rng = np.random.default_rng(seed)
     dev = "cuda"
     x = rng.normal(size=(T, D)).astype(np.float32)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    g = torch.randn((e_local, D, Fd), generator=gen, device=dev) / D ** 0.5
-    u = torch.randn((e_local, D, Fd), generator=gen, device=dev) / D ** 0.5
-    d = torch.randn((e_local, Fd, D), generator=gen, device=dev) / Fd ** 0.5
+    bank = dict(generator=gen, device=dev,
+                dtype=dtype if direct else torch.float32)
+    g = torch.randn((e_local, D, Fd), **bank).mul_(D ** -0.5)
+    u = torch.randn((e_local, D, Fd), **bank).mul_(D ** -0.5)
+    d = torch.randn((e_local, Fd, D), **bank).mul_(Fd ** -0.5)
     # routing: distinct experts per token; ``hot`` tokens all pick expert
     # 5 first (overflows cap); ~dead_p of the copies are on dead replicas
     phys = np.stack([rng.permutation(E)[:k] for _ in range(T)])
@@ -493,11 +534,10 @@ def phase_kernels(torch, shapes):
     out["expert_ffn"] = kernels_expert_ffn(torch)
     out["flash_prefill"] = kernels_flash_prefill(torch)
     out["ssm_scan"] = kernels_ssm_scan(torch)
+    for name, rows in kernels_mla(torch, shapes).items():
+        out[name]["mla"] = rows
     for name, r in out.items():
-        log(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})" + ("" if r["library_ms"] is None else
-                                    f", library {r['library_ms']:.4f} ms"))
+        _log_row(name, r)
     return out
 
 
@@ -566,22 +606,31 @@ def kernels_router(torch):
 
 QWEN = dict(D=2048, H=16, Hkv=16, Dh=128, E_log=60, R=4, F=1408, Fs=5632,
             k=4)
+# deepseek-v3's block at the megastep's latent layout: one pool of R + dr
+# = 576 serving as K and V under 128 query heads, 256 + 32 experts, top-8
+DEEPSEEK = dict(D=7168, H=128, Hkv=1, Dh=576, E_log=256, R=32, F=2048,
+                Fs=2048, k=8)
 
 
 def megastep_case(torch, S, *, B, dtype, seed, window=0, masked=(),
-                  lost=(), dead=(), hot=None, e_local=64, off=0):
-    """Full-width qwen2-moe-a2.7b block operands on the card.  Row 1 is
-    idle; ``dead`` experts lost their first replica (count 1, the
-    redundant slot survives); ``hot`` adds ~3 to one expert's logit on
-    every row (over capacity at B=40); ``e_local``/``off`` pick the bank
-    slice.  Returns (args, kw, valid K/V rows)."""
-    Q = QWEN
-    D, H, Hkv, Dh, E_log, R = (Q[n] for n in ("D", "H", "Hkv", "Dh",
+                  lost=(), dead=(), hot=None, e_local=64, off=0, W=QWEN):
+    """Full-width block operands on the card, at the widths ``W`` (qwen2-
+    moe-a2.7b, or deepseek-v3's latent layout, whose K and V are one pool
+    and whose weights are drawn in ``dtype`` directly).  Row 1 is idle;
+    ``dead`` experts lost their first replica (count 1, the redundant slot
+    survives); ``hot`` adds ~3 to one expert's logit on every row (over
+    capacity at B=40); ``e_local``/``off`` pick the bank slice.  Returns
+    (args, kw, valid K/V rows)."""
+    D, H, Hkv, Dh, E_log, R = (W[n] for n in ("D", "H", "Hkv", "Dh",
                                                "E_log", "R"))
+    mla = W is DEEPSEEK
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape, scale=1.0):
+        if mla:
+            return torch.randn(shape, generator=gen, device="cuda",
+                               dtype=dtype).mul_(scale)
         return (torch.randn(shape, generator=gen, device="cuda")
                 * scale).to(dtype)
 
@@ -608,8 +657,9 @@ def megastep_case(torch, S, *, B, dtype, seed, window=0, masked=(),
     rcnt[list(lost)] = 0
     mask = np.ones(E_log, bool)
     mask[list(masked)] = False
-    F, Fs = Q["F"], Q["Fs"]
-    args = [randn(B, H, Dh), randn(nb, bs, Hkv, Dh), randn(nb, bs, Hkv, Dh),
+    F, Fs = W["F"], W["Fs"]
+    pool = randn(nb, bs, Hkv, Dh)
+    args = [randn(B, H, Dh), pool, pool if mla else randn(nb, bs, Hkv, Dh),
             dev(tables.astype(np.int32)), dev(seq.astype(np.int32)),
             dev(start.astype(np.int32)), dev(x.astype(np.float32)).to(dtype),
             randn(H * Dh, D, scale=(H * Dh) ** -0.5),
@@ -621,7 +671,8 @@ def megastep_case(torch, S, *, B, dtype, seed, window=0, masked=(),
             randn(D, Fs, scale=D ** -0.5), randn(D, Fs, scale=D ** -0.5),
             randn(Fs, D, scale=Fs ** -0.5)]
     from repro_torch.models.moe import capacity
-    kw = dict(top_k=Q["k"], cap=capacity(B * Q["k"], 64, 1.25, floor=8),
+    kw = dict(top_k=W["k"], cap=capacity(B * W["k"], E_log + R, 1.25,
+                                         floor=8),
               e_local=e_local)
     return args, kw, int((seq - start).clip(min=0).sum())
 
@@ -659,8 +710,9 @@ def megastep_bound_ms(args, kw, route, n_valid, dtype_name):
     el = x.element_size()
     live_slots = int((route["wgt"] != 0).sum())
     live_experts = int((route["wgt"] != 0).any(dim=1).sum())
+    pools = 1 if args[1] is args[2] else 2      # MLA reads one pool
     nbytes = el * (H * Dh * D + D * E_log + 3 * D * Fs
-                   + live_experts * 3 * D * F + 2 * n_valid * Hkv * Dh
+                   + live_experts * 3 * D * F + pools * n_valid * Hkv * Dh
                    + B * H * Dh + 3 * B * D + D)
     flops = (4 * n_valid * H * Dh + 2 * B * H * Dh * D + 2 * B * D * E_log
              + 6 * B * D * Fs + 6 * live_slots * D * F)
@@ -786,12 +838,16 @@ def kernels_megastep(torch, S):
     return rows[S["max_batch"]]
 
 
-def expert_ffn_args(torch, C, dtype):
-    """A qwen2-moe-a2.7b layer's 64 experts over a C-row capacity buffer."""
-    E, D, Fd = 64, QWEN["D"], QWEN["F"]
+def expert_ffn_args(torch, C, dtype, E=64, W=QWEN):
+    """A layer's E experts over a C-row capacity buffer: qwen2-moe-a2.7b's
+    64, or deepseek-v3's (drawn in ``dtype`` directly)."""
+    D, Fd = W["D"], W["F"]
     gen = torch.Generator(device="cuda").manual_seed(30 + C)
 
     def randn(*shape, scale=1.0):
+        if W is DEEPSEEK:
+            return torch.randn(shape, generator=gen, device="cuda",
+                               dtype=dtype).mul_(scale)
         return (torch.randn(shape, generator=gen, device="cuda")
                 * scale).to(dtype)
     return (randn(E, C, D), randn(E, D, Fd, scale=D ** -0.5),
@@ -859,14 +915,16 @@ def kernels_expert_ffn(torch):
     return rows[8]
 
 
-def flash_bound_ms(S, H, Hkv, Dh, window, el, dtype_name):
+def flash_bound_ms(S, H, Hkv, Dh, window, el, dtype_name, Dv=None):
     """Bytes: q, k, v and out once; operations: QK^T and PV over the
-    (query, key) pairs this mask leaves visible."""
+    (query, key) pairs this mask leaves visible.  ``Dv``: V's width where
+    it is not the QK width Dh."""
+    Dv = Dv or Dh
     i = np.arange(S)
     visible = int(np.minimum(i + 1, window).sum() if window
                   else (i + 1).sum())
-    nbytes = el * (2 * S * H * Dh + 2 * S * Hkv * Dh)
-    flops = 4 * visible * H * Dh
+    nbytes = el * (S * H * (Dh + Dv) + S * Hkv * (Dh + Dv))
+    flops = 2 * visible * H * (Dh + Dv)
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
@@ -1082,6 +1140,328 @@ def ssm_in_place(torch, args, dn):
                     tol)]
 
 
+# -- phase 3, deepseek-v3's shapes ----------------------------------------------
+
+def _row(errs, ms, plain_ms, bound, shape, library_ms=None):
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms,
+                shape=shape)
+
+
+def _log_row(name, r):
+    log(f"  {name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})" + ("" if r["library_ms"] is None else
+                                f", library {r['library_ms']:.4f} ms"))
+
+
+def _free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kernels_mla(torch, S):
+    """The kernels of the mla_* paths at deepseek-v3's shapes, each against
+    its plain version in f32 and bf16, twice and bitwise equal; the bf16
+    cases at the main path's shapes timed beside their bounds.  Returns
+    {kernel: [rows]}."""
+    out = {"paged_attention": mla_paged(torch, S),
+           "decode_megastep": mla_megastep(torch, S),
+           "flash_prefill": mla_flash(torch),
+           "moe_fused": mla_moe_fused(torch, S),
+           "expert_ffn": mla_expert_ffn(torch)}
+    for name, rows in out.items():
+        for r in rows:
+            _log_row(name, r)
+    return out
+
+
+def mla_paged(torch, S):
+    """Paged attention at the latent layout: Hkv = 1, G = 128, Da = 576,
+    one pool as K and V, at the engine's context (512 positions) for a
+    decode step (B=8) and a chunk step (B=40), over one 4090-position row
+    (64 splits), and windowed with an idle row."""
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_plain)
+    W = DEEPSEEK
+    log("kernels: paged_attention at deepseek-v3's latent layout (Hkv=1, "
+        "G=128, Da=576, K = V one pool) vs its plain version")
+    mb, nblk = S["max_blk"], S["num_blocks"] + 1
+    cases = [
+        # name, B, window, idle, max_len, max_blk, lens
+        ("decode", S["max_batch"], 0, True, 512, mb, None),
+        ("chunk step", S["chunk"] + S["max_batch"], 0, True, 512, mb, None),
+        ("long row", 1, 0, False, 0, 256, [4090]),
+        ("window 70", 3, 70, True, 0, mb, [500, 0, 131]),
+    ]
+    errs, timed = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for i, (name, B, window, idle, max_len, max_blk, lens) in \
+                enumerate(cases):
+            args, n_valid = paged_case(
+                torch, B=B, H=W["H"], Hkv=1, Dh=W["Dh"], bs=S["block_size"],
+                nb=max(nblk, max_blk + 2), max_blk=max_blk, max_len=max_len,
+                window=window, idle=idle, dtype=dtype, seed=60 + i,
+                lens=lens, same=True)
+            got = paged_attention_cuda(*args)
+            again = paged_attention_cuda(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_attention latent {name}: not "
+                                     f"bitwise equal run to run")
+            if idle and got[1].abs().max().item() != 0.0:
+                raise AssertionError("paged_attention latent: idle row not 0")
+            errs.append(compare(f"latent {name} B={B} ({n_valid} rows) {dn}",
+                                got, paged_attention_plain(*args), dn))
+            if dtype is torch.bfloat16 and name != "window 70":
+                timed[name] = (args, n_valid, dn)
+            del args, got, again
+    rows = []
+    for name, (args, n_valid, dn) in timed.items():
+        B = args[0].shape[0]
+        rows.append(_row(
+            errs, time_ms(torch, lambda: paged_attention_cuda(*args)),
+            time_ms(torch, lambda: paged_attention_plain(*args)),
+            paged_bound_ms(args, n_valid, dn),
+            f"{name} B={B} H=128 Hkv=1 Da=576 bf16, {n_valid} valid latent "
+            f"rows (K = V)"))
+        if name == "decode":
+            log(f"  paged_attention's kernels at latent decode B={B} "
+                f"(torch.profiler, mean of 20 calls, L2 warm):")
+            for us, k in kernel_breakdown(
+                    torch, lambda: paged_attention_cuda(*args)):
+                log(f"    {us:9.2f} us  {k[:90]}")
+    del timed
+    _free(torch)
+    return rows
+
+
+def mla_megastep(torch, S):
+    """The megastep at deepseek-v3's latent layout (w_post (73728, 7168),
+    E_log 256 + 32 redundant, top-8): a decode step (B=8), one with a
+    window, masked and lost experts and a dead replica, and a chunk step
+    (B=40).  bf16 holds the whole bank of 288 experts (25.4 GB); f32 a
+    third of it (96 experts at offset 96, the rest foreign)."""
+    from repro_torch.kernels.decode_megastep import (decode_megastep_cuda,
+                                                     decode_megastep_plain)
+    from repro_torch.kernels.moe_fused import moe_group_tokens
+    from repro_torch.models.moe import MoERuntime, select_replicas
+    W = DEEPSEEK
+    log("kernels: decode_megastep at deepseek-v3's latent layout vs its "
+        "plain version")
+    cases = [
+        ("decode", dict(B=S["max_batch"])),
+        ("decode, window 64, masked 10/200, lost 5, dead replica of 1",
+         dict(B=S["max_batch"], window=64, masked=(10, 200), lost=(5,),
+              dead=(1,))),
+        ("chunk step", dict(B=S["chunk"] + S["max_batch"])),
+    ]
+    errs, rows = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        bank = (dict(e_local=W["E_log"] + W["R"], off=0)
+                if dtype is torch.bfloat16 else dict(e_local=96, off=96))
+        for i, (name, case) in enumerate(cases):
+            args, kw, n_valid = megastep_case(torch, S, dtype=dtype,
+                                              seed=70 + i, W=W, **bank,
+                                              **case)
+            y, h2, route = decode_megastep_cuda(*args, **kw,
+                                                return_route=True)
+            y2, h22 = decode_megastep_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(h2, h22)):
+                raise AssertionError(f"decode_megastep latent {name}: not "
+                                     f"bitwise equal run to run")
+            rt = MoERuntime(args[10], args[11], args[12])
+            phys, alive = select_replicas(route["sel"].long(), rt)
+            tables = moe_group_tokens(phys, alive, route["w"],
+                                      expert_offset=args[16],
+                                      e_local=kw["e_local"], cap=kw["cap"])
+            for key, want in zip(("tok_idx", "wgt", "slot_of"), tables):
+                if not torch.equal(route[key], want):
+                    raise AssertionError(f"decode_megastep latent {name}: "
+                                         f"{key} differs from "
+                                         f"moe_group_tokens")
+            want_y, want_h2 = decode_megastep_plain(*args, **kw)
+            B = args[0].shape[0]
+            errs.append(compare(f"latent {name} B={B} h2 {dn}", h2, want_h2,
+                                dn, MEGA_TOL))
+            errs.append(compare(f"latent {name} B={B} y {dn} (bank "
+                                f"{kw['e_local']} at {args[16]})", y,
+                                want_y, dn, MEGA_TOL))
+            del y, y2, h2, h22, want_y, want_h2
+            if dtype is torch.bfloat16 and name in MEGA_TIMED:
+                mega = lambda: decode_megastep_cuda(*args, **kw)  # noqa
+                bound = megastep_bound_ms(args, kw, route, n_valid, dn)
+                rows.append(_row(
+                    errs, time_ms(torch, mega),
+                    time_ms(torch, lambda: decode_megastep_plain(*args,
+                                                                 **kw)),
+                    bound[:2],
+                    f"B={B} D=7168 H=128 Hkv=1 Da=576 E=256+32 F=2048 "
+                    f"Fs=2048 k=8 cap={kw['cap']} bf16, {n_valid} valid "
+                    f"latent rows, {bound[2]} experts / {bound[3]} slots "
+                    f"live"))
+                log(f"  decode_megastep's launches at latent B={B}, one call "
+                    f"in order (torch.profiler; route_slots is the route "
+                    f"stage):")
+                for us, key in kernel_sequence(torch, mega):
+                    log(f"    {us:9.2f} us  {key[:90]}")
+            del args, route
+            _free(torch)
+    return rows
+
+
+def mla_flash(torch):
+    """Whole-prompt attention at MLA's widths (QK 192, V 128, H = Hkv =
+    128) at the serial path's buckets, with and without window 6."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
+                                                   flash_prefill_plain)
+    H, Dq, Dv = DEEPSEEK["H"], 192, 128
+    log("kernels: flash_prefill at deepseek-v3's MLA widths (B=1, H=Hkv="
+        "128, Dq=192, Dv=128) vs its plain version")
+    errs, timed = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for Sq in (256, 512):
+            for window in (0, 6):
+                gen = torch.Generator(device="cuda").manual_seed(Sq + window)
+                q, k, v = (torch.randn((1, Sq, H, d), generator=gen,
+                                       device="cuda").to(dtype)
+                           for d in (Dq, Dq, Dv))
+                pos = torch.arange(Sq, dtype=torch.int32, device="cuda")
+                kw = dict(causal=True, window=window)
+                got = flash_prefill_cuda(q, k, v, pos, pos, **kw)
+                again = flash_prefill_cuda(q, k, v, pos, pos, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"flash_prefill MLA S={Sq}: not "
+                                         f"bitwise equal run to run")
+                errs.append(compare(
+                    f"MLA S={Sq} window {window} {dn}", got,
+                    flash_prefill_plain(q, k, v, pos, pos, **kw), dn,
+                    FLASH_TOL))
+                if not window and dtype is torch.bfloat16:
+                    timed[Sq] = (q, k, v, pos)
+    rows = []
+    for Sq, (q, k, v, pos) in timed.items():
+        def library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True)
+
+        def kernel():
+            return flash_prefill_cuda(q, k, v, pos, pos)
+
+        rows.append(_row(
+            errs, time_ms(torch, kernel),
+            time_ms(torch, lambda: flash_prefill_plain(q, k, v, pos, pos)),
+            flash_bound_ms(Sq, H, H, Dq, 0, q.element_size(), "bfloat16",
+                           Dv=Dv),
+            f"B=1 S={Sq} H=Hkv=128 Dq=192 Dv=128 causal bf16 (library: "
+            f"scaled_dot_product_attention)", time_ms(torch, library)))
+        log(f"  flash_prefill's kernels at MLA S={Sq} (torch.profiler, mean "
+            f"of 20 calls, L2 warm):")
+        for us, key in kernel_breakdown(torch, kernel):
+            log(f"    {us:9.2f} us  {key[:90]}")
+    del timed
+    _free(torch)
+    return rows
+
+
+def mla_moe_fused(torch, S):
+    """The fused MoE at deepseek-v3's widths: T = 8 and 40 tokens routed
+    over 288 physical experts, top-8, D=7168, F=2048; bf16 with the whole
+    bank, f32 with the 96 experts at offset 96 (the rest foreign)."""
+    from repro_torch.kernels.moe_fused import moe_fused_cuda, moe_fused_plain
+    from repro_torch.models.moe import capacity
+    W = DEEPSEEK
+    E = W["E_log"] + W["R"]
+    log("kernels: moe_fused at deepseek-v3's widths vs its plain version")
+    errs, rows = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        e_local, off = (E, 0) if dtype is torch.bfloat16 else (96, 96)
+        for T in (S["max_batch"], S["chunk"] + S["max_batch"]):
+            args, kw = moe_case(
+                torch, T=T, E=E, e_local=e_local, off=off, D=W["D"],
+                Fd=W["F"], k=W["k"], cap=capacity(T * W["k"], E, 1.25),
+                dtype=dtype, seed=80 + T, direct=True)
+            got = moe_fused_cuda(*args, **kw)
+            again = moe_fused_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"moe_fused deepseek T={T}: not bitwise "
+                                     f"equal run to run")
+            _, _, live_e, live_s = moe_bound_ms(args, kw, dn)
+            errs.append(compare(
+                f"deepseek T={T} bank {e_local} at {off} ({live_e} experts, "
+                f"{live_s} slots) {dn}", got, moe_fused_plain(*args, **kw),
+                dn))
+            del got, again
+            if dtype is torch.bfloat16:
+                bound, by, live_e, live_s = moe_bound_ms(args, kw, dn)
+                rows.append(_row(
+                    errs, time_ms(torch, lambda: moe_fused_cuda(*args, **kw)),
+                    time_ms(torch, lambda: moe_fused_plain(*args, **kw)),
+                    (bound, by),
+                    f"T={T} D=7168 F=2048 E=288 k=8 cap={kw['cap']} bf16, "
+                    f"{live_e} experts / {live_s} slots live"))
+                moe_breakdown(torch, lambda: moe_fused_cuda(*args, **kw), T)
+            del args
+            _free(torch)
+    return rows
+
+
+def mla_expert_ffn(torch):
+    """The serial path's expert FFN at deepseek-v3's widths: 288 experts
+    (bf16; 96 in f32) of D=7168, F=2048 over capacity buffers of C=8 (a
+    decode step), 9 and 18 (prefill buckets 256 and 512)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.expert_ffn import (expert_ffn_cuda,
+                                                expert_ffn_plain)
+    W = DEEPSEEK
+    D, Fd = W["D"], W["F"]
+    log("kernels: expert_ffn at deepseek-v3's widths vs its plain version")
+
+    def library(x, g, u, d):    # the closest torch.bmm chain
+        return torch.bmm(F.silu(torch.bmm(x, g)) * torch.bmm(x, u), d)
+
+    errs, rows = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        E = W["E_log"] + W["R"] if dtype is torch.bfloat16 else 96
+        for C in ((8,) if dtype is torch.float32 else (8, 9, 18)):
+            args = expert_ffn_args(torch, C, dtype, E=E, W=W)
+            got = expert_ffn_cuda(*args)
+            again = expert_ffn_cuda(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"expert_ffn deepseek C={C}: not "
+                                     f"bitwise equal run to run")
+            errs.append(compare(f"deepseek E={E} C={C} D={D} F={Fd} {dn}",
+                                got, expert_ffn_plain(*args), dn, FFN_TOL))
+            del got, again
+            if dtype is torch.bfloat16:
+                el = args[0].element_size()
+                nbytes = el * (3 * E * D * Fd + 2 * E * C * D)
+                flops = 6 * E * C * D * Fd
+                t_b, t_o = (nbytes / HBM_BYTES_PER_S,
+                            flops / PEAK_FLOPS["bfloat16"])
+                rows.append(_row(
+                    errs, time_ms(torch, lambda: expert_ffn_cuda(*args)),
+                    time_ms(torch, lambda: expert_ffn_plain(*args)),
+                    (1e3 * max(t_b, t_o),
+                     "bytes" if t_b >= t_o else "operations"),
+                    f"E={E} C={C} D={D} F={Fd} bf16 (library: silu(bmm) * "
+                    f"bmm, then bmm)", time_ms(torch, lambda: library(*args))))
+            del args
+            _free(torch)
+    return rows
+
+
 # -- phase 4: model, card against CPU -------------------------------------------
 
 def _map(tree, fn):
@@ -1090,19 +1470,45 @@ def _map(tree, fn):
 
 
 def phase_model(torch, seed):
+    """qwen2-moe-a2.7b and deepseek-v3 (MLA) at full width, 2 layers,
+    f32, card against CPU; then falcon-mamba-7b."""
     import dataclasses
     from repro_torch.configs import get_config
+    model_moe(torch, dataclasses.replace(
+        get_config(QWEN_ARCH), num_layers=2, moe_impl="fused"), seed,
+        "qwen2-moe-a2.7b full width, 2 layers")
+    ds = get_config("deepseek-v3")
+    # a 288-expert f32 layer is 50.7 GB: this phase alone cuts the bank
+    # (its routing keeps top-8); every width stays
+    cut = dataclasses.replace(ds, num_layers=2, moe_impl="fused",
+                              moe=dataclasses.replace(
+                                  ds.moe, first_k_dense=1, num_experts=16,
+                                  num_redundant_experts=4))
+    model_moe(torch, cut, seed,
+              f"deepseek-v3 full width (d_model {ds.d_model}, "
+              f"{ds.num_heads} MLA heads, latent "
+              f"{ds.mla.kv_lora_rank} + {ds.mla.qk_rope_head_dim}, dense "
+              f"d_ff {ds.moe.dense_d_ff}, expert d_ff "
+              f"{ds.moe.expert_d_ff}, vocab {ds.vocab_size}), 2 layers (1 "
+              f"dense + 1 MoE), bank cut from {ds.moe.num_experts} + "
+              f"{ds.moe.num_redundant_experts} to 16 + 4 experts, top-"
+              f"{ds.moe.top_k} kept")
+    model_ssm(torch, seed)
+
+
+def model_moe(torch, base, seed, what):
+    """One attention+MoE config, card against CPU: a chunk step and a
+    decode step per decode implementation, then the serial prefill."""
+    import dataclasses
     from repro_torch.kernels import launches
     from repro_torch.models.model import Model
-    base = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2,
-                               moe_impl="fused")
     bs, nblk, max_blk, width, batch = 16, 16, 4, 32, 8
     trash = nblk
     t0 = time.perf_counter()
     p_cpu = Model(base, torch.float32, device="cpu").init(seed)
     p_card = _map(p_cpu, lambda t: t.to("cuda"))
-    log(f"model: qwen2-moe-a2.7b full width, 2 layers, f32; weights from "
-        f"seed {seed} in {time.perf_counter() - t0:.1f} s")
+    log(f"model: {what}, f32; weights from seed {seed} in "
+        f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
     # chunk: request A = 20 prompt tokens (blocks 0-1), B = 9 (block 2),
     # rows 29-31 idle; decode: A in slot 0, B in slot 3, others idle
@@ -1198,13 +1604,13 @@ def phase_model(torch, seed):
     del p_card, p_cpu
     gc.collect()
     torch.cuda.empty_cache()
-    model_ssm(torch, seed)
 
 
 def model_prefill(torch, base, p_cpu, p_card, seed):
     """The serial path's model calls, card against CPU: one whole-prompt
     prefill of 200 tokens (bucket 256) with the dense-scatter MoE, its
-    K/V installed into the pools, then one decode step on top."""
+    K/V (MLA: latent) rows installed into the pools, then one decode step
+    on top."""
     import dataclasses
     from repro_torch.kernels import launches
     from repro_torch.models.model import Model
@@ -1245,14 +1651,14 @@ def model_prefill(torch, base, p_cpu, p_card, seed):
         logits, _ = m.decode_step_paged(
             p, cache, tok, {k: torch.from_numpy(v).to(dev)
                             for k, v in page.items()})
-        rows = {key: cache["layers"][key][:, blocks].float().cpu().numpy()
-                for key in ("k", "v")}
+        rows = {f"{g}/{key}": pool[:, blocks].float().cpu().numpy()
+                for g in cache for key, pool in cache[g].items()}
         res[dev] = (last, rows, logits.float().cpu().numpy()[:1])
         del m, cache, raw
     (lc, rc, dc), (lg, rg, dg) = res["cpu"], res["cuda"]
     errs = {"last logits": float(np.abs(lg - lc).max()),
-            "installed K/V": max(float(np.abs(rg[k] - rc[k]).max())
-                                 for k in rc),
+            "installed " + "/".join(sorted({k.split("/")[1] for k in rc})):
+                max(float(np.abs(rg[k] - rc[k]).max()) for k in rc),
             "decode logits": float(np.abs(dg - dc).max())}
     greedy = (int(lg[0].argmax()) == first
               and int(dg[0].argmax()) == int(dc[0].argmax()))
@@ -1430,15 +1836,19 @@ def _trace(torch, fn):
 
 
 def phase_engine(torch, seed, layers, paths, profile=False):
-    """Serve each path twice, without and with a fault; the qwen paths
-    share one workdir (the first writes ``weights.npz``, the others load
-    it), which is removed before the ssm path writes its own.  Returns the
-    kernels' launch counts, each summed over the paths it runs on."""
+    """Serve each path twice, without and with a fault.  The paths of one
+    architecture share one workdir (the first writes ``weights.npz``, the
+    others load it), removed before the next architecture writes its own.
+    Returns the kernels' launch counts, each summed over the paths it
+    runs on."""
+    log(f"engine: before the first build, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the "
+        f"card")
     counts, rates, streams = {}, {}, {}
-    groups = [[p for p in paths if p not in PATH_ARCH]]
-    groups += [[p] for p in paths if p in PATH_ARCH]
-    for group in (g for g in groups if g):
-        arch = PATH_ARCH.get(group[0], "qwen2-moe-a2.7b")
+    groups = {}
+    for p in paths:
+        groups.setdefault(PATH_ARCH.get(p, QWEN_ARCH), []).append(p)
+    for arch, group in groups.items():
         workdir = ROOT / "build" / f"smoke_engine_{arch}"
         shutil.rmtree(workdir, ignore_errors=True)
         try:
@@ -1457,26 +1867,37 @@ def phase_engine(torch, seed, layers, paths, profile=False):
             f"{clean['e2e_tok_s']:.3f} and {fault['e2e_tok_s']:.3f}")
     # bf16 rounds in another order on each path, so greedy streams may
     # part; the f32 model phase is where tokens must match
-    for other in [p for p in streams if p not in ("composed", "ssm")
-                  and "composed" in streams]:
-        pairs = list(zip(streams[other], streams["composed"]))
+    for other in streams:
+        base = "mla_composed" if other.startswith("mla") else "composed"
+        if other in (base, "ssm") or base not in streams:
+            continue
+        pairs = list(zip(streams[other], streams[base]))
         same = sum(a == b for m, c in pairs for a, b in zip(m, c))
         prefix = sum(next((i for i, (a, b) in enumerate(zip(m, c))
                            if a != b), min(len(m), len(c)))
                      for m, c in pairs)
         log(f"engine: the {other} run shares {same} of "
-            f"{sum(len(c) for c in streams['composed'])} greedy output "
-            f"tokens with the composed run, position by position "
+            f"{sum(len(c) for c in streams[base])} greedy output "
+            f"tokens with the {base} run, position by position "
             f"({prefix} in the requests' common prefixes; not checked)")
     return counts
 
 
 def engine_config(arch, layers):
-    """qwen2-moe-a2.7b at full width with its depth cut to ``layers``;
-    falcon-mamba-7b whole (width and all 64 layers)."""
+    """qwen2-moe-a2.7b at full width and depth ``layers`` (all 24 by
+    default); deepseek-v3 at full width with its depth cut from 61 to its
+    3 dense layers and 1 MoE layer; falcon-mamba-7b whole (width and all
+    64 layers)."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
+    if cfg.attention_type == "mla":
+        depth = cfg.moe.first_k_dense + 1
+        log(f"engine: depth cut from {cfg.num_layers} to {depth} layers "
+            f"({cfg.moe.first_k_dense} dense + 1 MoE), width kept: at full "
+            f"width one MoE layer holds 25.4 GB of experts, and the "
+            f"start-up file is ~33 GB of the 45 GiB a run may write")
+        layers = depth
     if cfg.moe is None:
         mb = cfg.mamba
         log(f"engine: {cfg.name}: {cfg.num_layers} Mamba layers, d_model "
@@ -1485,18 +1906,35 @@ def engine_config(arch, layers):
             f"{mb.resolved_dt_rank(cfg.d_model)}, vocab {cfg.vocab_size}; "
             f"full width and depth")
         return cfg
-    if layers != cfg.num_layers:
+    if layers != cfg.num_layers and cfg.attention_type != "mla":
         log(f"engine: depth cut from {cfg.num_layers} to {layers} layers, "
-            f"width kept (start-up writes ~2.3 GB of checkpoint and shard "
-            f"files a layer)")
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+            f"width kept (start-up writes ~1.2 GB of checkpoint a layer)")
+    cfg = dataclasses.replace(cfg, num_layers=layers)
     m = cfg.moe
-    log(f"engine: {cfg.name}: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.num_heads}x{cfg.head_dim} heads, "
+    heads = (f"{cfg.num_heads} MLA heads (q rank {cfg.mla.q_lora_rank}, "
+             f"latent {cfg.mla.kv_lora_rank} + rope "
+             f"{cfg.mla.qk_rope_head_dim}, v {cfg.mla.v_head_dim})"
+             if cfg.attention_type == "mla"
+             else f"{cfg.num_heads}x{cfg.head_dim} heads")
+    log(f"engine: {cfg.name}: {cfg.num_layers} layers "
+        f"({m.first_k_dense} dense of d_ff {m.dense_d_ff}), d_model "
+        f"{cfg.d_model}, {heads}, "
         f"{m.num_experts}+{m.num_redundant_experts} experts of d_ff "
         f"{m.expert_d_ff}, {m.num_shared_experts} shared, top-{m.top_k}, "
         f"vocab {cfg.vocab_size}")
     return cfg
+
+
+def host_memory() -> str:
+    """The host's MemTotal and MemAvailable, from /proc/meminfo."""
+    try:
+        info = dict(line.split(":", 1) for line in
+                    Path("/proc/meminfo").read_text().splitlines())
+    except OSError:
+        return "host memory: /proc/meminfo unreadable"
+    gib = {k: int(info[k].split()[0]) / 2**20
+           for k in ("MemTotal", "MemAvailable") if k in info}
+    return "host " + ", ".join(f"{k} {v:.1f} GiB" for k, v in gib.items())
 
 
 def serve_path(torch, cfg, path, workdir, seed, profile):
@@ -1517,12 +1955,22 @@ def serve_path(torch, cfg, path, workdir, seed, profile):
             mode="collocated", num_dp=2, max_batch=8, max_seq=512,
             block_size=16, num_blocks=256, seed=seed, workdir=str(workdir),
             policy=RecoveryPolicy(allow_role_switch=False), **PATHS[path]))
-        disk = sum(f.stat().st_size for f in workdir.rglob("*")
-                   if f.is_file())
+        files = {str(f.relative_to(workdir)): f.stat().st_size
+                 for f in workdir.rglob("*") if f.is_file()}
+        disk = sum(files.values())
+        shards = [f for f in files if Path(f).name.startswith(
+            "expert_shard_")]
+        if shards:
+            raise AssertionError(f"engine {path}: start-up wrote shard "
+                                 f"files {shards}")
         log(f"  engine up in {time.perf_counter() - t0:.1f} s; {eng.dtype} "
             f"weights "
-            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card; "
-            f"start-up files {disk / 1e9:.2f} GB on disk; "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card "
+            f"(peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB); "
+            f"start-up files {disk / 1e9:.2f} GB on disk ("
+            + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in files.items()
+                        if v > 1e6)
+            + f", no expert_shard_*.npz); {host_memory()}; "
             f"moe_impl {eng.cfg.moe_impl!r}; init_timings " + json.dumps(
                 {k: round(v, 4) for k, v in eng.init_timings.items()}))
         return eng
@@ -1562,13 +2010,22 @@ def serve_path(torch, cfg, path, workdir, seed, profile):
     log("  recovery timings " + json.dumps(
         {k: round(v, 6) for k, v in rep.timings.items()}))
     if moe:
+        # rank 1 held the upper half of the physical slots; the redundant
+        # slots replicate the first logicals, so the logicals from half
+        # the physical count on lost every copy
         mask = eng.runtime.expert_mask.cpu().numpy()
         masked = [int(e) for e in np.flatnonzero(~mask)]
-        if rep.scenario != "moe+missing_experts" or \
-                masked != list(range(32, 60)):
+        lost = list(range(
+            (cfg.moe.num_experts + cfg.moe.num_redundant_experts) // 2,
+            cfg.moe.num_experts))
+        if rep.scenario != "moe+missing_experts" or masked != lost:
             raise AssertionError(f"engine {path}: scenario {rep.scenario}, "
                                  f"masked {masked}")
         what = f"logical experts {masked[0]}-{masked[-1]} masked"
+        if cfg.moe.first_k_dense and not any(
+                a.startswith("dense-FFN TP group") for a in rep.actions):
+            raise AssertionError(f"engine {path}: no dense-FFN TP group "
+                                 f"action in {rep.actions}")
     else:
         if rep.scenario != "attn" or rep.migrated < 1:
             raise AssertionError(f"engine {path}: scenario {rep.scenario}, "
@@ -1591,7 +2048,7 @@ def serve_path(torch, cfg, path, workdir, seed, profile):
     log(f"  scenario {rep.scenario}, {what}, compile_source "
         f"{rep.compile_source}, migrated {rep.migrated}, prefix_cache_hits "
         f"{hits}, prefill tokens {stats['prefill_tokens_computed']}, "
-        f"launches {path_counts}")
+        f"launches {path_counts}; actions {rep.actions}")
     del eng, reqs
     gc.collect()
     torch.cuda.empty_cache()
@@ -1618,23 +2075,38 @@ def main() -> int:
         if p not in PATHS:
             raise SystemExit(f"unknown path {p!r}; paths: {tuple(PATHS)}")
 
+    # the engine phase builds and frees ~30 GB models one after another:
+    # growable segments keep the freed memory from fragmenting
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     phase_device(torch)
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
     t_start = time.perf_counter()
+    took = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        took[name] = round(time.perf_counter() - t0, 1)
+        log(f"phase {name} passed in {took[name]} s")
+        return out
+
     if "build" in phases:
-        phase_build()
+        timed("build", phase_build)
     results = {}
     if "kernels" in phases:
-        results = phase_kernels(torch, SHAPES)
+        results = timed("kernels", lambda: phase_kernels(torch, SHAPES))
     if "model" in phases:
-        phase_model(torch, args.seed)
+        timed("model", lambda: phase_model(torch, args.seed))
     counts = {}
     if "engine" in phases:
-        counts = phase_engine(torch, args.seed, args.layers,
-                              args.paths.split(","), args.profile)
-    log(f"phases {phases} passed in {time.perf_counter() - t_start:.1f} s")
+        counts = timed("engine", lambda: phase_engine(
+            torch, args.seed, args.layers, args.paths.split(","),
+            args.profile))
+    log(f"phases {phases} passed in {time.perf_counter() - t_start:.1f} s "
+        f"({json.dumps(took)})")
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         r = results.get(name, {})
@@ -1643,7 +2115,8 @@ def main() -> int:
             launches=counts.get(name, 0), max_abs_err=r.get("max_abs_err"),
             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
-            library_ms=r.get("library_ms")))
+            library_ms=r.get("library_ms"), shape=r.get("shape"),
+            mla=r.get("mla")))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,8 @@ its tree's ``src``, building that tree's kernels into its own
 ``build/kernels``, and timing in bf16 at the main path's shapes:
 ``paged_attention`` (decode B = 8), ``moe_fused`` (T = 8, 40),
 ``decode_megastep`` (B = 8, 40), ``expert_ffn`` (C = 8, 20, 40),
-``ssm_scan`` (prefill B = 1 S = 256 and decode B = 8 from a bf16 state,
+``flash_prefill`` (B = 1, H = Hkv = 16, Dh = 128, causal, S = 256 and
+512), ``ssm_scan`` (prefill B = 1 S = 256 and decode B = 8 from a bf16 state,
 both through the default call), the decode step's scan as that tree's
 ``mamba_decode`` runs it (in place where its launcher takes ``h_out``,
 else the scan, a copy into the bf16 state and a cast of y), and that
@@ -77,17 +78,18 @@ def child(tree: Path) -> dict:
     from repro_torch.kernels import ssm_scan as ssm
     from repro_torch.kernels.decode_megastep import decode_megastep_cuda
     from repro_torch.kernels.expert_ffn import expert_ffn_cuda
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
     from repro_torch.kernels.moe_fused import moe_fused_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     if not torch.cuda.is_available():
         raise SystemExit("kernel_turns: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all(["paged_attention", "moe_fused", "decode_megastep",
-                     "expert_ffn", "ssm_scan"])
+                     "expert_ffn", "flash_prefill", "ssm_scan"])
     S, bf16 = cs.SHAPES, torch.bfloat16
     out = {"paged_attention": {}, "moe_fused": {}, "decode_megastep": {},
-           "expert_ffn": {}, "ssm_scan": {}, "decode scan as served": {},
-           "mamba_decode": {}}
+           "expert_ffn": {}, "flash_prefill": {}, "ssm_scan": {},
+           "decode scan as served": {}, "mamba_decode": {}}
     # chip_smoke.py's timed decode case: B=8, rows of 1-288 positions
     args, _ = cs.paged_case(
         torch, B=S["max_batch"], H=16, Hkv=16, Dh=128, bs=S["block_size"],
@@ -116,6 +118,13 @@ def child(tree: Path) -> dict:
         out["expert_ffn"][C] = cs.time_ms(torch,
                                           lambda: expert_ffn_cuda(*args))
         del args
+    for Sq in (256, 512):     # chip_smoke.py's timed cases: seed S + window
+        gen = torch.Generator(device="cuda").manual_seed(Sq)
+        q, k, v = (torch.randn((1, Sq, 16, 128), generator=gen,
+                               device="cuda").to(bf16) for _ in range(3))
+        pos = torch.arange(Sq, dtype=torch.int32, device="cuda")
+        out["flash_prefill"][Sq] = cs.time_ms(
+            torch, lambda: flash_prefill_cuda(q, k, v, pos, pos))
     args = cs.ssm_case(torch, 1, 256, with_h0=False, dtype=bf16, seed=41)
     out["ssm_scan"]["prefill S=256"] = cs.time_ms(
         torch, lambda: ssm.ssm_scan_cuda(*args))

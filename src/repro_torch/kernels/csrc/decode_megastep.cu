@@ -66,6 +66,14 @@
 // are bitwise equal from run to run.  Routing state, paging arrays and
 // expert_offset are device data: recovery edits change tensors, never the
 // launch.
+// MLA (deepseek-v3) runs the same chain at its latent layout: stage 1
+// attends with Hkv = 1 over Da = R + dr = 576 (paged_attention.cuh's wide
+// kernel, K = V the one latent pool), and stage 2 is o @ w_post with w_post
+// = wuv folded into wo, (H * Da, D) = (73728, 7168): K is split into three
+// ordered f32 partials on the tile loop, and its 64 zero rope rows a head
+// are read like any other (skipping them would not change a bit of the
+// result, but they are 11% of its bytes).  The route stage takes E_log =
+// 256, k = 8 over e_local = 288 slots (its threads stride over experts).
 #include <algorithm>
 
 #include <type_traits>

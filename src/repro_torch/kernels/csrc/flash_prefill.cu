@@ -2,9 +2,11 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_prefill.py
 // (flash_prefill_pallas / _flash_prefill_kernel) and computes what
-// repro.kernels.ref.flash_prefill_ref computes: q (B, Sq, H, Dh) attends
-// over k / v (B, Skv, Hkv, Dh), G = H / Hkv query heads per KV head, scores
-// scaled by 1/sqrt(Dh), online softmax in f32.  It also applies what the
+// repro.kernels.ref.flash_prefill_ref computes: q (B, Sq, H, Dq) attends
+// over k (B, Skv, Hkv, Dq) and v (B, Skv, Hkv, Dv), G = H / Hkv query heads
+// per KV head, scores scaled by 1/sqrt(Dq), online softmax in f32; out is
+// (B, Sq, H, Dv).  Dq == Dv is GQA; MLA's whole-prompt attention (the
+// serial path at deepseek-v3) has Dq = dn + dr = 192, Dv = 128, G = 1.  It also applies what the
 // model's flash_attention applies (repro/models/attention.py:54-57): key j is
 // visible to query i where q_pos[i] >= kv_pos[j] (causal) and
 // q_pos[i] - kv_pos[j] < window (window > 0).  A row that sees no key
@@ -43,9 +45,10 @@
 //     rows and 8 warps a CTA: at B = 1, H = Hkv = 16 that is 32 positions
 //     (2 row groups x 4 key slices, 128 CTAs) at S = 256 and 64 (4 x 2,
 //     128 CTAs) at S = 512, so every CTA starts at once.
-//   * Tiles.  q and a ring of 3 K/V tiles (2 at Dh = 256) sit in bf16
+//   * Tiles.  q and a ring of 3 K/V tiles (2 past 128 dims) sit in bf16
 //     shared memory, rows swizzled by 16-byte chunk, filled by 16-byte
-//     cp.async two tiles ahead; Dh pads to 64, 128 or 256 with zeros.
+//     cp.async two tiles ahead; equal widths pad to 64, 128 or 256 with
+//     zeros, unequal ones to Dq 192 and Dv 128 (MLA's; `pad_dims`).
 //     The q copies are issued first, so they land while the positions
 //     are read and the visible tiles listed.
 //   * Products.  S = q K^T and o += p V run on mma.sync.m16n8k16 (bf16 in,
@@ -64,7 +67,8 @@
 // acc in shared memory (R = G * bq rows, about 16), stages each KV tile as
 // f32 (K transposed) with 16-byte loads, lets lane t score key t against
 // kRowsPerPass rows at once, and updates the accumulator a column per
-// thread, kAccRows rows at once; p stays f32 before p @ V.
+// thread, kAccRows rows at once; p stays f32 before p @ V.  Any Dq and Dv
+// that are multiples of 8 work.
 #include <climits>
 
 #include "common.cuh"
@@ -88,11 +92,11 @@ inline int rows_per_head(int G) {
   return G >= kRowTarget ? 1 : kRowTarget / G;
 }
 
-inline size_t smem_bytes(int G, int Dh) {
+inline size_t smem_bytes(int G, int Dq, int Dv) {
   const int bq = rows_per_head(G);
   const size_t R = (size_t)G * bq;
-  const size_t floats = 2 * R * Dh + (size_t)Dh * kKS +
-                        (size_t)kTileK * Dh + R * kTileK + 3 * R;
+  const size_t floats = R * (Dq + Dv) + (size_t)Dq * kKS +
+                        (size_t)kTileK * Dv + R * kTileK + 3 * R;
   return floats * sizeof(float) + ((size_t)bq + kTileK) * sizeof(int);
 }
 
@@ -135,16 +139,18 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ q_pos,
     const int* __restrict__ kv_pos, T* __restrict__ out, int Sq, int Skv,
-    int H, int Hkv, int Dh, int bq, int causal, int window, float scale) {
+    int H, int Hkv, int Dq, int Dv, int bq, int causal, int window,
+    float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = H / Hkv;
   const int R = G * bq;
-  const int RD = R * Dh;
-  float* q_s = reinterpret_cast<float*>(smem_raw);  // R * Dh
-  float* acc_s = q_s + RD;                           // R * Dh
-  float* kt_s = acc_s + RD;                          // Dh * kKS (K^T)
-  float* v_s = kt_s + Dh * kKS;                      // kTileK * Dh
-  float* p_s = v_s + kTileK * Dh;                    // R * kTileK
+  const int RD = R * Dq;
+  const int RV = R * Dv;
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // R * Dq
+  float* acc_s = q_s + RD;                           // R * Dv
+  float* kt_s = acc_s + RV;                          // Dq * kKS (K^T)
+  float* v_s = kt_s + Dq * kKS;                      // kTileK * Dv
+  float* p_s = v_s + kTileK * Dv;                    // R * kTileK
   float* m_s = p_s + R * kTileK;                     // R
   float* l_s = m_s + R;                              // R
   float* corr_s = l_s + R;                           // R
@@ -168,21 +174,19 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
       const int i = base + j * kThreads;
-      const int r = min(i, RD - 1) / Dh;
+      const int r = min(i, RD - 1) / Dq;
       const int g = r / bq;
       const int qi = min(r - g * bq, nq - 1);
-      val[j] = to_float(q[((b * Sq + q0 + qi) * H + h * G + g) * Dh +
-                          (min(i, RD - 1) - r * Dh)]);
+      val[j] = to_float(q[((b * Sq + q0 + qi) * H + h * G + g) * Dq +
+                          (min(i, RD - 1) - r * Dq)]);
     }
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
       const int i = base + j * kThreads;
-      if (i < RD) {
-        q_s[i] = val[j];
-        acc_s[i] = 0.f;
-      }
+      if (i < RD) q_s[i] = val[j];
     }
   }
+  for (int i = tid; i < RV; i += kThreads) acc_s[i] = 0.f;
   for (int r = tid; r < R; r += kThreads) {
     m_s[r] = kNegInf;
     l_s[r] = 0.f;
@@ -197,7 +201,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     qmax = max(qmax, qpos_s[i]);
   }
 
-  const long long kv_row = (long long)Hkv * Dh;
+  const long long k_row = (long long)Hkv * Dq, v_row = (long long)Hkv * Dv;
   for (int k0 = 0; k0 < Skv; k0 += kTileK) {
     const int n = min(kTileK, Skv - k0);
     if (tid < n) kpos_s[tid] = kv_pos[k0 + tid];
@@ -213,35 +217,41 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     if (!skip) {
       // stage K transposed (K^T[d][t], rows padded against bank conflicts)
       // and V, 16 bytes a load, all of a thread's loads in flight at once;
-      // keys past n are 0
-      const T* kt = k + (b * Skv + k0) * kv_row + (long long)h * Dh;
-      const T* vt = v + (b * Skv + k0) * kv_row + (long long)h * Dh;
+      // keys past n are 0.  Chunks [0, kc) are K's, [kc, kc + vc) V's.
+      const T* kt = k + (b * Skv + k0) * k_row + (long long)h * Dq;
+      const T* vt = v + (b * Skv + k0) * v_row + (long long)h * Dv;
       constexpr int kN = Vec<T>::kN;
-      const int chunks = kTileK * Dh / kN;
+      const int kc = kTileK * Dq / kN;
+      const int chunks = kc + kTileK * Dv / kN;
       for (int base = tid; base < chunks; base += kThreads * kLoads) {
-        Vec<T> kv[kLoads], vv[kLoads];
+        Vec<T> kv[kLoads];
 #pragma unroll
         for (int j = 0; j < kLoads; ++j) {
           const int c = base + j * kThreads;
-          const int t = c * kN / Dh;
+          const bool is_k = c < kc;
+          const int D = is_k ? Dq : Dv;
+          const int ci = is_k ? c : c - kc;
+          const int t = ci * kN / D;
           if (c < chunks && t < n) {
-            const long long off = t * kv_row + (c * kN - t * Dh);
-            kv[j].load(kt + off);
-            vv[j].load(vt + off);
+            kv[j].load(is_k ? kt + t * k_row + (ci * kN - t * D)
+                            : vt + t * v_row + (ci * kN - t * D));
           } else {
-            kv[j].raw = vv[j].raw = make_uint4(0, 0, 0, 0);
+            kv[j].raw = make_uint4(0, 0, 0, 0);
           }
         }
 #pragma unroll
         for (int j = 0; j < kLoads; ++j) {
           const int c = base + j * kThreads;
           if (c < chunks) {
-            const int t = c * kN / Dh;
-            const int d0 = c * kN - t * Dh;
+            const bool is_k = c < kc;
+            const int D = is_k ? Dq : Dv;
+            const int ci = is_k ? c : c - kc;
+            const int t = ci * kN / D;
+            const int d0 = ci * kN - t * D;
 #pragma unroll
             for (int e = 0; e < kN; ++e) {
-              kt_s[(d0 + e) * kKS + t] = kv[j][e];
-              v_s[t * Dh + d0 + e] = vv[j][e];
+              if (is_k) kt_s[(d0 + e) * kKS + t] = kv[j][e];
+              else v_s[t * Dv + d0 + e] = kv[j][e];
             }
           }
         }
@@ -257,9 +267,9 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 #pragma unroll
         for (int j = 0; j < kRowsPerPass; ++j) {
           dot[j] = 0.f;
-          qr[j] = q_s + min(r0 + j * kWarps, R - 1) * Dh;
+          qr[j] = q_s + min(r0 + j * kWarps, R - 1) * Dq;
         }
-        for (int d = 0; d < Dh; d += 4) {
+        for (int d = 0; d < Dq; d += 4) {
           const float k0v = kt_s[d * kKS + lane];
           const float k1v = kt_s[(d + 1) * kKS + lane];
           const float k2v = kt_s[(d + 2) * kKS + lane];
@@ -329,19 +339,19 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
       // rows at a time, reading each V value once and p four keys at a
       // time (p and V past n are 0: +0 products change no sum)
       const int n4 = (n + 3) & ~3;
-      for (int d = tid; d < Dh; d += kThreads) {
+      for (int d = tid; d < Dv; d += kThreads) {
         for (int r0 = 0; r0 < R; r0 += kAccRows) {
           float a[kAccRows];
 #pragma unroll
           for (int j = 0; j < kAccRows; ++j) {
             const int r = min(r0 + j, R - 1);
-            a[j] = acc_s[r * Dh + d] * corr_s[r];
+            a[j] = acc_s[r * Dv + d] * corr_s[r];
           }
           for (int t = 0; t < n4; t += 4) {
-            const float v0 = v_s[t * Dh + d];
-            const float v1 = v_s[(t + 1) * Dh + d];
-            const float v2 = v_s[(t + 2) * Dh + d];
-            const float v3 = v_s[(t + 3) * Dh + d];
+            const float v0 = v_s[t * Dv + d];
+            const float v1 = v_s[(t + 1) * Dv + d];
+            const float v2 = v_s[(t + 2) * Dv + d];
+            const float v3 = v_s[(t + 3) * Dv + d];
 #pragma unroll
             for (int j = 0; j < kAccRows; ++j) {
               const float4 p4 = *reinterpret_cast<const float4*>(
@@ -354,7 +364,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
           }
 #pragma unroll
           for (int j = 0; j < kAccRows; ++j) {
-            if (r0 + j < R) acc_s[(r0 + j) * Dh + d] = a[j];
+            if (r0 + j < R) acc_s[(r0 + j) * Dv + d] = a[j];
           }
         }
       }
@@ -362,13 +372,13 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     __syncthreads();
   }
 
-  for (int idx = tid; idx < RD; idx += kThreads) {
-    const int r = idx / Dh;
-    const int d = idx - r * Dh;
+  for (int idx = tid; idx < RV; idx += kThreads) {
+    const int r = idx / Dv;
+    const int d = idx - r * Dv;
     const int g = r / bq;
     const int i = r - g * bq;
     if (i < nq) {
-      out[((b * Sq + q0 + i) * H + h * G + g) * Dh + d] =
+      out[((b * Sq + q0 + i) * H + h * G + g) * Dv + d] =
           from_float<T>(acc_s[idx] / fmaxf(l_s[r], 1e-30f));
     }
   }
@@ -377,18 +387,19 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* q_pos, const int* kv_pos, void* out, int B,
-                   int Sq, int Skv, int H, int Hkv, int Dh, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   int Sq, int Skv, int H, int Hkv, int Dq, int Dv,
+                   int causal, int window, float scale,
+                   cudaStream_t stream) {
   const int G = H / Hkv;
   const int bq = rows_per_head(G);
-  const size_t smem = smem_bytes(G, Dh);
+  const size_t smem = smem_bytes(G, Dq, Dv);
   cudaError_t err = allow_smem(flash_prefill_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)B * Hkv * ((Sq + bq - 1) / bq);
   flash_prefill_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), Sq, Skv,
-      H, Hkv, Dh, bq, causal, window, scale);
+      H, Hkv, Dq, Dv, bq, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -403,24 +414,38 @@ constexpr int kMaxWarps = 8;
 constexpr int kTargetCtas = 132;   // one CTA on each SM of an H100
 constexpr float kLog2e = 1.4426950408889634f;
 
-// K/V ring depth: two tiles in flight, one at Dh = 256 (whose tiles are
-// twice as large).
+// K/V ring depth: two tiles in flight, one past 128 dims (whose tiles are
+// larger).
 __host__ __device__ constexpr int stages_for(int dh) {
   return dh <= 128 ? 3 : 2;
 }
 
+// The padded widths (dq, dv) of the tile loop: equal widths (GQA) pad to
+// 64, 128 or 256; unequal ones (MLA: Dq = dn + dr, Dv = dv) run on the one
+// unequal instantiation, 192 and 128, so Dq <= 192 and Dv <= 128.  0: no
+// instantiation takes them.
+inline void pad_dims(int Dq, int Dv, int* dq, int* dv) {
+  if (Dq == Dv) {
+    *dq = *dv = Dq <= 64 ? 64 : Dq <= 128 ? 128 : Dq <= 256 ? 256 : 0;
+  } else {
+    const bool fits = Dq <= 192 && Dv <= 128;
+    *dq = fits ? 192 : 0;
+    *dv = fits ? 128 : 0;
+  }
+}
+
 // The launch's shape: bq query positions per CTA (all G heads of each);
 // wq warps of 16 rows each hold the rows, and each row group's keys are
-// split over wk warps.  The bf16 region (q, then the K/V ring) is later
-// reused for the warps' partial results; the ring's positions, the
-// visible tiles' count and list and every tile's position range follow it
-// at byte `ints`.
+// split over wk warps.  dq / dv: the padded QK and V widths.  The bf16
+// region (q, then the K/V ring) is later reused for the warps' partial
+// results; the ring's positions, the visible tiles' count and list and
+// every tile's position range follow it at byte `ints`.
 struct Plan {
-  int bq, wq, wk, dh;
+  int bq, wq, wk, dq, dv;
   size_t ints, smem;
 };
 
-inline Plan plan(int B, int Sq, int Skv, int H, int Hkv, int Dh) {
+inline Plan plan(int B, int Sq, int Skv, int H, int Hkv, int Dq, int Dv) {
   const int G = H / Hkv;
   Plan p;
   // the fewest positions that fill a warp's 16 rows, doubled while the
@@ -433,11 +458,11 @@ inline Plan plan(int B, int Sq, int Skv, int H, int Hkv, int Dh) {
   p.wq = 1;
   while (p.wq * 16 < G * p.bq) p.wq *= 2;
   p.wk = std::max(1, std::min(4, kMaxWarps / p.wq));
-  p.dh = Dh <= 64 ? 64 : Dh <= 128 ? 128 : 256;
+  pad_dims(Dq, Dv, &p.dq, &p.dv);
   const size_t rows = (size_t)p.wq * 16;
-  const size_t stages = stages_for(p.dh);
-  const size_t tiles = (rows + 2 * stages * kBK) * p.dh * 2;
-  const size_t parts = p.wk * rows * 2 * (p.dh / 2 + 4) * 4;
+  const size_t stages = stages_for(std::max(p.dq, p.dv));
+  const size_t tiles = (rows * p.dq + stages * kBK * (p.dq + p.dv)) * 2;
+  const size_t parts = p.wk * rows * 2 * (p.dv / 2 + 4) * 4;
   p.ints = std::max(tiles, parts);
   p.smem = p.ints +
            (stages * kBK + 1 + 3 * ((Skv + kBK - 1) / kBK)) * sizeof(int);
@@ -465,23 +490,25 @@ __device__ __forceinline__ int warp_max_int(int v) {
 // rows 16 (w % WQ) .. + 15 and keys KS (w / WQ) .. + KS - 1 of every
 // tile, keeping its own running (m, l, acc); the WK partial results of a
 // row group are merged at the end in key-slice order.  Every bf16 row of
-// shared memory is swizzled by 16-byte chunk.
-template <int DH, int WK>
+// shared memory is swizzled by 16-byte chunk.  DQ: the padded width of q
+// and K; DV: of V and out.
+template <int DQ, int DV, int WK>
 __global__ void __launch_bounds__(32 * kMaxWarps) flash_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const int* __restrict__ q_pos,
     const int* __restrict__ kv_pos, bf16* __restrict__ out, int Sq, int Skv,
-    int H, int Hkv, int Dh, int bq, int causal, int window, float scale_log2,
-    int ints) {
-  constexpr int kCh = DH / 8;        // 16-byte chunks in a row
+    int H, int Hkv, int Dq, int Dv, int bq, int causal, int window,
+    float scale_log2, int ints) {
+  constexpr int kCh = DQ / 8;        // 16-byte chunks in a q / K row
+  constexpr int kChV = DV / 8;       // ... in a V row
   constexpr int KS = kBK / WK;       // keys of a tile per warp
-  constexpr int kStages = stages_for(DH);
+  constexpr int kStages = stages_for(DQ > DV ? DQ : DV);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int WQ = (blockDim.x >> 5) / WK;
   const int R = WQ * 16;
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + R * DH;
-  bf16* v_s = k_s + kStages * kBK * DH;
+  bf16* k_s = q_s + R * DQ;
+  bf16* v_s = k_s + kStages * kBK * DQ;
   const int ntiles = (Skv + kBK - 1) / kBK;
   int* kpos_s = reinterpret_cast<int*>(smem_raw + ints);
   int* list_s = kpos_s + kStages * kBK;  // [0]: count; then tile indices
@@ -498,23 +525,43 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_mma_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int qg = warp % WQ, ks = warp / WQ;
 
-  // This thread copies chunk c of rows r0, r0 + rstep, ... of every q and
-  // K/V tile.  Rows past the CTA's heads, positions or Skv and dims past
-  // Dh are zeros (a zero dim adds +0 to a score; such keys are masked).
+  // Equal widths (GQA; Dq == Dv): this thread copies chunk c of rows r0,
+  // r0 + rstep, ... of every q and K/V tile (kCh divides the block).  MLA's
+  // pair (DQ 192, DV 128; 24 chunks a row do not divide it) walks flat
+  // chunk indices, K's and V's apart.  Rows past the CTA's heads,
+  // positions or Skv and dims past Dq / Dv are zeros (a zero dim adds +0
+  // to a score; such keys are masked).
   const int c = threadIdx.x % kCh, r0 = threadIdx.x / kCh;
   const int rstep = blockDim.x / kCh;
-  const bool c_in = c * 8 < Dh;
-  const long long kv_row = (long long)Hkv * Dh;
-  const long long kv_off = (b * Skv * Hkv + h) * Dh + c * 8;
+  const bool c_in = c * 8 < Dq;
+  const long long k_row = (long long)Hkv * Dq, v_row = (long long)Hkv * Dv;
+  const long long k_off = (b * Skv * Hkv + h) * Dq;
+  const long long v_off = (b * Skv * Hkv + h) * Dv;
+  const long long kv_off = k_off + c * 8;   // equal widths: K's and V's
   auto load_kv = [&](int buf, int tile) {
     const int k0 = tile * kBK;
-    bf16* kd = k_s + buf * kBK * DH;
-    bf16* vd = v_s + buf * kBK * DH;
-    for (int r = r0; r < kBK; r += rstep) {
-      const bool in = c_in && k0 + r < Skv;
-      const long long off = kv_off + (k0 + r) * kv_row;
-      cp_async16(kd + swz(r, c, kCh), in ? k + off : k, in ? 16 : 0);
-      cp_async16(vd + swz(r, c, kCh), in ? v + off : v, in ? 16 : 0);
+    bf16* kd = k_s + buf * kBK * DQ;
+    bf16* vd = v_s + buf * kBK * DV;
+    if constexpr (DQ == DV) {
+      for (int r = r0; r < kBK; r += rstep) {
+        const bool in = c_in && k0 + r < Skv;
+        const long long off = kv_off + (k0 + r) * k_row;
+        cp_async16(kd + swz(r, c, kCh), in ? k + off : k, in ? 16 : 0);
+        cp_async16(vd + swz(r, c, kCh), in ? v + off : v, in ? 16 : 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < kBK * kCh; i += blockDim.x) {
+        const int r = i / kCh, ci = i - r * kCh;
+        const bool in = ci * 8 < Dq && k0 + r < Skv;
+        const long long off = k_off + (k0 + r) * k_row + ci * 8;
+        cp_async16(kd + swz(r, ci, kCh), in ? k + off : k, in ? 16 : 0);
+      }
+      for (int i = threadIdx.x; i < kBK * kChV; i += blockDim.x) {
+        const int r = i / kChV, ci = i - r * kChV;
+        const bool in = ci * 8 < Dv && k0 + r < Skv;
+        const long long off = v_off + (k0 + r) * v_row + ci * 8;
+        cp_async16(vd + swz(r, ci, kChV), in ? v + off : v, in ? 16 : 0);
+      }
     }
     for (int j = threadIdx.x; j < kBK; j += blockDim.x) {
       const bool in = k0 + j < Skv;
@@ -523,13 +570,21 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_mma_kernel(
     }
   };
 
-  for (int r = r0; r < R; r += rstep) {
+  auto load_q = [&](int r, int ci, bool in) {
     const int g = r / bq, qi = r - g * bq;
-    bf16* d = q_s + swz(r, c, kCh);
-    if (g < G && qi < nq && c_in) {
-      cp_async16(d, q + ((b * Sq + q0 + qi) * H + h * G + g) * Dh + c * 8);
+    bf16* d = q_s + swz(r, ci, kCh);
+    if (g < G && qi < nq && in) {
+      cp_async16(d, q + ((b * Sq + q0 + qi) * H + h * G + g) * Dq + ci * 8);
     } else {
       cp_async16(d, q, 0);
+    }
+  };
+  if constexpr (DQ == DV) {
+    for (int r = r0; r < R; r += rstep) load_q(r, c, c_in);
+  } else {
+    for (int i = threadIdx.x; i < R * kCh; i += blockDim.x) {
+      const int ci = i % kCh;
+      load_q(i / kCh, ci, ci * 8 < Dq);
     }
   }
   // Positions: this thread's two rows (g8 and g8 + 8 of its warp's 16),
@@ -602,9 +657,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_mma_kernel(
   }
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[DH / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int d = 0; d < DH / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  for (int d = 0; d < DV / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
   const int qrow = qg * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 
   for (int it = 0; it < nvis; ++it) {
@@ -614,14 +669,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_mma_kernel(
     if (next < nvis) load_kv(next % kStages, list_s[1 + next]);
     cp_async_commit();
     const int buf = it % kStages;
-    const bf16* kt = k_s + buf * kBK * DH;
-    const bf16* vt = v_s + buf * kBK * DH;
+    const bf16* kt = k_s + buf * kBK * DQ;
+    const bf16* vt = v_s + buf * kBK * DV;
     const int* kp = kpos_s + buf * kBK;
     const int tile = list_s[1 + it];
     const int n = min(kBK, Skv - tile * kBK);
     const int key0 = ks * KS;      // this warp's slice of the tile
 
-    // S = q K^T over all DH dims (the padding is zeros): q A fragments
+    // S = q K^T over all DQ dims (the padding is zeros): q A fragments
     // (16 rows x 16 dims), K B fragments for two 8-key blocks per ldmatrix.
     // No branch splits the unrolled chain, so loads run ahead of products.
     float s[KS / 8][4];
@@ -630,7 +685,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_mma_kernel(
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
     }
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
+    for (int kk = 0; kk < DQ / 16; ++kk) {
       uint32_t a[4];
       ldmatrix_x4(a, q_s + swz(qrow, kk * 2 + (lane >> 4), kCh));
 #pragma unroll
@@ -683,7 +738,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_mma_kernel(
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * corr[hr] + ls[hr];
 #pragma unroll
-    for (int d = 0; d < DH / 8; ++d) {
+    for (int d = 0; d < DV / 8; ++d) {
       o[d][0] *= corr[0];
       o[d][1] *= corr[0];
       o[d][2] *= corr[1];
@@ -701,9 +756,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_mma_kernel(
                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
       const int vr = key0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int nd = 0; nd < DH / 16; ++nd) {
+      for (int nd = 0; nd < DV / 16; ++nd) {
         uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vt + swz(vr, nd * 2 + (lane >> 4), kCh));
+        ldmatrix_x4_trans(vb, vt + swz(vr, nd * 2 + (lane >> 4), kChV));
         mma_bf16(o[2 * nd], pa4, vb[0], vb[1]);
         mma_bf16(o[2 * nd + 1], pa4, vb[2], vb[3]);
       }
@@ -717,19 +772,19 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_mma_kernel(
   // conflict-free; l first combines the quad's lanes in a fixed
   // butterfly.  Then warp ks merges 8-dim blocks ks * kDPer .. of its row
   // group's rows, over the key slices in order, and writes them.
-  constexpr int kVals = DH / 2 + 4;          // acc, then m and l per row
-  constexpr int kDPer = DH / 8 / WK;         // 8-dim blocks a warp merges
+  constexpr int kVals = DV / 2 + 4;          // acc, then m and l per row
+  constexpr int kDPer = DV / 8 / WK;         // 8-dim blocks a warp merges
   float* part = reinterpret_cast<float*>(smem_raw);
   float* mine = part + (ks * WQ + qg) * kVals * 32 + lane;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
     l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
-    mine[(DH / 2 + hr) * 32] = m[hr];
-    mine[(DH / 2 + 2 + hr) * 32] = l[hr];
+    mine[(DV / 2 + hr) * 32] = m[hr];
+    mine[(DV / 2 + 2 + hr) * 32] = l[hr];
   }
 #pragma unroll
-  for (int d = 0; d < DH / 8; ++d) {
+  for (int d = 0; d < DV / 8; ++d) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) mine[(d * 4 + i) * 32] = o[d][i];
   }
@@ -740,13 +795,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_mma_kernel(
     float pm[WK], mm = kNegInf, den = 0.f;
 #pragma unroll
     for (int p = 0; p < WK; ++p) {
-      pm[p] = part[((p * WQ + qg) * kVals + DH / 2 + hr) * 32 + lane];
+      pm[p] = part[((p * WQ + qg) * kVals + DV / 2 + hr) * 32 + lane];
       mm = fmaxf(mm, pm[p]);
     }
 #pragma unroll
     for (int p = 0; p < WK; ++p) {
       w[p][hr] = exp2f(pm[p] - mm);
-      den += part[((p * WQ + qg) * kVals + DH / 2 + 2 + hr) * 32 + lane] *
+      den += part[((p * WQ + qg) * kVals + DV / 2 + 2 + hr) * 32 + lane] *
              w[p][hr];
     }
     inv[hr] = 1.f / fmaxf(den, 1e-30f);      // one division a row
@@ -770,11 +825,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_mma_kernel(
     if (!rv[hr]) continue;
     const int r = qg * 16 + g8 + hr * 8;
     const int g = r / bq, qi = r - g * bq;
-    bf16* orow = out + ((b * Sq + q0 + qi) * H + h * G + g) * Dh;
+    // equal widths (Dq == Dv, pad_dims): one width for every offset
+    const int dv = DQ == DV ? Dq : Dv;
+    bf16* orow = out + ((b * Sq + q0 + qi) * H + h * G + g) * dv;
 #pragma unroll
     for (int dd = 0; dd < kDPer; ++dd) {
       const int col = (ks * kDPer + dd) * 8 + 2 * t4;
-      if (col < Dh) {
+      if (col < dv) {
         *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
             acc[dd][2 * hr] * inv[hr], acc[dd][2 * hr + 1] * inv[hr]);
       }
@@ -782,58 +839,43 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_mma_kernel(
   }
 }
 
-template <int DH, int WK>
-cudaError_t run(const Plan& p, const bf16* q, const bf16* k, const bf16* v,
-                const int* q_pos, const int* kv_pos, bf16* out, int B, int Sq,
-                int Skv, int H, int Hkv, int Dh, int causal, int window,
-                float scale, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_mma_kernel<DH, WK>, p.smem);
+// The call's operands, handed down to the instantiation the plan picks.
+struct Args {
+  const bf16 *q, *k, *v;
+  const int *q_pos, *kv_pos;
+  bf16* out;
+  int B, Sq, Skv, H, Hkv, Dq, Dv, causal, window;
+  float scale;
+};
+
+template <int DQ, int DV, int WK>
+cudaError_t run(const Plan& p, const Args& a, cudaStream_t stream) {
+  cudaError_t err = allow_smem(flash_mma_kernel<DQ, DV, WK>, p.smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * Hkv * ((Sq + p.bq - 1) / p.bq);
-  flash_mma_kernel<DH, WK><<<(unsigned)blocks, 32 * p.wq * WK, p.smem,
-                             stream>>>(
-      q, k, v, q_pos, kv_pos, out, Sq, Skv, H, Hkv, Dh, p.bq, causal, window,
-      scale * kLog2e, (int)p.ints);
+  const long long blocks =
+      (long long)a.B * a.Hkv * ((a.Sq + p.bq - 1) / p.bq);
+  flash_mma_kernel<DQ, DV, WK><<<(unsigned)blocks, 32 * p.wq * WK, p.smem,
+                                 stream>>>(
+      a.q, a.k, a.v, a.q_pos, a.kv_pos, a.out, a.Sq, a.Skv, a.H, a.Hkv, a.Dq,
+      a.Dv, p.bq, a.causal, a.window, a.scale * kLog2e, (int)p.ints);
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t run_dh(const Plan& p, const bf16* q, const bf16* k, const bf16* v,
-                   const int* q_pos, const int* kv_pos, bf16* out, int B,
-                   int Sq, int Skv, int H, int Hkv, int Dh, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  if (p.wk == 4) {
-    return run<DH, 4>(p, q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv, Dh,
-                      causal, window, scale, stream);
-  }
-  if (p.wk == 2) {
-    return run<DH, 2>(p, q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv, Dh,
-                      causal, window, scale, stream);
-  }
-  return run<DH, 1>(p, q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv, Dh,
-                    causal, window, scale, stream);
+template <int DQ, int DV>
+cudaError_t run_dims(const Plan& p, const Args& a, cudaStream_t stream) {
+  if (p.wk == 4) return run<DQ, DV, 4>(p, a, stream);
+  if (p.wk == 2) return run<DQ, DV, 2>(p, a, stream);
+  return run<DQ, DV, 1>(p, a, stream);
 }
 
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* q_pos, const int* kv_pos, void* out, int B,
-                   int Sq, int Skv, int H, int Hkv, int Dh, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  const Plan p = plan(B, Sq, Skv, H, Hkv, Dh);
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const Plan p = plan(a.B, a.Sq, a.Skv, a.H, a.Hkv, a.Dq, a.Dv);
   if (p.wq * p.wk > kMaxWarps) return cudaErrorInvalidConfiguration;
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  bf16* ob = static_cast<bf16*>(out);
-  if (p.dh == 64) {
-    return run_dh<64>(p, qb, kb, vb, q_pos, kv_pos, ob, B, Sq, Skv, H, Hkv,
-                      Dh, causal, window, scale, stream);
-  }
-  if (p.dh == 128) {
-    return run_dh<128>(p, qb, kb, vb, q_pos, kv_pos, ob, B, Sq, Skv, H, Hkv,
-                       Dh, causal, window, scale, stream);
-  }
-  return run_dh<256>(p, qb, kb, vb, q_pos, kv_pos, ob, B, Sq, Skv, H, Hkv,
-                     Dh, causal, window, scale, stream);
+  if (p.dq == 64 && p.dv == 64) return run_dims<64, 64>(p, a, stream);
+  if (p.dq == 128 && p.dv == 128) return run_dims<128, 128>(p, a, stream);
+  if (p.dq == 256 && p.dv == 256) return run_dims<256, 256>(p, a, stream);
+  if (p.dq == 192 && p.dv == 128) return run_dims<192, 128>(p, a, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace tc
@@ -843,32 +885,38 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 extern "C" {
 
 // Shared memory one CTA needs (the wrapper checks it against the card);
-// LLONG_MAX where a CTA would need more than tc::kMaxWarps warps.
+// LLONG_MAX where a CTA would need more than tc::kMaxWarps warps, or for
+// a pair of widths the bf16 kernel is not instantiated for.
 long long flash_prefill_smem_bytes(int B, int Sq, int Skv, int H, int Hkv,
-                                   int Dh, int dtype) {
-  if (dtype != 1) return (long long)smem_bytes(H / Hkv, Dh);
-  const tc::Plan p = tc::plan(B, Sq, Skv, H, Hkv, Dh);
-  return p.wq * p.wk > tc::kMaxWarps ? LLONG_MAX : (long long)p.smem;
+                                   int Dq, int Dv, int dtype) {
+  if (dtype != 1) return (long long)smem_bytes(H / Hkv, Dq, Dv);
+  const tc::Plan p = tc::plan(B, Sq, Skv, H, Hkv, Dq, Dv);
+  return p.wq * p.wk > tc::kMaxWarps || p.dq == 0
+             ? LLONG_MAX
+             : (long long)p.smem;
 }
 
-// q (B, Sq, H, Dh); k / v (B, Skv, Hkv, Dh); q_pos (Sq,) and kv_pos (Skv,)
-// i32; out (B, Sq, H, Dh).  causal: 0 or 1; window: 0 = none; scale: the
-// score scale.  dtype: 0 = f32, 1 = bf16 (q, k, v and out share it).
-// Returns the launch's cudaError_t (0 = launched).
+// q (B, Sq, H, Dq); k (B, Skv, Hkv, Dq); v (B, Skv, Hkv, Dv); q_pos (Sq,)
+// and kv_pos (Skv,) i32; out (B, Sq, H, Dv).  causal: 0 or 1; window: 0 =
+// none; scale: the score scale.  dtype: 0 = f32, 1 = bf16 (q, k, v and out
+// share it).  Returns the launch's cudaError_t (0 = launched).
 int flash_prefill(const void* q, const void* k, const void* v,
                   const void* q_pos, const void* kv_pos, void* out, int B,
-                  int Sq, int Skv, int H, int Hkv, int Dh, int causal,
+                  int Sq, int Skv, int H, int Hkv, int Dq, int Dv, int causal,
                   int window, float scale, int dtype, void* stream) {
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(kv_pos);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == 1
-          ? tc::launch(q, k, v, qp, kp, out, B, Sq, Skv, H, Hkv, Dh, causal,
-                       window, scale, s)
-          : launch<float>(q, k, v, qp, kp, out, B, Sq, Skv, H, Hkv, Dh,
-                          causal, window, scale, s);
-  return (int)err;
+  if (dtype == 1) {
+    const tc::Args a{static_cast<const tc::bf16*>(q),
+                     static_cast<const tc::bf16*>(k),
+                     static_cast<const tc::bf16*>(v), qp, kp,
+                     static_cast<tc::bf16*>(out), B, Sq, Skv, H, Hkv, Dq, Dv,
+                     causal, window, scale};
+    return (int)tc::launch(a, s);
+  }
+  return (int)launch<float>(q, k, v, qp, kp, out, B, Sq, Skv, H, Hkv, Dq, Dv,
+                            causal, window, scale, s);
 }
 
 }  // extern "C"

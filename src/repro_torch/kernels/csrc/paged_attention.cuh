@@ -43,9 +43,20 @@
 //
 // The head group is its own grid axis: G > kMaxGroup runs ceil(G /
 // kMaxGroup) CTAs per (split, row, KV head), each reading the K/V rows.
-// MLA (Dh = R + dr = 576, G = 128) will need a wider lane chunk or Dh split
-// over lane groups beside it (and the Dh <= 256 check lifted for that
-// layout).
+//
+// Wide heads (256 < Dh <= kMaxWideDh: MLA's latent rows, Dh = R + dr =
+// 576 with Hkv = 1, G = 128 and K = V the same pool) take wide_kernel: the
+// same grid, splits and merge, but a whole warp reads one position, lane l
+// holding chunks l, l + 32, ... (NC of them) of its 8 elements, so a row
+// of 576 is 72 chunks over the 32 lanes.  A thread cannot hold all of its
+// 16 positions' rows at that width, so a warp walks them kBatch at a time
+// (lookups, then every load of the batch, then the scores) with an online
+// softmax across batches; the CTA's query heads sit in shared memory, read
+// a chunk at a time against the batch's rows.  Where K and V are one pool
+// (MLA) each row is loaded once and serves as both.  Each of the ceil(G /
+// kMaxGroup) head-group CTAs of a (split, row) still reads the rows itself
+// (from L2 after the first); a CTA holding all G heads against one staged
+// latent tile would read each row once (ROADMAP Queue 2).
 #pragma once
 #include "common.cuh"
 
@@ -57,6 +68,7 @@ constexpr int kSplitLen = 64;     // positions per split
 constexpr int kMaxGroup = 4;      // query heads one CTA holds in registers
 constexpr int kVec = 8;           // elements of Dh per lane
 constexpr int kMaxDh = 256;
+constexpr int kMaxWideDh = 768;   // wide_kernel: 3 chunks a lane
 constexpr int kMergeThreads = 128;
 constexpr float kNegInf = -1e30f;
 
@@ -345,6 +357,256 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
   }
 }
 
+// One (split, row, KV head, head group) of a wide head (kMaxDh < Dh <=
+// NC * 256): the warp reads a position whole, lane l chunks l + 32 j (j <
+// NC), kBatch positions at a time, with an online softmax over its
+// batches.  SAME: K and V are one pool, read once.  Dynamic shared memory:
+// q_s[GT][NC * 256] (zeros past Dh), then acc_w[kWarps][GT][Dh].
+template <typename T, int NC, bool SAME>
+__global__ void __launch_bounds__(kThreads) wide_kernel(
+    const T* __restrict__ q, const T* k_pool, const T* v_pool,
+    const int* __restrict__ tables, const int* __restrict__ seq_lens,
+    const int* __restrict__ start_lens, T* __restrict__ out,
+    float* __restrict__ part, int B, int H, int Hkv, int Dh, int bs,
+    int max_blk, int n_hg, float scale, bool vec) {
+  constexpr int GT = kMaxGroup;
+  constexpr int kDp = NC * 32 * kVec;                // q_s row, padded
+  constexpr int kSteps = kSplitLen / kWarps;         // positions per warp
+  constexpr int kBatch = 8 / (int)sizeof(T);         // positions a batch
+  static_assert(kSteps % kBatch == 0, "batches");
+  extern __shared__ __align__(16) float wide_smem[];
+  float* q_s = wide_smem;                            // GT * kDp
+  float* acc_w = q_s + GT * kDp;                     // kWarps * GT * Dh
+  __shared__ float m_w[kWarps][GT], l_w[kWarps][GT];
+
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int split = blockIdx.x;
+  const int ns = gridDim.x;
+  int r = blockIdx.y;
+  const int hg = r % n_hg;
+  r /= n_hg;
+  const int h = r % Hkv;
+  const int b = r / Hkv;
+  const int G = H / Hkv;
+  const int g0 = hg * GT;
+  const int heads = min(GT, G - g0);
+  const long long bh0 = (long long)b * H + (long long)h * G + g0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  const int end = min(seq_lens[b], max_blk * bs);
+  const int begin = start_lens != nullptr ? max(start_lens[b], 0) : 0;
+  const int lo = max(begin, split * kSplitLen);
+  const int hi = min(end, (split + 1) * kSplitLen);
+  if (lo >= hi) {   // no valid position: an empty partial, no K/V load
+    if (ns == 1) {
+      for (int i = tid; i < heads * Dh; i += kThreads)
+        out[bh0 * Dh + i] = from_float<T>(0.f);
+    } else if (tid < heads) {
+      const Part pa{part, (long long)B * H, ns, Dh};
+      *pa.m(bh0 + tid, split) = kNegInf;
+      *pa.l(bh0 + tid, split) = 0.f;
+    }
+    return;
+  }
+  for (int i = tid; i < GT * kDp; i += kThreads) {
+    const int g = i / kDp, d = i - g * kDp;
+    q_s[i] = g < heads && d < Dh ? to_float(q[(bh0 + g) * Dh + d]) : 0.f;
+  }
+  __syncthreads();
+
+  int nd[NC];                     // this lane's elements in chunk j
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+    nd[j] = max(0, min(kVec, Dh - (lane + 32 * j) * kVec));
+  const long long row_stride = (long long)Hkv * Dh;
+  float m[GT], l[GT], acc[GT][NC][kVec];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[g][j][e] = 0.f;
+  }
+
+  for (int i0 = 0; i0 < kSteps; i0 += kBatch) {
+    // the batch's positions (warp-uniform), lookups, then every load
+    bool ok[kBatch];
+    long long off[kBatch];
+    bool any = false;
+#pragma unroll
+    for (int p = 0; p < kBatch; ++p) {
+      const int pos = split * kSplitLen + (i0 + p) * kWarps + warp;
+      ok[p] = pos >= lo && pos < hi;
+      any |= ok[p];
+      off[p] = 0;
+      if (ok[p]) {
+        const long long blk = tables[(long long)b * max_blk + pos / bs];
+        off[p] = (blk * bs + pos % bs) * row_stride + (long long)h * Dh;
+      }
+    }
+    if (!any) continue;
+    Chunk<T> kc[kBatch][NC];
+    Chunk<T> vc[SAME ? 1 : kBatch][NC];
+#pragma unroll
+    for (int p = 0; p < kBatch; ++p)
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int d0 = (lane + 32 * j) * kVec;
+        if (ok[p] && nd[j] > 0) {
+          kc[p][j].load(k_pool + off[p] + d0, nd[j], vec);
+          if constexpr (!SAME) vc[p][j].load(v_pool + off[p] + d0, nd[j], vec);
+        } else {
+          kc[p][j].zero();
+          if constexpr (!SAME) vc[p][j].zero();
+        }
+      }
+
+    // scores: each lane's products, then a butterfly over the warp
+    float s[kBatch][GT];
+#pragma unroll
+    for (int p = 0; p < kBatch; ++p)
+#pragma unroll
+      for (int g = 0; g < GT; ++g) s[p][g] = 0.f;
+#pragma unroll
+    for (int g = 0; g < GT; ++g)
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const float4* qp = reinterpret_cast<const float4*>(
+            q_s + g * kDp + (lane + 32 * j) * kVec);
+        const float4 qa = qp[0], qb = qp[1];
+        const float qv[kVec] = {qa.x, qa.y, qa.z, qa.w,
+                                qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+        for (int p = 0; p < kBatch; ++p)
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            s[p][g] = fmaf(qv[e], kc[p][j].at(e), s[p][g]);
+      }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int p = 0; p < kBatch; ++p)
+#pragma unroll
+        for (int g = 0; g < GT; ++g)
+          s[p][g] += __shfl_xor_sync(0xffffffffu, s[p][g], o);
+
+    // the online softmax over the warp's batches
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      float bm = kNegInf;
+#pragma unroll
+      for (int p = 0; p < kBatch; ++p) {
+        s[p][g] = ok[p] ? s[p][g] * scale : kNegInf;
+        bm = fmaxf(bm, s[p][g]);
+      }
+      const float mn = fmaxf(m[g], bm);
+      const float corr = expf(m[g] - mn);
+      m[g] = mn;
+      l[g] *= corr;
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[g][j][e] *= corr;
+#pragma unroll
+      for (int p = 0; p < kBatch; ++p) {
+        const float pe = ok[p] ? expf(s[p][g] - mn) : 0.f;
+        l[g] += pe;
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          const Chunk<T>& v = SAME ? kc[p][j] : vc[SAME ? 0 : p][j];
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            acc[g][j][e] = fmaf(pe, v.at(e), acc[g][j][e]);
+        }
+      }
+    }
+  }
+
+  // hand the warp's state to shared memory; a warp with no valid
+  // position has l = 0 and is skipped by the merge
+#pragma unroll
+  for (int g = 0; g < GT; ++g)
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        if (e < nd[j])
+          acc_w[(warp * GT + g) * Dh + (lane + 32 * j) * kVec + e] =
+              acc[g][j][e];
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) m_w[warp][g] = m[g], l_w[warp][g] = l[g];
+  }
+  __syncthreads();
+
+  // merge the warps in warp order, as split_kernel
+  for (int i = tid; i < heads * Dh; i += kThreads) {
+    const int g = i / Dh;
+    const int d = i - g * Dh;
+    float mm = kNegInf;
+    for (int w = 0; w < kWarps; ++w)
+      if (l_w[w][g] > 0.f) mm = fmaxf(mm, m_w[w][g]);
+    float ll = 0.f, a = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      if (l_w[w][g] > 0.f) {
+        const float c = expf(m_w[w][g] - mm);
+        ll += l_w[w][g] * c;
+        a += acc_w[(w * GT + g) * Dh + d] * c;
+      }
+    }
+    const long long row = bh0 + g;
+    if (ns == 1) {
+      out[row * Dh + d] = from_float<T>(a / ll);
+    } else {
+      const Part pa{part, (long long)B * H, ns, Dh};
+      pa.acc(row, split)[d] = a;
+      if (d == 0) *pa.m(row, split) = mm, *pa.l(row, split) = ll;
+    }
+  }
+}
+
+inline size_t wide_smem_bytes(int Dh, int nc) {
+  return sizeof(float) * (size_t)kMaxGroup * (nc * 32 * kVec + kWarps * Dh);
+}
+
+template <typename T, int NC, bool SAME>
+cudaError_t launch_wide_nc(const T* q, const T* k_pool, const T* v_pool,
+                           const int* tables, const int* seq_lens,
+                           const int* start_lens, T* out, float* part, int B,
+                           int H, int Hkv, int Dh, int bs, int max_blk,
+                           int n_hg, dim3 grid, bool vec,
+                           cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes(Dh, NC);
+  // always set: the static m_w / l_w count toward the default 48 KB
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_kernel<T, NC, SAME>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  wide_kernel<T, NC, SAME><<<grid, kThreads, smem, stream>>>(
+      q, k_pool, v_pool, tables, seq_lens, start_lens, out, part, B, H, Hkv,
+      Dh, bs, max_blk, n_hg, 1.0f / sqrtf((float)Dh), vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wide(const T* q, const T* k_pool, const T* v_pool,
+                        const int* tables, const int* seq_lens,
+                        const int* start_lens, T* out, float* part, int B,
+                        int H, int Hkv, int Dh, int bs, int max_blk,
+                        int n_hg, dim3 grid, bool vec, cudaStream_t stream) {
+  const bool same = k_pool == v_pool;
+#define PAGED_WIDE(NC, SAME)                                                  \
+  launch_wide_nc<T, NC, SAME>(q, k_pool, v_pool, tables, seq_lens,            \
+                              start_lens, out, part, B, H, Hkv, Dh, bs,       \
+                              max_blk, n_hg, grid, vec, stream)
+  if (Dh <= 2 * 32 * kVec) return same ? PAGED_WIDE(2, true)
+                                       : PAGED_WIDE(2, false);
+  return same ? PAGED_WIDE(3, true) : PAGED_WIDE(3, false);
+#undef PAGED_WIDE
+}
+
 template <typename T, int GT>
 cudaError_t launch_gt(const T* q, const T* k_pool, const T* v_pool,
                       const int* tables, const int* seq_lens,
@@ -372,12 +634,13 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const int* start_lens, void* out, void* part, int B, int H,
                    int Hkv, int Dh, int bs, int max_blk,
                    cudaStream_t stream) {
-  if (Dh < 1 || Dh > kMaxDh || Hkv < 1 || H % Hkv)
+  if (Dh < 1 || Dh > kMaxWideDh || Hkv < 1 || H % Hkv)
     return cudaErrorInvalidValue;
   const int ns = n_splits(bs, max_blk);
   if (ns > 1 && part == nullptr) return cudaErrorInvalidValue;
+  const bool wide = Dh > kMaxDh;
   const int G = H / Hkv;
-  const int gt = G == 1 ? 1 : G == 2 ? 2 : kMaxGroup;
+  const int gt = G == 1 && !wide ? 1 : G == 2 && !wide ? 2 : kMaxGroup;
   const int n_hg = (G + gt - 1) / gt;
   const long long rows = (long long)B * Hkv * n_hg;
   if (rows > 65535) return cudaErrorInvalidConfiguration;
@@ -392,7 +655,10 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   T* ot = static_cast<T*>(out);
   float* pt = static_cast<float*>(part);
   cudaError_t err =
-      gt == 1   ? launch_gt<T, 1>(qt, kt, vt, tables, seq_lens, start_lens,
+      wide      ? launch_wide<T>(qt, kt, vt, tables, seq_lens, start_lens,
+                                 ot, pt, B, H, Hkv, Dh, bs, max_blk, n_hg,
+                                 grid, vec, stream)
+      : gt == 1 ? launch_gt<T, 1>(qt, kt, vt, tables, seq_lens, start_lens,
                                   ot, pt, B, H, Hkv, Dh, bs, max_blk, n_hg,
                                   grid, vec, stream)
       : gt == 2 ? launch_gt<T, 2>(qt, kt, vt, tables, seq_lens, start_lens,

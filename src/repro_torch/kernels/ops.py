@@ -32,9 +32,9 @@ def on_cpu(t: torch.Tensor) -> bool:
 
 def paged_attention(q, k_pool, v_pool, block_table, seq_lens,
                     start_lens=None):
-    """Decode attention over a paged pool.  ``start_lens`` (optional,
-    (B,)) is the first valid position per row — the sliding-window lower
-    bound; None attends from position 0."""
+    """Decode attention over a paged pool (GQA, or MLA's latent pool with
+    K = V).  ``start_lens`` (optional, (B,)) is the first valid position
+    per row — the sliding-window lower bound; None attends from 0."""
     fn = paged_attention_plain if on_cpu(q) else paged_attention_cuda
     return fn(q, k_pool, v_pool, block_table, seq_lens, start_lens)
 
@@ -57,9 +57,9 @@ def expert_ffn(x, gate_w, up_w, down_w):
 
 def flash_prefill(q, k, v, q_pos=None, kv_pos=None, *, causal: bool = True,
                   window: int = 0):
-    """Whole-prompt GQA attention, q (B, Sq, H, Dh) over k / v (B, Skv,
-    Hkv, Dh), masked by positions (None: ``arange``): causal, and within
-    ``window`` where it is > 0."""
+    """Whole-prompt attention, q (B, Sq, H, Dq) over k (B, Skv, Hkv, Dq)
+    and v (B, Skv, Hkv, Dv) -> (B, Sq, H, Dv), masked by positions (None:
+    ``arange``): causal, and within ``window`` where it is > 0."""
     fn = flash_prefill_plain if on_cpu(q) else flash_prefill_cuda
     return fn(q, k, v, q_pos, kv_pos, causal=causal, window=window)
 

@@ -1,11 +1,13 @@
-"""Paged GQA decode attention: the plain PyTorch version and the launcher
-of the CUDA kernel (``csrc/paged_attention.cu``).
+"""Paged GQA / MLA decode attention: the plain PyTorch version and the
+launcher of the CUDA kernel (``csrc/paged_attention.cu``).
 
 Both compute ``repro.kernels.ref.paged_attention_ref``: one query token
 per row attends over a paged K/V pool through its block table, over the
 valid positions ``[start_lens[b], seq_lens[b])``; a row with none
-outputs 0.  ``kernels.ops.paged_attention`` picks between them by the
-device the tensors lie on.
+outputs 0.  Head dims up to 256 take the GQA kernel; wider ones, up to
+768, its wide variant: MLA's latent pool (Hkv = 1, Dh = R + dr = 576 at
+deepseek-v3, K and V the same tensor).  ``kernels.ops.paged_attention``
+picks between plain and CUDA by the device the tensors lie on.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 from repro_torch.kernels import build, launches
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 768         # the wide kernel: 3 chunks of 8 a lane
 
 
 def paged_attention_plain(q, k_pool, v_pool, block_table, seq_lens,

@@ -11,6 +11,10 @@ prefill chunk is the same call over chunk-width virtual slots.  With
 A whole-prompt prefill (serial admission) is :meth:`Model.prefill_paged`:
 the full-sequence forward, its attention through ``ops.flash_prefill``,
 returning each layer's raw K/V rows for ``cache_ops.install_prefill``.
+With ``attention_type="mla"`` (deepseek-v3) the mixer is multi-head
+latent attention: one fused latent pool ``ckr`` a layer, decode through
+paged attention at Hkv = 1 over R + dr, the megastep's readout through
+``Model.mla_post``, cached per weight version.
 
 The attention-free Mamba family (``family="ssm"``, falcon-mamba) is
 ported too: its blocks hold only ``ln1`` and the Mamba mixer, its paged
@@ -18,8 +22,8 @@ cache is per-slot ``conv``/``ssm`` state with a batch axis, a whole
 prompt's forward returns each layer's final state, and both paths run the
 recurrence through ``ops.ssm_scan``.  It cannot chunk its prefill.
 
-The dense, hybrid (Jamba), audio and VLM families and MLA attention are
-later slices of the port and raise here.
+The dense, hybrid (Jamba), audio and VLM families are later slices of
+the port and raise here.
 """
 from __future__ import annotations
 
@@ -51,11 +55,6 @@ class Model:
                 f"family {cfg.family!r}: only attention+MoE and Mamba "
                 f"models are ported so far (ROADMAP "
                 f"{unported[cfg.family]})")
-        if cfg.family == "moe" and cfg.attention_type != "gqa":
-            raise NotImplementedError(
-                f"attention_type {cfg.attention_type!r}: MLA and "
-                f"deepseek-v3, with the megastep at the latent width, are "
-                f"queued (ROADMAP Queue 1 item 1c)")
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -66,6 +65,8 @@ class Model:
                                          device=self.device)
         # per Mamba group: (its A_log, that tensor's version, A)
         self._ssm_A: Dict[str, Any] = {}
+        # per MLA group: ((its wuv, wo), their versions, w_post)
+        self._w_post: Dict[str, Any] = {}
 
     # -- structure -----------------------------------------------------------
 
@@ -115,7 +116,9 @@ class Model:
             if mixer == "mamba":        # a Mamba block has no FFN
                 p["mixer"] = M.mamba_init(gen, cfg, dtype, (n,))
             else:
-                p["mixer"] = A.gqa_init(gen, cfg, dtype, (n,))
+                init = (A.mla_init if cfg.attention_type == "mla"
+                        else A.gqa_init)
+                p["mixer"] = init(gen, cfg, dtype, (n,))
                 p["ln2"] = torch.ones((n, D), dtype=dtype,
                                       device=self.device)
             if ffn_kind == "moe":
@@ -134,6 +137,25 @@ class Model:
         hit = self._ssm_A.get(name)
         if hit is None or hit[0] is not A_log or hit[1] != A_log._version:
             hit = self._ssm_A[name] = (A_log, A_log._version, M.ssm_A(A_log))
+        return hit[2]
+
+    def mla_post(self, params, name: str) -> torch.Tensor:
+        """MLA group ``name``'s absorbed readouts ``mla_post_matrix``, (L,
+        H * (R + dr), D) in the parameters' type, built once per weight
+        load: again only when ``wuv`` or ``wo`` is another tensor or was
+        written in place since.  (The JAX package rebuilds it inside every
+        step; at deepseek-v3's width it is 1.06 GB a layer in bf16.)"""
+        mixer = params[name]["mixer"]
+        key = (mixer["wuv"], mixer["wo"])
+        versions = tuple(t._version for t in key)
+        hit = self._w_post.get(name)
+        if (hit is None or any(a is not b for a, b in zip(hit[0], key))
+                or hit[1] != versions):
+            self._w_post.pop(name, None)   # free the old ones first
+            post = torch.stack([
+                A.mla_post_matrix(take_layer(mixer, i), self.cfg)
+                for i in range(key[0].shape[0])])
+            hit = self._w_post[name] = (key, versions, post)
         return hit[2]
 
     # -- moe application -------------------------------------------------------
@@ -164,7 +186,10 @@ class Model:
             out, state = M.mamba_forward(p["mixer"], cfg, h,
                                          return_state=True, A=ssm_A)
             return x + out, state._asdict()
-        out, entry = self._gqa_fwd_cache(p["mixer"], h, positions)
+        if cfg.attention_type == "mla":
+            out, entry = self._mla_fwd_cache(p["mixer"], h, positions)
+        else:
+            out, entry = self._gqa_fwd_cache(p["mixer"], h, positions)
         x = x + out
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if ffn_kind == "moe":
@@ -177,10 +202,17 @@ class Model:
         out, (k, v) = A.gqa_forward_with_kv(p, self.cfg, h, positions)
         return out, {"k": k, "v": v}
 
+    def _mla_fwd_cache(self, p, h, positions):
+        """The fused latent rows (B, S, 1, R + dr), the pool's layout."""
+        out, (c_kv, k_rope) = A.mla_forward_with_cache(p, self.cfg, h,
+                                                       positions)
+        return out, {"ckr": torch.cat([c_kv, k_rope], dim=-1)[:, :, None]}
+
     def _trunk(self, params, x, positions, runtime):
         """Every layer group, layer by layer.  Returns (x, caches): per
-        group the stacked (L, B, S, Hkv, Dh) raw K and V, or the stacked
-        (L, B, ...) Mamba state."""
+        group the stacked (L, B, S, Hkv, Dh) raw K and V (MLA: the (L, B,
+        S, 1, R + dr) latent rows), or the stacked (L, B, ...) Mamba
+        state."""
         cap = self._cap(x.shape[0] * x.shape[1])
         caches: Dict[str, Any] = {}
         for name, n, mixer, ffn_kind, _ in self.layer_groups():
@@ -248,6 +280,10 @@ class Model:
             if mixer == "mamba":
                 caches[name] = M.mamba_init_state(self.cfg, batch, dtype,
                                                   device, (n,))
+            elif self.cfg.attention_type == "mla":
+                caches[name] = A.mla_paged_pools(
+                    self.cfg, num_blocks + 1, block_size, dtype, device,
+                    (n,))
             else:
                 caches[name] = A.gqa_paged_pools(
                     self.cfg, num_blocks + 1, block_size, dtype, device,
@@ -276,51 +312,70 @@ class Model:
             starts = A.window_starts(cfg, page["seq_lens"])
             page = dict(page, starts=torch.zeros_like(page["seq_lens"])
                         if starts is None else starts)
+        mega = cfg.decode_impl == "megakernel"
         for name, n, mixer, ffn_kind, _ in self.layer_groups():
             rates = self.ssm_rates(params, name) if mixer == "mamba" else None
+            post = (self.mla_post(params, name)
+                    if mega and ffn_kind == "moe"
+                    and cfg.attention_type == "mla" else None)
             for i in range(n):
                 x = self._block_decode_paged(
                     take_layer(params[name], i), x,
                     take_layer(cache[name], i), page, runtime, cap, mixer,
-                    ffn_kind, None if rates is None else rates[i])
+                    ffn_kind, None if rates is None else rates[i],
+                    None if post is None else post[i])
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x @ params["lm_head"], cache
 
     def _block_decode_paged(self, p, x, csl, page, runtime, cap, mixer,
-                            ffn_kind, ssm_A=None):
+                            ffn_kind, ssm_A=None, w_post=None):
         """One block's decode step.  ``csl`` is the layer's slice of the
-        cache: its K/V pools, or its Mamba state (and ``ssm_A`` the
-        block's scan rates)."""
+        cache: its K/V (or latent) pools, or its Mamba state (and ``ssm_A``
+        the block's scan rates).  ``w_post``: an MLA block's absorbed
+        readout, for the megastep."""
         cfg = self.cfg
         if cfg.decode_impl == "megakernel" and ffn_kind == "moe":
             return self._block_decode_megastep(p, x, csl, page, runtime,
-                                               cap)
+                                               cap, w_post)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if mixer == "mamba":
             return x + M.mamba_decode(p["mixer"], cfg, h, csl, A=ssm_A)
-        x = x + A.gqa_decode_paged(p["mixer"], cfg, h, csl, page)
+        decode = (A.mla_decode_paged if cfg.attention_type == "mla"
+                  else A.gqa_decode_paged)
+        x = x + decode(p["mixer"], cfg, h, csl, page)
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if ffn_kind == "moe":
             return x + self._moe(p["moe"], h2, runtime, cap)
         return x + Fn.ffn_apply(p["ffn"], h2, cfg.activation)
 
-    def _block_decode_megastep(self, p, x, pools, page, runtime, cap):
+    def _block_decode_megastep(self, p, x, pools, page, runtime, cap,
+                               w_post=None):
         """One attention+MoE block through ``ops.decode_megastep``: the
         attention -> residual -> norm -> route -> expert FFN (routed +
         shared) -> combine chain is one call (its plain version on the
         CPU).  The QKV projection, rope and the pool write stay outside,
         shared with the composed path, so the §3.3 row-level undo
         manifest is unchanged.  Paging arrays and MoERuntime tables ride
-        in as data: recovery edits change nothing that is launched."""
+        in as data: recovery edits change nothing that is launched.  MLA
+        attends over its latent pool (K = V) with the absorbed query and
+        reads out through ``w_post``."""
         cfg = self.cfg
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = A.gqa_decode_qkv(p["mixer"], cfg, h, page)
-        A.gqa_write_token(pools, page, k, v)
+        if cfg.attention_type == "mla":
+            q, token = A.mla_decode_q_token(p["mixer"], cfg, h, page)
+            A.mla_write_token(pools, page, token)
+            k_pool = v_pool = pools["ckr"]
+            q = q.to(k_pool.dtype)
+        else:
+            q, k, v = A.gqa_decode_qkv(p["mixer"], cfg, h, page)
+            A.gqa_write_token(pools, page, k, v)
+            k_pool, v_pool = pools["k"], pools["v"]
+            w_post = p["mixer"]["wo"]
         moe_p = p["moe"]
         shared = moe_p.get("shared")
         y, _ = ops.decode_megastep(
-            q, pools["k"], pools["v"], page["tables"], page["seq_lens"],
-            page["starts"], x, p["mixer"]["wo"], p["ln2"], moe_p["router"],
+            q, k_pool, v_pool, page["tables"], page["seq_lens"],
+            page["starts"], x, w_post, p["ln2"], moe_p["router"],
             runtime.logical_to_physical, runtime.replica_count,
             runtime.expert_mask, moe_p["gate"], moe_p["up"], moe_p["down"],
             self.expert_offset, shared["w_gate"] if shared else None,

@@ -39,7 +39,6 @@ from repro_torch.serving.executor import DPExecutor, next_bucket
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.weights_util import (assemble, expert_checksums,
-                                              save_shard_checkpoints,
                                               split_experts)
 from repro_torch.training.checkpoint import load_params, save_checkpoint
 
@@ -315,8 +314,10 @@ class InferenceEngine:
                 save_checkpoint(self.ckpt_path, self.params)
             moe = self.cfg.moe
             self.ep_size = ec.num_dp if moe is not None else 0
+            # host copies only: no ported path reads per-rank shard
+            # files (the role switch that would is queued), so start-up
+            # writes weights.npz once and nothing else
             self.shards = split_experts(self.params, self.ep_size)
-            save_shard_checkpoints(ec.workdir, self.shards)
             self.expert_map = (ExpertMap(moe, self.ep_size,
                                          device=self.device)
                                if moe is not None else None)

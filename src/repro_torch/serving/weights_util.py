@@ -2,8 +2,10 @@
 
 Each EP rank's slice of the routed-expert bank is kept on the host
 (``split_experts``), physically separate, so a rank failure genuinely
-destroys its copy; the per-rank shard files on disk are what a role
-switch reloads (§3.4).
+destroys its copy.  The per-rank shard files on disk are what a role
+switch reloads (§3.4); the engine no longer writes them at start-up,
+since no ported path reads them, and ``save_shard_checkpoints`` /
+``shard_ckpt_path`` wait for the role switch and ``rejoin_device``.
 
 ``repro.serving.weights_util`` keeps a zero-filled base copy of every
 expert leaf and rebuilds the whole bank on the host on every revive.  At

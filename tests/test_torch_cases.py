@@ -17,6 +17,10 @@ PAGED_CASES = [
     (4, 8, 2, 64, 16, 4, True, False),       # sliding window
     (3, 8, 2, 64, 16, 4, False, True),       # an idle (seq_len 0) row
     (3, 6, 3, 96, 8, 5, True, True),         # Dh not a power of two
+    # MLA's latent layout (one KV head, many query heads, Dh > 256: the
+    # wide kernel at 2 and 3 chunks a lane)
+    (3, 16, 1, 288, 8, 4, False, True),
+    (2, 12, 1, 576, 16, 3, True, False),
 ]
 
 
@@ -65,6 +69,8 @@ MEGASTEP_CASES = {
     "windowed": dict(window=True),
     "ep_offset": dict(E=3, offset=2, E_log=6),
     "mla_shaped": dict(Hkv=1, Dh=24, H=6),
+    # the latent layout: one pool serves as K and V, Dh past 256
+    "mla_latent": dict(Hkv=1, Dh=288, H=8, same_pool=True, Fs=40),
 }
 # the D=7168 deploy shape (tests/test_decode_megakernel.py:116)
 DEPLOY = dict(B=2, H=2, Hkv=1, Dh=16, bs=4, nb=6, max_blk=2, D=7168,
@@ -73,12 +79,14 @@ DEPLOY = dict(B=2, H=2, Hkv=1, Dh=16, bs=4, nb=6, max_blk=2, D=7168,
 
 def megastep_inputs(*, B=3, H=4, Hkv=2, Dh=16, bs=4, nb=10, max_blk=3,
                     D=32, E_log=5, E=7, K=2, F=48, Fs=0, cap=5, seed=0,
-                    lost=None, masked=None, window=False, offset=0):
+                    lost=None, masked=None, window=False, offset=0,
+                    same_pool=False):
     """The operands of ``decode_megastep`` in the reference's order, as
     numpy arrays (None for absent shared experts, an int offset), and its
     keyword arguments.  Two replicas for the first two logical experts;
     ``lost`` drops every replica of one expert, ``masked`` masks one;
-    seq_lens include 0 (an idle row)."""
+    seq_lens include 0 (an idle row); ``same_pool``: V is K's array, as
+    MLA's latent pool."""
     rng = np.random.default_rng(seed)
 
     def normal(shape, scale):
@@ -86,7 +94,7 @@ def megastep_inputs(*, B=3, H=4, Hkv=2, Dh=16, bs=4, nb=10, max_blk=3,
 
     q = normal((B, H, Dh), 0.3)
     k_pool = normal((nb, bs, Hkv, Dh), 0.3)
-    v_pool = normal((nb, bs, Hkv, Dh), 0.3)
+    v_pool = k_pool if same_pool else normal((nb, bs, Hkv, Dh), 0.3)
     bt = rng.integers(0, nb, size=(B, max_blk)).astype(np.int32)
     sl = rng.integers(0, max_blk * bs + 1, size=B).astype(np.int32)
     sl[min(1, B - 1)] = 0
@@ -170,13 +178,24 @@ FLASH_CASES = {
 }
 
 
-def flash_inputs(B, S, H, Hkv, Dh, shift, seed=0):
+def flash_inputs(B, S, H, Hkv, Dh, shift, seed=0, Dv=None):
+    """q, k (QK width Dh), v (width ``Dv``, default Dh) and positions."""
     rng = np.random.default_rng(seed)
     pos = np.arange(S, dtype=np.int32)
     return (rng.normal(size=(B, S, H, Dh)).astype(np.float32),
             rng.normal(size=(B, S, Hkv, Dh)).astype(np.float32),
-            rng.normal(size=(B, S, Hkv, Dh)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, Dv or Dh)).astype(np.float32),
             pos, pos + np.int32(shift))
+
+
+# MLA's whole-prompt attention: QK width dn + dr, V width dv, G = 1
+FLASH_DV_CASES = {
+    # name: (B, S, H, Hkv, Dq, Dv, causal, window)
+    "smoke": (1, 24, 4, 4, 48, 32, True, 0),           # deepseek-v3 smoke
+    "deepseek": (1, 80, 8, 8, 192, 128, True, 0),      # its full widths
+    "deepseek_window": (2, 72, 4, 4, 192, 128, True, 9),
+    "not_causal": (1, 40, 6, 2, 192, 128, False, 0),
+}
 
 
 SSM_CASES = {

@@ -22,7 +22,8 @@ from repro_torch.kernels.router_topk import (router_topk_cuda,
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
 from repro_torch.models.moe import MoERuntime, select_replicas
 from test_torch_cases import (DEPLOY, EXPERT_FFN_GRID, FLASH_CASES,
-                              MEGASTEP_CASES, MOE_FUSED_GRID, PAGED_CASES,
+                              FLASH_DV_CASES, MEGASTEP_CASES,
+                              MOE_FUSED_GRID, PAGED_CASES,
                               ROUTER_CASES, SSM_CASES, expert_ffn_inputs,
                               flash_inputs, megastep_inputs, moe_inputs,
                               paged_inputs, router_inputs, ssm_inputs,
@@ -105,6 +106,53 @@ def test_paged_attention_cuda_split_edges(card, case, dtype):
     assert not got[torch.from_numpy(seq == 0)].any()   # idle rows give 0
 
 
+# deepseek-v3's latent layout: one pool of R + dr = 576 serving as K and V,
+# 128 query heads over it, at the engine's context (512 positions over 8
+# splits) for a decode step (B=8) and a chunk step (B=40), one row over 64
+# splits, a windowed batch with an idle row, and K and V as two tensors
+LATENT_CASES = {
+    # id: (B, H, Da, max_blk, seq_lens or None, window, K = V)
+    "decode_b8": (8, 128, 576, 32, None, 0, True),
+    "chunk_b40": (40, 128, 576, 32, None, 0, True),
+    "long_row": (1, 128, 576, 256, [4090], 0, True),
+    "window_idle": (3, 128, 576, 32, [500, 0, 131], 70, True),
+    "two_pools": (4, 32, 576, 32, None, 0, False),
+    "nc2": (3, 20, 320, 32, [300, 17, 0], 0, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(LATENT_CASES))
+def test_paged_attention_cuda_latent_pool(card, case, dtype):
+    B, H, Da, max_blk, lens, window, same = LATENT_CASES[case]
+    rng = np.random.default_rng(11)
+    bs, nb = 16, max_blk + 2
+    tables = np.stack([rng.permutation(nb - 1)[:max_blk] for _ in range(B)])
+    seq = (rng.integers(1, max_blk * bs + 1, size=B) if lens is None
+           else np.asarray(lens))
+    start = np.maximum(seq - window, 0) if window else None
+    q = _t(rng.normal(size=(B, H, Da)).astype(np.float32)).to(card, dtype)
+    kp = _t(rng.normal(size=(nb, bs, 1, Da)).astype(np.float32)).to(card,
+                                                                     dtype)
+    vp = kp if same else torch.randn_like(kp)
+    rest = [_t(tables.astype(np.int32)).to(card),
+            _t(seq.astype(np.int32)).to(card),
+            None if start is None else _t(start.astype(np.int32)).to(card)]
+    n0 = launches["paged_attention"]
+    got = paged_attention_cuda(q, kp, vp, *rest)
+    again = paged_attention_cuda(q, kp, vp, *rest)
+    torch.cuda.synchronize()
+    assert launches["paged_attention"] == n0 + 2
+    assert torch.equal(got, again)       # bitwise run to run
+    want = paged_attention_plain(q, kp, vp, *rest)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    assert not got[torch.from_numpy(seq == 0)].any()   # idle rows give 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,k,e_phys,e_local,off,D,F,cap", MOE_FUSED_GRID)
@@ -140,6 +188,8 @@ def test_decode_megastep_cuda_vs_plain(card, case, dtype):
     args = [a if a is None or isinstance(a, int) else
             _t(a).to(card, dtype) if i in floats else _t(a).to(card)
             for i, a in enumerate(args)]
+    if MEGASTEP_CARD_CASES[case].get("same_pool"):
+        args[2] = args[1]                # MLA: one latent pool as K and V
     n0 = (launches["decode_megastep"], launches["router_topk"])
     y, h2, route = decode_megastep_cuda(*args, **kw, return_route=True)
     y2, h22 = decode_megastep_cuda(*args, **kw)
@@ -426,6 +476,35 @@ def test_flash_prefill_cuda_vs_plain(card, case, dtype):
                                atol=tol)
     if shift:
         assert not got[:, :shift].any()  # rows that see no key give 0
+
+
+# MLA's whole-prompt attention (QK width 192, V width 128, 128 heads, G =
+# 1 at full width) at the serial path's buckets, with and without a window
+FLASH_DV_CARD_CASES = dict(
+    FLASH_DV_CASES, s256=(1, 256, 128, 128, 192, 128, True, 0),
+    s512_window6=(1, 512, 128, 128, 192, 128, True, 6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_DV_CARD_CASES))
+def test_flash_prefill_cuda_v_width(card, case, dtype):
+    B, S, H, Hkv, Dq, Dv, causal, window = FLASH_DV_CARD_CASES[case]
+    q, k, v, qpos, kvpos = flash_inputs(B, S, H, Hkv, Dq, 0, Dv=Dv)
+    q, k, v = (_t(a).to(card, dtype) for a in (q, k, v))
+    qpos, kvpos = _t(qpos).to(card), _t(kvpos).to(card)
+    kw = dict(causal=causal, window=window)
+    got = flash_prefill_cuda(q, k, v, qpos, kvpos, **kw)
+    again = flash_prefill_cuda(q, k, v, qpos, kvpos, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (B, S, H, Dv)
+    assert torch.equal(got, again)       # bitwise run to run
+    want = flash_prefill_plain(q, k, v, qpos, kvpos, **kw)
+    # the tolerances of test_flash_prefill_cuda_vs_plain
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
 
 
 # falcon-mamba-7b at full width (d_inner 8192, N 16): a 256-token prefill

@@ -11,6 +11,13 @@ loss) and once on the smoke bank (an expert is lost and masked).  Serial
 admission (whole-prompt prefills) with the model's dense-scatter
 ``moe_impl``: greedy without a fault, and greedy with the same fault on
 the smoke bank, whose migrated requests re-prefill whole.
+
+The ``mla_*`` cases serve the ``deepseek-v3`` smoke model (multi-head
+latent attention, one first-k dense layer beside one MoE layer) on the
+same three paths: chunked composed and megakernel, and serial.  Its
+fault also compromises a dense-FFN TP group; the recovery actions must
+be ``repro``'s word for word.  Start-up writes ``weights.npz`` and no
+per-rank shard file.
 """
 import dataclasses
 import os
@@ -32,22 +39,37 @@ from repro_torch.core.weights import RecoveryPolicy
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.sampling import SamplingParams
 
+MLA = "deepseek-v3"
 CASES = {
-    # name: (bank, temperature, fault, admission)
+    # name: (bank, temperature, fault, admission[, arch, decode_impl])
     "greedy": ("replicated", 0.0, False, "chunked"),
     "temp0.8": ("replicated", 0.8, False, "chunked"),
     "fault_redundant": ("replicated", 0.0, True, "chunked"),
     "fault_missing": ("smoke", 0.0, True, "chunked"),
     "serial_greedy": ("replicated", 0.0, False, "serial"),
     "serial_fault_missing": ("smoke", 0.0, True, "serial"),
+    "mla_greedy": ("smoke", 0.0, False, "chunked", MLA),
+    "mla_megakernel_greedy": ("smoke", 0.0, False, "chunked", MLA,
+                              "megakernel"),
+    "mla_fault_missing": ("smoke", 0.0, True, "chunked", MLA),
+    "mla_megakernel_fault_missing": ("smoke", 0.0, True, "chunked", MLA,
+                                     "megakernel"),
+    "mla_serial_fault_missing": ("smoke", 0.0, True, "serial", MLA),
 }
 # chunked cases run the fused MoE; serial ones keep the model's default
 # dense-scatter ``gather_psum`` (its expert FFN is the expert_ffn kernel)
 MOE_IMPL = {"chunked": "fused", "serial": None}
 
 
-def _cfg(get_smoke, bank):
-    cfg = get_smoke("qwen2-moe-a2.7b")
+def _case(name):
+    """(bank, temperature, fault, admission, arch, decode_impl)."""
+    bank, temp, fault, admission, *more = CASES[name]
+    arch, decode_impl = (list(more) + ["qwen2-moe-a2.7b", None][len(more):])
+    return bank, temp, fault, admission, arch, decode_impl
+
+
+def _cfg(get_smoke, bank, arch="qwen2-moe-a2.7b"):
+    cfg = get_smoke(arch)
     if bank == "replicated":   # tests/test_recovery.py:110
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, num_experts=4, num_redundant_experts=4, top_k=2))
@@ -83,18 +105,18 @@ def shared(tmp_path_factory):
 
 @pytest.fixture(scope="module", params=list(CASES))
 def pair(request, shared):
-    bank, temp, fault, admission = CASES[request.param]
+    bank, temp, fault, admission, arch, decode_impl = _case(request.param)
     root = shared / request.param
-    weights = shared / f"weights_{bank}.npz"
+    weights = shared / f"weights_{arch}_{bank}.npz"
     common = dict(mode="collocated", num_dp=2, max_batch=2, max_seq=64,
                   block_size=8, num_blocks=64, admission=admission,
-                  moe_impl=MOE_IMPL[admission])
+                  moe_impl=MOE_IMPL[admission], decode_impl=decode_impl)
 
     jdir = root / "jax"
     jdir.mkdir(parents=True)
     if weights.exists():
         shutil.copy(weights, jdir / "weights.npz")
-    jcfg = _cfg(jax_smoke_config, bank)
+    jcfg = _cfg(jax_smoke_config, bank, arch)
     jeng = JaxEngine(jcfg, JaxEngineConfig(
         **common, workdir=str(jdir),
         persist_cache_dir=str(shared / "xla_cache"),
@@ -107,7 +129,7 @@ def pair(request, shared):
     pdir = root / "torch"
     pdir.mkdir()
     shutil.copy(weights, pdir / "weights.npz")
-    pcfg = _cfg(get_smoke_config, bank)
+    pcfg = _cfg(get_smoke_config, bank, arch)
     peng = InferenceEngine(pcfg, EngineConfig(
         **common, workdir=str(pdir),
         sampling=SamplingParams(temperature=temp),
@@ -126,17 +148,25 @@ def test_token_streams_identical(pair):
 
 def test_recovery_reports_match(pair):
     name, jeng, _, peng, _ = pair
-    assert len(peng.reports) == len(jeng.reports) == int(CASES[name][2])
+    assert len(peng.reports) == len(jeng.reports) == int(_case(name)[2])
     assert peng.cfg.moe_impl == jeng.cfg.moe_impl
+    assert peng.cfg.decode_impl == jeng.cfg.decode_impl
     for p, j in zip(peng.reports, jeng.reports):
         assert p.scenario == j.scenario
+        assert p.actions == j.actions
         assert p.moe_plan.kind.value == j.moe_plan.kind.value
         assert p.migrated == j.migrated
         assert p.blocks_rolled_back == j.blocks_rolled_back
         assert p.compile_source == j.compile_source == "precompiled"
-    if name in ("fault_missing", "serial_fault_missing"):
+    if name.endswith("fault_missing"):
         assert peng.reports[0].scenario == "moe+missing_experts"
         assert peng.reports[0].migrated > 0
+    if name.startswith("mla") and _case(name)[2]:
+        # the first-k dense layer's TP group is compromised, as in repro
+        assert any(a.startswith("dense-FFN TP group")
+                   for a in peng.reports[0].actions)
+        assert peng.dense_groups.alive == jeng.dense_groups.alive
+        assert not all(peng.dense_groups.alive)
     if name == "fault_redundant":
         assert peng.reports[0].scenario == "moe+redundant_experts"
 
@@ -158,7 +188,7 @@ def test_admission_counters_match(pair):
     for key in ("prefill_tokens_computed", "prefill_tokens_cached",
                 "prefill_chunks", "prefix_cache_hits"):
         assert ps[key] == js[key], key
-    if CASES[name][3] == "chunked":
+    if _case(name)[3] == "chunked":
         assert ps["prefix_cache_hits"] > 0
     else:        # whole prompts, one per step: no chunks, no cache
         assert ps["prefill_chunks"] == ps["prefix_cache_hits"] == 0
@@ -168,12 +198,22 @@ def test_admission_counters_match(pair):
     assert ph == jh
 
 
+def test_start_up_writes_no_shard_files(pair):
+    """Start-up writes ``weights.npz`` once and no per-rank expert shard
+    file (no ported path reads one); the port still revives as repro,
+    which writes them (test_recovery_reports_match)."""
+    _, jeng, _, peng, _ = pair
+    pfiles = os.listdir(peng.ecfg.workdir)
+    assert "weights.npz" in pfiles
+    assert not [f for f in pfiles if f.startswith("expert_shard_")]
+    assert any(f.startswith("expert_shard_")
+               for f in os.listdir(jeng.ecfg.workdir))
+
+
 @pytest.mark.parametrize("option", [
-    dict(mode="disaggregated"), dict(overlap=True), dict(spec_window=2),
-    dict(decode_impl="megakernel", arch="deepseek-v3")])  # MLA: Queue 1 1c
+    dict(mode="disaggregated"), dict(overlap=True), dict(spec_window=2)])
 def test_unported_options_raise(tmp_path, option):
-    option = dict(option)
-    cfg = get_smoke_config(option.pop("arch", "qwen2-moe-a2.7b"))
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine(cfg, EngineConfig(workdir=str(tmp_path), **option),
                         device="cpu")

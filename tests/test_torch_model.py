@@ -264,3 +264,32 @@ def test_graph_cache_tiers():
     _, cached = GraphCache("/nonexistent").get_or_compile(("x",), abs)
     assert cached.source == "cached"
     assert gc.invalidate(lambda k: k[0] == "decode") == 1
+
+
+@pytest.mark.parametrize("writer", ["port", "np.savez", "np.savez_compressed"])
+def test_load_params_reads_each_writer(tmp_path, writer):
+    """``load_params`` reads an uncompressed file at each array's offset
+    and a compressed one through ``np.load``: both give every leaf, its
+    shape, type and bits (a bf16 leaf from its tag, a Fortran-ordered
+    array in C order)."""
+    rng = np.random.default_rng(4)
+    flat = {"a/b": rng.normal(size=(3, 5)).astype(np.float32),
+            "a/c": np.asfortranarray(rng.normal(size=(4, 2))
+                                     .astype(np.float32)),
+            "d": np.arange(7, dtype=np.int32),
+            "e": np.zeros((0, 3), np.float32)}
+    path = str(tmp_path / "w.npz")
+    bf = torch.from_numpy(rng.normal(size=(2, 6)).astype(np.float32)).to(
+        torch.bfloat16)
+    if writer == "port":
+        ckpt.save_flat(path, [*((k, torch.from_numpy(np.ascontiguousarray(v)))
+                                for k, v in flat.items()), ("g", bf)])
+    else:
+        getattr(np, writer.split(".")[1])(path, **flat)
+    got = dict(ckpt.flatten(ckpt.load_params(path, dtype=torch.float32,
+                                             device="cpu")))
+    for k, v in flat.items():
+        assert got[k].dtype == torch.float32
+        np.testing.assert_array_equal(got[k].numpy(), v.astype(np.float32))
+    if writer == "port":
+        assert torch.equal(got["g"], bf.float())
