@@ -41,7 +41,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              4090-position row and windowed with an idle row; the
              megastep at that layout (w_post (73728, 7168), 256 + 32
              experts, top-8) at B = 8 and 40 with masked and lost
-             experts and a dead replica; whole-prompt attention with
+             experts and a dead replica, its route stage timed beside
+             softmax + topk over the same logits; whole-prompt attention with
              Dq = 192, Dv = 128, H = 128 at S = 256 and 512 with and
              without window 6; the fused MoE at T = 8 and 40 and the
              expert FFN at C = 8, 9, 18 over 288 experts of D = 7168, F
@@ -281,10 +282,16 @@ def phase_build():
     logs = build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s for {list(logs)} into "
         f"{build.build_dir()}")
+    import re
     for name, text in logs.items():
+        fn = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            m = re.search(r"entry function '\w*?\d+([A-Za-z_]+_kernel)",
+                          line)
+            if m:   # the kernel whose properties follow
+                fn = m.group(1)
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} {fn}: {line.strip()}")
 
 
 # -- phase 3: kernels ---------------------------------------------------------
@@ -721,6 +728,131 @@ def megastep_bound_ms(args, kw, route, n_valid, dtype_name):
             live_experts, live_slots)
 
 
+def check_megastep(name, args, kw, y, h2, route, dn):
+    """A megastep's outputs against its plain version.  Its route tables
+    equal the plain router's (router_topk_plain, select_replicas,
+    moe_group_tokens) over the logits of its own h2; its h2 and, on every
+    row, its y are held at the tolerance against the plain version routed
+    from that same h2 (``route_h2``), since routing is a discontinuous
+    function of h2.  Returns the max abs errors."""
+    from repro_torch.kernels.decode_megastep import decode_megastep_plain
+    from repro_torch.kernels.moe_fused import moe_group_tokens
+    from repro_torch.kernels.router_topk import router_topk_plain
+    from repro_torch.models.moe import MoERuntime, select_replicas
+    _, psel = router_topk_plain(h2.float() @ args[9].float(), args[12],
+                                kw["top_k"])
+    if not route["sel"].equal(psel):
+        raise AssertionError(f"decode_megastep {name}: routing differs "
+                             f"from router_topk_plain")
+    rt = MoERuntime(args[10], args[11], args[12])
+    phys, alive = select_replicas(route["sel"].long(), rt)
+    tables = moe_group_tokens(phys, alive, route["w"],
+                              expert_offset=args[16],
+                              e_local=kw["e_local"], cap=kw["cap"])
+    for key, want in zip(("tok_idx", "wgt", "slot_of"), tables):
+        if not route[key].equal(want):
+            raise AssertionError(f"decode_megastep {name}: {key} differs "
+                                 f"from moe_group_tokens")
+    want_y, want_h2 = decode_megastep_plain(*args, **kw, route_h2=h2)
+    dropped = int((route["slot_of"] < 0).sum())
+    return [compare(f"{name} h2 {dn}", h2, want_h2, dn, MEGA_TOL),
+            compare(f"{name} y {dn} ({dropped} copies dropped)", y, want_y,
+                    dn, MEGA_TOL)]
+
+
+def router_splits(B, D, E_log):
+    """How many f32 partials of the router logits the megastep's route
+    stage sums: ``split_k`` of ``csrc/decode_megastep.cu`` for the router
+    product (K = D over 128-column, 8-row tiles)."""
+    def cdiv(a, b):
+        return -(-a // b)
+    s = cdiv(264, cdiv(E_log, 128) * cdiv(B, 8))
+    s = max(min(s, max(1, D // 64)), cdiv(D, 512), 1)
+    return cdiv(D, cdiv(D, s))
+
+
+def route_stage_us(torch, fn, reps: int = 20) -> float:
+    """Mean device span of the megastep's route stage over ``reps`` calls
+    of ``fn`` (torch.profiler, L2 warm): from route_rows' start to
+    route_slots' end, since route_slots is route_rows' programmatic
+    dependent and the two overlap."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")
+                  and "route_" in e.name), key=lambda e: e.time_range.start)
+    rows = [e for e in evs if "route_rows" in e.name]
+    slots = [e for e in evs if "route_slots" in e.name]
+    if not rows or len(rows) != len(slots):
+        raise AssertionError(f"route stage: {len(rows)} route_rows and "
+                             f"{len(slots)} route_slots launches traced")
+    return float(np.mean([s.time_range.end - r.time_range.start
+                          for r, s in zip(rows, slots)]))
+
+
+def kernels_ms(torch, fn) -> float:
+    """The device time of the kernels one call of ``fn`` launches, summed,
+    in ms (``kernel_breakdown``: torch.profiler, mean of 20 calls, L2
+    warm)."""
+    return sum(us for us, _ in kernel_breakdown(torch, fn)) / 1e3
+
+
+def route_stage_row(torch, mega, args, kw, route, h2):
+    """The megastep's route stage at its call's inputs: its profiler time
+    (``route_stage_us``), its plain version
+    (router_topk_plain, select_replicas and moe_group_tokens over the
+    logits of the same h2) and the closest library pair (softmax, then
+    topk over those logits), beside the bytes of the logit partials it
+    reads and the tables it writes.  All three are timed by torch.profiler
+    with L2 warm (the stage inside the megastep cannot be timed alone by
+    events): the stage as its span, the plain version and the library
+    pair as their kernels' summed device time, which leaves out the gaps
+    between their launches."""
+    from repro_torch.kernels.moe_fused import moe_group_tokens
+    from repro_torch.kernels.router_topk import router_topk_plain
+    from repro_torch.models.moe import MoERuntime, select_replicas
+    B, D = args[6].shape
+    E_log, k, cap, e_local = (args[9].shape[1], kw["top_k"], kw["cap"],
+                              kw["e_local"])
+    logits = h2.float() @ args[9].float()
+    mask, rt = args[12], MoERuntime(args[10], args[11], args[12])
+
+    def plain():
+        w, sel = router_topk_plain(logits, mask, k)
+        phys, alive = select_replicas(sel.long(), rt)
+        return moe_group_tokens(phys, alive, w, expert_offset=args[16],
+                                e_local=e_local, cap=cap)
+
+    def library():
+        g = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)
+        return torch.topk(g, k, dim=-1)
+
+    pw, psel = router_topk_plain(logits, mask, k)
+    if not torch.equal(route["sel"], psel):
+        raise AssertionError("route stage: routing differs from "
+                             "router_topk_plain")
+    splits = router_splits(B, D, E_log)
+    nbytes = (4 * splits * B * E_log + E_log * (1 + 4 + 4 * args[10].shape[1])
+              + 12 * B * k + 8 * e_local * cap)
+    flops = B * E_log * (5 + 2 * k)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    us = route_stage_us(torch, mega)
+    return dict(
+        max_abs_err=float((route["w"] - pw).abs().max()), ms=us / 1e3,
+        plain_ms=kernels_ms(torch, plain), bound_ms=1e3 * max(t_b, t_o),
+        bound_by="bytes" if t_b >= t_o else "operations",
+        library_ms=kernels_ms(torch, library),
+        shape=f"route stage B={B} E_log={E_log} k={k} cap={cap} over "
+              f"{e_local} experts, {splits} logit partials (torch.profiler,"
+              f" mean of 20 calls, L2 warm; ms: the stage's span; plain, "
+              f"library (softmax + topk): their kernels' summed time)")
+
+
 def composed_block(torch):
     """The port's composed chain for the same block (the CUDA attention
     and fused MoE kernels, cuBLAS for the other products): the yardstick
@@ -753,9 +885,6 @@ def composed_block(torch):
 def kernels_megastep(torch, S):
     from repro_torch.kernels.decode_megastep import (decode_megastep_cuda,
                                                      decode_megastep_plain)
-    from repro_torch.kernels.moe_fused import moe_group_tokens
-    from repro_torch.kernels.router_topk import router_topk_plain
-    from repro_torch.models.moe import MoERuntime, select_replicas
     log("kernels: decode_megastep vs decode_megastep_plain on the card "
         "(qwen2-moe-a2.7b block at full width)")
     errs, timed = [], {}
@@ -771,32 +900,11 @@ def kernels_megastep(torch, S):
             if not (torch.equal(y, y2) and torch.equal(h2, h22)):
                 raise AssertionError(f"decode_megastep {name}: not bitwise "
                                      f"equal run to run")
-            # route stage: its slot tables are the reference sort pass
-            # over its own routing; its routing is the plain router's
-            rt = MoERuntime(args[10], args[11], args[12])
-            phys, alive = select_replicas(route["sel"].long(), rt)
-            tables = moe_group_tokens(phys, alive, route["w"],
-                                      expert_offset=args[16],
-                                      e_local=kw["e_local"], cap=kw["cap"])
-            for key, want in zip(("tok_idx", "wgt", "slot_of"), tables):
-                if not torch.equal(route[key], want):
-                    raise AssertionError(f"decode_megastep {name}: {key} "
-                                         f"differs from moe_group_tokens")
-            pw, psel = router_topk_plain(h2.float() @ args[9].float(),
-                                         args[12], kw["top_k"])
-            if not torch.equal(route["sel"], psel):
-                raise AssertionError(f"decode_megastep {name}: routing "
-                                     f"differs from router_topk_plain")
-            want_y, want_h2 = decode_megastep_plain(*args, **kw)
-            dropped = int((route["slot_of"] < 0).sum())
-            errs.append(compare(f"{name} B={args[0].shape[0]} h2 {dn}", h2,
-                                want_h2, dn, MEGA_TOL))
-            errs.append(compare(f"{name} B={args[0].shape[0]} y {dn} "
-                                f"({dropped} copies dropped)", y, want_y,
-                                dn, MEGA_TOL))
+            errs += check_megastep(f"{name} B={args[0].shape[0]}", args,
+                                   kw, y, h2, route, dn)
             if name in MEGA_TIMED and dtype is torch.bfloat16:
                 timed[args[0].shape[0]] = (args, kw, route, n_valid, dn)
-            del args, y, y2, h2, h22, want_y, want_h2, route
+            del args, y, y2, h2, h22, route
             gc.collect()
             torch.cuda.empty_cache()
     block = composed_block(torch)
@@ -828,6 +936,9 @@ def kernels_megastep(torch, S):
             f"20 calls, L2 warm):")
         for us, key in kernel_breakdown(torch, mega):
             log(f"    {us:9.2f} us  {key[:90]}")
+        log(f"  decode_megastep's route stage at B={B} E_log=60 k=4: "
+            f"{route_stage_us(torch, mega):.2f} us (torch.profiler, route_rows"
+            f"' start to route_slots' end, mean of 20 calls, L2 warm)")
         log(f"  decode_megastep's launches at B={B}, one call in order "
             f"(torch.profiler):")
         for us, key in kernel_sequence(torch, mega):
@@ -1165,8 +1276,10 @@ def kernels_mla(torch, S):
     its plain version in f32 and bf16, twice and bitwise equal; the bf16
     cases at the main path's shapes timed beside their bounds.  Returns
     {kernel: [rows]}."""
+    mega_rows, route_rows = mla_megastep(torch, S)
     out = {"paged_attention": mla_paged(torch, S),
-           "decode_megastep": mla_megastep(torch, S),
+           "decode_megastep": mega_rows,
+           "router_topk": route_rows,
            "flash_prefill": mla_flash(torch),
            "moe_fused": mla_moe_fused(torch, S),
            "expert_ffn": mla_expert_ffn(torch)}
@@ -1180,7 +1293,8 @@ def mla_paged(torch, S):
     """Paged attention at the latent layout: Hkv = 1, G = 128, Da = 576,
     one pool as K and V, at the engine's context (512 positions) for a
     decode step (B=8) and a chunk step (B=40), over one 4090-position row
-    (64 splits), and windowed with an idle row."""
+    (16 splits of 256), and windowed with an idle row.  In bf16 these run
+    the tensor-core latent kernel."""
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                      paged_attention_plain)
     W = DEEPSEEK
@@ -1226,8 +1340,8 @@ def mla_paged(torch, S):
             paged_bound_ms(args, n_valid, dn),
             f"{name} B={B} H=128 Hkv=1 Da=576 bf16, {n_valid} valid latent "
             f"rows (K = V)"))
-        if name == "decode":
-            log(f"  paged_attention's kernels at latent decode B={B} "
+        if name in ("decode", "chunk step"):
+            log(f"  paged_attention's kernels at latent {name} B={B} "
                 f"(torch.profiler, mean of 20 calls, L2 warm):")
             for us, k in kernel_breakdown(
                     torch, lambda: paged_attention_cuda(*args)):
@@ -1242,11 +1356,10 @@ def mla_megastep(torch, S):
     E_log 256 + 32 redundant, top-8): a decode step (B=8), one with a
     window, masked and lost experts and a dead replica, and a chunk step
     (B=40).  bf16 holds the whole bank of 288 experts (25.4 GB); f32 a
-    third of it (96 experts at offset 96, the rest foreign)."""
+    third of it (96 experts at offset 96, the rest foreign).  Returns its
+    timed rows and its route stage's (``route_stage_row``)."""
     from repro_torch.kernels.decode_megastep import (decode_megastep_cuda,
                                                      decode_megastep_plain)
-    from repro_torch.kernels.moe_fused import moe_group_tokens
-    from repro_torch.models.moe import MoERuntime, select_replicas
     W = DEEPSEEK
     log("kernels: decode_megastep at deepseek-v3's latent layout vs its "
         "plain version")
@@ -1257,7 +1370,7 @@ def mla_megastep(torch, S):
               dead=(1,))),
         ("chunk step", dict(B=S["chunk"] + S["max_batch"])),
     ]
-    errs, rows = [], []
+    errs, rows, route_rows = [], [], []
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         bank = (dict(e_local=W["E_log"] + W["R"], off=0)
@@ -1273,25 +1386,17 @@ def mla_megastep(torch, S):
             if not (torch.equal(y, y2) and torch.equal(h2, h22)):
                 raise AssertionError(f"decode_megastep latent {name}: not "
                                      f"bitwise equal run to run")
-            rt = MoERuntime(args[10], args[11], args[12])
-            phys, alive = select_replicas(route["sel"].long(), rt)
-            tables = moe_group_tokens(phys, alive, route["w"],
-                                      expert_offset=args[16],
-                                      e_local=kw["e_local"], cap=kw["cap"])
-            for key, want in zip(("tok_idx", "wgt", "slot_of"), tables):
-                if not torch.equal(route[key], want):
-                    raise AssertionError(f"decode_megastep latent {name}: "
-                                         f"{key} differs from "
-                                         f"moe_group_tokens")
-            want_y, want_h2 = decode_megastep_plain(*args, **kw)
             B = args[0].shape[0]
-            errs.append(compare(f"latent {name} B={B} h2 {dn}", h2, want_h2,
-                                dn, MEGA_TOL))
-            errs.append(compare(f"latent {name} B={B} y {dn} (bank "
-                                f"{kw['e_local']} at {args[16]})", y,
-                                want_y, dn, MEGA_TOL))
-            del y, y2, h2, h22, want_y, want_h2
-            if dtype is torch.bfloat16 and name in MEGA_TIMED:
+            errs += check_megastep(f"latent {name} B={B} (bank "
+                                   f"{kw['e_local']} at {args[16]})", args,
+                                   kw, y, h2, route, dn)
+            timed = dtype is torch.bfloat16 and name in MEGA_TIMED
+            if timed:
+                route_rows.append(route_stage_row(
+                    torch, lambda: decode_megastep_cuda(*args, **kw), args,
+                    kw, route, h2))
+            del y, y2, h2, h22
+            if timed:
                 mega = lambda: decode_megastep_cuda(*args, **kw)  # noqa
                 bound = megastep_bound_ms(args, kw, route, n_valid, dn)
                 rows.append(_row(
@@ -1310,7 +1415,7 @@ def mla_megastep(torch, S):
                     log(f"    {us:9.2f} us  {key[:90]}")
             del args, route
             _free(torch)
-    return rows
+    return rows, route_rows
 
 
 def mla_flash(torch):

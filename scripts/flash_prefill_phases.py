@@ -3,13 +3,13 @@
 
     python3 scripts/flash_prefill_phases.py      # on a machine with the card
 
-Builds a copy of ``src/repro_torch/kernels/csrc/flash_prefill.cu`` into
-``build/phases/`` with ``%globaltimer`` stamps at the bf16 kernel's phase
-boundaries (the library the port loads is not touched), launches it at the
-serial path's shapes (B=1, H=Hkv=16, Dh=128, causal, S = 256 and 512) and
-prints, beside the call's time (``chip_smoke.time_ms``: median of 25
-L2-cold calls), each phase's mean over the CTAs and over the CTAs with the
-most visible key tiles, and the SM clock during the launch:
+Builds a copy of ``src/repro_torch/kernels/csrc/flash_prefill.cu`` with
+``%globaltimer`` stamps at the bf16 kernel's phase boundaries
+(``phase_stamps.py``), launches it at the serial path's shapes (B=1,
+H=Hkv=16, Dh=128, causal, S = 256 and 512) and prints, beside the call's
+time (``chip_smoke.time_ms``: median of 25 L2-cold calls), each phase's
+mean over the CTAs and over the CTAs with the most visible key tiles, and
+the SM clock during the launch:
 
 * positions — issue the q copies, read the positions, list the visible
   key tiles;
@@ -24,23 +24,15 @@ from __future__ import annotations
 
 import ctypes
 import math
-import shutil
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parents[1]
-CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+import phase_stamps
+
 MAX_CTAS = 4096
-STAMPS = [
-    ("namespace tc {\n",
-     "__device__ unsigned long long g_stamp[%d][8];\n"
-     "__device__ __forceinline__ unsigned long long now_ns() {\n"
-     "  unsigned long long t;\n"
-     "  asm volatile(\"mov.u64 %%0, %%%%globaltimer;\" : \"=l\"(t));\n"
-     "  return t;\n}\n\nnamespace tc {\n" % MAX_CTAS),
+N_STAMPS = 8
+PATCHES = {"flash_prefill.cu": [
     ("  const int WQ = (blockDim.x >> 5) / WK;\n",
      "  const unsigned long long t0 = now_ns();\n"
      "  const long long c0 = clock64();\n"
@@ -64,39 +56,18 @@ STAMPS = [
      "    s[0] = t0; s[1] = t1; s[2] = t2; s[3] = t3; s[4] = now_ns();\n"
      "    s[5] = nvis; s[6] = clock64() - c0; s[7] = gridDim.x;\n  }\n}\n"
      % MAX_CTAS),
-    ('}  // extern "C"',
-     "int flash_prefill_stamps(void* host) {\n"
-     "  return (int)cudaMemcpyFromSymbol(host, g_stamp, sizeof(g_stamp));\n"
-     '}\n\n}  // extern "C"'),
-]
+]}
 PHASES = (("positions", 0, 1), ("first tile", 1, 2), ("tiles", 2, 3),
           ("merge", 3, 4))
 
 
 def build_stamped():
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
-    out = ROOT / "build" / "phases"
-    out.mkdir(parents=True, exist_ok=True)
-    for header in CSRC.glob("*.cuh"):
-        shutil.copy(header, out / header.name)
-    src = (CSRC / "flash_prefill.cu").read_text()
-    for anchor, repl in STAMPS:
-        if src.count(anchor) != 1:
-            raise SystemExit(f"anchor not found once in flash_prefill.cu: "
-                             f"{anchor!r}")
-        src = src.replace(anchor, repl)
-    cu = out / "flash_prefill_stamped.cu"
-    cu.write_text(src)
-    lib_path = out / "libflash_prefill_stamped.so"
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-                    str(lib_path), str(cu)], check=True,
-                   stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
-    lib = ctypes.CDLL(str(lib_path))
-    lib.flash_prefill.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    lib = phase_stamps.build("flash_prefill.cu", PATCHES, namespace="tc",
+                             n_ctas=MAX_CTAS, n_stamps=N_STAMPS,
+                             subdir="flash_prefill")
+    lib.flash_prefill.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                                   + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p])
-    lib.flash_prefill_stamps.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -104,12 +75,9 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("flash_prefill_phases: no CUDA device")
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(phase_stamps.ROOT))
     from chip_smoke import time_ms
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi)
+    print(phase_stamps.card())
     lib = build_stamped()
     H = Hkv = 16
     Dh = 128
@@ -123,16 +91,15 @@ def main() -> int:
         def launch():
             err = lib.flash_prefill(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                pos.data_ptr(), out.data_ptr(), 1, S, S, H, Hkv, Dh, 1, 0,
+                pos.data_ptr(), out.data_ptr(), 1, S, S, H, Hkv, Dh, Dh, 1, 0,
                 1.0 / math.sqrt(Dh), 1,
                 torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"launch failed: cudaError {err}")
         ms = time_ms(torch, launch)
-        stamps = np.zeros((MAX_CTAS, 8), np.uint64)
         launch()                              # L2 warm, as a traced run
         torch.cuda.synchronize()
-        lib.flash_prefill_stamps(stamps.ctypes.data)
+        stamps = phase_stamps.read(lib)
         t = stamps[:int(stamps[0, 7])].astype(np.int64)   # this launch's
         span = int((t[:, 4] - t[:, 0].min()).max())
         mhz = float((t[:, 6] / (t[:, 4] - t[:, 0])).mean() * 1e3)

@@ -8,8 +8,12 @@ Runs four child processes one after the other -- the parent checkout,
 this tree, this tree, the parent -- each importing ``repro_torch`` from
 its tree's ``src``, building that tree's kernels into its own
 ``build/kernels``, and timing in bf16 at the main path's shapes:
-``paged_attention`` (decode B = 8), ``moe_fused`` (T = 8, 40),
-``decode_megastep`` (B = 8, 40), ``expert_ffn`` (C = 8, 20, 40),
+``paged_attention`` (decode B = 8, and B = 40 at the engine's full
+context), the same at deepseek-v3's latent layout (Hkv = 1, G = 128, Da
+= 576, one pool as K and V; B = 8 and 40 at the engine's context),
+``moe_fused`` (T = 8, 40), ``decode_megastep`` (B = 8, 40, and at
+deepseek-v3's latent layout with its 288-expert bank, B = 8 and 40),
+``expert_ffn`` (C = 8, 20, 40),
 ``flash_prefill`` (B = 1, H = Hkv = 16, Dh = 128, causal, S = 256 and
 512), ``ssm_scan`` (prefill B = 1 S = 256 and decode B = 8 from a bf16 state,
 both through the default call), the decode step's scan as that tree's
@@ -87,16 +91,31 @@ def child(tree: Path) -> dict:
     build.build_all(["paged_attention", "moe_fused", "decode_megastep",
                      "expert_ffn", "flash_prefill", "ssm_scan"])
     S, bf16 = cs.SHAPES, torch.bfloat16
-    out = {"paged_attention": {}, "moe_fused": {}, "decode_megastep": {},
-           "expert_ffn": {}, "flash_prefill": {}, "ssm_scan": {},
+    out = {"paged_attention": {}, "paged_attention latent": {},
+           "moe_fused": {}, "decode_megastep": {},
+           "decode_megastep latent": {}, "expert_ffn": {},
+           "flash_prefill": {}, "ssm_scan": {},
            "decode scan as served": {}, "mamba_decode": {}}
-    # chip_smoke.py's timed decode case: B=8, rows of 1-288 positions
-    args, _ = cs.paged_case(
-        torch, B=S["max_batch"], H=16, Hkv=16, Dh=128, bs=S["block_size"],
-        nb=S["num_blocks"] + 1, max_blk=S["max_blk"], max_len=288,
-        window=0, idle=True, dtype=bf16, seed=0)
-    out["paged_attention"][S["max_batch"]] = cs.time_ms(
-        torch, lambda: paged_attention_cuda(*args))
+    # chip_smoke.py's timed decode case (B=8, rows of 1-288 positions) and
+    # its full-context case at B=40 (rows of 1-512)
+    for i, (B, max_len) in ((0, (S["max_batch"], 288)),
+                            (5, (S["chunk"] + S["max_batch"], 512))):
+        args, _ = cs.paged_case(
+            torch, B=B, H=16, Hkv=16, Dh=128, bs=S["block_size"],
+            nb=S["num_blocks"] + 1, max_blk=S["max_blk"], max_len=max_len,
+            window=0, idle=True, dtype=bf16, seed=i)
+        out["paged_attention"][B] = cs.time_ms(
+            torch, lambda: paged_attention_cuda(*args))
+    # chip_smoke.py's timed latent cases (mla_paged): decode and chunk step
+    W = cs.DEEPSEEK
+    for i, B in enumerate((S["max_batch"], S["chunk"] + S["max_batch"])):
+        args, _ = cs.paged_case(
+            torch, B=B, H=W["H"], Hkv=1, Dh=W["Dh"], bs=S["block_size"],
+            nb=S["num_blocks"] + 1, max_blk=S["max_blk"], max_len=512,
+            window=0, idle=True, dtype=bf16, seed=60 + i, same=True)
+        out["paged_attention latent"][B] = cs.time_ms(
+            torch, lambda: paged_attention_cuda(*args))
+    del args
     for i, (name, T, e_local, off, hot) in enumerate(cs.moe_cases(S)):
         if name not in cs.MOE_TIMED:
             continue
@@ -113,6 +132,16 @@ def child(tree: Path) -> dict:
                                        **case)
         out["decode_megastep"][case["B"]] = cs.time_ms(
             torch, lambda: decode_megastep_cuda(*args, **kw))
+    # chip_smoke.py's timed latent megastep cases (mla_megastep): seeds 70
+    # (decode) and 72 (chunk step), the whole bf16 bank of 288 experts
+    for seed, B in ((70, S["max_batch"]), (72, S["chunk"] + S["max_batch"])):
+        args, kw, _ = cs.megastep_case(torch, S, B=B, dtype=bf16, seed=seed,
+                                       W=W, e_local=W["E_log"] + W["R"],
+                                       off=0)
+        out["decode_megastep latent"][B] = cs.time_ms(
+            torch, lambda: decode_megastep_cuda(*args, **kw))
+        del args, kw
+        torch.cuda.empty_cache()
     for C in (8, 20, 40):
         args = cs.expert_ffn_args(torch, C, bf16)
         out["expert_ffn"][C] = cs.time_ms(torch,

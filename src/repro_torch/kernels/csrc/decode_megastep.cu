@@ -20,20 +20,27 @@
 // on the caller's stream by one C call (no host synchronisation, no
 // PyTorch operation in between), each reading what the previous one wrote
 // to a device workspace:
-//   1. attention (paged_attention.cuh): one CTA per (split of kSplitLen
-//      positions, row, KV head), then the ordered merge of a row's splits
-//      -> o in T, the split partials in the workspace;
+//   1. attention (paged_attention.cuh): one CTA per (split, row, KV head,
+//      head group), then the ordered merge of a row's splits -> o in T,
+//      the split partials in the workspace;
 //   2. o @ w_post, f32 partial sums over splits of K;
 //   3. norm: one CTA per row: y = T(x + T(proj)), the proj partials summed
 //      in split order, the sum of squares in a fixed tree,
 //      h2 = T(T(y * rsqrt) * ln2);
 //   4. gemm: the router logits h2 @ router, f32 partial sums;
-//   5. route_slots: one CTA; each warp takes rows, sums a row's logit
-//      partials in split order and runs router_topk.cuh's row function ->
-//      (sel, w); then each copy's local expert (replica b + j mod count),
-//      and thread e scans the copies in b-major, k-minor order and fills
-//      expert e's first cap slots, so drop semantics equal
-//      moe_group_tokens; it also writes the inverse map slot_of;
+//   5. route, spread over the card: route_rows, a CTA per row, gives a
+//      thread to each logit, which sums the row's logit partials in split
+//      order with 32 loads in flight (a warp reads 128 contiguous bytes a
+//      partial: the router product splits K into up to 112 partials, and
+//      their round trips, not their bytes, set the pace); warp 0 then
+//      runs router_topk.cuh's row function (the standalone op's) on the
+//      row in shared memory -> (sel, w) and picks each copy's local
+//      expert (replica b + j mod count); route_slots, its programmatic
+//      dependent, gives a warp to each expert, which fills the expert's
+//      first cap slots from its copies in b-major, k-minor order by a
+//      ballot and a prefix count, so drop semantics equal
+//      moe_group_tokens, and writes the inverse map slot_of.  Integers
+//      only, no atomics: the tables are one function of the route;
 //   6. routed gate/up over the gathered h2 rows of each expert's slots; a
 //      CTA whose expert has no live slot returns before it reads a weight,
 //      so only experts with a live copy are read;
@@ -42,7 +49,8 @@
 //   10. combine: a thread per (row, column), y = T(x2 + shared + sum of
 //      the row's k copies in k order).
 // The shared experts (7, 9) read only h2, so they run on a second stream
-// beside 4-6 and 8: forked from the caller's stream by an event after 3
+// beside 6 and 8: forked from the caller's stream by an event after 5 (so
+// the small router product and route stage have the card to themselves)
 // and joined back by one before 10, so the call is still one ordered unit
 // on the caller's stream, and no two kernels write the same memory.
 // bf16 (the serving path): the products 2 and 6-9 are the tensor-core tile
@@ -72,8 +80,10 @@
 // = wuv folded into wo, (H * Da, D) = (73728, 7168): K is split into three
 // ordered f32 partials on the tile loop, and its 64 zero rope rows a head
 // are read like any other (skipping them would not change a bit of the
-// result, but they are 11% of its bytes).  The route stage takes E_log =
-// 256, k = 8 over e_local = 288 slots (its threads stride over experts).
+// result, but they are 11% of its bytes).  In bf16 stage 1 is
+// paged_attention.cuh's latent_kernel on the tensor cores, in splits of
+// 256 positions.  The route stage takes E_log = 256, k = 8 over e_local =
+// 288 experts (36 route_slots CTAs).
 #include <algorithm>
 
 #include <type_traits>
@@ -337,69 +347,145 @@ __global__ void __launch_bounds__(kThreads) swiglu_kernel(
   h[i] = from_float<T>(gs / (1.f + expf(-gs)) * us);
 }
 
-// ---------------------------------------------------------- route_slots ----
+// ---------------------------------------------------------------- route ----
 
-size_t route_slots_smem(int B, int k, int E_log) {
-  return sizeof(float) * 2 * kWarps * (size_t)E_log +
-         sizeof(int) * (size_t)B * k;
+constexpr int kRouteThreads = 256;   // a route_rows CTA: one row
+constexpr int kSpBatch = 32;       // logit partials whose loads go together
+constexpr int kSlotWarps = 8;      // experts a route_slots CTA, a warp each
+constexpr int kCopyBatch = 8;      // copies a lane loads at once (x 32)
+
+// route_rows' shared memory: the row's summed logits, router_topk_row's
+// scratch, and the row's k weights and indices.
+size_t route_rows_smem(int E_log, int k) {
+  return (size_t)(2 * E_log + 2 * k) * sizeof(float);
 }
 
-__global__ void __launch_bounds__(kThreads) route_slots_kernel(
+// One row a CTA.  Thread t sums logits t, t + 256, ... over the partials in
+// split order (kSpBatch loads in flight, each a coalesced 128-byte row
+// piece over the warp) into shared memory; then warp 0 runs the standalone
+// op's row function, route::router_topk_row, on the row (mask -> softmax
+// -> k argmax passes, the lowest index winning ties -> renormalise), and
+// lane j takes copies j, j + 32, ...: the replica (b + j) mod count and
+// its local expert e_of, or -1 (slot_of -1 at once).
+__global__ void __launch_bounds__(kRouteThreads) route_rows_kernel(
     const float* __restrict__ logit_parts, int splits,
     const uint8_t* __restrict__ mask, const int* __restrict__ l2p,
     const int* __restrict__ rcnt, const int* __restrict__ offset,
-    int* __restrict__ sel, float* __restrict__ wsel,
-    int* __restrict__ tok_idx, float* __restrict__ wgt,
+    int* __restrict__ sel, float* __restrict__ wsel, int* __restrict__ e_of,
     int* __restrict__ slot_of, int B, int E_log, int k, int e_local,
-    int cap, int max_rep) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* lg_s = smem + 2 * warp * E_log;   // this warp's row of logits
-  float* work_s = lg_s + E_log;            // and its top-k scratch
-  int* e_of = reinterpret_cast<int*>(smem + 2 * kWarps * E_log);  // B * k
-  const int n_copies = B * k;
-
-  // route: a warp per row
-  for (int b = warp; b < B; b += kWarps) {
-    for (int e = lane; e < E_log; e += 32) {
-      float s = 0.f;
-      for (int sp = 0; sp < splits; ++sp)
-        s += logit_parts[((long long)sp * B + b) * E_log + e];
-      lg_s[e] = s;
+    int max_rep) {
+  extern __shared__ __align__(16) float route_s[];
+  float* lg_s = route_s;             // E_log
+  float* work_s = lg_s + E_log;      // E_log
+  float* w_s = work_s + E_log;       // k
+  int* i_s = reinterpret_cast<int*>(w_s + k);   // k
+  // let route_slots launch; it waits for this grid before it reads
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  for (int e = tid; e < E_log; e += kRouteThreads) {
+    const float* col = logit_parts + (long long)b * E_log + e;
+    const long long stride = (long long)B * E_log;
+    float v = 0.f;
+    for (int sp0 = 0; sp0 < splits; sp0 += kSpBatch) {
+      float x[kSpBatch];   // every load of the batch, then the sums
+#pragma unroll
+      for (int j = 0; j < kSpBatch; ++j)
+        x[j] = sp0 + j < splits ? col[(sp0 + j) * stride] : 0.f;
+#pragma unroll
+      for (int j = 0; j < kSpBatch; ++j)
+        if (sp0 + j < splits) v += x[j];
     }
-    __syncwarp();
-    route::router_topk_row(lg_s, mask, E_log, k, work_s, wsel + b * k,
-                           sel + b * k);
-  }
-  for (int i = tid; i < e_local * cap; i += kThreads) {
-    tok_idx[i] = 0;
-    wgt[i] = 0.f;
-  }
-  __syncthreads();   // the block's sel / wsel writes are now visible
-
-  // replica select: each copy's local expert, or -1
-  const int off = *offset;
-  for (int n = tid; n < n_copies; n += kThreads) {
-    const int b = n / k, j = n - b * k;
-    const int s = sel[n];
-    const int rc = rcnt[s];
-    const int rep = (b + j) % max(rc, 1);
-    const int e = l2p[s * max_rep + rep] - off;
-    e_of[n] = rc > 0 && e >= 0 && e < e_local ? e : -1;
-    slot_of[n] = -1;
+    lg_s[e] = v;
   }
   __syncthreads();
-  // slot tables: thread e takes expert e's copies in b-major, k-minor order
-  for (int e = tid; e < e_local; e += kThreads) {
-    int c = 0;
-    for (int n = 0; n < n_copies && c < cap; ++n) {
-      if (e_of[n] != e) continue;
-      tok_idx[e * cap + c] = n / k;
-      wgt[e * cap + c] = wsel[n];
-      slot_of[n] = e * cap + c;
-      ++c;
+  if (tid >= 32) return;
+  route::router_topk_row(lg_s, mask, E_log, k, work_s, w_s, i_s);
+  for (int j = lane; j < k; j += 32) {
+    const int n = b * k + j, s = i_s[j];
+    sel[n] = s;
+    wsel[n] = w_s[j];
+    const int rc = rcnt[s];
+    const int rep = (b + j) % max(rc, 1);
+    const int e = l2p[s * max_rep + rep] - *offset;
+    const int eo = rc > 0 && e >= 0 && e < e_local ? e : -1;
+    e_of[n] = eo;
+    if (eo < 0) slot_of[n] = -1;
+  }
+}
+
+// Expert e's slot table, a warp per expert: its copies in b-major,
+// k-minor order (a ballot and a prefix count over 32 copies at a time)
+// fill its first cap slots, the rest drop (slot_of -1), so the tables
+// equal moe_group_tokens; empty slots get token 0 and weight 0.  A
+// programmatic dependent launch: it waits for route_rows inside.
+__global__ void __launch_bounds__(kSlotWarps * 32) route_slots_kernel(
+    const int* __restrict__ e_of, const float* __restrict__ wsel,
+    int* __restrict__ tok_idx, float* __restrict__ wgt,
+    int* __restrict__ slot_of, int n_copies, int k, int e_local, int cap) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int lane = threadIdx.x & 31;
+  const int e = blockIdx.x * kSlotWarps + (threadIdx.x >> 5);
+  if (e >= e_local) return;
+  int c = 0;
+  for (int n0 = 0; n0 < n_copies; n0 += 32 * kCopyBatch) {
+    int eo[kCopyBatch];
+#pragma unroll
+    for (int j = 0; j < kCopyBatch; ++j) {
+      const int n = n0 + 32 * j + lane;
+      eo[j] = n < n_copies ? e_of[n] : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kCopyBatch; ++j) {
+      const int n = n0 + 32 * j + lane;
+      const bool mine = eo[j] == e;
+      const unsigned m = __ballot_sync(0xffffffffu, mine);
+      if (mine) {
+        const int slot = c + __popc(m & ((1u << lane) - 1));
+        if (slot < cap) {
+          tok_idx[e * cap + slot] = n / k;
+          wgt[e * cap + slot] = wsel[n];
+          slot_of[n] = e * cap + slot;
+        } else {
+          slot_of[n] = -1;
+        }
+      }
+      c += __popc(m);
     }
   }
+  for (int s = min(c, cap) + lane; s < cap; s += 32) {
+    tok_idx[e * cap + s] = 0;
+    wgt[e * cap + s] = 0.f;
+  }
+}
+
+// Enqueue the route stage: route_rows, then route_slots as its
+// programmatic dependent.  A row too wide for route_rows' shared memory
+// fails its launch.
+cudaError_t route_stage(const float* parts, int splits,
+                        const uint8_t* mask, const int* l2p, const int* rcnt,
+                        const int* offset, int* sel, float* wsel, int* e_of,
+                        int* tok_idx, float* wgt, int* slot_of, int B,
+                        int E_log, int k, int e_local, int cap, int max_rep,
+                        cudaStream_t st) {
+  if (k < 1 || k > E_log) return cudaErrorInvalidValue;
+  route_rows_kernel<<<B, kRouteThreads, route_rows_smem(E_log, k), st>>>(
+      parts, splits, mask, l2p, rcnt, offset, sel, wsel, e_of, slot_of, B,
+      E_log, k, e_local, max_rep);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(cdiv(e_local, kSlotWarps));
+  cfg.blockDim = dim3(kSlotWarps * 32);
+  cfg.stream = st;
+  cudaLaunchAttribute attr{};
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const int* ce = e_of;
+  const float* cw = wsel;
+  return cudaLaunchKernelEx(&cfg, route_slots_kernel, ce, cw, tok_idx, wgt,
+                            slot_of, B * k, k, e_local, cap);
 }
 
 // -------------------------------------------------------------- combine ----
@@ -440,7 +526,7 @@ struct Layout {
   Split proj, rt, gu, sgu, dn, sdn;
   // g / u: the routed gate/up f32 partials (FMA) or h in T (tensor cores,
   // u unused); hs: the shared h in T (tensor cores only)
-  size_t o, attn, p1, lg, g, u, gs, us, hs, od, os, total;
+  size_t o, attn, p1, lg, eof, g, u, gs, us, hs, od, os, total;
 };
 
 // A tensor-core product's K splits: whole kK stages, enough that its
@@ -480,6 +566,7 @@ Layout layout(const Dims& d, size_t tsize) {
   L.attn = take(paged::scratch_bytes(d.B, d.H, d.Da, d.bs, d.max_blk));
   L.p1 = take(L.proj.S * (size_t)d.B * d.D * f);
   L.lg = take(L.rt.S * (size_t)d.B * d.E_log * f);
+  L.eof = take((size_t)d.B * d.k * sizeof(int));
   if (tcore) {
     L.g = take(slots * d.F * tsize);
   } else {
@@ -588,8 +675,21 @@ cudaError_t chain(const Ptrs& P, const Dims& d, float eps, cudaStream_t st) {
       static_cast<const T*>(P.ln2), static_cast<T*>(P.y),
       static_cast<T*>(P.h2), d.B, d.D, eps);
   CHECK(cudaGetLastError());
+  // 4. router logits
+  g = Gemm{};
+  g.a = P.h2;
+  g.w0 = P.router;
+  g.out0 = at(L.lg);
+  g.M = d.B, g.K = d.D, g.N = d.E_log, g.n_mat = 1;
+  CHECK((gemm<T, false, false>(g, L.rt, st)));
+  // 5. top-k, replica select and slot tables
+  CHECK(route_stage(at(L.lg), L.rt.S, P.mask, P.l2p, P.rcnt, P.offset,
+                    P.sel, P.wsel, reinterpret_cast<int*>(P.ws + L.eof),
+                    P.tok_idx, P.wgt, P.slot_of, d.B, d.E_log, d.k, d.E,
+                    d.cap, d.max_rep, st));
   // the shared experts (7, 9) need only h2: they run on a side stream
-  // beside 4-6 and 8, forked here and joined before the combine
+  // beside 6 and 8, forked here (after the route stage, which then has the
+  // card to itself) and joined before the combine
   cudaStream_t side = st;
   Side sd{};
   if (d.Fs) {
@@ -629,21 +729,6 @@ cudaError_t chain(const Ptrs& P, const Dims& d, float eps, cudaStream_t st) {
     CHECK((gemm<T, true, false>(g, L.sdn, side)));
   }
   if (d.Fs) CHECK(cudaEventRecord(sd.join, side));
-  // 4. router logits
-  g = Gemm{};
-  g.a = P.h2;
-  g.w0 = P.router;
-  g.out0 = at(L.lg);
-  g.M = d.B, g.K = d.D, g.N = d.E_log, g.n_mat = 1;
-  CHECK((gemm<T, false, false>(g, L.rt, st)));
-  // 5. top-k, replica select and slot tables
-  const size_t smem_r = route_slots_smem(d.B, d.k, d.E_log);
-  CHECK(allow_smem(route_slots_kernel, smem_r));
-  route_slots_kernel<<<1, kThreads, smem_r, st>>>(
-      at(L.lg), L.rt.S, P.mask, P.l2p, P.rcnt, P.offset, P.sel, P.wsel,
-      P.tok_idx, P.wgt, P.slot_of, d.B, d.E_log, d.k, d.E, d.cap,
-      d.max_rep);
-  CHECK(cudaGetLastError());
   if constexpr (kTc) {
     void* hr = P.ws + L.g;    // the routed h (E, cap, F) in T
     // 6. routed gate/up over each expert's live slots -> h
@@ -689,21 +774,20 @@ extern "C" {
 long long decode_megastep_workspace_bytes(int B, int H, int Hkv, int Da,
                                           int bs, int max_blk, int D,
                                           int E_log, int E, int F, int Fs,
-                                          int cap, int dtype) {
+                                          int cap, int k, int dtype) {
   Dims d{};
   d.B = B, d.H = H, d.Hkv = Hkv, d.Da = Da, d.bs = bs, d.max_blk = max_blk;
   d.D = D, d.E_log = E_log, d.E = E, d.F = F, d.Fs = Fs, d.cap = cap;
+  d.k = k;
   return (long long)layout(d, dtype == 1 ? 2 : 4).total;
 }
 
 // The most shared memory any kernel of the chain asks for (the wrapper
 // checks it against the card).
-long long decode_megastep_smem_bytes(int B, int D, int E_log, int k,
-                                     int cap) {
-  const size_t sizes[] = {norm_smem(D), route_slots_smem(B, k, E_log),
-                          gemm_smem(kMaxKc), tc::smem_for(B),
+long long decode_megastep_smem_bytes(int B, int D, int cap) {
+  const size_t sizes[] = {norm_smem(D), gemm_smem(kMaxKc), tc::smem_for(B),
                           tc::smem_for(cap)};
-  return (long long)*std::max_element(sizes, sizes + 5);
+  return (long long)*std::max_element(sizes, sizes + 4);
 }
 
 // Shapes: q (B, H, Da); k_pool / v_pool (nb, bs, Hkv, Da); tables

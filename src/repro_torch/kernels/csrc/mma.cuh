@@ -75,6 +75,14 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
                : "r"(smem_addr(p)));
 }
 
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
 // c += a @ b on the tensor cores: bf16 inputs, f32 accumulation.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {

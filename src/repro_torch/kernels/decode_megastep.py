@@ -10,9 +10,11 @@ combine + residual.  They return ``(y, h2)``, each (B, D) in x's type.
 The plain version follows the reference op for op.  In bf16 it keeps
 two intermediates in f32 where the reference rounds them and the Pallas
 kernel and the CUDA chain do not: the attention probabilities before
-``p @ V`` and the router logits.  Routing is a discontinuous function of
-the logits, so this keeps the plain version's expert choices equal to
-the kernel's; in f32 nothing changes.
+``p @ V`` (except where the chain's attention is the tensor-core latent
+kernel, which rounds them to bf16 as the reference does) and the router
+logits.  Routing is a discontinuous function of the logits, so this
+keeps the plain version's expert choices equal to the kernel's; in f32
+nothing changes.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import build, launches
 from repro_torch.kernels.moe_fused import moe_fused_plain
 from repro_torch.kernels.paged_attention import (MAX_HEAD_DIM,
-                                                 paged_attention_plain)
+                                                 paged_attention_plain,
+                                                 takes_latent_kernel)
 from repro_torch.kernels.router_topk import router_topk_plain
 from repro_torch.models.layers import rms_norm
 
@@ -32,8 +35,8 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
     "decode_megastep": ([_VP] * 28 + [_CI] * 14 + [ctypes.c_float, _CI, _VP],
                         _CI),
-    "decode_megastep_workspace_bytes": ([_CI] * 13, ctypes.c_longlong),
-    "decode_megastep_smem_bytes": ([_CI] * 5, ctypes.c_longlong),
+    "decode_megastep_workspace_bytes": ([_CI] * 14, ctypes.c_longlong),
+    "decode_megastep_smem_bytes": ([_CI] * 3, ctypes.c_longlong),
 }
 
 
@@ -42,29 +45,40 @@ def decode_megastep_plain(q, k_pool, v_pool, block_table, seq_lens,
                           replica_count, expert_mask, gate_w, up_w, down_w,
                           expert_offset, shared_gate=None, shared_up=None,
                           shared_down=None, *, top_k: int, cap: int,
-                          e_local: int, eps: float = 1e-5):
+                          e_local: int, eps: float = 1e-5, route_h2=None):
     """Shapes as ``ref.decode_megastep_ref``: q (B, H, Da); pools (nb, bs,
     Hkv, Da); block_table (B, max_blk), seq_lens / start_lens (B,); x (B,
     D); w_post (H*Da, D); ln2_w (D,); router_w (D, E_log); l2p (E_log,
     R), replica_count / expert_mask (E_log,); gate_w / up_w (E, D, F),
-    down_w (E, F, D); shared_* (D, Fs) / (Fs, D) or None."""
+    down_w (E, F, D); shared_* (D, Fs) / (Fs, D) or None.
+
+    ``route_h2`` (B, D): route and run the experts over this h2 (the
+    chain's own) rather than the plain version's.  Routing is a
+    discontinuous function of h2, so two h2 within rounding of each other
+    may pick different experts where a row's logits nearly tie; a check
+    of the chain holds its route tables to the plain router over its own
+    h2 and its y to this."""
     from repro_torch.models.moe import MoERuntime, select_replicas
     B = q.shape[0]
     dt = x.dtype
-    o = paged_attention_plain(q.float(), k_pool.float(), v_pool.float(),
-                              block_table, seq_lens, start_lens)
+    # p is rounded to V's type before p @ V: bf16 where the chain rounds it
+    v = v_pool if takes_latent_kernel(q, k_pool, v_pool) else v_pool.float()
+    o = paged_attention_plain(q.float(), k_pool.float(), v, block_table,
+                              seq_lens, start_lens)
     x2 = x + (o.reshape(B, -1).to(dt).float() @ w_post.float()).to(dt)
     h2 = rms_norm(x2, ln2_w, eps)
-    logits = h2.float() @ router_w.float()
+    hr = h2 if route_h2 is None else route_h2
+    logits = hr.float() @ router_w.float()
     w, sel = router_topk_plain(logits, expert_mask, top_k)
     phys, alive = select_replicas(
         sel.long(), MoERuntime(l2p, replica_count, expert_mask))
-    y = x2 + moe_fused_plain(h2, gate_w, up_w, down_w, w, phys, alive,
+    y = x2 + moe_fused_plain(hr, gate_w, up_w, down_w, w, phys, alive,
                              cap=cap, expert_offset=expert_offset,
                              e_local=e_local)
     if shared_gate is not None:
-        # the shared experts' SwiGLU over h2, as ffn_apply("swiglu")
-        y = y + (F.silu(h2 @ shared_gate) * (h2 @ shared_up)) @ shared_down
+        # the shared experts' SwiGLU over h2 (or route_h2), as
+        # ffn_apply("swiglu")
+        y = y + (F.silu(hr @ shared_gate) * (hr @ shared_up)) @ shared_down
     return y, h2
 
 
@@ -134,7 +148,7 @@ def decode_megastep_cuda(q, k_pool, v_pool, block_table, seq_lens,
         offset = torch.full((1,), int(expert_offset), dtype=torch.int32,
                             device=dev)
     lib = build.load("decode_megastep", _PROTOTYPES)
-    smem = lib.decode_megastep_smem_bytes(B, D, E_log, top_k, cap)
+    smem = lib.decode_megastep_smem_bytes(B, D, cap)
     if smem > build.MAX_SMEM_BYTES:
         raise ValueError(f"decode_megastep: B={B}, D={D}, cap={cap} exceed "
                          f"shared memory")
@@ -149,7 +163,7 @@ def decode_megastep_cuda(q, k_pool, v_pool, block_table, seq_lens,
                  tok_idx=ints[2 * n:].view(E, cap),
                  w=floats[:n].view(B, top_k), wgt=floats[n:].view(E, cap))
     ws = torch.empty(lib.decode_megastep_workspace_bytes(
-        B, H, Hkv, Da, bs, max_blk, D, E_log, E, Fd, Fs, cap, code),
+        B, H, Hkv, Da, bs, max_blk, D, E_log, E, Fd, Fs, cap, top_k, code),
         dtype=torch.uint8, device=dev)
     if B:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731

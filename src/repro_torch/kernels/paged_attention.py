@@ -4,10 +4,13 @@ launcher of the CUDA kernel (``csrc/paged_attention.cu``).
 Both compute ``repro.kernels.ref.paged_attention_ref``: one query token
 per row attends over a paged K/V pool through its block table, over the
 valid positions ``[start_lens[b], seq_lens[b])``; a row with none
-outputs 0.  Head dims up to 256 take the GQA kernel; wider ones, up to
-768, its wide variant: MLA's latent pool (Hkv = 1, Dh = R + dr = 576 at
-deepseek-v3, K and V the same tensor).  ``kernels.ops.paged_attention``
-picks between plain and CUDA by the device the tensors lie on.
+outputs 0.  Head dims up to 256 take the GQA kernel, in splits of 64
+positions; wider ones, up to 768, split rows into 256 positions: MLA's
+latent pool (Hkv = 1, Dh = R + dr = 576 at deepseek-v3, K and V the same
+tensor) takes the tensor-core latent kernel in bf16 (64 query heads a
+CTA against one staged latent tile), the wide FMA kernel in f32 or with
+two pools.  ``kernels.ops.paged_attention`` picks between plain and CUDA
+by the device the tensors lie on.
 """
 from __future__ import annotations
 
@@ -19,6 +22,23 @@ from repro_torch.kernels import build, launches
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 768         # the wide kernel: 3 chunks of 8 a lane
+LATENT_HEAD_DIM = 576      # the tensor-core latent kernel's head width
+LATENT_HEADS = 64          # query heads a CTA of it holds
+
+
+def takes_latent_kernel(q, k_pool, v_pool) -> bool:
+    """Whether a CUDA launch on these operands runs the tensor-core latent
+    kernel, by the layout alone, as ``paged::launch`` in
+    ``csrc/paged_attention.cuh`` decides (the card tests hold the two
+    together by the kernel each launch runs): bf16, one pool as K and V,
+    Dh = 576, G a multiple of 64.  Such a launch whose q, pool or output
+    is not 16-byte aligned fails; it never falls back.  That kernel rounds
+    the probabilities to bf16 before P V; the others keep them in f32."""
+    H, Dh = q.shape[1], q.shape[2]
+    Hkv = k_pool.shape[2]
+    return (q.dtype == torch.bfloat16 and Dh == LATENT_HEAD_DIM
+            and k_pool.data_ptr() == v_pool.data_ptr()
+            and H % Hkv == 0 and (H // Hkv) % LATENT_HEADS == 0)
 
 
 def paged_attention_plain(q, k_pool, v_pool, block_table, seq_lens,

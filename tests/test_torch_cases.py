@@ -21,6 +21,8 @@ PAGED_CASES = [
     # wide kernel at 2 and 3 chunks a lane)
     (3, 16, 1, 288, 8, 4, False, True),
     (2, 12, 1, 576, 16, 3, True, False),
+    # rows over several of the latent layout's 256-position splits
+    (2, 64, 1, 576, 16, 40, True, False),
 ]
 
 
@@ -71,6 +73,12 @@ MEGASTEP_CASES = {
     "mla_shaped": dict(Hkv=1, Dh=24, H=6),
     # the latent layout: one pool serves as K and V, Dh past 256
     "mla_latent": dict(Hkv=1, Dh=288, H=8, same_pool=True, Fs=40),
+    # deepseek-v3's latent width under 64 heads: in bf16 on the card the
+    # attention stage is the tensor-core latent kernel
+    "mla_latent_tc": dict(Hkv=1, Dh=576, H=64, same_pool=True, Fs=40),
+    # the route stage over many warps: 64 logical experts (two a lane),
+    # top-8 over 16 rows, cap 2 (copies drop), one lost, one masked
+    "route_wide": dict(B=16, E_log=64, E=66, K=8, cap=2, lost=3, masked=4),
 }
 # the D=7168 deploy shape (tests/test_decode_megakernel.py:116)
 DEPLOY = dict(B=2, H=2, Hkv=1, Dh=16, bs=4, nb=6, max_blk=2, D=7168,

@@ -16,7 +16,8 @@ from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
 from repro_torch.kernels.moe_fused import (moe_fused_cuda, moe_fused_plain,
                                            moe_group_tokens)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
-                                                 paged_attention_plain)
+                                                 paged_attention_plain,
+                                                 takes_latent_kernel)
 from repro_torch.kernels.router_topk import (router_topk_cuda,
                                              router_topk_plain)
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
@@ -36,6 +37,17 @@ def card():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def ran_latent_kernel(fn) -> bool:
+    """Whether one call of ``fn`` launched the tensor-core latent kernel
+    (the names of the kernels it ran, by torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return any("latent_kernel" in e.name for e in prof.events()
+               if str(e.device_type).endswith("CUDA"))
 
 
 @pytest.mark.cuda
@@ -107,9 +119,13 @@ def test_paged_attention_cuda_split_edges(card, case, dtype):
 
 
 # deepseek-v3's latent layout: one pool of R + dr = 576 serving as K and V,
-# 128 query heads over it, at the engine's context (512 positions over 8
-# splits) for a decode step (B=8) and a chunk step (B=40), one row over 64
-# splits, a windowed batch with an idle row, and K and V as two tensors
+# 128 query heads over it, at the engine's context (512 positions over 2
+# splits of 256) for a decode step (B=8) and a chunk step (B=40), one row
+# over 16 splits, a windowed batch with an idle row; the split's edges (a
+# row of exactly one split, one of a split and one position, a window
+# that starts inside the second split), B=40 at 1024 positions a row, and
+# 64 heads (one CTA a split).  In bf16 these take the tensor-core kernel;
+# K and V as two tensors and Da = 320 take the wide kernel
 LATENT_CASES = {
     # id: (B, H, Da, max_blk, seq_lens or None, window, K = V)
     "decode_b8": (8, 128, 576, 32, None, 0, True),
@@ -118,6 +134,11 @@ LATENT_CASES = {
     "window_idle": (3, 128, 576, 32, [500, 0, 131], 70, True),
     "two_pools": (4, 32, 576, 32, None, 0, False),
     "nc2": (3, 20, 320, 32, [300, 17, 0], 0, True),
+    "one_split": (2, 128, 576, 32, [256, 255], 0, True),
+    "one_split_plus_one": (2, 128, 576, 32, [257, 0], 0, True),
+    "window_in_second_split": (2, 128, 576, 64, [900, 600], 300, True),
+    "b40_1024": (40, 128, 576, 64, [1024] * 40, 0, True),
+    "g64": (8, 64, 576, 32, None, 0, True),
 }
 
 
@@ -145,12 +166,34 @@ def test_paged_attention_cuda_latent_pool(card, case, dtype):
     torch.cuda.synchronize()
     assert launches["paged_attention"] == n0 + 2
     assert torch.equal(got, again)       # bitwise run to run
+    # the kernel the launch ran is the one the plain megastep assumes
+    assert ran_latent_kernel(lambda: paged_attention_cuda(q, kp, vp, *rest)) \
+        == takes_latent_kernel(q, kp, vp) == (same and Da == 576
+                                              and dtype == torch.bfloat16)
     want = paged_attention_plain(q, kp, vp, *rest)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol,
                                atol=tol)
     assert not got[torch.from_numpy(seq == 0)].any()   # idle rows give 0
+
+
+@pytest.mark.cuda
+def test_paged_attention_cuda_latent_misaligned_raises(card):
+    """The latent layout takes the tensor-core kernel whatever the
+    pointers: a q that is not 16-byte aligned fails the launch rather than
+    falling back to the wide kernel (and so to another rounding of p)."""
+    B, H, Da, bs = 2, 64, 576, 16
+    buf = torch.randn(B * H * Da + 1, device=card).to(torch.bfloat16)
+    q = buf[1:].view(B, H, Da)                  # 2 bytes past alignment
+    pool = torch.randn(4, bs, 1, Da, device=card).to(torch.bfloat16)
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=card)
+    seq = torch.tensor([20, 5], dtype=torch.int32, device=card)
+    assert takes_latent_kernel(q, pool, pool)
+    n0 = launches["paged_attention"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        paged_attention_cuda(q, pool, pool, tables, seq)
+    assert launches["paged_attention"] == n0
 
 
 @pytest.mark.cuda
@@ -197,6 +240,9 @@ def test_decode_megastep_cuda_vs_plain(card, case, dtype):
     assert (launches["decode_megastep"], launches["router_topk"]) == \
         (n0[0] + 2, n0[1] + 2)
     assert torch.equal(y, y2) and torch.equal(h2, h22)   # bitwise
+    # its attention stage ran the kernel whose rounding the plain assumes
+    assert ran_latent_kernel(lambda: decode_megastep_cuda(*args, **kw)) == \
+        takes_latent_kernel(*args[:3])
     want_y, want_h2 = decode_megastep_plain(*args, **kw)
     # f32 as tests/test_decode_megakernel.py.  bf16 keeps 8 significant
     # bits and y sums terms as large as its largest entries (~10 at the
@@ -219,6 +265,42 @@ def test_decode_megastep_cuda_vs_plain(card, case, dtype):
     assert torch.equal(route["tok_idx"], tok_idx)
     assert torch.equal(route["wgt"], wgt)
     assert torch.equal(route["slot_of"], slot_of)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_stage_cuda_vs_plain(card, dtype):
+    """The megastep's route stage at deepseek-v3's routing widths (256
+    logical experts, top-8) over B=40 rows, cap 2 so that copies drop,
+    with a lost and a masked expert: its route and slot tables against
+    the plain router, replica select and sort pass over the logits of its
+    own h2, and bitwise equal between two calls."""
+    args, kw = megastep_inputs(B=40, E_log=256, E=258, K=8, cap=2, lost=3,
+                               masked=4)
+    floats = {0, 1, 2, 6, 7, 8, 9, 13, 14, 15}
+    args = [a if a is None or isinstance(a, int) else
+            _t(a).to(card, dtype) if i in floats else _t(a).to(card)
+            for i, a in enumerate(args)]
+    _, h2, route = decode_megastep_cuda(*args, **kw, return_route=True)
+    _, _, again = decode_megastep_cuda(*args, **kw, return_route=True)
+    torch.cuda.synchronize()
+    for key in route:
+        assert torch.equal(route[key], again[key]), key   # bitwise
+    w, sel = router_topk_plain(h2.float() @ args[9].float(), args[12],
+                               kw["top_k"])
+    rt = MoERuntime(args[10], args[11], args[12])
+    phys, alive = select_replicas(sel.long(), rt)
+    tok_idx, wgt, slot_of = moe_group_tokens(
+        phys, alive, w, expert_offset=0, e_local=kw["e_local"],
+        cap=kw["cap"])
+    assert int((slot_of < 0).sum()) > int((~alive).sum())   # drops
+    assert torch.equal(route["sel"], sel)
+    assert torch.equal(route["tok_idx"], tok_idx)
+    assert torch.equal(route["slot_of"], slot_of)
+    # the weights: tests/test_torch_megastep.py's router tolerance
+    for got, want in ((route["w"], w), (route["wgt"], wgt)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-5, atol=0)
 
 
 # the main path's widths (qwen2-moe-a2.7b: D=2048, F=1408, 64 experts,

@@ -41,6 +41,7 @@ from repro_torch.core.fault_codes import ErrorType, Severity
 from repro_torch.kernels import launches, ops
 from repro_torch.kernels.decode_megastep import (decode_megastep_cuda,
                                                  decode_megastep_plain)
+from repro_torch.kernels.paged_attention import takes_latent_kernel
 from repro_torch.kernels.router_topk import (router_topk_cuda,
                                              router_topk_plain)
 from repro_torch.models import moe as MoE
@@ -110,6 +111,22 @@ def test_megastep_ops_dispatch_on_cpu():
     assert torch.equal(y, want[0]) and torch.equal(h2, want[1])
     with pytest.raises(ValueError, match="CUDA"):
         decode_megastep_cuda(*targs, **kw)
+
+
+def test_megastep_plain_rounds_p_where_the_chain_does():
+    """The chain's attention rounds p to bf16 before p V only on the
+    tensor-core latent kernel (bf16, one pool as K and V, Dh = 576, G a
+    multiple of 64); the plain megastep rounds it there too, and keeps it
+    in f32 on every other layout."""
+    q = torch.zeros(2, 128, 576, dtype=torch.bfloat16)
+    pool = torch.zeros(3, 4, 1, 576, dtype=torch.bfloat16)
+    assert takes_latent_kernel(q, pool, pool)
+    assert takes_latent_kernel(q[:, :64].contiguous(), pool, pool)
+    assert not takes_latent_kernel(q.float(), pool.float(), pool.float())
+    assert not takes_latent_kernel(q, pool, pool.clone())        # two pools
+    assert not takes_latent_kernel(q[:, :32].contiguous(), pool, pool)
+    narrow = pool[..., :288].contiguous()                       # Dh 288
+    assert not takes_latent_kernel(q[..., :288].contiguous(), narrow, narrow)
 
 
 @pytest.mark.parametrize("oracle", ["ref", "pallas"])
