@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases device,build,kernels   # a subset
-    python3 chip_smoke.py --layers 12     # cut the qwen engines' depth
+    python3 chip_smoke.py --layers 24     # the collocated qwen paths' depth
     python3 chip_smoke.py --paths ssm     # serve one engine path
+    python3 chip_smoke.py --paths disagg  # the role switch, 24 layers
     python3 chip_smoke.py --paths mla_composed,mla_megakernel,mla_serial
     python3 chip_smoke.py --profile       # + where the device time goes
 
@@ -68,29 +69,45 @@ Phases, in order; any failure raises and the script exits non-zero:
              whole-prompt prefill at bucket 256, its state installed, two
              decode steps; logits and state within tolerance, greedy
              tokens equal.
-5. engine  — behind the collocated ``InferenceEngine`` (2 DP ranks), in
-             bf16.  qwen2-moe-a2.7b at full width and all 24 layers:
-             start-up writes ``weights.npz`` once (~1.2 GB a layer plus
-             1.3 GB) and no per-rank shard file; a run may write at most
-             45 GiB to its disk (``--layers`` cuts the depth).  Three qwen
-             paths: chunked admission with the fused MoE and each decode
-             implementation (composed, megakernel), and serial admission
-             (whole-prompt prefills) with the model's dense-scatter MoE.
-             Then, once the qwen workdir is gone, the same three paths
-             for deepseek-v3 (``mla_composed``, ``mla_megakernel``,
-             ``mla_serial``) at full width, depth cut from 61 to its 3
-             dense + 1 MoE layers (a ~33 GB ``weights.npz``).  Then, once
-             that workdir is gone too, the ``ssm`` path:
-             falcon-mamba-7b at full width and full depth (64 layers; a
-             14.55 GB ``weights.npz``, no shards), whose chunked admission
-             falls back to whole-prompt installs.  Each path serves 8
+5. engine  — behind the ``InferenceEngine`` (2 DP ranks, collocated but
+             on ``disagg``), in bf16.  Each group of paths below shares
+             one workdir: its first build writes ``weights.npz`` (no
+             per-rank shard file), the others load it, and it is removed
+             before the next group writes its own (a run may write at
+             most 45 GiB to its disk).  Three qwen paths, qwen2-moe-a2.7b
+             at full width cut to 8 of its 24 layers (``--layers``; ~1.2
+             GB of checkpoint a layer plus 1.3 GB, read whole by each of
+             their six builds): chunked admission with the fused MoE and
+             each decode implementation (composed, megakernel), and serial
+             admission (whole-prompt prefills) with the model's
+             dense-scatter MoE.  Then the same three paths for deepseek-v3
+             (``mla_composed``, ``mla_megakernel``, ``mla_serial``) at full
+             width, depth cut from 61 to its 3 dense + 1 MoE layers (a ~33
+             GB ``weights.npz``).  Then the ``ssm`` path: falcon-mamba-7b
+             at full width and full depth (64 layers; a 14.55 GB
+             ``weights.npz``, no shards), whose chunked admission falls
+             back to whole-prompt installs.  Each of these serves 8
              requests without a fault, then the same workload with an L6
              fault on physical 1 mid-step at step 6 (``attn+moe`` on the
              MoE paths, ``attn`` on the ssm path), revived in place.
-             Each path's kernels' launch counts are read from its faulted
-             run, counted from 0 just before it.  Each engine build prints
-             its start-up files (no ``expert_shard_*.npz``), its memory on
-             the card and the host's MemTotal and MemAvailable.
+             Last the ``disagg`` path: qwen2-moe-a2.7b at full width and
+             all 24 layers (a 30.31 GB ``weights.npz``) in disaggregated
+             mode, 2 attention ranks (physicals 0-1) and 2 expert ranks
+             (physicals 2-3), the same 8 requests three times: without a
+             fault; with an L6 ``moe`` fault mid-step on physical 2 (EP
+             rank 0) one step after the first run had every request past
+             its prefill, revived by the §3.4 role switch (the donor's
+             residents KV-streamed, each install held ``torch.equal`` to
+             its payload on the card; EP rank 0's experts read back from
+             ``weights.npz``, its checksum equal to start-up's; no more
+             prefill tokens than the first run); and with the same fault
+             under ``background_role_switch`` (logicals 4-31 masked until
+             the switch finishes at the next step, 32 experts restored,
+             the mask cleared).  Each path's kernels' launch counts are
+             read from its faulted run (``disagg``: the synchronous
+             switch's), counted from 0 just before it.  Each engine build
+             prints its start-up files, its memory on the card and the
+             host's MemTotal and MemAvailable.
 6. a ``{"kernels": [...]}`` line (each kernel's row at the qwen or
    falcon shapes, with its deepseek-v3 rows under ``mla``), then the
    ``{"ok": true, ...}`` line.
@@ -103,6 +120,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -135,8 +153,8 @@ KERNEL_META = {
 # (the megakernel paths run paged_attention too: MLA's first-k dense
 # layers keep the composed chain)
 KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
-                                   "mla_megakernel", "mla_serial"),
-               "moe_fused": ("composed", "mla_composed"),
+                                   "mla_megakernel", "mla_serial", "disagg"),
+               "moe_fused": ("composed", "mla_composed", "disagg"),
                "decode_megastep": ("megakernel", "mla_megakernel"),
                "router_topk": ("megakernel", "mla_megakernel"),
                "expert_ffn": ("serial", "mla_serial"),
@@ -146,14 +164,17 @@ IMPLS = ("composed", "megakernel")
 # the engine paths: EngineConfig options of each.  ``ssm`` serves
 # falcon-mamba-7b, whose chunked admission falls back to whole-prompt
 # installs (a Mamba mixer cannot chunk); the ``mla_*`` paths deepseek-v3
-# (multi-head latent attention); the others qwen2-moe-a2.7b.
+# (multi-head latent attention); the others qwen2-moe-a2.7b, ``disagg`` in
+# disaggregated mode (2 attention ranks, 2 expert ranks).
 PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "megakernel": dict(moe_impl="fused", decode_impl="megakernel"),
          "serial": dict(admission="serial", decode_impl="composed"),
          "mla_composed": dict(moe_impl="fused", decode_impl="composed"),
          "mla_megakernel": dict(moe_impl="fused", decode_impl="megakernel"),
          "mla_serial": dict(admission="serial", decode_impl="composed"),
-         "ssm": dict()}
+         "ssm": dict(),
+         "disagg": dict(mode="disaggregated", num_moe=2, moe_impl="fused",
+                        decode_impl="composed")}
 QWEN_ARCH = "qwen2-moe-a2.7b"
 PATH_ARCH = {"ssm": "falcon-mamba-7b", "mla_composed": "deepseek-v3",
              "mla_megakernel": "deepseek-v3", "mla_serial": "deepseek-v3"}
@@ -179,6 +200,13 @@ MODEL_LOGIT_ATOL = 1e-3       # f32, 2 layers at full width, card vs CPU
 # products before the scan sum in other orders
 STATE_TOL = (1e-4, 1e-3)
 ENGINE_LAYERS = 24            # qwen2-moe-a2.7b's full depth
+# the depth of the collocated qwen paths (``--layers``): every engine build
+# reads its whole weights.npz (~1.2 GB a layer) and these paths build six
+# (~250 s at 24 layers on the H100's host), so they run cut to keep the
+# script well inside its 1200 s limit; the paths named here keep their
+# own depth (and workdir)
+COLLOCATED_LAYERS = 8
+PATH_LAYERS = {"disagg": ENGINE_LAYERS}
 # the kernels phase's shapes: the engine phase's batch, chunk and paging,
 # qwen2-moe-a2.7b's widths
 SHAPES = dict(max_batch=8, chunk=32, block_size=16, num_blocks=256,
@@ -282,7 +310,6 @@ def phase_build():
     logs = build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s for {list(logs)} into "
         f"{build.build_dir()}")
-    import re
     for name, text in logs.items():
         fn = "?"
         for line in text.splitlines():
@@ -1877,23 +1904,30 @@ def _prompts(vocab, seed):
     return first, later
 
 
-def _serve(torch, eng, vocab, seed, new_tokens):
+def _serve(torch, eng, vocab, seed, new_tokens, on_step=None):
+    """Serve the 8 prompts (the later 4 after two steps) to the end;
+    ``on_step(eng)`` runs after every step."""
     first, later = _prompts(vocab, seed)
     reqs = [eng.submit(p, new_tokens) for p in first]
     steps = []      # (seconds, new tokens, prefill tokens, recovered)
     computed = lambda: eng.prefill_stats()[  # noqa: E731
         "prefill_tokens_computed"]
 
+    def recoveries():   # a background role switch's step is one too
+        return len(eng.reports) + len(eng.background_reports)
+
     def one():
         n0 = sum(len(r.output_tokens) for r in eng.all_requests)
         c0 = computed()
-        r0 = len(eng.reports)
+        r0 = recoveries()
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
+        if on_step is not None:
+            on_step(eng)
         steps.append((time.perf_counter() - t0,
                       sum(len(r.output_tokens) for r in eng.all_requests)
-                      - n0, computed() - c0, len(eng.reports) > r0))
+                      - n0, computed() - c0, recoveries() > r0))
 
     t_all = time.perf_counter()
     one()
@@ -1941,25 +1975,27 @@ def _trace(torch, fn):
 
 
 def phase_engine(torch, seed, layers, paths, profile=False):
-    """Serve each path twice, without and with a fault.  The paths of one
-    architecture share one workdir (the first writes ``weights.npz``, the
-    others load it), removed before the next architecture writes its own.
-    Returns the kernels' launch counts, each summed over the paths it
-    runs on."""
+    """Serve each path twice, without and with a fault (``disagg``: three
+    times).  The paths of one architecture and depth share one workdir
+    (the first writes ``weights.npz``, the others load it), removed before
+    the next group writes its own.  Returns the kernels' launch counts,
+    each summed over the paths it runs on."""
     log(f"engine: before the first build, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the "
         f"card")
     counts, rates, streams = {}, {}, {}
-    groups = {}
+    groups, group_of = {}, {}
     for p in paths:
-        groups.setdefault(PATH_ARCH.get(p, QWEN_ARCH), []).append(p)
-    for arch, group in groups.items():
-        workdir = ROOT / "build" / f"smoke_engine_{arch}"
+        group_of[p] = (PATH_ARCH.get(p, QWEN_ARCH), PATH_LAYERS.get(p, layers))
+        groups.setdefault(group_of[p], []).append(p)
+    for (arch, depth), group in groups.items():
+        workdir = ROOT / "build" / f"smoke_engine_{arch}_{depth}"
         shutil.rmtree(workdir, ignore_errors=True)
         try:
-            cfg = engine_config(arch, layers)
+            cfg = engine_config(arch, depth)
             for path in group:
-                path_counts, rates[path], streams[path] = serve_path(
+                serve = serve_disagg if path == "disagg" else serve_path
+                path_counts, rates[path], streams[path] = serve(
                     torch, cfg, path, workdir, seed, profile)
                 for k, v in path_counts.items():
                     counts[k] = counts.get(k, 0) + v
@@ -1974,7 +2010,8 @@ def phase_engine(torch, seed, layers, paths, profile=False):
     # part; the f32 model phase is where tokens must match
     for other in streams:
         base = "mla_composed" if other.startswith("mla") else "composed"
-        if other in (base, "ssm") or base not in streams:
+        if (other in (base, "ssm") or base not in streams
+                or group_of[other] != group_of[base]):
             continue
         pairs = list(zip(streams[other], streams[base]))
         same = sum(a == b for m, c in pairs for a, b in zip(m, c))
@@ -2042,6 +2079,36 @@ def host_memory() -> str:
     return "host " + ", ".join(f"{k} {v:.1f} GiB" for k, v in gib.items())
 
 
+def make_engine(torch, cfg, path, workdir, seed, policy):
+    """One engine of ``path`` (2 attention ranks, bf16) in ``workdir``;
+    prints its start-up, which must write no per-rank shard file."""
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    t0 = time.perf_counter()
+    ec = dict(mode="collocated", num_dp=2, max_batch=8, max_seq=512,
+              block_size=16, num_blocks=256, seed=seed, workdir=str(workdir),
+              policy=policy)
+    ec.update(PATHS[path])
+    eng = InferenceEngine(cfg, EngineConfig(**ec))
+    files = {str(f.relative_to(workdir)): f.stat().st_size
+             for f in workdir.rglob("*") if f.is_file()}
+    disk = sum(files.values())
+    shards = [f for f in files if Path(f).name.startswith("expert_shard_")]
+    if shards:
+        raise AssertionError(f"engine {path}: start-up wrote shard files "
+                             f"{shards}")
+    log(f"  engine up in {time.perf_counter() - t0:.1f} s; {eng.dtype} "
+        f"weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card "
+        f"(peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB); "
+        f"start-up files {disk / 1e9:.2f} GB on disk ("
+        + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in files.items()
+                    if v > 1e6)
+        + f", no expert_shard_*.npz); {host_memory()}; "
+        f"moe_impl {eng.cfg.moe_impl!r}; init_timings " + json.dumps(
+            {k: round(v, 4) for k, v in eng.init_timings.items()}))
+    return eng
+
+
 def serve_path(torch, cfg, path, workdir, seed, profile):
     """One engine path: 8 requests without a fault, then with an L6 fault
     on physical 1 mid-step at step 6 (``attn+moe`` on an MoE model, where
@@ -2051,34 +2118,11 @@ def serve_path(torch, cfg, path, workdir, seed, profile):
     from repro_torch.core.fault_codes import Severity
     from repro_torch.core.weights import RecoveryPolicy
     from repro_torch.kernels import launches
-    from repro_torch.serving.engine import EngineConfig, InferenceEngine
     new_tokens = 32
 
     def make():
-        t0 = time.perf_counter()
-        eng = InferenceEngine(cfg, EngineConfig(
-            mode="collocated", num_dp=2, max_batch=8, max_seq=512,
-            block_size=16, num_blocks=256, seed=seed, workdir=str(workdir),
-            policy=RecoveryPolicy(allow_role_switch=False), **PATHS[path]))
-        files = {str(f.relative_to(workdir)): f.stat().st_size
-                 for f in workdir.rglob("*") if f.is_file()}
-        disk = sum(files.values())
-        shards = [f for f in files if Path(f).name.startswith(
-            "expert_shard_")]
-        if shards:
-            raise AssertionError(f"engine {path}: start-up wrote shard "
-                                 f"files {shards}")
-        log(f"  engine up in {time.perf_counter() - t0:.1f} s; {eng.dtype} "
-            f"weights "
-            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card "
-            f"(peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB); "
-            f"start-up files {disk / 1e9:.2f} GB on disk ("
-            + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in files.items()
-                        if v > 1e6)
-            + f", no expert_shard_*.npz); {host_memory()}; "
-            f"moe_impl {eng.cfg.moe_impl!r}; init_timings " + json.dumps(
-                {k: round(v, 4) for k, v in eng.init_timings.items()}))
-        return eng
+        return make_engine(torch, cfg, path, workdir, seed,
+                           RecoveryPolicy(allow_role_switch=False))
 
     log(f"engine: path {path!r}: " + json.dumps(PATHS[path]))
     eng = make()
@@ -2160,12 +2204,203 @@ def serve_path(torch, cfg, path, workdir, seed, profile):
     return {k: path_counts[k] for k in used}, (clean, fault), streams
 
 
+SWITCH_ACTION = re.compile(r"role switch: dp(\d+) -> moe ep-rank (\d+); "
+                           r"migrated (\d+) of its sequences "
+                           r"\((\d+) KV-streamed\)")
+
+
+def _watch_imports(torch, eng, streamed):
+    """Wrap each attention rank's ``import_kv_blocks``: after an install,
+    the target's pool rows at the request's new blocks must be
+    ``torch.equal`` to the payload, on the card.  Appends (request id,
+    payload bytes) to ``streamed``."""
+    from repro_torch.serving.cache_ops import gather_request_blocks
+
+    def watch(ex):
+        install = ex.import_kv_blocks
+
+        def checked(req, kv):
+            if not install(req, kv):
+                return False
+            live = [b for b in ex.scheduler.block_tables[req.req_id]
+                    .blocks[:kv.num_blocks] if b != ex.trash_block]
+            rows, _ = gather_request_blocks(ex.cache, ex.paged_axes, live,
+                                            req.batch_slot)
+            for got, sent in zip(rows, kv.pool_blocks):
+                if got is None:
+                    continue
+                if sent.device.type != "cuda" or not torch.equal(got, sent):
+                    raise AssertionError(
+                        f"engine disagg: request {req.req_id}'s installed "
+                        f"rows differ from its payload on {sent.device}")
+            streamed.append((req.req_id, kv.nbytes()))
+            return True
+
+        ex.import_kv_blocks = checked
+
+    for ex in eng.dp_executors:
+        watch(ex)
+
+
+def serve_disagg(torch, cfg, path, workdir, seed, profile):
+    """The disaggregated path (physicals 0-1 attention, 2-3 experts, EP
+    rank j on physical 2 + j), three runs of the 8 requests: (1) without a
+    fault; (2) an L6 ``moe`` fault mid-step on physical 2 one step after
+    run 1 had every request past its prefill: a synchronous role switch,
+    the donor's residents KV-streamed to the other attention rank and EP
+    rank 0's 32 physical experts read back from ``weights.npz``; (3) the
+    same fault with ``background_role_switch``: logicals 4-31 masked at
+    once, the switch finished at the top of the next step.  Returns
+    (launch counts of run 2, (run 1, run 2) rates, run 1's streams)."""
+    from repro_torch.core.fault_codes import Severity
+    from repro_torch.core.weights import RecoveryPolicy
+    from repro_torch.kernels import launches
+    new_tokens = 32
+    m = cfg.moe
+    per = (m.num_experts + m.num_redundant_experts) // 2
+    lost = list(range(m.num_redundant_experts, per))  # no replica on rank 1
+
+    def make(policy):
+        eng = make_engine(torch, cfg, path, workdir, seed, policy)
+        pids = [x.physical_id for x in eng.moe_executors]
+        if pids != [2, 3]:
+            raise AssertionError(f"engine disagg: expert ranks {pids}")
+        return eng, eng.expert_integrity()[0]
+
+    def release():   # after the caller dropped its engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def finished(reqs, what):
+        states = [r.state.value for r in reqs]
+        if any(s != "finished" for s in states):
+            raise AssertionError(f"engine disagg ({what}): requests {states}")
+
+    log(f"engine: path {path!r}: " + json.dumps(PATHS[path]))
+    eng, _ = make(RecoveryPolicy())
+    ready = []      # steps after which all 8 requests are past prefill
+
+    def note_ready(e):
+        if len(e.all_requests) == 8 and all(r.output_tokens
+                                            for r in e.all_requests):
+            ready.append(e.step_no)
+
+    serve = lambda: _serve(torch, eng, cfg.vocab_size,  # noqa: E731
+                           seed, new_tokens, note_ready)
+    reqs, clean = _trace(torch, serve) if profile else serve()
+    finished(reqs, "no fault")
+    if eng.reports:
+        raise AssertionError(f"engine disagg: {len(eng.reports)} reports "
+                             f"without a fault")
+    streams = [list(r.output_tokens) for r in reqs]
+    computed = eng.prefill_stats()["prefill_tokens_computed"]
+    fault_step = ready[0] + 1
+    log(f"  no fault: " + json.dumps({k: round(v, 3)
+                                      for k, v in clean.items()})
+        + f"; every request past prefill after step {ready[0]}, so the "
+        f"fault goes mid-step at step {fault_step}")
+    del eng, reqs
+    release()
+
+    for kind, policy in (("sync", RecoveryPolicy()), (
+            "background", RecoveryPolicy(background_role_switch=True))):
+        eng, start = make(policy)
+        eng.injector.schedule(fault_step, 2, severity=Severity.L6,
+                              component="moe", mid_step=True)
+        streamed, masked = [], []
+
+        def note_mask(e):
+            if e.reports and not e.background_reports and not masked:
+                masked.extend(int(i) for i in np.flatnonzero(
+                    ~e.runtime.expert_mask.cpu().numpy()))
+
+        _watch_imports(torch, eng, streamed)
+        launches.clear()
+        reqs, rates = _serve(torch, eng, cfg.vocab_size, seed, new_tokens,
+                             note_mask)
+        counts = dict(launches)
+        finished(reqs, kind)
+        if len(eng.reports) != 1:
+            raise AssertionError(f"engine disagg ({kind}): "
+                                 f"{len(eng.reports)} reports")
+        rep = eng.reports[0]
+        plan = rep.moe_plan
+        checks, alive = eng.expert_integrity()
+        log(f"  {kind} role switch: " + json.dumps(
+            {k: round(v, 3) for k, v in rates.items()}))
+        log(f"  recovery: {rep.summary()}")
+        log(f"  recovery timings " + json.dumps(
+            {k: round(v, 6) for k, v in rep.timings.items()})
+            + f"; KV streamed {sum(b for _, b in streamed)} bytes in "
+            f"{len(streamed)} payloads; actions {rep.actions}")
+        bad = []
+        if rep.scenario != "moe+role_switch" or plan.lost_logicals != lost:
+            bad.append(f"scenario {rep.scenario}, lost "
+                       f"{plan.lost_logicals if plan else None}")
+        if rep.compile_source != "precompiled":
+            bad.append(f"compile_source {rep.compile_source}")
+        if not all(alive) or checks != start:
+            bad.append(f"integrity {checks} {alive}, start-up {start}")
+        owner = eng._shard_owner(0)
+        if (owner is None or owner.shard is eng.shards[0]
+                or eng._resident[0] is not owner.shard):
+            bad.append("EP rank 0's bank slice is not the shard read "
+                       "from disk")
+        if kind == "sync":
+            sw = next((SWITCH_ACTION.match(a) for a in rep.actions
+                       if SWITCH_ACTION.match(a)), None)
+            n, n_streamed = ((int(sw.group(3)), int(sw.group(4)))
+                             if sw else (0, -1))
+            if n < 1 or n_streamed != n or len(streamed) != n:
+                bad.append(f"migrated {n}, KV-streamed {n_streamed}, "
+                           f"installs checked {len(streamed)}")
+            now = eng.prefill_stats()["prefill_tokens_computed"]
+            if now > computed:
+                bad.append(f"prefill tokens {now} > {computed} without "
+                           f"the fault")
+            if rep.timings.get("generator", 0.0) <= 0:
+                bad.append("no reload timed")
+            path_counts, fault = counts, rates
+            log(f"  sync: donor dp{sw.group(1) if sw else '?'} migrated {n} "
+                f"({n_streamed} KV-streamed), prefill tokens {now} (no "
+                f"fault: {computed}), EP rank 0 checksum {checks[0]!r} = "
+                f"start-up {start[0]!r}, launches {counts}")
+        else:
+            bg = eng.background_reports
+            if (rep.timings.get("generator", 0.0) != 0.0
+                    or rep.timings.get("role_switch", 0.0) != 0.0):
+                bad.append(f"downtime timings {rep.timings}")
+            if masked != lost:
+                bad.append(f"masked during the switch {masked}")
+            if not bg or bg[0]["restored_experts"] != float(per):
+                bad.append(f"background reports {bg}")
+            if (eng.expert_map.coverage() != 1.0
+                    or not bool(eng.runtime.expert_mask.all())):
+                bad.append("mask not cleared")
+            log(f"  background: logicals {masked[0]}-{masked[-1]} masked "
+                f"until the switch; its own timings "
+                + json.dumps({k: round(v, 6) for k, v in bg[0].items()})
+                + f"; KV streamed {sum(b for _, b in streamed)} bytes; "
+                f"coverage {eng.expert_map.coverage()}, checksums equal "
+                f"start-up {checks == start}")
+        if bad:
+            raise AssertionError(f"engine disagg ({kind}): " + "; ".join(bad))
+        del eng, reqs, owner, note_mask
+        release()
+    used = [k for k, ps in KERNEL_PATH.items() if path in ps]
+    if min(path_counts.get(k, 0) for k in used) <= 0:
+        raise AssertionError(f"engine disagg: kernel launches {path_counts}")
+    return {k: path_counts[k] for k in used}, (clean, fault), streams
+
+
 # -- main ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
-    ap.add_argument("--layers", type=int, default=ENGINE_LAYERS)
+    ap.add_argument("--layers", type=int, default=COLLOCATED_LAYERS,
+                    help="depth of the collocated qwen paths (disagg "
+                         f"serves all {ENGINE_LAYERS})")
     ap.add_argument("--paths", default=",".join(PATHS),
                     help="engine paths to serve, of " + ", ".join(PATHS))
     ap.add_argument("--seed", type=int, default=0)

@@ -16,23 +16,36 @@ On an actionable fault:
 
 Every stage is wall-clock timed into the paper's Table-1 categories.
 
-The host logic is ``repro.core.revive``'s.  The port serves collocated
-lockstep engines, where no attention rank can be spared as a donor, so a
-role switch (§3.4, disaggregated mode) is never planned here; it comes
-with the disaggregated slice (ROADMAP Queue 1) and raises until then.
-Sequences on a failed rank re-prefill on the survivors (token replay).
+The host logic is ``repro.core.revive``'s.  Sequences on a failed rank
+re-prefill on the survivors (token replay).  A role switch (§3.4,
+disaggregated mode) moves a healthy donor DP rank to the lost EP rank:
+its residents' KV blocks stream to the other attention ranks, and the
+lost experts reload from disk into the donor's shard, which the device
+bank then copies in.  With ``background_role_switch`` the lost experts
+are masked at once and the switch finishes between steps (§4.3,
+``complete_background_switch``).
+
+One difference from ``repro``: a background switch hands the reloaded
+shard to a new ``MoEExecutor`` on the donor, as the synchronous switch
+does.  ``repro`` sets it on the donor's DP executor, where its
+disaggregated engine never looks for a shard owner, so the restored
+rank's bank slice stays zero while the map routes to it again (ROADMAP
+Queue 3).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.fault_codes import Action, FaultEvent
-from repro_torch.core.migration import plan_migration, prepare_for_migration
+from repro_torch.core.migration import (charge_replay, plan_migration,
+                                        prepare_for_migration)
 from repro_torch.core.weights import (MoERecoveryKind, MoERecoveryPlan,
-                                plan_moe_recovery)
+                                      plan_moe_recovery)
+from repro_torch.serving.executor import MoEExecutor
 from repro_torch.serving.request import RequestState
+from repro_torch.serving.weights_util import load_expert_shard_from_checkpoint
 
 CATEGORIES = ("engine", "executor_processes", "distributed_groups", "xccl",
               "role_switch", "generator", "read_cache", "compile", "other")
@@ -146,25 +159,29 @@ class RecoveryManager:
         if failed_dp is not None and is_attn:
             with _T(report, "other"):
                 reqs = failed_dp.scheduler.drain()
-                report.migrated = self._migrate(reqs, exclude=failed_dp)
+                report.migrated, _ = self._migrate(reqs, exclude=failed_dp)
                 report.actions.append(
                     f"migrated {report.migrated} sequences "
                     f"(partial recomputation)")
 
         # ④ weight integrity
+        role_switch_pid = None
         if is_moe_weights and failed_moe is not None or (
                 is_moe_weights and eng.ecfg.mode == "collocated"
                 and failed_dp is not None):
             plan = self._recover_moe_weights(event, report,
                                              failed_dp, failed_moe)
             report.moe_plan = plan
+            if plan is not None and plan.kind is MoERecoveryKind.ROLE_SWITCH:
+                role_switch_pid = eng.dp_executors[
+                    plan.donor_rank].physical_id
             report.scenario = ("moe+" + plan.kind.value) if plan else "attn"
         else:
             report.scenario = "attn"
 
         # ⑤ recreate communications with compacted ranks
         with _T(report, "xccl"):
-            rec = eng.domain.rebuild()
+            rec = eng.domain.rebuild(role_switch_physical=role_switch_pid)
             report.actions.append(
                 f"comm domain v{rec['version']} rebuilt; rank changes: "
                 f"{rec['rank_changes']}")
@@ -204,24 +221,38 @@ class RecoveryManager:
 
     # -- helpers ----------------------------------------------------------------------
 
-    def _migrate(self, reqs, exclude) -> int:
-        """Re-home sequences onto healthy ranks: the source device is
-        dead, so each re-prefills there (partial recomputation, §3.2).
-        Returns the number migrated."""
+    def _migrate(self, reqs, exclude) -> Tuple[int, int]:
+        """Re-home sequences onto healthy ranks.  ``reqs`` items are bare
+        Requests (token-replay re-prefill: the source device is dead) or
+        ``(req, KVBlocks | None)`` pairs from a healthy donor
+        (``drop_attention_state(collect_kv=True)``): streamed blocks
+        install directly, everything else re-prefills (§3.2).
+
+        Returns ``(migrated, streamed)`` counts."""
         eng = self.engine
         healthy = {ex.dp_rank: ex.scheduler.num_requests
                    for ex in eng.dp_executors
                    if ex.alive and ex.cache is not None and ex is not exclude}
-        live = [r for r in reqs if r.state != RequestState.FINISHED]
+        items = [r if isinstance(r, tuple) else (r, None) for r in reqs]
+        live = [(r, kv) for r, kv in items
+                if r.state != RequestState.FINISHED]
         if not live:
-            return 0
-        for req, rank in plan_migration(live, healthy):
-            prepare_for_migration(req)
-            req.dp_rank = rank
+            return 0, 0
+        payloads = {id(r): kv for r, kv in live}
+        streamed = 0
+        for req, rank in plan_migration([r for r, _ in live], healthy):
+            kv = payloads[id(req)]
+            prepare_for_migration(req, streamed=kv is not None)
             target = next(ex for ex in eng.dp_executors
                           if ex.dp_rank == rank)
+            if kv is not None and target.import_kv_blocks(req, kv):
+                streamed += 1
+                continue
+            if kv is not None:
+                charge_replay(req)   # stream install failed: replay
+            req.dp_rank = rank
             target.scheduler.add_request(req)
-        return len(live)
+        return len(live), streamed
 
     def _recover_moe_weights(self, event, report, failed_dp, failed_moe
                              ) -> Optional[MoERecoveryPlan]:
@@ -257,24 +288,97 @@ class RecoveryManager:
                     (" [accuracy warning: EP < threshold]"
                      if plan.accuracy_warning else ""))
 
+        elif plan.kind is MoERecoveryKind.ROLE_SWITCH and plan.background:
+            # §4.3 combined mode: mask the lost experts now (downtime stays
+            # at the missing-experts level) and restore full weight
+            # integrity between steps
+            with _T(report, "other"):
+                emap.mask_experts(plan.lost_logicals)
+                eng.runtime = emap.runtime()
+                eng.reassemble_params()
+                eng.pending_switches.append(plan)
+                report.actions.append(
+                    f"masked {len(plan.lost_logicals)} lost experts; role "
+                    f"switch dp{plan.donor_rank} deferred to background")
+
         elif plan.kind is MoERecoveryKind.ROLE_SWITCH:
-            raise NotImplementedError(
-                "role switch (disaggregated mode) is queued: ROADMAP "
-                "Queue 1, disaggregated mode with MoEExecutor")
+            donor_ex = eng.dp_executors[plan.donor_rank]
+            with _T(report, "role_switch"):
+                # the donor device is healthy: its residents' KV blocks
+                # stream to the targets instead of re-prefilling; then it
+                # drops its attention duty
+                reqs = donor_ex.drop_attention_state(collect_kv=True)
+                n, n_streamed = self._migrate(reqs, exclude=donor_ex)
+                report.migrated += n
+                donor_ex.ep_rank = failed_ep_rank
+                report.actions.append(
+                    f"role switch: dp{plan.donor_rank} -> moe ep-rank "
+                    f"{failed_ep_rank}; migrated {n} of its sequences "
+                    f"({n_streamed} KV-streamed)")
+            with _T(report, "generator"):
+                # the lost experts' only copies are gone: load from disk
+                self._reload_rank(donor_ex, failed_ep_rank)
+                report.actions.append(
+                    f"reloaded EP rank {failed_ep_rank} weights from disk")
 
         # first-k dense FFN layers (§3.4): a shard lost and not recovered
         # compromises its TP group; attention rebalances tokens over the
-        # healthy groups
+        # healthy groups.  A synchronous role switch recovers the shard.
         if eng.dense_groups is not None:
-            with _T(report, "other"):
-                group = failed_ep_rank % eng.dense_groups.num_groups
-                if eng.dense_groups.alive[group]:
-                    eng.dense_groups.fail_shard(group)
-                w = eng.dense_groups.routing_weights()
-                report.actions.append(
-                    f"dense-FFN TP group {group} compromised; token "
-                    f"routing rebalanced to {w}")
+            recovered = (plan.kind is MoERecoveryKind.ROLE_SWITCH
+                         and not plan.background)
+            if not recovered:
+                with _T(report, "other"):
+                    group = failed_ep_rank % eng.dense_groups.num_groups
+                    if eng.dense_groups.alive[group]:
+                        eng.dense_groups.fail_shard(group)
+                    w = eng.dense_groups.routing_weights()
+                    report.actions.append(
+                        f"dense-FFN TP group {group} compromised; token "
+                        f"routing rebalanced to {w}")
         return plan
+
+    def _reload_rank(self, donor_ex, ep_rank: int) -> List[int]:
+        """Read EP rank ``ep_rank``'s shard from disk into a new
+        ``MoEExecutor`` on the donor's device (only a disaggregated engine
+        has a donor to spare), restore the rank's slots in the map and
+        copy the shard into the device bank.  Returns the restored
+        experts."""
+        eng = self.engine
+        shard = load_expert_shard_from_checkpoint(
+            eng.ckpt_path, eng.shards[ep_rank], ep_rank,
+            workdir=eng.ecfg.workdir)
+        eng.moe_executors.append(MoEExecutor(
+            physical_id=donor_ex.physical_id, ep_rank=ep_rank, shard=shard))
+        restored = eng.expert_map.install_rank(ep_rank)
+        eng.runtime = eng.expert_map.runtime()
+        eng.reassemble_params()
+        return restored
+
+    def complete_background_switch(self, plan: MoERecoveryPlan) -> Dict:
+        """Finish a deferred role switch while service keeps running
+        (§4.3): stream the donor's residents away, load the lost shard
+        from disk onto the donor, unmask, and restore full weight
+        integrity.  Returns stage timings (NOT downtime: inference
+        continued throughout)."""
+        eng = self.engine
+        emap = eng.expert_map
+        timings: Dict[str, float] = {}
+        donor_ex = eng.dp_executors[plan.donor_rank]
+        # the rank whose experts are masked is the one to restore
+        failed_ep_rank = next(
+            r for r in range(eng.ep_size)
+            if any(not emap.slot_alive[s] for s in emap.rank_slots(r)))
+        t0 = time.perf_counter()
+        reqs = donor_ex.drop_attention_state(collect_kv=True)
+        self._migrate(reqs, exclude=donor_ex)
+        donor_ex.ep_rank = failed_ep_rank
+        timings["role_switch"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = self._reload_rank(donor_ex, failed_ep_rank)
+        timings["generator"] = time.perf_counter() - t0
+        timings["restored_experts"] = float(len(restored))
+        return timings
 
     def _pick_donor(self, exclude_pid: int) -> Optional[int]:
         """A healthy DP rank that could switch to MoE duty (needs >=2

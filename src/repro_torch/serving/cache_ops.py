@@ -11,6 +11,11 @@ Where ``repro.serving.cache_ops`` returns updated arrays (JAX donates the
 pool buffers), these helpers update the pools **in place** and return the
 same cache.  So the §3.3 row capture clones the rows it gathers: capture,
 then step, then restore is bit-exact.
+
+KV-block streaming (§3.2, §3.4's role switch) gathers one request's
+blocks and slot state with :func:`gather_request_blocks` and installs
+them on the target with :func:`scatter_request_blocks`.  The payload
+stays on the cache's device: the simulated ranks share one card.
 """
 from __future__ import annotations
 
@@ -138,4 +143,44 @@ def restore_pool_rows(cache, axes_leaves: List[Optional[int]], undo):
             c[:, undo["idx"][0], undo["idx"][1]] = row
         else:
             c.copy_(st)
+    return cache
+
+
+def gather_request_blocks(cache, axes_leaves: List[Optional[int]],
+                          block_ids, slot: int):
+    """Extract (a copy of) one request's device state for KV-block
+    streaming.  Returns ``(pool_blocks, state)`` as flat leaf lists in
+    ``cache_leaves`` order: pool leaves gathered block-wise to
+    (L, nblk, bs, *rest), state leaves sliced at ``slot`` to
+    (L, 1, ...); the other kind is ``None`` in each list.  Both stay on
+    the cache's device."""
+    pool_blocks: List[Any] = []
+    state: List[Any] = []
+    for c, ax in zip(cache_leaves(cache), axes_leaves):
+        if ax is None:
+            pool_blocks.append(c.index_select(1, _index(block_ids,
+                                                        c.device)))
+            state.append(None)
+        else:
+            pool_blocks.append(None)
+            state.append(c.narrow(ax, slot, 1).clone())
+    return pool_blocks, state
+
+
+def scatter_request_blocks(cache, axes_leaves: List[Optional[int]],
+                           pool_blocks, state, block_ids, slot: int):
+    """Inverse of :func:`gather_request_blocks` on the *target* cache, in
+    place: the pool blocks land at freshly allocated ``block_ids``, the
+    recurrent state at batch slot ``slot``.  The payload must already lie
+    on the cache's device: it is never moved here."""
+    for c, ax, pb, st in zip(cache_leaves(cache), axes_leaves, pool_blocks,
+                             state):
+        src = pb if ax is None else st
+        if src.device != c.device:
+            raise ValueError(f"KV payload on {src.device}, cache on "
+                             f"{c.device}")
+        if ax is None:
+            c.index_copy_(1, _index(block_ids, c.device), src.to(c.dtype))
+        else:
+            c.narrow(ax, slot, 1).copy_(src)
     return cache

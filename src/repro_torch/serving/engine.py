@@ -5,14 +5,23 @@ owning physically separate state (expert shards, KV caches, block
 tables), so injected hardware failures destroy real state and recovery
 manipulates real data structures and real weight files.
 
-This is ``repro.serving.engine.InferenceEngine`` in collocated lockstep
-mode (§2.2: every device hosts attention plus an EP expert shard), with
-chunked admission or serial whole-prompt prefills.  A model without
-experts (the Mamba family) has no expert map, runtime or shards: the
-engine forces collocated mode, as the JAX package does, and a fault
-revives its attention side alone.  ``EngineConfig``
-keeps every field and every check of the JAX package's; options of later
-slices raise ``NotImplementedError`` naming their ROADMAP item.
+This is ``repro.serving.engine.InferenceEngine`` in lockstep, with
+chunked admission or serial whole-prompt prefills, in both deployment
+modes (§2.2):
+
+* ``collocated``    — every device hosts attention plus an EP expert shard.
+* ``disaggregated`` — DPExecutors (attention) and MoEExecutors (experts)
+  on separate devices, physical ids ``num_dp + j``; an MoE failure can
+  role-switch a DP rank (§3.4): its residents' KV streams to the other
+  attention ranks and the lost EP rank's experts reload from disk, at
+  once or, with ``RecoveryPolicy(background_role_switch=True)``, between
+  steps while serving with the lost experts masked (§4.3).
+
+A model without experts (the Mamba family) has no expert map, runtime or
+shards: the engine forces collocated mode, as the JAX package does, and
+a fault revives its attention side alone.  ``EngineConfig`` keeps every
+field and every check of the JAX package's; options of later slices
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -35,7 +44,8 @@ from repro_torch.core.weights import DenseFFNGroups, RecoveryPolicy
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.serving.cache_ops import infer_paged_axes, install_prefill
-from repro_torch.serving.executor import DPExecutor, next_bucket
+from repro_torch.serving.executor import (DPExecutor, MoEExecutor,
+                                          next_bucket)
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.weights_util import (assemble, expert_checksums,
@@ -218,8 +228,6 @@ class EngineConfig:
 def check_ported(ec: EngineConfig) -> None:
     """Raise on the options whose slice of the port has not landed."""
     unported = [
-        (ec.mode == "disaggregated", "mode='disaggregated'",
-         "Queue 1: disaggregated mode with MoEExecutor and role switch"),
         (ec.overlap, "overlap=True",
          "Queue 1 item 7: the overlap pipeline"),
         (ec.spec_window > 1, f"spec_window={ec.spec_window}",
@@ -276,8 +284,10 @@ class InferenceEngine:
         self.reports: List[Any] = []
         self.all_requests: List[Request] = []
         self._handled_faults: set = set()
-        # the collocated engine has no expert-only ranks
-        self.moe_executors: List[Any] = []
+        # §4.3: role switches deferred by the background policy, finished
+        # between steps while service continues
+        self.pending_switches: List[Any] = []
+        self.background_reports: List[Dict] = []
         # latest straggler suspicion {physical_id: slowdown ratio}
         self.soft_signals: Dict[int, float] = {}
         # campaign determinism hook: a fixed virtual step duration for
@@ -313,10 +323,10 @@ class InferenceEngine:
                 self.params = self.model.init(ec.seed)
                 save_checkpoint(self.ckpt_path, self.params)
             moe = self.cfg.moe
-            self.ep_size = ec.num_dp if moe is not None else 0
-            # host copies only: no ported path reads per-rank shard
-            # files (the role switch that would is queued), so start-up
-            # writes weights.npz once and nothing else
+            self.ep_size = ((ec.num_moe if self.disaggregated else ec.num_dp)
+                            if moe is not None else 0)
+            # host copies only: a role switch reads its slice of
+            # weights.npz, so start-up writes that file and nothing else
             self.shards = split_experts(self.params, self.ep_size)
             self.expert_map = (ExpertMap(moe, self.ep_size,
                                          device=self.device)
@@ -324,7 +334,8 @@ class InferenceEngine:
             self.runtime = (self.expert_map.runtime()
                             if moe is not None else None)
             self.shard_alive = [True] * self.ep_size
-            self._resident = [True] * self.ep_size
+            # the shard whose weights each rank's bank slice holds
+            self._resident: List[Any] = list(self.shards)
             self.dense_groups = (DenseFFNGroups(max(2, self.ep_size // 2))
                                  if moe is not None and moe.first_k_dense
                                  else None)
@@ -332,14 +343,21 @@ class InferenceEngine:
         with _Timer(t, "executor_processes"):
             self.dp_executors: List[DPExecutor] = [
                 self._make_dp_executor(i) for i in range(ec.num_dp)]
-            for ex in self.dp_executors:
+            self.moe_executors: List[MoEExecutor] = [
+                MoEExecutor(physical_id=ec.num_dp + j, ep_rank=j,
+                            shard=self.shards[j])
+                for j in range(self.ep_size if self.disaggregated else 0)]
+            for ex in self.dp_executors + self.moe_executors:
                 self.monitor.register(ex.physical_id, self.step_no)
 
         with _Timer(t, "distributed_groups"):
-            self.world_group = [ex.physical_id for ex in self.dp_executors]
+            self.world_group = [ex.physical_id for ex in
+                                self.dp_executors + self.moe_executors]
 
         with _Timer(t, "xccl"):
-            self.domain = CommDomain(ec.num_dp, 0, collocated=True)
+            self.domain = CommDomain(
+                ec.num_dp, ec.num_moe if self.disaggregated else 0,
+                collocated=not self.disaggregated)
             self.domain.rebuild()
 
         # initial graph registration (Fig. 1 "Read Cache"/"Compile")
@@ -361,11 +379,15 @@ class InferenceEngine:
         self.init_timings = t
         return t
 
+    @property
+    def disaggregated(self) -> bool:
+        return self.ecfg.mode == "disaggregated"
+
     def _make_dp_executor(self, i: int) -> DPExecutor:
         """Rank ``i``; collocated, it also hosts EP rank ``i``'s shard
         (a model without experts has none)."""
         ec = self.ecfg
-        moe = self.cfg.moe is not None
+        moe = self.cfg.moe is not None and not self.disaggregated
         return DPExecutor(
             physical_id=i, dp_rank=i, model=self.model,
             max_batch=ec.max_batch, max_seq=ec.max_seq,
@@ -471,10 +493,12 @@ class InferenceEngine:
     def health(self) -> InstanceHealth:
         healthy_dp = [ex for ex in self.dp_executors
                       if ex.alive and ex.cache is not None]
+        healthy_moe = [m for m in self.moe_executors if m.device_alive]
         return InstanceHealth(
             serving=bool(healthy_dp),
             healthy_dp=len(healthy_dp), total_dp=len(self.dp_executors),
-            healthy_moe=0, total_moe=0,
+            healthy_moe=len(healthy_moe),
+            total_moe=len(self.moe_executors),
             expert_coverage=(self.expert_map.coverage()
                              if self.expert_map is not None else 1.0),
             queue_depth=sum(ex.scheduler.num_requests
@@ -507,6 +531,12 @@ class InferenceEngine:
 
     def step(self) -> List[Request]:
         self.step_no += 1
+        # finish deferred role switches (§4.3): service already resumed,
+        # so these timings are not downtime
+        while self.pending_switches:
+            plan = self.pending_switches.pop(0)
+            self.background_reports.append(
+                self.recovery.complete_background_switch(plan))
         self.injector.pre_step_faults(self.step_no)
         for ev in self.poller.poll():
             self._handle(ev)
@@ -521,7 +551,7 @@ class InferenceEngine:
 
         # mid-step faults fire while the collective step is in flight
         hit = False
-        for ex in active:
+        for ex in active + [m for m in self.moe_executors if m.device_alive]:
             try:
                 self.injector.maybe_fail_mid_step(self.step_no,
                                                   ex.physical_id)
@@ -553,9 +583,7 @@ class InferenceEngine:
         self.soft_signals = self.straggler.suspects()
         for ev in self.straggler.check():
             self._handle(ev)
-        for ex in self.dp_executors:
-            if ex.alive:
-                self.monitor.beat(ex.physical_id, self.step_no)
+        self._beat_survivors()
         return finished
 
     def run(self, max_steps: int = 1000) -> List[Request]:
@@ -575,23 +603,34 @@ class InferenceEngine:
         self.reports.append(self.recovery.recover(ev))
         # inference was paused during recovery: reset the heartbeat clock
         # of every surviving executor so the pause is not taken for a hang
+        self._beat_survivors()
+
+    def _beat_survivors(self) -> None:
         for ex in self.dp_executors:
             if ex.alive:
                 self.monitor.beat(ex.physical_id, self.step_no)
+        for mex in self.moe_executors:
+            if mex.device_alive:
+                self.monitor.beat(mex.physical_id, self.step_no)
 
     # -- weight assembly -----------------------------------------------------------------
 
     def reassemble_params(self) -> None:
-        """Zero the device bank's slices of ranks whose shard owner died
-        (in place; see ``weights_util``)."""
-        self.shard_alive = [self._shard_owner(r) is not None
-                            for r in range(self.ep_size)]
-        self._resident = assemble(self.params, self.shards,
-                                  self.shard_alive, self._resident)
+        """Bring the device bank in line with the shards' owners, in
+        place: a rank without a live owner is zeroed, a rank whose owner
+        holds another shard (one reloaded from disk) is copied in from it
+        (see ``weights_util.assemble``)."""
+        owners = [self._shard_owner(r) for r in range(self.ep_size)]
+        self.shard_alive = [o is not None for o in owners]
+        self._resident = assemble(
+            self.params, [o.shard if o is not None else None
+                          for o in owners], self._resident)
 
     def _shard_owner(self, ep_rank: int):
         """The executor currently hosting this EP rank's shard (or None)."""
-        for ex in self.dp_executors:
+        hosts = self.moe_executors if self.disaggregated \
+            else self.dp_executors
+        for ex in hosts:
             if ex.ep_rank == ep_rank and ex.device_alive \
                     and ex.shard is not None:
                 return ex

@@ -20,9 +20,13 @@ Under serial admission each admitted prompt is instead one whole-prompt
 prefill (``Model.prefill_paged`` at a power-of-two bucket of its length)
 installed into its blocks (``cache_ops.install_prefill``).
 
-This is ``repro.serving.executor.DPExecutor`` on the lockstep path.  The
-overlap pipeline, speculation windows and KV-block streaming are later
-slices of the port.
+A role switch (§3.4) drops a healthy DP rank's attention duty: its
+running requests' blocks stream to the other attention ranks
+(``export_kv_blocks`` → ``import_kv_blocks``) instead of re-prefilling.
+A ``MoEExecutor`` is an expert-only rank of the disaggregated mode.
+
+This is ``repro.serving.executor`` on the lockstep path.  The overlap
+pipeline and speculation windows are later slices of the port.
 """
 from __future__ import annotations
 
@@ -32,10 +36,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.block_log import BlockLog, BlockManager
+from repro_torch.core.block_log import BlockLog, BlockManager, BlockTable
+from repro_torch.core.migration import KVBlocks
 from repro_torch.serving.cache_ops import (capture_pool_rows, clone_cache,
                                            copy_block_prefixes,
-                                           restore_pool_rows)
+                                           gather_request_blocks,
+                                           restore_pool_rows,
+                                           scatter_request_blocks)
 from repro_torch.serving.kvcache import (build_chunk_context,
                                          build_page_context,
                                          max_blocks_per_seq,
@@ -72,6 +79,23 @@ class _Pending:
 
 def _host(logits: torch.Tensor) -> np.ndarray:
     return logits.float().cpu().numpy()
+
+
+class MoEExecutor:
+    """Stateless expert host: one EP rank's slice of the physical slots
+    (disaggregated mode)."""
+
+    def __init__(self, physical_id: int, ep_rank: int,
+                 shard: Dict[str, torch.Tensor]):
+        self.physical_id = physical_id
+        self.ep_rank = ep_rank
+        self.shard: Optional[Dict[str, torch.Tensor]] = shard
+        self.device_alive = True
+
+    def fail_device(self) -> None:
+        """Hardware gone: the only copies of these weights are lost."""
+        self.device_alive = False
+        self.shard = None
 
 
 class DPExecutor:
@@ -142,6 +166,25 @@ class DPExecutor:
         """Engine-side isolation of the failed/hanging process."""
         self.process_alive = False
         self._plan = None
+
+    def drop_attention_state(self, collect_kv: bool = False):
+        """Role switch (§3.4): shed the KV cache, scheduler and attention
+        duty.  Returns the requests that must migrate elsewhere; with
+        ``collect_kv`` their live blocks are extracted *first* (the donor
+        device is healthy, so its residents' KV can stream instead of
+        re-prefilling) and the result is ``[(req, KVBlocks | None)]``."""
+        payloads = {}
+        if collect_kv:
+            for req in list(self.scheduler.running):
+                kv = self.export_kv_blocks(req)
+                if kv is not None:
+                    payloads[req.req_id] = kv
+        reqs = self.scheduler.drain()
+        self.cache = None
+        self.block_log = BlockLog()
+        if collect_kv:
+            return [(r, payloads.get(r.req_id)) for r in reqs]
+        return reqs
 
     def prefix_hit_blocks(self, digests, prompt_len: int) -> int:
         """How many *leading* full prompt blocks this executor's
@@ -391,3 +434,80 @@ class DPExecutor:
         return (len(self.block_log) > 0
                 or self.block_log.num_frames > 1
                 or self.block_log.has_pool_state())
+
+    # -- KV-block migration (§3.2, streaming path) --------------------------------
+
+    def export_kv_blocks(self, req: Request) -> Optional[KVBlocks]:
+        """Extract a RUNNING request's live blocks and recurrent state, on
+        this executor's device.
+
+        None when this device's state is unreachable or the request has
+        no installed KV yet (still WAITING, mid-chunked-prefill, or
+        mid-migration) — callers fall back to token-replay re-prefill.
+        Prefix-shared blocks are read in place, and window-released
+        table entries (trash sentinels) ship no rows: the target's
+        attention window masks them identically."""
+        if self.cache is None or not self.alive:
+            return None
+        if req.state is not RequestState.RUNNING or req.batch_slot is None:
+            return None
+        if self.scheduler.prefilling(req):
+            return None
+        table = self.scheduler.block_tables.get(req.req_id)
+        if table is None or not req.output_tokens:
+            return None
+        valid_len = req.num_tokens - 1   # last sampled token's KV is not
+        if valid_len <= 0:               # written until its decode step
+            return None
+        nblk = (valid_len + self.block_size - 1) // self.block_size
+        bids = table.blocks[:nblk]
+        live_mask = [b < self.num_blocks for b in bids]
+        live_bids = [b for b in bids if b < self.num_blocks]
+        pools, state = gather_request_blocks(self.cache, self.paged_axes,
+                                             live_bids, req.batch_slot)
+        return KVBlocks(
+            block_size=self.block_size, num_blocks=nblk,
+            valid_len=valid_len, pool_blocks=pools, state=state,
+            last_token=int(req.output_tokens[-1]), live_mask=live_mask)
+
+    def import_kv_blocks(self, req: Request, kv: KVBlocks) -> bool:
+        """Install streamed blocks: allocate fresh physical blocks here,
+        scatter the payload in place, and adopt the request as RUNNING —
+        it skips re-prefill and decodes on the next step.  False when
+        this executor lacks a batch slot or enough free blocks.  (The
+        lockstep executor feeds decode from ``last_token`` on the host:
+        there is no device token chain to re-sync.)"""
+        if self.cache is None or not self.alive:
+            return False
+        if kv.block_size != self.block_size:
+            return False
+        if not self.scheduler._free_slots:
+            return False
+        span = max(kv.num_blocks, self.scheduler._blocks_needed(
+            min(req.num_tokens + 1, self.max_seq)))
+        live = (kv.live_mask if kv.live_mask is not None
+                else [True] * kv.num_blocks)
+        # dead (window-released) entries install as trash sentinels; only
+        # live payload blocks and the growth past the payload allocate
+        need = sum(live) + (span - kv.num_blocks)
+        if self.block_manager.num_allocatable < need:
+            return False
+        # import runs at a step boundary, so the block ops commit at once
+        table = BlockTable(req.req_id)
+        for j in range(span):
+            if j < kv.num_blocks and not live[j]:
+                table.append_block(self.trash_block)
+            else:
+                table.append_block(self.block_manager.allocate())
+        self.scheduler.block_tables[req.req_id] = table
+        req.batch_slot = self.scheduler._free_slots.pop()
+        req.dp_rank = self.dp_rank
+        req.state = RequestState.RUNNING
+        self.scheduler.running.append(req)
+        self.scheduler.register_imported(req)
+        live_ids = [table.blocks[j] for j in range(kv.num_blocks) if live[j]]
+        self.cache = scatter_request_blocks(
+            self.cache, self.paged_axes, kv.pool_blocks, kv.state,
+            live_ids, req.batch_slot)
+        self.last_token[req.batch_slot] = kv.last_token
+        return True

@@ -162,3 +162,51 @@ def load_params(path: str, *, dtype: torch.dtype, device) -> Dict[str, Any]:
     items = ((k, _read_stored(path, w)) for k, w in stored.items()
              if not k.startswith("__extra__/"))
     return params_from_flat(items, tags, dtype=dtype, device=device)
+
+
+def load_axis1_slices(path: str, keys, start: int, stop: int
+                      ) -> Dict[str, torch.Tensor]:
+    """``leaf[:, start:stop]`` of each leaf in ``keys``, as host tensors in
+    the stored type.  In an uncompressed file that slice is one
+    contiguous run per leading index (a layer of a stacked leaf), read
+    straight into the result one run at a time: the whole leaf is never
+    loaded.  A compressed file is sliced after ``np.load``.  A range
+    outside the leaf or a short read raises."""
+
+    def check(k, shape):
+        if len(shape) < 2 or not 0 <= start < stop <= shape[1]:
+            raise ValueError(f"{path}: cannot slice {k} {tuple(shape)} "
+                             f"[:, {start}:{stop}]")
+
+    stored = _stored_leaves(path)
+    out: Dict[str, torch.Tensor] = {}
+    if stored is None:
+        with np.load(path, allow_pickle=False) as z:
+            tags = {k[len(DTYPE_TAG):]: str(z[k]) for k in z.files
+                    if k.startswith(DTYPE_TAG)}
+            for k in keys:
+                arr = z[k]
+                check(k, arr.shape)
+                out[k] = tensor_from_numpy(
+                    np.ascontiguousarray(arr[:, start:stop]), tags.get(k))
+        return out
+    tags = {k[len(DTYPE_TAG):]: str(_read_stored(path, w))
+            for k, w in stored.items() if k.startswith(DTYPE_TAG)}
+    with open(path, "rb") as f:
+        for k in keys:
+            offset, dt, shape, fortran = stored[k]
+            check(k, shape)
+            if fortran:
+                raise ValueError(f"{path}: {k} is stored in Fortran order")
+            run = int(np.prod(shape[2:], dtype=np.int64)) * dt.itemsize
+            arr = np.empty((shape[0], stop - start) + tuple(shape[2:]), dt)
+            flat = arr.reshape(shape[0], -1).view(np.uint8)
+            for layer in range(shape[0]):
+                f.seek(offset + (layer * shape[1] + start) * run)
+                got = f.readinto(flat[layer])
+                if got != flat.shape[1]:
+                    raise OSError(f"{path}: short read of {k} layer "
+                                  f"{layer}: {got} of {flat.shape[1]} "
+                                  f"bytes")
+            out[k] = tensor_from_numpy(arr, tags.get(k))
+    return out

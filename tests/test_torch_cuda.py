@@ -653,3 +653,82 @@ def test_ssm_scan_cuda_in_place_vs_plain(card, case, dtype):
     assert torch.equal(states[0], want)
     assert torch.equal(states[0], h_def.to(dtype))
     assert ys[0].dtype == dtype and torch.equal(ys[0], y_def.to(dtype))
+
+
+def _smoke_engine(tmp_path, card, dtype, **over):
+    """The qwen2-moe smoke model with capacity to spare, on the card."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=4, num_redundant_experts=2, top_k=2,
+        capacity_factor=8.0, min_capacity=64))
+    ec = dict(mode="collocated", num_dp=2, max_batch=4, max_seq=64,
+              block_size=8, num_blocks=64, moe_impl="fused")
+    ec.update(over)
+    return cfg, InferenceEngine(cfg, EngineConfig(workdir=str(tmp_path),
+                                                  **ec),
+                                dtype=dtype, device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_stream_round_trip_on_card(card, tmp_path, dtype):
+    """export → import between a card engine's two executors: the payload
+    stays on the card, the installed rows are bitwise the payload, and
+    the request's next decode logits on the target (alone in slot 0, as
+    on the donor) are bitwise the donor's."""
+    from repro_torch.serving import cache_ops
+    from repro_torch.serving.kvcache import build_page_context
+    cfg, eng = _smoke_engine(tmp_path, card, dtype)
+    rng = np.random.default_rng(0)
+    req = eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, 30))),
+                     16)
+    while len(req.output_tokens) < 3:
+        eng.step()
+    donor, target = eng.dp_executors
+
+    def next_logits(ex):
+        page = build_page_context([req], ex.scheduler.block_tables,
+                                  max_batch=ex.max_batch,
+                                  max_blk=ex.max_blk,
+                                  block_size=ex.block_size,
+                                  trash_block=ex.trash_block)
+        tokens = torch.zeros(ex.max_batch, dtype=torch.int32, device=card)
+        tokens[req.batch_slot] = int(ex.last_token[req.batch_slot])
+        logits, _ = eng.model.decode_step_paged(
+            eng.params, cache_ops.clone_cache(ex.cache), tokens,
+            {k: torch.from_numpy(v).to(card) for k, v in page.items()},
+            eng.runtime)
+        return logits[req.batch_slot]
+
+    want = next_logits(donor)
+    kv = donor.export_kv_blocks(req)
+    assert all(p.device.type == "cuda" for p in kv.pool_blocks)
+    assert target.import_kv_blocks(req, kv)
+    assert req.batch_slot == 0
+    blocks = target.scheduler.block_tables[req.req_id].blocks
+    got, _ = cache_ops.gather_request_blocks(
+        target.cache, target.paged_axes, blocks[:kv.num_blocks], 0)
+    for g, p in zip(got, kv.pool_blocks):
+        assert torch.equal(g, p)
+    assert torch.equal(next_logits(target), want)
+
+
+@pytest.mark.cuda
+def test_reloaded_shard_equals_start_up_bank(card, tmp_path):
+    """A rank's experts read back from ``weights.npz`` (bf16) equal its
+    slice of the card's bank at start-up, bit for bit."""
+    from repro_torch.serving.weights_util import (
+        EXPERT_AXIS, expert_leaves, load_expert_shard_from_checkpoint)
+    _, eng = _smoke_engine(tmp_path, card, torch.bfloat16,
+                           mode="disaggregated", num_moe=2)
+    for rank in range(eng.ep_size):
+        shard = load_expert_shard_from_checkpoint(
+            eng.ckpt_path, eng.shards[rank], rank, workdir=eng.ecfg.workdir)
+        for key, leaf in expert_leaves(eng.params):
+            per = leaf.shape[EXPERT_AXIS] // eng.ep_size
+            assert shard[key].dtype == torch.bfloat16
+            assert torch.equal(shard[key].to(card),
+                               leaf[:, rank * per:(rank + 1) * per])

@@ -210,8 +210,8 @@ def test_start_up_writes_no_shard_files(pair):
                for f in os.listdir(jeng.ecfg.workdir))
 
 
-@pytest.mark.parametrize("option", [
-    dict(mode="disaggregated"), dict(overlap=True), dict(spec_window=2)])
+@pytest.mark.parametrize("option", [dict(overlap=True),
+                                    dict(spec_window=2)])
 def test_unported_options_raise(tmp_path, option):
     cfg = get_smoke_config("qwen2-moe-a2.7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -244,13 +244,20 @@ def test_weights_util_matches_jax(jax_params):
     assert np.isnan(got[1]) and np.isnan(want[1])
     np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
     # a dead rank's slice is zeroed in place; a returning one restored
+    # from its owner's shard (the host copies are copies, not views of the
+    # bank); a new owner's shard is copied in over a live slice
     key = "layers/moe/gate"
-    resident = weights_util.assemble(pp, shards, [True, False], [True, True])
-    assert resident == [True, False]
+    resident = weights_util.assemble(pp, [shards[0], None], list(shards))
+    assert resident[0] is shards[0] and resident[1] is None
     bank = dict(ckpt.flatten(pp))[key]
     assert not bank[:, 3:].any() and torch.equal(bank[:, :3], shards[0][key])
-    weights_util.assemble(pp, shards, [True, True], resident)
+    assert shards[1][key].any()
+    resident = weights_util.assemble(pp, shards, resident)
     assert torch.equal(bank[:, 3:], shards[1][key])
+    reloaded = {k: v * 2 for k, v in shards[1].items()}
+    weights_util.assemble(pp, [shards[0], reloaded], resident)
+    assert torch.equal(bank[:, 3:], reloaded[key])
+    assert torch.equal(bank[:, :3], shards[0][key])
 
 
 def test_graph_cache_tiers():
