@@ -6,6 +6,7 @@
     python3 chip_smoke.py --layers 24     # the collocated qwen paths' depth
     python3 chip_smoke.py --paths ssm     # serve one engine path
     python3 chip_smoke.py --paths disagg  # the role switch, 24 layers
+    python3 chip_smoke.py --paths composed,fleet  # revive, spare, restart
     python3 chip_smoke.py --paths mla_composed,mla_megakernel,mla_serial
     python3 chip_smoke.py --profile       # + where the device time goes
 
@@ -103,9 +104,27 @@ Phases, in order; any failure raises and the script exits non-zero:
              prefill tokens than the first run); and with the same fault
              under ``background_role_switch`` (logicals 4-31 masked until
              the switch finishes at the next step, 32 experts restored,
-             the mask cleared).  Each path's kernels' launch counts are
-             read from its faulted run (``disagg``: the synchronous
-             switch's), counted from 0 just before it.  Each engine build
+             the mask cleared), after which that engine restarts in
+             place (``full_reinit``, timed: the restart baseline at 24
+             layers; the card's memory after it within 5% of before the
+             fault, no second copy of the weights at the peak, the
+             rebuilt decode graph ``cached``).  The ``fleet`` path runs
+             in the 8-layer qwen group: ``repro_torch.fleet.build_fleet``
+             of 2 instances and 1 spare of the composed engine serves the
+             8 prompts twice over; instance 0's redundant slots are
+             rebalanced from its routing; then three L6 faults, each a
+             forced decision of the arbiter: a revive on instance 0
+             ("precompiled"; the device then rejoins, its EP rank read
+             back following the map, its checksum equal to before the
+             fault), a spare for instance 1 (its reachable residents'
+             KV streamed, each install ``torch.equal`` to its payload),
+             a restart of that spare (``full_reinit``, checked as above);
+             it prints each policy's stall, the arbiter's un-forced
+             estimates, tokens/s, TTFT p50/p99 and the greedy tokens each
+             request shares with the composed path's fault-free run.
+             Each path's kernels' launch counts are read from its faulted
+             run (``disagg``: the synchronous switch's; ``fleet``: the
+             whole fleet run), counted from 0 just before it.  Each engine build
              prints its start-up files, its memory on the card and the
              host's MemTotal and MemAvailable.
 6. a ``{"kernels": [...]}`` line (each kernel's row at the qwen or
@@ -153,8 +172,9 @@ KERNEL_META = {
 # (the megakernel paths run paged_attention too: MLA's first-k dense
 # layers keep the composed chain)
 KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
-                                   "mla_megakernel", "mla_serial", "disagg"),
-               "moe_fused": ("composed", "mla_composed", "disagg"),
+                                   "mla_megakernel", "mla_serial", "disagg",
+                                   "fleet"),
+               "moe_fused": ("composed", "mla_composed", "disagg", "fleet"),
                "decode_megastep": ("megakernel", "mla_megakernel"),
                "router_topk": ("megakernel", "mla_megakernel"),
                "expert_ffn": ("serial", "mla_serial"),
@@ -165,7 +185,8 @@ IMPLS = ("composed", "megakernel")
 # falcon-mamba-7b, whose chunked admission falls back to whole-prompt
 # installs (a Mamba mixer cannot chunk); the ``mla_*`` paths deepseek-v3
 # (multi-head latent attention); the others qwen2-moe-a2.7b, ``disagg`` in
-# disaggregated mode (2 attention ranks, 2 expert ranks).
+# disaggregated mode (2 attention ranks, 2 expert ranks), ``fleet`` as a
+# fleet of such engines (``repro_torch.fleet``: 2 instances and a spare).
 PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "megakernel": dict(moe_impl="fused", decode_impl="megakernel"),
          "serial": dict(admission="serial", decode_impl="composed"),
@@ -174,7 +195,8 @@ PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "mla_serial": dict(admission="serial", decode_impl="composed"),
          "ssm": dict(),
          "disagg": dict(mode="disaggregated", num_moe=2, moe_impl="fused",
-                        decode_impl="composed")}
+                        decode_impl="composed"),
+         "fleet": dict(moe_impl="fused", decode_impl="composed")}
 QWEN_ARCH = "qwen2-moe-a2.7b"
 PATH_ARCH = {"ssm": "falcon-mamba-7b", "mla_composed": "deepseek-v3",
              "mla_megakernel": "deepseek-v3", "mla_serial": "deepseek-v3"}
@@ -1976,7 +1998,7 @@ def _trace(torch, fn):
 
 def phase_engine(torch, seed, layers, paths, profile=False):
     """Serve each path twice, without and with a fault (``disagg``: three
-    times).  The paths of one architecture and depth share one workdir
+    times; ``fleet``: once, with its three events).  The paths of one architecture and depth share one workdir
     (the first writes ``weights.npz``, the others load it), removed before
     the next group writes its own.  Returns the kernels' launch counts,
     each summed over the paths it runs on."""
@@ -1994,9 +2016,18 @@ def phase_engine(torch, seed, layers, paths, profile=False):
         try:
             cfg = engine_config(arch, depth)
             for path in group:
-                serve = serve_disagg if path == "disagg" else serve_path
-                path_counts, rates[path], streams[path] = serve(
-                    torch, cfg, path, workdir, seed, profile)
+                serve = SERVE.get(path, serve_path)
+                extra = ({"reference": streams.get("composed")}
+                         if path == "fleet" else {})
+                path_counts, path_rates, path_streams = serve(
+                    torch, cfg, path, workdir, seed, profile, **extra)
+                # what the path's closures kept alive (reference cycles
+                # between engines and their hooks) goes before the next
+                # path builds
+                gc.collect()
+                torch.cuda.empty_cache()
+                if path_rates is not None:
+                    rates[path], streams[path] = path_rates, path_streams
                 for k, v in path_counts.items():
                     counts[k] = counts.get(k, 0) + v
         finally:
@@ -2209,7 +2240,7 @@ SWITCH_ACTION = re.compile(r"role switch: dp(\d+) -> moe ep-rank (\d+); "
                            r"\((\d+) KV-streamed\)")
 
 
-def _watch_imports(torch, eng, streamed):
+def _watch_imports(torch, eng, streamed, what="disagg"):
     """Wrap each attention rank's ``import_kv_blocks``: after an install,
     the target's pool rows at the request's new blocks must be
     ``torch.equal`` to the payload, on the card.  Appends (request id,
@@ -2231,7 +2262,7 @@ def _watch_imports(torch, eng, streamed):
                     continue
                 if sent.device.type != "cuda" or not torch.equal(got, sent):
                     raise AssertionError(
-                        f"engine disagg: request {req.req_id}'s installed "
+                        f"engine {what}: request {req.req_id}'s installed "
                         f"rows differ from its payload on {sent.device}")
             streamed.append((req.req_id, kv.nbytes()))
             return True
@@ -2305,6 +2336,8 @@ def serve_disagg(torch, cfg, path, workdir, seed, profile):
     for kind, policy in (("sync", RecoveryPolicy()), (
             "background", RecoveryPolicy(background_role_switch=True))):
         eng, start = make(policy)
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
         eng.injector.schedule(fault_step, 2, severity=Severity.L6,
                               component="moe", mid_step=True)
         streamed, masked = [], []
@@ -2385,12 +2418,304 @@ def serve_disagg(torch, cfg, path, workdir, seed, profile):
                 f"start-up {checks == start}")
         if bad:
             raise AssertionError(f"engine disagg ({kind}): " + "; ".join(bad))
+        if kind == "background":
+            # the restart baseline at this depth: the instance relaunched
+            # in place (weights, pools and executors released, then
+            # everything rebuilt from weights.npz)
+            torch.cuda.reset_peak_memory_stats()
+            n_timings = len(eng.graph_cache.timings)
+            t0 = time.perf_counter()
+            eng.full_reinit()
+            _check_reinit(torch, eng, mem_before, n_timings,
+                          time.perf_counter() - t0, "disagg")
         del eng, reqs, owner, note_mask
         release()
     used = [k for k, ps in KERNEL_PATH.items() if path in ps]
     if min(path_counts.get(k, 0) for k in used) <= 0:
         raise AssertionError(f"engine disagg: kernel launches {path_counts}")
     return {k: path_counts[k] for k in used}, (clean, fault), streams
+
+
+def _check_reinit(torch, eng, mem_before, n_timings, wall_s, what):
+    """After ``eng.full_reinit()`` (peak memory statistics reset just
+    before it): the card holds what it held before the fault, within 5%;
+    the peak never held a second copy of the weights; the rebuilt decode
+    graph is ``cached``.  Prints the Table-1 timings."""
+    from repro_torch.training.checkpoint import flatten
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    weights = sum(t.nbytes for _, t in flatten(eng.params))
+    rebuilt = [tm.source for tm in eng.graph_cache.timings[n_timings:]
+               if tm.key[0] == "decode"]
+    log(f"  full_reinit ({what}): {wall_s:.3f} s wall; Table-1 seconds "
+        + json.dumps({k: round(v, 4) for k, v in eng.init_timings.items()})
+        + f" (sum {sum(eng.init_timings.values()):.3f}); card memory "
+        f"{mem_before / 2**30:.3f} GiB before the fault, {after / 2**30:.3f}"
+        f" GiB after, peak {peak / 2**30:.3f} GiB (the weights: "
+        f"{weights / 2**30:.3f} GiB); rebuilt decode graph {rebuilt}")
+    bad = []
+    if abs(after - mem_before) > 0.05 * mem_before:
+        bad.append(f"card memory {after} B after, {mem_before} B before")
+    if peak - mem_before > weights / 2:
+        bad.append(f"peak {peak} B: the old weights were not released")
+    if not rebuilt or rebuilt[0] != "cached":
+        bad.append(f"rebuilt decode graph {rebuilt}")
+    if bad:
+        raise AssertionError(f"engine {what}: full_reinit: " + "; ".join(bad))
+
+
+def serve_fleet(torch, cfg, path, workdir, seed, profile, reference=None):
+    """The fleet path: ``repro_torch.fleet.build_fleet`` of 2 instances and
+    1 spare on the card, each the composed engine of ``make_engine`` (2
+    collocated ranks, bf16), serving the 8 prompts twice over (16
+    requests of 32 new tokens).  First instance 0's redundant slots are
+    re-pointed (``rebalance_experts``) at the experts its routing chose
+    most over the first 3 ticks.  Then three faults, each an L6
+    ``attn+moe`` fault mid-step with a forced decision
+    (``arbiter.force_policy``): (1) physical 1 of instance 0, revived in
+    place, then cleared and rejoined (EP rank 1 read back from
+    ``weights.npz``, following the map); (2) physical 1 of instance 1,
+    once its requests all decode: the spare takes its place, the
+    residents of its reachable rank KV-streamed; (3) physical 0 of that
+    spare, restarted (``full_reinit``).  Every engine samples a fixed
+    virtual step for straggler detection (the wall-clock detector is not
+    under test here).  ``reference``: the composed path's fault-free
+    streams of the 8 prompts (served here when None).  Returns (launch
+    counts of the fleet run, None, None)."""
+    from repro_torch.core.fault_codes import Severity
+    from repro_torch.core.weights import RecoveryPolicy
+    from repro_torch.fleet import RecoveryArbiter, build_fleet
+    from repro_torch.kernels import launches
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.weights_util import expert_leaves
+    new_tokens = 32
+    policy = RecoveryPolicy(allow_role_switch=False)
+
+    def fail(msg):
+        raise AssertionError(f"engine fleet: {msg}")
+
+    if profile:
+        log("  fleet: not traced (--profile traces the single engines)")
+    if reference is None:
+        log("  fleet: one fault-free composed engine serves the 8 prompts "
+            "first, for the comparison of greedy streams")
+        eng = make_engine(torch, cfg, "composed", workdir, seed, policy)
+        reqs, _ = _serve(torch, eng, cfg.vocab_size, seed, new_tokens)
+        reference = [list(r.output_tokens) for r in reqs]
+        del eng, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"engine: path {path!r}: " + json.dumps(PATHS[path])
+        + "; 2 instances + 1 spare")
+    ec = dict(mode="collocated", num_dp=2, max_batch=8, max_seq=512,
+              block_size=16, num_blocks=256, seed=seed, workdir=str(workdir),
+              policy=policy)
+    ec.update(PATHS[path])
+    t0 = time.perf_counter()
+    fleet = build_fleet(cfg, EngineConfig(**ec), instances=2, spares=1,
+                        device="cuda")
+    standby = fleet.spares.warm[0]
+    engines = [i.engine for i in fleet.instances.values()] + [standby.engine]
+    for eng in engines:
+        eng.virtual_step_s = 0.01
+    arb = fleet.arbiter
+    log(f"  fleet up in {time.perf_counter() - t0:.1f} s (3 engine builds);"
+        f" {torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card; "
+        f"init_timings " + json.dumps([{k: round(v, 3) for k, v in
+                                        e.init_timings.items()}
+                                       for e in engines])
+        + f"; cost model from instance 0's: revive "
+        f"{arb.cost.est_revive_s():.4f} s, restart "
+        f"{arb.cost.est_restart_s():.4f} s a request")
+    # the un-forced estimate of every decision, beside the forced one
+    forced, shadow, unforced = arb.decide, RecoveryArbiter(arb.cost), []
+
+    def decide(inst, event, **kw):
+        unforced.append(shadow.decide(inst, event, **kw))
+        return forced(inst, event, **kw)
+
+    arb.decide = decide
+    inst0, inst1 = fleet.instances[0], fleet.instances[1]
+    eng0, eng1 = inst0.engine, inst1.engine
+    first, later = _prompts(cfg.vocab_size, seed)
+    prompts = (first + later) * 2
+    launches.clear()
+    t_all = time.perf_counter()
+    reqs = [fleet.submit(p, new_tokens) for p in prompts]
+
+    # usage counts from instance 0's routing over its first ticks
+    usage = torch.zeros(cfg.moe.num_experts, dtype=torch.int64,
+                        device="cuda")
+    route = moe_mod.route
+
+    def counted(router_w, x_flat, runtime, moe):
+        w, sel = route(router_w, x_flat, runtime, moe)
+        if runtime is eng0.runtime:
+            usage.add_(torch.bincount(sel.reshape(-1),
+                                      minlength=moe.num_experts))
+        return w, sel
+
+    moe_mod.route = counted
+    try:
+        for _ in range(3):
+            fleet.tick()
+    finally:
+        moe_mod.route = route
+    emap = eng0.expert_map
+
+    def moved_equal_sources(moves):
+        for slot, logical in moves.items():
+            src = [r for r in emap.replicas_of(logical) if r != slot][0]
+            for key, leaf in expert_leaves(eng0.params):
+                if not torch.equal(leaf[:, slot], leaf[:, src]):
+                    fail(f"slot {slot} ({key}) differs from its source "
+                         f"slot {src}")
+
+    if emap.E_phys == cfg.moe.num_experts:
+        log("  rebalance skipped: instance 0's map has no redundant slots")
+        moves = {}
+    else:
+        counts = usage.cpu().tolist()
+        moves = eng0.rebalance_experts(counts)
+        moved_equal_sources(moves)
+        hot = sorted(range(len(counts)), key=lambda e: -counts[e])[:8]
+        log(f"  rebalance of instance 0 from its routing ({sum(counts)} "
+            f"selections; hottest {[(e, counts[e]) for e in hot]}): moves "
+            f"{moves}, each re-pointed slot torch.equal to its source slot "
+            f"on the card")
+
+    def tick_until(done, limit, what):
+        for _ in range(limit):
+            if done():
+                return
+            fleet.tick()
+        if not done():
+            fail(f"{what} after {limit} ticks")
+
+    # (1) revive in place, then the device rejoins
+    start = eng0.expert_integrity()[0]
+    arb.force_policy = "revive"
+    n_rep = len(eng0.reports)
+    eng0.injector.schedule(eng0.step_no + 1, 1, severity=Severity.L6,
+                           component="attn+moe", mid_step=True)
+    tick_until(lambda: len(eng0.reports) > n_rep, 20, "no revive")
+    rep = eng0.reports[-1]
+    if rep.compile_source != "precompiled":
+        fail(f"revive compile_source {rep.compile_source}")
+    log(f"  (1) revive: {rep.summary()}; Table-1 " + json.dumps(
+        {k: round(v, 6) for k, v in rep.timings.items()}))
+    eng0.injector.clear(1)
+    t0 = time.perf_counter()
+    if not eng0.rejoin_device(1):
+        fail("physical 1 did not rejoin")
+    torch.cuda.synchronize()
+    rejoin_s = time.perf_counter() - t0
+    back = eng0.expert_integrity()[0]
+    if back != start:
+        fail(f"checksums {back} after the rejoin, {start} before the fault")
+    moved_equal_sources(moves)
+    log(f"  rejoin of physical 1: {rejoin_s:.3f} s (EP rank 1 read back "
+        f"from weights.npz, {len(emap.moved_slots(1))} re-pointed slots "
+        f"from their logicals' columns); checksums {back} equal those "
+        f"before the fault")
+
+    # (2) the spare takes instance 1's place
+    def decoding():
+        live = [r for r in eng1.all_requests
+                if r.state.value not in ("finished", "failed")]
+        return bool(live) and all(r.output_tokens for r in live)
+
+    tick_until(decoding, 400, "instance 1's requests never all decoded")
+    streamed = []
+    _watch_imports(torch, standby.engine, streamed, "fleet")
+    arb.force_policy = "spare"
+    moving = [r for r in eng1.all_requests
+              if r.state.value not in ("finished", "failed")]
+    n_ev = len(fleet.forensics)
+    eng1.injector.schedule(eng1.step_no + 1, 1, severity=Severity.L6,
+                           component="attn+moe", mid_step=True)
+    tick_until(lambda: any(e["policy"] == "spare"
+                           for e in fleet.forensics[n_ev:]), 20, "no spare")
+    ev = next(e for e in fleet.forensics[n_ev:] if e["policy"] == "spare")
+    if inst1.state.value != "dead" or ev["iid"] != standby.iid:
+        fail(f"instance 1 {inst1.state.value}, spare event {ev}")
+    kv_bytes = sum(b for _, b in streamed)
+    log(f"  (2) spare {standby.iid} for instance 1: swap {ev['charged_s']} "
+        f"s wall; {len(moving)} requests moved, {len(streamed)} "
+        f"KV-streamed ({kv_bytes} bytes, each install torch.equal to its "
+        f"payload), {len(moving) - len(streamed)} replayed; {ev['detail']}")
+    if not streamed:
+        fail("no request KV-streamed to the spare")
+
+    # (3) restart the spare that took instance 1's place
+    spare_eng = standby.engine
+    for _ in range(2):
+        fleet.tick()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n_timings = len(spare_eng.graph_cache.timings)
+    arb.force_policy = "restart"
+    n_ev = len(fleet.forensics)
+    spare_eng.injector.schedule(spare_eng.step_no + 1, 0,
+                                severity=Severity.L6, component="attn+moe",
+                                mid_step=True)
+    tick_until(lambda: any(e["policy"] == "restart"
+                           for e in fleet.forensics[n_ev:]), 20, "no restart")
+    ev = next(e for e in fleet.forensics[n_ev:] if e["policy"] == "restart")
+    log(f"  (3) restart of instance {standby.iid}: {ev['charged_s']} s wall "
+        f"(FleetInstance.restart)")
+    _check_reinit(torch, spare_eng, mem_before, n_timings, ev["charged_s"],
+                  "fleet")
+
+    tick_until(lambda: not fleet.unfinished, 3000, "requests unfinished")
+    wall = time.perf_counter() - t_all
+    counts = dict(launches)
+    states = [r.state.value for r in reqs]
+    if any(s_ != "finished" for s_ in states):
+        fail(f"requests {states}")
+    policies = [d.policy for d in arb.decisions]
+    if policies != ["revive", "spare", "restart"]:
+        fail(f"decisions {policies}")
+    for d, u in zip(arb.decisions, unforced):
+        log(f"  decision {d.policy} ({d.reason}); un-forced: {u.policy} "
+            f"({u.reason}); estimates " + json.dumps(
+                {k: round(v, 4) for k, v in sorted(u.est_cost.items())}))
+    ttft = np.asarray(fleet.ttfts())
+    total = sum(len(r.output_tokens) for r in reqs)
+    log(f"  fleet: {len(reqs)} requests, {total} tokens in {wall:.3f} s: "
+        f"{total / wall:.3f} tokens/s end to end; TTFT (virtual clock) p50 "
+        f"{np.percentile(ttft, 50):.4f} s, p99 {np.percentile(ttft, 99):.4f}"
+        f" s over {len(ttft)}; {fleet.ticks} ticks, virtual clock "
+        f"{fleet.now_s:.3f} s")
+    # bf16 and capacity drops make a token depend on the batch it ran in,
+    # so the streams of requests that never moved are printed beside
+    shared = {True: [], False: []}
+    for i, r in enumerate(reqs):
+        ref = reference[i % len(reference)]
+        same = next((j for j, (a, b) in enumerate(
+            zip(r.output_tokens, ref)) if a != b),
+            min(len(ref), len(r.output_tokens)))
+        moved = bool(r.cross_instance_migrations or r.migrations)
+        shared[moved].append(same)
+        log(f"    request {i} (prompt {i % len(reference)}, instances "
+            f"{fleet.meta[r.req_id]['instances']}, migrations "
+            f"{r.migrations}, recomputed {r.recomputed_tokens}): its first "
+            f"{same} of {len(ref)} greedy tokens equal the fault-free "
+            f"engine's (bf16; not checked)")
+    log(f"  greedy tokens shared with the fault-free engine, position by "
+        f"position from the first: migrated requests {shared[True]}, the "
+        f"others {shared[False]}")
+    used = [k for k, ps in KERNEL_PATH.items() if path in ps]
+    if min(counts.get(k, 0) for k in used) <= 0:
+        fail(f"kernel launches {counts}")
+    log(f"  launches {counts}")
+    return {k: counts[k] for k in used}, None, None
+
+
+SERVE = {"disagg": serve_disagg, "fleet": serve_fleet}
 
 
 # -- main ---------------------------------------------------------------------------

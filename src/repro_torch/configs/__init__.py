@@ -1,8 +1,10 @@
 """Architecture registry of the port.
 
-The port serves the attention+MoE family, with the two configs of that
-family the JAX package serves (``qwen2-moe-a2.7b`` and the paper's
-``deepseek-v3``), and the attention-free Mamba family
+The port serves the attention+MoE family, with three configs of that
+family the JAX package serves (``qwen2-moe-a2.7b``, the paper's
+``deepseek-v3`` and ``kimi-k2-1t-a32b``: GQA, first-k dense, 384 + 32
+experts; one of its MoE layers is ~34 GB in bf16, so it serves on the
+CPU, at smoke size, only), and the attention-free Mamba family
 (``falcon-mamba-7b``).  ``get_config(name)`` returns the full-size config,
 ``get_smoke_config`` the reduced same-family variant the CPU tests use.
 """
@@ -17,9 +19,11 @@ from repro_torch.configs.base import (
 )
 from repro_torch.configs.deepseek_v3 import CONFIG as _deepseek
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
+from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as _kimi
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as _qwen_moe
 
-_REGISTRY = {c.name: c for c in (_qwen_moe, _deepseek, _falcon_mamba)}
+_REGISTRY = {c.name: c for c in (_qwen_moe, _deepseek, _kimi,
+                                        _falcon_mamba)}
 
 ALL_ARCHS = tuple(_REGISTRY)
 

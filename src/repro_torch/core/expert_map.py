@@ -37,6 +37,8 @@ class ExpertMap:
         hot = list(hot_experts) if hot_experts is not None else list(range(R))
         assert len(hot) == R
         self.slot_logical: List[int] = list(range(E_log)) + hot
+        # what each slot's weights in the start-up bank (weights.npz) are
+        self.startup_logical = tuple(self.slot_logical)
         self.slot_alive: List[bool] = [True] * self.E_phys
         self.masked: Set[int] = set()
 
@@ -52,6 +54,16 @@ class ExpertMap:
     def replicas_of(self, logical: int) -> List[int]:
         return [s for s, l in enumerate(self.slot_logical)
                 if l == logical and self.slot_alive[s]]
+
+    def moved_slots(self, rank: int) -> Dict[int, int]:
+        """{local slot: logical} for each of the rank's slots that serves
+        another logical than at start-up (re-pointed by
+        :meth:`rebalance_replicas`): a reload from ``weights.npz`` must
+        read those slots from the logical's own column."""
+        per = self.slots_per_rank
+        return {s - rank * per: self.slot_logical[s]
+                for s in self.rank_slots(rank)
+                if self.slot_logical[s] != self.startup_logical[s]}
 
     def fully_lost(self) -> List[int]:
         """Logical experts with zero alive replicas (and not yet masked)."""

@@ -30,7 +30,10 @@ shard to a new ``MoEExecutor`` on the donor, as the synchronous switch
 does.  ``repro`` sets it on the donor's DP executor, where its
 disaggregated engine never looks for a shard owner, so the restored
 rank's bank slice stays zero while the map routes to it again (ROADMAP
-Queue 3).
+Queue 3).  A second: the reload follows the expert map.  ``repro`` reads
+the rank's start-up slots whatever the map says, so after
+``rebalance_experts`` its re-pointed slots serve the wrong experts'
+weights.
 """
 from __future__ import annotations
 
@@ -45,7 +48,6 @@ from repro_torch.core.weights import (MoERecoveryKind, MoERecoveryPlan,
                                       plan_moe_recovery)
 from repro_torch.serving.executor import MoEExecutor
 from repro_torch.serving.request import RequestState
-from repro_torch.serving.weights_util import load_expert_shard_from_checkpoint
 
 CATEGORIES = ("engine", "executor_processes", "distributed_groups", "xccl",
               "role_switch", "generator", "read_cache", "compile", "other")
@@ -339,15 +341,13 @@ class RecoveryManager:
         return plan
 
     def _reload_rank(self, donor_ex, ep_rank: int) -> List[int]:
-        """Read EP rank ``ep_rank``'s shard from disk into a new
-        ``MoEExecutor`` on the donor's device (only a disaggregated engine
-        has a donor to spare), restore the rank's slots in the map and
-        copy the shard into the device bank.  Returns the restored
-        experts."""
+        """Read EP rank ``ep_rank``'s shard from disk, following the map
+        (``InferenceEngine._load_rank``), into a new ``MoEExecutor`` on
+        the donor's device (only a disaggregated engine has a donor to
+        spare), restore the rank's slots in the map and copy the shard
+        into the device bank.  Returns the restored experts."""
         eng = self.engine
-        shard = load_expert_shard_from_checkpoint(
-            eng.ckpt_path, eng.shards[ep_rank], ep_rank,
-            workdir=eng.ecfg.workdir)
+        shard = eng._load_rank(ep_rank)
         eng.moe_executors.append(MoEExecutor(
             physical_id=donor_ex.physical_id, ep_rank=ep_rank, shard=shard))
         restored = eng.expert_map.install_rank(ep_rank)

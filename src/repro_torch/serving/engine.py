@@ -19,13 +19,27 @@ modes (§2.2):
 
 A model without experts (the Mamba family) has no expert map, runtime or
 shards: the engine forces collocated mode, as the JAX package does, and
-a fault revives its attention side alone.  ``EngineConfig`` keeps every
-field and every check of the JAX package's; options of later slices
-raise ``NotImplementedError`` naming their ROADMAP item.
+a fault revives its attention side alone.
+
+The fleet control plane (``repro_torch.fleet``) drives an engine through
+``admit`` / ``export_live_requests`` (cross-instance migration, KV
+payloads kept on the card), ``streamable_split`` and
+``predict_masked_fraction`` (the arbiter's cost inputs), the
+``fault_interceptor`` hook (a fault the fleet takes is only isolated
+here), ``rejoin_device`` (a cleared transient fault), ``rebalance_experts``
+(replicas re-pointed at the hottest experts, copied inside the device
+bank) and ``full_reinit`` (the restart baseline: the process's weights,
+pools and executors released, then everything rebuilt from
+``weights.npz``, the graph cache and fault injector kept).
+
+``EngineConfig`` keeps every field and every check of the JAX package's;
+options of later slices raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import time
 from dataclasses import dataclass, field
@@ -38,6 +52,7 @@ from repro_torch.core.comm_domain import CommDomain
 from repro_torch.core.detection import (AnnotationPoller, HeartbeatMonitor,
                                         StragglerDetector)
 from repro_torch.core.expert_map import ExpertMap
+from repro_torch.core.fault_codes import Action
 from repro_torch.core.faults import FaultInjector, SimulatedDeviceFailure
 from repro_torch.core.graph_cache import GraphCache
 from repro_torch.core.weights import DenseFFNGroups, RecoveryPolicy
@@ -48,8 +63,9 @@ from repro_torch.serving.executor import (DPExecutor, MoEExecutor,
                                           next_bucket)
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import SamplingParams
-from repro_torch.serving.weights_util import (assemble, expert_checksums,
-                                              split_experts)
+from repro_torch.serving.weights_util import (
+    assemble, expert_checksums, expert_leaves,
+    load_expert_shard_from_checkpoint, split_experts)
 from repro_torch.training.checkpoint import load_params, save_checkpoint
 
 
@@ -288,23 +304,32 @@ class InferenceEngine:
         # between steps while service continues
         self.pending_switches: List[Any] = []
         self.background_reports: List[Dict] = []
+        # fleet hook: called with each actionable FaultEvent before the
+        # in-place revive runs; any verdict but "revive" leaves the fault
+        # to the fleet control plane (the engine only isolates the device)
+        self.fault_interceptor = None
         # latest straggler suspicion {physical_id: slowdown ratio}
         self.soft_signals: Dict[int, float] = {}
         # campaign determinism hook: a fixed virtual step duration for
         # straggler detection instead of the wall clock
         self.virtual_step_s: Optional[float] = None
-        self._build()
+        self._build(first_time=True)
 
-    # -- construction -------------------------------------------------------------
+    # -- construction / reinitialization ------------------------------------------
 
-    def _build(self) -> Dict[str, float]:
+    def _build(self, first_time: bool) -> Dict[str, float]:
+        """Start-up, or (``first_time=False``) the rebuild of
+        ``full_reinit``, which keeps the graph cache and the fault
+        injector: its lookups record the ``cached`` tier, and faults
+        scheduled before the restart still fire after it."""
         ec = self.ecfg
         t: Dict[str, float] = {}
         with _Timer(t, "engine"):
             if ec.persist_cache_dir is None:
                 ec.persist_cache_dir = os.path.join(ec.workdir, "graph_cache")
-            self.graph_cache = GraphCache(ec.persist_cache_dir)
-            self.injector = FaultInjector()
+            if first_time:
+                self.graph_cache = GraphCache(ec.persist_cache_dir)
+                self.injector = FaultInjector()
             self.poller = AnnotationPoller(self.injector)
             self.monitor = HeartbeatMonitor(ec.heartbeat_timeout_steps)
             self.straggler = StragglerDetector()
@@ -341,8 +366,12 @@ class InferenceEngine:
                                  else None)
 
         with _Timer(t, "executor_processes"):
+            hosts = self.cfg.moe is not None and not self.disaggregated
             self.dp_executors: List[DPExecutor] = [
-                self._make_dp_executor(i) for i in range(ec.num_dp)]
+                self._make_dp_executor(
+                    i, ep_rank=i if hosts else None,
+                    shard=self.shards[i] if hosts else None)
+                for i in range(ec.num_dp)]
             self.moe_executors: List[MoEExecutor] = [
                 MoEExecutor(physical_id=ec.num_dp + j, ep_rank=j,
                             shard=self.shards[j])
@@ -358,6 +387,9 @@ class InferenceEngine:
             self.domain = CommDomain(
                 ec.num_dp, ec.num_moe if self.disaggregated else 0,
                 collocated=not self.disaggregated)
+            if not first_time:
+                # as repro: one past a fresh domain's version
+                self.domain.version += 1
             self.domain.rebuild()
 
         # initial graph registration (Fig. 1 "Read Cache"/"Compile")
@@ -369,7 +401,7 @@ class InferenceEngine:
             t["read_cache"] = t.get("read_cache", 0.0) + tm.read_cache_s
             t["compile"] = t.get("compile", 0.0) + tm.compile_s
 
-        if ec.precompile_failure_scenarios:
+        if first_time and ec.precompile_failure_scenarios:
             with _Timer(t, "precompile_failure_scenarios"):
                 self._precompile_failure_graphs()
 
@@ -383,17 +415,16 @@ class InferenceEngine:
     def disaggregated(self) -> bool:
         return self.ecfg.mode == "disaggregated"
 
-    def _make_dp_executor(self, i: int) -> DPExecutor:
-        """Rank ``i``; collocated, it also hosts EP rank ``i``'s shard
-        (a model without experts has none)."""
+    def _make_dp_executor(self, i: int, *, ep_rank: Optional[int],
+                          shard) -> DPExecutor:
+        """Attention rank ``i`` on physical ``i``; collocated, it also
+        hosts EP rank ``ep_rank``'s ``shard`` (None: no expert duty)."""
         ec = self.ecfg
-        moe = self.cfg.moe is not None and not self.disaggregated
         return DPExecutor(
             physical_id=i, dp_rank=i, model=self.model,
             max_batch=ec.max_batch, max_seq=ec.max_seq,
             num_blocks=ec.num_blocks, block_size=ec.block_size,
-            sampling=ec.sampling, ep_rank=i if moe else None,
-            shard=self.shards[i] if moe else None,
+            sampling=ec.sampling, ep_rank=ep_rank, shard=shard,
             paged_axes=self.paged_axes,
             admission=ec.admission,
             prefill_chunk=ec.prefill_chunk,
@@ -489,6 +520,109 @@ class InferenceEngine:
         ex.scheduler.add_request(req)
         if digests is not None:
             ex.scheduler.memo_digests(req.req_id, digests)
+
+    def admit(self, req: Request, kv=None) -> Request:
+        """Admit a request created elsewhere (cross-instance migration).
+
+        With a :class:`~repro_torch.core.migration.KVBlocks` payload (on
+        the card: a fleet's engines share one device) the least-loaded
+        healthy executor that can take it installs the streamed blocks —
+        the request skips re-prefill and decodes on the next step.
+        Without one (or if no executor can take the blocks) it re-enters
+        with prompt + decoded prefix intact, so the next prefill resumes
+        generation without redoing completed tokens."""
+        if kv is not None:
+            healthy = sorted(
+                (ex for ex in self.dp_executors
+                 if ex.alive and ex.cache is not None),
+                key=lambda e: e.scheduler.num_requests)
+            for ex in healthy:
+                if ex.import_kv_blocks(req, kv):
+                    if all(r is not req for r in self.all_requests):
+                        self.all_requests.append(req)
+                    return req
+            # stream install failed (no slot/blocks): the prefix must be
+            # re-prefilled after all — charge the replay now
+            from repro_torch.core.migration import charge_replay
+            charge_replay(req)
+        self._assign(req)
+        if all(r is not req for r in self.all_requests):
+            self.all_requests.append(req)
+        return req
+
+    def export_live_requests(self, with_kv: bool = False):
+        """Fleet drain/export hook: strip every unfinished request off
+        this instance — dead executors included, their token ids live in
+        host memory.  With ``with_kv``, each RUNNING request's live
+        blocks are extracted first from executors whose device state is
+        still reachable (rollback-then-migrate: any uncommitted step is
+        rolled back before the read, so tables and pools agree) and the
+        result is ``[(req, KVBlocks | None)]``; a None payload means
+        token-replay re-prefill on the target."""
+        from repro_torch.core.migration import prepare_for_migration
+        out = []
+        for ex in self.dp_executors:
+            payloads = {}
+            if ex.has_uncommitted():
+                ex.rollback_inflight()
+            if with_kv and ex.alive and ex.cache is not None:
+                for req in list(ex.scheduler.running):
+                    blocks_kv = ex.export_kv_blocks(req)
+                    if blocks_kv is not None:
+                        payloads[req.req_id] = blocks_kv
+            for req in ex.scheduler.drain():
+                if req.state in (RequestState.FINISHED,
+                                 RequestState.FAILED):
+                    continue
+                blocks_kv = payloads.get(req.req_id)
+                prepare_for_migration(req, streamed=blocks_kv is not None)
+                out.append((req, blocks_kv) if with_kv else req)
+        gone = {(r[0] if with_kv else r).req_id for r in out}
+        self.all_requests = [r for r in self.all_requests
+                             if r.req_id not in gone]
+        return out
+
+    def streamable_split(self) -> Tuple[int, int]:
+        """(streamable, replay-only) token counts over this instance's
+        unfinished requests — the spare-substitution cost split: RUNNING
+        requests on reachable executors can stream their KV blocks;
+        everything else re-prefills on the target."""
+        stream = replay = 0
+        for ex in self.dp_executors:
+            reachable = ex.alive and ex.cache is not None
+            for r in list(ex.scheduler.waiting) + list(ex.scheduler.running):
+                if r.state in (RequestState.FINISHED, RequestState.FAILED):
+                    continue
+                if (reachable and r.state is RequestState.RUNNING
+                        and r.batch_slot is not None and r.output_tokens):
+                    stream += r.num_tokens
+                else:
+                    replay += r.num_tokens
+        return stream, replay
+
+    def predict_masked_fraction(self, rank: int) -> float:
+        """Fraction of logical experts that would lose every live replica
+        if physical ``rank``'s expert slots died — the degraded-quality
+        input to the fleet cost model (revive may serve with those
+        experts masked until a role switch restores them)."""
+        if self.expert_map is None:
+            return 0.0
+        ep_rank = None
+        for ex in self.dp_executors:
+            if ex.physical_id == rank:
+                ep_rank = ex.ep_rank
+        for mex in self.moe_executors:
+            if mex.physical_id == rank:
+                ep_rank = mex.ep_rank
+        if ep_rank is None:
+            return 0.0
+        emap = self.expert_map
+        dead = set(emap.rank_slots(ep_rank))
+        lost = sum(
+            1 for e in range(emap.moe.num_experts)
+            if e not in emap.masked
+            and not [s for s in emap.replicas_of(e) if s not in dead])
+        return lost / emap.moe.num_experts
 
     def health(self) -> InstanceHealth:
         healthy_dp = [ex for ex in self.dp_executors
@@ -600,6 +734,14 @@ class InferenceEngine:
         if ev.rank in self._handled_faults:
             return
         self._handled_faults.add(ev.rank)
+        if (self.fault_interceptor is not None
+                and ev.action is not Action.IGNORE):
+            if self.fault_interceptor(ev) != "revive":
+                # the fleet owns this fault: isolate the device so the
+                # step loop skips it, then defer (restart / spare /
+                # redistribution happen at the fleet tick)
+                self._isolate_only(ev)
+                return
         self.reports.append(self.recovery.recover(ev))
         # inference was paused during recovery: reset the heartbeat clock
         # of every surviving executor so the pause is not taken for a hang
@@ -612,6 +754,97 @@ class InferenceEngine:
         for mex in self.moe_executors:
             if mex.device_alive:
                 self.monitor.beat(mex.physical_id, self.step_no)
+
+    def _isolate_only(self, ev) -> None:
+        """Minimal isolation for a fleet-deferred fault: terminate the
+        failed executor and stop expecting its heartbeats, nothing else."""
+        try:
+            self.domain.device(ev.rank).alive = False
+        except KeyError:
+            pass
+        for ex in self.dp_executors:
+            if ex.physical_id == ev.rank:
+                ex.fail_device()
+                ex.terminate_process()
+        for mex in self.moe_executors:
+            if mex.physical_id == ev.rank:
+                mex.fail_device()
+        self.monitor.unregister(ev.rank)
+
+    # -- device rejoin (cleared transient faults) ------------------------------------
+
+    def rejoin_device(self, physical_id: int) -> bool:
+        """A cleared transient fault (flapping link restored, thermals
+        back in range) returns the device to service: rebuild its
+        executor (the dead one's pools dropped with it), reload its EP
+        rank's shard from ``weights.npz`` when no one else hosts it (the
+        map's re-pointed slots included) and copy it into the device
+        bank, re-admit the device to the comm domain (version bump: the
+        next step's graph is ``cached``), and reset the detection state
+        so the rank is faultable again.
+
+        Returns True if a device rejoined; False when there is nothing to
+        rejoin (rank alive, unknown, or its expert duty taken over by a
+        role-switched donor)."""
+        dp = next((ex for ex in self.dp_executors
+                   if ex.physical_id == physical_id), None)
+        mex = next((m for m in self.moe_executors
+                    if m.physical_id == physical_id), None)
+        if dp is not None:
+            if dp.alive:
+                return False
+            shard, ep_rank = None, dp.ep_rank
+            if ep_rank is not None and self.expert_map is not None:
+                if self._shard_owner(ep_rank) is not None:
+                    ep_rank = None      # duty covered elsewhere
+                else:
+                    shard = self._load_rank(ep_rank)
+            dp.cache = None             # the dead device's pools go first
+            self.dp_executors[self.dp_executors.index(dp)] = \
+                self._make_dp_executor(dp.dp_rank, ep_rank=ep_rank,
+                                       shard=shard)
+            if shard is not None:
+                self.expert_map.install_rank(ep_rank)
+        elif mex is not None:
+            if mex.device_alive:
+                return False
+            if self._shard_owner(mex.ep_rank) is not None:
+                return False            # a role-switched donor owns it
+            mex.install_shard(self._load_rank(mex.ep_rank))
+            self.expert_map.install_rank(mex.ep_rank)
+        else:
+            return False
+        if self.expert_map is not None:
+            self.runtime = self.expert_map.runtime()
+            self.reassemble_params()
+        # comm domain: back in with a fresh logical rank at the end of
+        # its role group; rebuild compacts any remaining gaps and bumps
+        # the version
+        dev = self.domain.device(physical_id)
+        if not dev.alive:
+            peers = [r.logical_rank for r in self.domain.group(
+                "moe" if (mex is not None and not self.domain.collocated)
+                else "attn")]
+            dev.logical_rank = (max(peers) + 1) if peers else 0
+            dev.alive = True
+        self.domain.rebuild()
+        self.world_group = [ex.physical_id for ex in self.dp_executors
+                            if ex.alive] + \
+                           [m.physical_id for m in self.moe_executors
+                            if m.device_alive]
+        self.monitor.register(physical_id, self.step_no)
+        self.straggler.forgive(physical_id)
+        self._handled_faults.discard(physical_id)
+        self.injector.clear(physical_id)
+        return True
+
+    def _load_rank(self, ep_rank: int):
+        """EP rank ``ep_rank``'s shard read back from disk, following the
+        expert map (host tensors)."""
+        return load_expert_shard_from_checkpoint(
+            self.ckpt_path, self.shards[ep_rank], ep_rank,
+            moved=self.expert_map.moved_slots(ep_rank),
+            workdir=self.ecfg.workdir)
 
     # -- weight assembly -----------------------------------------------------------------
 
@@ -636,6 +869,74 @@ class InferenceEngine:
                 return ex
         return None
 
+    def rebalance_experts(self, usage_counts) -> Dict[int, int]:
+        """Maintenance op: re-point redundant replica slots at the hottest
+        experts (§3.4/§4.3 — replicas follow usage frequency) and copy
+        each moved slot's weights from a live replica of its new logical:
+        inside the device bank (every expert leaf, all layers), mirrored
+        into the owner's host shard.  (``assemble`` copies a rank's slice
+        only when its owner's shard object changes, so an in-place edit
+        of a host shard alone would never reach the card.)"""
+        if self.expert_map is None:
+            return {}
+        emap = self.expert_map
+        moves = emap.rebalance_replicas(usage_counts)
+        per = emap.slots_per_rank
+        for slot, logical in moves.items():
+            sources = [s for s in emap.replicas_of(logical) if s != slot]
+            if not sources:
+                continue
+            src = sources[0]
+            dst_owner = self._shard_owner(emap.rank_of_slot(slot))
+            src_owner = self._shard_owner(emap.rank_of_slot(src))
+            if dst_owner is None or src_owner is None:
+                continue
+            for key, leaf in expert_leaves(self.params):
+                leaf[:, slot].copy_(leaf[:, src])
+                dst_owner.shard[key][:, slot % per].copy_(
+                    src_owner.shard[key][:, src % per])
+        self.runtime = emap.runtime()
+        self.reassemble_params()
+        return moves
+
     def expert_integrity(self) -> Tuple[List[float], List[bool]]:
         return expert_checksums(self.params, self.shard_alive), \
             self.shard_alive
+
+    # -- baseline: full instance reinitialization (Fig. 1) --------------------------
+
+    def full_reinit(self) -> Dict[str, float]:
+        """The baseline recovery: relaunch engine + executors, reload
+        weights, rebuild groups, cached graph lookups — everything,
+        timed (Table-1 categories).  A restart is the death of the
+        process, so the old weights, pools and executors are released
+        before ``weights.npz`` is read again: the card never holds two
+        copies of the model.  Unfinished requests (dead executors'
+        included: their token ids live in host memory) are requeued."""
+        in_flight = []
+        for ex in self.dp_executors:
+            if ex.has_uncommitted():
+                ex.rollback_inflight()
+            in_flight.extend(ex.scheduler.drain())
+        # process death: the in-memory graphs are gone (the on-disk tier
+        # survives — the "cached" part of a cached reinit)
+        self.graph_cache.invalidate(lambda k: True)
+        self._release()
+        t = self._build(first_time=False)
+        for req in in_flight:
+            if req.state not in (RequestState.FINISHED,):
+                req.state = RequestState.WAITING
+                self._assign(req)
+        self._handled_faults.clear()
+        self.soft_signals = {}
+        return t
+
+    def _release(self) -> None:
+        """Drop every device tensor the engine holds: weights, host
+        shards, pools, executors, the model's caches."""
+        for ex in self.dp_executors:
+            ex.cache = None
+        self.dp_executors, self.moe_executors = [], []
+        self.params = self.runtime = self.model = self.recovery = None
+        self.shards, self._resident = [], []
+        gc.collect()

@@ -97,6 +97,11 @@ class MoEExecutor:
         self.device_alive = False
         self.shard = None
 
+    def install_shard(self, shard: Dict[str, torch.Tensor]) -> None:
+        """The device rejoined: it hosts ``shard`` (read from disk)."""
+        self.shard = shard
+        self.device_alive = True
+
 
 class DPExecutor:
     def __init__(self, physical_id: int, dp_rank: int, model, *,

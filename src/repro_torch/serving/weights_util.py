@@ -4,7 +4,9 @@ Each EP rank's slice of the routed-expert bank is kept on the host
 (``split_experts``), physically separate, so a rank failure genuinely
 destroys its copy.  A role switch (§3.4) reloads the lost rank's slice
 from disk (``load_expert_shard_from_checkpoint``): from its per-rank
-shard file when one exists, else straight out of ``weights.npz``.
+shard file when one exists, else straight out of ``weights.npz``, each
+slot that ``rebalance_experts`` re-pointed read from the column of the
+logical it now serves.
 Start-up writes no shard file (``save_shard_checkpoints`` stays for
 ``rejoin_device``).
 
@@ -112,6 +114,7 @@ def save_shard_checkpoints(workdir: str,
 
 def load_expert_shard_from_checkpoint(ckpt_path: str, template_shard: Dict,
                                       ep_rank: int, *,
+                                      moved: Optional[Dict[int, int]] = None,
                                       workdir: Optional[str] = None
                                       ) -> Dict[str, torch.Tensor]:
     """Role-switch weight load (§3.4): read EP rank ``ep_rank``'s expert
@@ -119,7 +122,14 @@ def load_expert_shard_from_checkpoint(ckpt_path: str, template_shard: Dict,
     rank's slice of every routed-expert leaf of the full checkpoint, one
     layer's contiguous run at a time.  ``template_shard`` (any rank's
     shard) gives the keys, the slice width and the types; returns host
-    tensors."""
+    tensors.
+
+    Both sources hold the start-up bank, where each slot serves its
+    start-up logical.  ``moved`` maps each of the rank's local slots that
+    ``rebalance_experts`` re-pointed since start-up to the logical it
+    serves now (``ExpertMap.moved_slots``); such a slot is read from that
+    logical's base column of ``weights.npz`` (column ``l`` holds logical
+    ``l``), so the reloaded shard follows the map."""
     wanted = sorted(template_shard)
     per = next(iter(template_shard.values())).shape[EXPERT_AXIS]
     spath = (shard_ckpt_path(workdir, ep_rank) if workdir is not None
@@ -131,4 +141,8 @@ def load_expert_shard_from_checkpoint(ckpt_path: str, template_shard: Dict,
     else:
         loaded = load_axis1_slices(ckpt_path, wanted, ep_rank * per,
                                    (ep_rank + 1) * per)
+    for slot, logical in sorted((moved or {}).items()):
+        column = load_axis1_slices(ckpt_path, wanted, logical, logical + 1)
+        for k in wanted:
+            loaded[k][:, slot] = column[k][:, 0]
     return {k: t.to(template_shard[k].dtype) for k, t in loaded.items()}

@@ -16,10 +16,20 @@ in f32:
 - ``fused``: the fused MoE keeps serving after the loss (:367);
 - ``megakernel``: the role switch on ``decode_impl="megakernel"``;
 - ``mla_missing`` and ``mla_switch``: ``deepseek-v3`` smoke (first-k
-  dense, in place of :213's kimi, which the port lacks): without a role
-  switch a dense-FFN TP group is compromised, with one none is;
+  dense, MLA): without a role switch a dense-FFN TP group is
+  compromised, with one none is;
+- ``kimi_dense_tp``: :213 itself, on ``kimi-k2-1t-a32b`` smoke (GQA,
+  first-k dense): the lost MoE device's dense-FFN shard compromises its
+  TP group and token routing rebalances over the healthy groups;
 - ``two_moe_failures``: tests/test_fuzz_recovery.py:99, two role
-  switches in a row.
+  switches in a row;
+- six combinations of the role switch with other options:
+  ``serial_switch`` (whole-prompt admission), ``mid_prefill_switch``
+  (the switch at step 2 while 36-token prompts prefill in chunks of 8),
+  ``shared_prefix_switch`` (six prompts sharing a 16-token prefix),
+  ``serial_background`` (whole-prompt admission, background switch),
+  ``switch_then_attn`` (a switch, then an L5 attention fault on device
+  0) and ``snapshot_switch`` (``pool_undo="snapshot"``).
 
 Both engines sample straggler timings from a fixed virtual step of 10 ms
 (``virtual_step_s``): the wall-clock straggler detector is not under
@@ -57,7 +67,7 @@ from repro_torch.serving.weights_util import (
     load_expert_shard_from_checkpoint, save_shard_checkpoints)
 from repro_torch.training import checkpoint as ckpt
 
-QWEN, MLA = "qwen2-moe-a2.7b", "deepseek-v3"
+QWEN, MLA, KIMI = "qwen2-moe-a2.7b", "deepseek-v3", "kimi-k2-1t-a32b"
 VIRTUAL_STEP_S = 0.01
 L6_MOE = ("L6", "HBM_ECC", "moe", False)
 # name: dict(arch, bank (experts, redundant), engine overrides, policy,
@@ -93,13 +103,45 @@ CASES = {
     "mla_switch": dict(
         arch=MLA, bank=None, ec=dict(num_dp=3), reqs=(3, 8, 8, 0),
         policy=dict(min_ep_for_missing=2), faults=[(3, 3, L6_MOE)]),
+    "kimi_dense_tp": dict(
+        arch=KIMI, bank=(4, 4), moe=dict(first_k_dense=1, dense_d_ff=256),
+        ec=dict(num_dp=2), reqs=(3, 8, 8, 0),
+        policy=dict(allow_role_switch=False, min_ep_for_missing=2),
+        faults=[(3, 2, ("L6", "HBM_ECC", "moe", False))]),
     "two_moe_failures": dict(
         bank=(4, 0), ec=dict(num_dp=4), reqs=(6, 8, 20, 7),
         policy=dict(min_ep_for_missing=2),
         faults=[(3, 4, L6_MOE), (8, 5, L6_MOE)]),
+    "serial_switch": dict(
+        bank=(4, 2), ec=dict(num_dp=3, admission="serial"), policy={},
+        reqs=(4, 8, 8, 0), faults=[(3, 3, L6_MOE)]),
+    "mid_prefill_switch": dict(
+        bank=(4, 2), ec=dict(num_dp=3, prefill_chunk=8), policy={},
+        reqs=(4, 36, 8, 0), faults=[(2, 3, L6_MOE)]),
+    "shared_prefix_switch": dict(
+        bank=(4, 2), ec=dict(num_dp=3), policy={}, reqs=(6, 24, 8, 0),
+        prefix=16, faults=[(3, 3, L6_MOE)]),
+    "serial_background": dict(
+        bank=(4, 0), ec=dict(num_dp=3, admission="serial"),
+        reqs=(4, 8, 16, 0),
+        policy=dict(background_role_switch=True, min_ep_for_missing=2),
+        faults=[(3, 3, L6_MOE)]),
+    "switch_then_attn": dict(
+        bank=(4, 2), ec=dict(num_dp=3), policy={}, reqs=(4, 8, 12, 0),
+        faults=[(3, 3, L6_MOE), (6, 0, ("L5", "DRIVER_HANG", "attn",
+                                        True))]),
+    "snapshot_switch": dict(
+        bank=(4, 2), ec=dict(num_dp=3, pool_undo="snapshot"), policy={},
+        reqs=(4, 8, 8, 0), faults=[(3, 3, L6_MOE)]),
 }
 SWITCHES = {"role_switch": 1, "background": 1, "megakernel": 1,
-            "mla_switch": 1, "two_moe_failures": 2}
+            "mla_switch": 1, "two_moe_failures": 2, "serial_switch": 1,
+            "mid_prefill_switch": 1, "shared_prefix_switch": 1,
+            "serial_background": 1, "switch_then_attn": 1,
+            "snapshot_switch": 1}
+# the combinations: each reloaded rank holds its start-up weights
+COMBINED = ("serial_switch", "mid_prefill_switch", "shared_prefix_switch",
+            "serial_background", "switch_then_attn", "snapshot_switch")
 
 
 def _cfg(get_smoke, case):
@@ -108,15 +150,19 @@ def _cfg(get_smoke, case):
         experts, redundant = case["bank"]
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, num_experts=experts, num_redundant_experts=redundant,
-            top_k=2))
+            top_k=2, **case.get("moe", {})))
     return cfg
 
 
 def _serve(eng, vocab, case, codes):
     n, prompt_len, max_new, seed = case["reqs"]
     rng = np.random.default_rng(seed)
-    reqs = [eng.submit(list(map(int, rng.integers(0, vocab, prompt_len))),
-                       max_new) for _ in range(n)]
+    prompts = [list(map(int, rng.integers(0, vocab, prompt_len)))
+               for _ in range(n)]
+    if "prefix" in case:        # every prompt starts with the first's
+        prompts = [prompts[0][:case["prefix"]] + p[case["prefix"]:]
+                   for p in prompts]
+    reqs = [eng.submit(p, max_new) for p in prompts]
     for step, pid, (sev, err, component, mid) in case["faults"]:
         eng.injector.schedule(step, pid, severity=codes.Severity[sev],
                               error_type=codes.ErrorType[err],
@@ -154,7 +200,8 @@ def pair(request, shared):
     name = request.param
     case = CASES[name]
     arch = case.get("arch", QWEN)
-    weights = shared / f"weights_{arch}_{case['bank']}.npz"
+    weights = shared / (f"weights_{arch}_{case['bank']}"
+                        f"{sorted(case.get('moe', {}).items())}.npz")
     common = dict(mode="disaggregated", num_moe=2, max_batch=2, max_seq=64,
                   block_size=8, num_blocks=96 if name == "two_moe_failures"
                   else 64, **case["ec"])
@@ -171,7 +218,7 @@ def pair(request, shared):
     if not weights.exists():
         shutil.copy(jdir / "weights.npz", weights)
     jeng.virtual_step_s = VIRTUAL_STEP_S
-    if name == "background":
+    if case["policy"].get("background_role_switch"):
         _repair_background_switch(jeng)
     jreqs = _serve(jeng, jcfg.vocab_size, case, jax_codes)
 
@@ -291,6 +338,16 @@ def test_case_outcome(pair):
         assert peng.expert_map.coverage() == 1.0
         assert bool(peng.runtime.expert_mask.all())
         assert all(alive) and checks == start
+    if name in COMBINED:
+        assert all(alive) and checks == start
+        assert peng.expert_map.coverage() == 1.0
+    if name == "kimi_dense_tp":     # tests/test_recovery.py:229
+        g = peng.dense_groups
+        assert g.num_healthy() == g.num_groups - 1
+        w = g.routing_weights()
+        assert abs(sum(w) - 1.0) < 1e-9 and 0.0 in w
+        assert g.alive == jeng.dense_groups.alive
+        assert any("dense-FFN TP group" in a for a in rep.actions)
     if name.startswith("mla"):
         assert peng.dense_groups.alive == jeng.dense_groups.alive
         compromised = any(a.startswith("dense-FFN TP group")
