@@ -173,10 +173,13 @@ KERNEL_META = {
 # layers keep the composed chain)
 KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
                                    "mla_megakernel", "mla_serial", "disagg",
-                                   "fleet"),
-               "moe_fused": ("composed", "mla_composed", "disagg", "fleet"),
-               "decode_megastep": ("megakernel", "mla_megakernel"),
-               "router_topk": ("megakernel", "mla_megakernel"),
+                                   "fleet", "spec", "overlap"),
+               "moe_fused": ("composed", "mla_composed", "disagg", "fleet",
+                             "spec", "overlap"),
+               "decode_megastep": ("megakernel", "mla_megakernel",
+                                   "spec_megakernel"),
+               "router_topk": ("megakernel", "mla_megakernel",
+                               "spec_megakernel"),
                "expert_ffn": ("serial", "mla_serial"),
                "flash_prefill": ("serial", "mla_serial"),
                "ssm_scan": ("ssm",)}
@@ -186,7 +189,10 @@ IMPLS = ("composed", "megakernel")
 # installs (a Mamba mixer cannot chunk); the ``mla_*`` paths deepseek-v3
 # (multi-head latent attention); the others qwen2-moe-a2.7b, ``disagg`` in
 # disaggregated mode (2 attention ranks, 2 expert ranks), ``fleet`` as a
-# fleet of such engines (``repro_torch.fleet``: 2 instances and a spare).
+# fleet of such engines (``repro_torch.fleet``: 2 instances and a spare),
+# ``spec`` and ``spec_megakernel`` with self-speculative decode (windows
+# of up to 6 rows verified in the chunk launch), ``overlap`` with the
+# overlap pipeline (step N+1 launched before step N drains).
 PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "megakernel": dict(moe_impl="fused", decode_impl="megakernel"),
          "serial": dict(admission="serial", decode_impl="composed"),
@@ -196,7 +202,13 @@ PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "ssm": dict(),
          "disagg": dict(mode="disaggregated", num_moe=2, moe_impl="fused",
                         decode_impl="composed"),
-         "fleet": dict(moe_impl="fused", decode_impl="composed")}
+         "fleet": dict(moe_impl="fused", decode_impl="composed"),
+         "spec": dict(moe_impl="fused", decode_impl="composed",
+                      spec_window=6),
+         "spec_megakernel": dict(moe_impl="fused", decode_impl="megakernel",
+                                 spec_window=6),
+         "overlap": dict(moe_impl="fused", decode_impl="composed",
+                         overlap=True)}
 QWEN_ARCH = "qwen2-moe-a2.7b"
 PATH_ARCH = {"ssm": "falcon-mamba-7b", "mla_composed": "deepseek-v3",
              "mla_megakernel": "deepseek-v3", "mla_serial": "deepseek-v3"}
@@ -1926,10 +1938,28 @@ def _prompts(vocab, seed):
     return first, later
 
 
-def _serve(torch, eng, vocab, seed, new_tokens, on_step=None):
+def _spec_prompts(vocab, seed):
+    """Four prompts, each a random 16-token pattern repeated to 128-256
+    tokens (the n-gram proposer drafts from the prompt), then four more,
+    each one of the four patterns repeated to another length (its leading
+    blocks are in the prefix cache)."""
+    rng = np.random.default_rng(seed + 1)
+    pats = [list(map(int, rng.integers(0, vocab, 16))) for _ in range(4)]
+
+    def rep(pat):
+        return (pat * 16)[:int(rng.integers(128, 257))]
+    return [rep(p) for p in pats], [rep(p) for p in pats]
+
+
+def _serve(torch, eng, vocab, seed, new_tokens, on_step=None, prompts=None,
+           sync=True):
     """Serve the 8 prompts (the later 4 after two steps) to the end;
-    ``on_step(eng)`` runs after every step."""
-    first, later = _prompts(vocab, seed)
+    ``on_step(eng)`` runs after every step.  ``prompts``: (first, later),
+    ``_prompts`` by default.  ``sync``: a ``torch.cuda.synchronize()``
+    after every step; without it, one at the end (the overlap pipeline's
+    steps must not be serialized by the measurement).  Tokens are counted
+    as committed (an overlap step's guesses are not yet)."""
+    first, later = prompts or _prompts(vocab, seed)
     reqs = [eng.submit(p, new_tokens) for p in first]
     steps = []      # (seconds, new tokens, prefill tokens, recovered)
     computed = lambda: eng.prefill_stats()[  # noqa: E731
@@ -1938,18 +1968,21 @@ def _serve(torch, eng, vocab, seed, new_tokens, on_step=None):
     def recoveries():   # a background role switch's step is one too
         return len(eng.reports) + len(eng.background_reports)
 
+    def committed():
+        return sum(len(r.committed_output) for r in eng.all_requests)
+
     def one():
-        n0 = sum(len(r.output_tokens) for r in eng.all_requests)
+        n0 = committed()
         c0 = computed()
         r0 = recoveries()
         t0 = time.perf_counter()
         eng.step()
-        torch.cuda.synchronize()
+        if sync:
+            torch.cuda.synchronize()
         if on_step is not None:
             on_step(eng)
-        steps.append((time.perf_counter() - t0,
-                      sum(len(r.output_tokens) for r in eng.all_requests)
-                      - n0, computed() - c0, recoveries() > r0))
+        steps.append((time.perf_counter() - t0, committed() - n0,
+                      computed() - c0, recoveries() > r0))
 
     t_all = time.perf_counter()
     one()
@@ -1959,6 +1992,7 @@ def _serve(torch, eng, vocab, seed, new_tokens, on_step=None):
         if not eng.unfinished:
             break
         one()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
     dec = [(s, n) for s, n, c, rec in steps if c == 0 and not rec and n]
     tok_s = sum(n for _, n in dec) / max(sum(s for s, _ in dec), 1e-9)
@@ -2006,6 +2040,9 @@ def phase_engine(torch, seed, layers, paths, profile=False):
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the "
         f"card")
     counts, rates, streams = {}, {}, {}
+    # streams a later path compares with: (path, "fault") for a faulted
+    # run's, ("spec", "plain") for the plain engine on the pattern prompts
+    kept = {}
     groups, group_of = {}, {}
     for p in paths:
         group_of[p] = (PATH_ARCH.get(p, QWEN_ARCH), PATH_LAYERS.get(p, layers))
@@ -2018,7 +2055,8 @@ def phase_engine(torch, seed, layers, paths, profile=False):
             for path in group:
                 serve = SERVE.get(path, serve_path)
                 extra = ({"reference": streams.get("composed")}
-                         if path == "fleet" else {})
+                         if path == "fleet" else
+                         {} if serve is serve_disagg else {"kept": kept})
                 path_counts, path_rates, path_streams = serve(
                     torch, cfg, path, workdir, seed, profile, **extra)
                 # what the path's closures kept alive (reference cycles
@@ -2041,7 +2079,9 @@ def phase_engine(torch, seed, layers, paths, profile=False):
     # part; the f32 model phase is where tokens must match
     for other in streams:
         base = "mla_composed" if other.startswith("mla") else "composed"
-        if (other in (base, "ssm") or base not in streams
+        # the speculation paths serve other prompts (their own print)
+        if (other in (base, "ssm", "spec", "spec_megakernel")
+                or base not in streams
                 or group_of[other] != group_of[base]):
             continue
         pairs = list(zip(streams[other], streams[base]))
@@ -2110,16 +2150,19 @@ def host_memory() -> str:
     return "host " + ", ".join(f"{k} {v:.1f} GiB" for k, v in gib.items())
 
 
-def make_engine(torch, cfg, path, workdir, seed, policy):
-    """One engine of ``path`` (2 attention ranks, bf16) in ``workdir``;
-    prints its start-up, which must write no per-rank shard file."""
+def make_engine(torch, cfg, path, workdir, seed, policy, dtype=None,
+                **over):
+    """One engine of ``path`` (2 attention ranks, bf16 unless ``dtype``)
+    in ``workdir``, its options changed by ``over``; prints its start-up,
+    which must write no per-rank shard file."""
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
     t0 = time.perf_counter()
     ec = dict(mode="collocated", num_dp=2, max_batch=8, max_seq=512,
               block_size=16, num_blocks=256, seed=seed, workdir=str(workdir),
               policy=policy)
     ec.update(PATHS[path])
-    eng = InferenceEngine(cfg, EngineConfig(**ec))
+    ec.update(over)
+    eng = InferenceEngine(cfg, EngineConfig(**ec), dtype=dtype)
     files = {str(f.relative_to(workdir)): f.stat().st_size
              for f in workdir.rglob("*") if f.is_file()}
     disk = sum(files.values())
@@ -2140,13 +2183,13 @@ def make_engine(torch, cfg, path, workdir, seed, policy):
     return eng
 
 
-def serve_path(torch, cfg, path, workdir, seed, profile):
+def serve_path(torch, cfg, path, workdir, seed, profile, kept):
     """One engine path: 8 requests without a fault, then with an L6 fault
     on physical 1 mid-step at step 6 (``attn+moe`` on an MoE model, where
     the lost experts are masked; ``attn`` on the ssm path), revived in
     place.  Returns (launch counts of the faulted run, (clean, fault)
-    rates, the clean run's output streams)."""
-    from repro_torch.core.fault_codes import Severity
+    rates, the clean run's output streams); the faulted run's streams go
+    to ``kept``."""
     from repro_torch.core.weights import RecoveryPolicy
     from repro_torch.kernels import launches
     new_tokens = 32
@@ -2171,15 +2214,36 @@ def serve_path(torch, cfg, path, workdir, seed, profile):
     torch.cuda.empty_cache()
 
     eng = make()
-    moe = cfg.moe is not None
-    eng.injector.schedule(6, 1, severity=Severity.L6,
-                          component="attn+moe" if moe else "attn",
-                          mid_step=True)
+    schedule_fault(eng, cfg)
     launches.clear()
     reqs, fault = _serve(torch, eng, cfg.vocab_size, seed, new_tokens)
     path_counts = dict(launches)
+    kept[path, "fault"] = [list(r.output_tokens) for r in reqs]
     log("  with fault: " + json.dumps(
         {k: round(v, 3) for k, v in fault.items()}))
+    used = check_revived(eng, cfg, path, reqs, path_counts)
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: path_counts[k] for k in used}, (clean, fault), streams
+
+
+def schedule_fault(eng, cfg):
+    """The L6 fault of every path's faulted run: physical 1, mid-step at
+    step 6 (``attn+moe`` on an MoE model, ``attn`` on the ssm path)."""
+    from repro_torch.core.fault_codes import Severity
+    eng.injector.schedule(6, 1, severity=Severity.L6,
+                          component="attn+moe" if cfg.moe is not None
+                          else "attn", mid_step=True)
+
+
+def check_revived(eng, cfg, path, reqs, path_counts):
+    """The checks of a run with the step-6 L6 fault on physical 1: every
+    request finished, the fault revived in place (an MoE model's lost
+    experts masked, ``moe+missing_experts``; the ssm path's ``attn``) on
+    a "precompiled" graph, the prefix cache hit where prompts chunk, and
+    every kernel of the path launched.  Returns the path's kernels."""
+    moe = cfg.moe is not None
     states = [r.state.value for r in reqs]
     if any(s != "finished" for s in states):
         raise AssertionError(f"engine {path} (fault): requests {states}")
@@ -2229,10 +2293,7 @@ def serve_path(torch, cfg, path, workdir, seed, profile):
         f"{rep.compile_source}, migrated {rep.migrated}, prefix_cache_hits "
         f"{hits}, prefill tokens {stats['prefill_tokens_computed']}, "
         f"launches {path_counts}; actions {rep.actions}")
-    del eng, reqs
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {k: path_counts[k] for k in used}, (clean, fault), streams
+    return used
 
 
 SWITCH_ACTION = re.compile(r"role switch: dp(\d+) -> moe ep-rank (\d+); "
@@ -2715,7 +2776,282 @@ def serve_fleet(torch, cfg, path, workdir, seed, profile, reference=None):
     return {k: counts[k] for k in used}, None, None
 
 
-SERVE = {"disagg": serve_disagg, "fleet": serve_fleet}
+class SpecWatch:
+    """Wraps an executor's ``compute`` to check the first partially
+    rejected speculation window: the pool rows its rejected drafts wrote
+    hold their pre-step bits after the step, and its row 0 write stands
+    (as tests/test_spec_decode.py does)."""
+
+    def __init__(self, torch, eng):
+        from repro_torch.serving.cache_ops import capture_pool_rows
+        self.torch, self.capture = torch, capture_pool_rows
+        self.checked = None
+        for ex in eng.dp_executors:
+            ex.compute = self._wrap(ex, ex.compute)
+
+    def _rows(self, ex, win):
+        bs = ex.block_size
+        table = ex.scheduler.block_tables[win.req.req_id].blocks
+        pos = range(win.start, win.start + win.length)
+        bids = np.asarray([table[p // bs] for p in pos], np.int32)
+        offs = np.asarray([p % bs for p in pos], np.int32)
+        return self.capture(ex.cache, ex.paged_axes, bids, offs)["rows"], \
+            (bids, offs)
+
+    def _wrap(self, ex, compute):
+        def run(ctx, step_no):
+            wins = ([] if self.checked is not None else
+                    [(w, w.req.num_tokens) + self._rows(ex, w)
+                     for w in ex._plan.spec])
+            out = compute(ctx, step_no)
+            for win, n0, pre, where in wins:
+                emitted = win.req.num_tokens - n0
+                if self.checked is not None or emitted >= win.length:
+                    continue
+                post = self.capture(ex.cache, ex.paged_axes, *where)["rows"]
+                row0 = False
+                for a, b in zip(pre, post):
+                    if a is None:
+                        continue
+                    if not self.torch.equal(a[:, emitted:], b[:, emitted:]):
+                        raise AssertionError(
+                            f"spec: rejected rows {emitted}..{win.length - 1}"
+                            f" of a window changed")
+                    row0 |= not self.torch.equal(a[:, 0], b[:, 0])
+                if not row0:
+                    raise AssertionError("spec: a window's row 0 write "
+                                         "did not land")
+                self.checked = (win.length, emitted)
+            return out
+        return run
+
+
+def spec_summary(eng):
+    st = eng.prefill_stats()
+    return (f"windows {st['spec_windows']}, drafts {st['spec_drafts']}, "
+            f"accepted {st['spec_accepted']}, emitted {st['spec_emitted']} "
+            f"(acceptance {st['spec_accepted'] / max(st['spec_drafts'], 1):.4f}"
+            f"), histogram {json.dumps(eng.spec_histogram())}")
+
+
+def shared_tokens(got, want):
+    """Tokens equal position by position, of those ``want`` holds."""
+    return (sum(a == b for m, c in zip(got, want) for a, b in zip(m, c)),
+            sum(len(c) for c in want))
+
+
+def serve_spec(torch, cfg, path, workdir, seed, profile, kept):
+    """The speculation paths: the 8 pattern prompts (``_spec_prompts``)
+    with windows of up to 6 rows, without a fault (the first partially
+    rejected window checked by ``SpecWatch``), and on ``spec`` also with
+    the step-6 fault, revived as every path.  Prints the windows, drafts,
+    accepted and emitted tokens and the histogram, and the tokens shared
+    with the plain composed engine on the same prompts (bf16 and another
+    row count a launch can part the streams: not checked)."""
+    from repro_torch.core.weights import RecoveryPolicy
+    from repro_torch.kernels import launches
+    new_tokens = 32
+    prompts = _spec_prompts(cfg.vocab_size, seed)
+
+    def run(p, fault=False, watch=False):
+        eng = make_engine(torch, cfg, p, workdir, seed,
+                          RecoveryPolicy(allow_role_switch=False))
+        w = SpecWatch(torch, eng) if watch else None
+        if fault:
+            schedule_fault(eng, cfg)
+        launches.clear()
+        reqs, rates = _serve(torch, eng, cfg.vocab_size, seed, new_tokens,
+                             prompts=prompts)
+        counts = dict(launches)
+        return eng, reqs, rates, counts, w
+
+    log(f"engine: path {path!r}: " + json.dumps(PATHS[path]))
+    if ("spec", "plain") not in kept:
+        eng, reqs, _, _, _ = run("composed")
+        kept["spec", "plain"] = [list(r.output_tokens) for r in reqs]
+        del eng, reqs
+        gc.collect()
+    eng, reqs, clean, counts, watch = run(path, watch=True)
+    if any(r.state.value != "finished" for r in reqs) or eng.reports:
+        raise AssertionError(f"engine {path} (no fault): not every request "
+                             f"finished")
+    st = eng.prefill_stats()
+    if st["spec_windows"] <= 0 or watch.checked is None:
+        raise AssertionError(f"engine {path}: windows {st['spec_windows']}, "
+                             f"no partially rejected window checked")
+    streams = [list(r.output_tokens) for r in reqs]
+    same, total = shared_tokens(streams, kept["spec", "plain"])
+    log(f"  no fault: {json.dumps({k: round(v, 3) for k, v in clean.items()})}"
+        f"; {spec_summary(eng)}; a window of {watch.checked[0]} rows emitted "
+        f"{watch.checked[1]}: its rejected rows hold their pre-step bits, "
+        f"its row 0 write stands; {same} of {total} tokens equal the plain "
+        f"composed run's on these prompts, position by position (bf16; not "
+        f"checked)")
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    fault = clean
+    if path == "spec":
+        eng, reqs, fault, counts, _ = run(path, fault=True)
+        log("  with fault: " + json.dumps(
+            {k: round(v, 3) for k, v in fault.items()}) + "; "
+            + spec_summary(eng))
+        check_revived(eng, cfg, path, reqs, counts)
+        del eng, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    used = [k for k, ps in KERNEL_PATH.items() if path in ps]
+    if min(counts.get(k, 0) for k in used) <= 0:
+        raise AssertionError(f"engine {path}: kernel launches {counts}")
+    return {k: counts[k] for k in used}, (clean, fault), streams
+
+
+def drop_free(cfg):
+    """``cfg`` with its MoE capacity factor raised to physical experts /
+    top-k, so that an expert's capacity equals the step's token count:
+    a token's top-k go to distinct physical slots, so no slot is offered
+    more rows than the step has, and no row drops."""
+    import dataclasses
+    m = cfg.moe
+    cf = (m.num_experts + m.num_redundant_experts) / m.top_k
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=cf))
+
+
+def serve_overlap(torch, cfg, path, workdir, seed, profile, kept):
+    """The overlap path against lockstep twins of the same options: the 8
+    prompts without a fault and with the step-6 fault (the twins' streams
+    are the composed path's, when it ran), then ``spec_window=6`` on the
+    8 pattern prompts (``_spec_prompts``): in bf16 at temperature 0.8,
+    and in f32 greedy.  Each run's streams equal its twin's bitwise.
+
+    An overlap step plans the next step's windows from the tokens it
+    guessed for the step in flight, so a row can run in another launch
+    than in lockstep (a window's chunk launch, not the decode launch).
+    The speculation runs therefore serve with a drop-free MoE capacity
+    (``drop_free``): over capacity, which rows drop depends on the launch
+    (ROADMAP Queue 3).  And a row's logits depend on its launch in their
+    last bits, which parts a bf16 stream, and a sampled one in f32 too
+    (``scripts/overlap_spec_probe.py``).  In bf16 at 0.8 the epilogue's
+    tie order replans nearly every drain (ROADMAP 1l), which rolls the
+    windows planned from guesses back; lockstep plans none on these
+    prompts (a sample breaks the pattern), so neither commits one.  The
+    f32 greedy run commits windows planned from guesses, mispredicts
+    their accept counts, reconciles, unwinds their frames newest first
+    and restores their rejected rows: it asserts windows and replans.
+    Every run is timed without the per-step synchronize, the twins too."""
+    from repro_torch.core.weights import RecoveryPolicy
+    from repro_torch.kernels import launches
+    from repro_torch.serving.sampling import SamplingParams
+    new_tokens = 32
+    hot = dict(spec_window=6,
+               sampling=SamplingParams(temperature=0.8, top_p=0.9,
+                                       seed=seed))
+
+    def run(overlap, fault=False, prompts=None, model=cfg, dtype=None,
+            **over):
+        eng = make_engine(torch, model, path, workdir, seed,
+                          RecoveryPolicy(allow_role_switch=False),
+                          dtype=dtype, overlap=overlap, **over)
+        if fault:
+            schedule_fault(eng, cfg)
+        launches.clear()
+        reqs, rates = _serve(torch, eng, cfg.vocab_size, seed, new_tokens,
+                             prompts=prompts, sync=False)
+        counts = dict(launches)
+        if any(r.state.value != "finished" for r in reqs):
+            raise AssertionError(f"engine {path}: requests "
+                                 f"{[r.state.value for r in reqs]}")
+        streams = [list(r.output_tokens) for r in reqs]
+        return eng, streams, rates, counts
+
+    def same(what, got, want):
+        if got != want:
+            a, b = shared_tokens(got, want)
+            raise AssertionError(f"engine {path} ({what}): overlap streams "
+                                 f"differ from lockstep ({a} of {b} equal)")
+
+    def rounded(rates):
+        return json.dumps({k: round(v, 3) for k, v in rates.items()})
+
+    def stats(eng, rates):
+        st = eng.overlap_stats()
+        if st["planned_ahead"] <= 0:
+            raise AssertionError(f"engine {path}: overlap_stats {st}")
+        return (rounded(rates) + f"; overlap_stats {json.dumps(st)}, "
+                f"host_gap_fraction {eng.host_gap_fraction():.4f}")
+
+    def versus(what, ovl, lock):
+        log(f"  {what}: overlap decode tokens/s {ovl['decode_tok_s']:.3f} "
+            f"against the lockstep twin's {lock['decode_tok_s']:.3f}; "
+            f"end-to-end {ovl['e2e_tok_s']:.3f} against "
+            f"{lock['e2e_tok_s']:.3f} (both timed without the per-step "
+            f"synchronize)")
+
+    log(f"engine: path {path!r}: " + json.dumps(PATHS[path]))
+    eng, lock, lock_rates, _ = run(False)
+    log(f"  lockstep twin, no fault: {rounded(lock_rates)}; "
+        f"host_gap_fraction {eng.host_gap_fraction():.4f}")
+    if ("composed", "fault") in kept:
+        want_fault = kept["composed", "fault"]
+    else:
+        del eng
+        gc.collect()
+        eng, want_fault, _, _ = run(False, fault=True)
+    del eng
+    gc.collect()
+    eng, streams, clean, _ = run(True)
+    same("no fault", streams, lock)
+    log("  overlap, no fault: " + stats(eng, clean))
+    del eng
+    gc.collect()
+    eng, got, fault, counts = run(True, fault=True)
+    same("fault", got, want_fault)
+    reqs = [r for r in eng.all_requests]
+    log("  overlap, with fault: " + stats(eng, fault))
+    used = check_revived(eng, cfg, path, reqs, counts)
+    del eng, reqs
+    gc.collect()
+    free = drop_free(cfg)
+    log(f"  spec_window 6 on the pattern prompts, every engine with MoE "
+        f"capacity_factor {free.moe.capacity_factor} (physical experts / "
+        f"top-k: an expert's capacity is the step's token count, no row "
+        f"drops; {cfg.moe.capacity_factor} elsewhere)")
+    spec_prompts = _spec_prompts(cfg.vocab_size, seed)
+    spec_rates = {}
+    for what, dtype, over in (
+            ("bf16 at temperature 0.8", None, hot),
+            ("f32 greedy", torch.float32, dict(spec_window=6))):
+        eng, want, lock_spec, _ = run(False, prompts=spec_prompts,
+                                      model=free, dtype=dtype, **over)
+        log(f"  lockstep twin, spec_window 6, {what}: {rounded(lock_spec)}"
+            f"; {spec_summary(eng)}")
+        del eng
+        gc.collect()
+        eng, got, ovl_spec, _ = run(True, prompts=spec_prompts, model=free,
+                                    dtype=dtype, **over)
+        same(f"spec, {what}", got, want)
+        st = eng.overlap_stats()
+        pst = eng.prefill_stats()
+        if st["replans"] <= 0 or (dtype is not None and not
+                                  0 < pst["spec_accepted"]
+                                  < pst["spec_drafts"]):
+            raise AssertionError(f"engine {path} (spec, {what}): "
+                                 f"{spec_summary(eng)}; overlap_stats {st}")
+        log(f"  overlap, spec_window 6, {what}: " + stats(eng, ovl_spec)
+            + "; " + spec_summary(eng))
+        spec_rates[what] = (ovl_spec, lock_spec)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    versus("no fault", clean, lock_rates)
+    for what, (ovl_spec, lock_spec) in spec_rates.items():
+        versus(f"spec_window 6, {what}", ovl_spec, lock_spec)
+    return {k: counts[k] for k in used}, (clean, fault), streams
+
+
+SERVE = {"disagg": serve_disagg, "fleet": serve_fleet, "spec": serve_spec,
+         "spec_megakernel": serve_spec, "overlap": serve_overlap}
 
 
 # -- main ---------------------------------------------------------------------------

@@ -591,6 +591,7 @@ struct Ptrs {
   int *sel, *tok_idx, *slot_of;
   float *wsel, *wgt;
   unsigned char* ws;
+  int* took_latent;   // may be null: the attention stage's kernel choice
 };
 
 #define CHECK(call)                       \
@@ -653,7 +654,7 @@ cudaError_t chain(const Ptrs& P, const Dims& d, float eps, cudaStream_t st) {
   // 1. attention -> o (B, H * Da) in T
   CHECK(paged::launch<T>(P.q, P.k_pool, P.v_pool, P.tables, P.seq_lens,
                          P.start_lens, o, P.ws + L.attn, d.B, d.H, d.Hkv,
-                         d.Da, d.bs, d.max_blk, st));
+                         d.Da, d.bs, d.max_blk, st, P.took_latent));
   // 2. o @ w_post
   Gemm g{};
   if constexpr (kTc) {
@@ -798,8 +799,9 @@ long long decode_megastep_smem_bytes(int B, int D, int cap) {
 // h2 (B, D); the route (sel (B, k) i32, wsel (B, k) f32) and slot tables
 // (tok_idx (E, cap) i32, wgt (E, cap) f32, slot_of (B, k) i32) are kept for
 // inspection.  ws: decode_megastep_workspace_bytes.  dtype 0 = f32,
-// 1 = bf16 for every floating input and output.  Returns the first
-// cudaError_t of the chain (0 = all launched).
+// 1 = bf16 for every floating input and output.  took_latent (may be
+// null): set to 1 when the attention stage runs latent_kernel, else 0.
+// Returns the first cudaError_t of the chain (0 = all launched).
 int decode_megastep(const void* q, const void* k_pool, const void* v_pool,
                     const void* tables, const void* seq_lens,
                     const void* start_lens, const void* x,
@@ -812,7 +814,7 @@ int decode_megastep(const void* q, const void* k_pool, const void* v_pool,
                     void* ws, int B, int H, int Hkv, int Da, int bs,
                     int max_blk, int D, int E_log, int max_rep, int E, int F,
                     int Fs, int cap, int k, float eps, int dtype,
-                    void* stream) {
+                    void* stream, int* took_latent) {
   Ptrs P{};
   P.q = q, P.k_pool = k_pool, P.v_pool = v_pool, P.x = x, P.w_post = w_post;
   P.ln2 = ln2, P.router = router, P.gate = gate, P.up = up, P.down = down;
@@ -831,6 +833,7 @@ int decode_megastep(const void* q, const void* k_pool, const void* v_pool,
   P.wgt = static_cast<float*>(wgt);
   P.slot_of = static_cast<int*>(slot_of);
   P.ws = static_cast<unsigned char*>(ws);
+  P.took_latent = took_latent;
   const Dims d{B, H, Hkv, Da, bs, max_blk, D, E_log, max_rep, E, F,
                sgate != nullptr ? Fs : 0, cap, k};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

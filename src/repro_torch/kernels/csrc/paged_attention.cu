@@ -15,13 +15,14 @@ long long paged_attention_scratch_bytes(int B, int H, int Dh, int bs,
 // q (B, H, Dh); k_pool / v_pool (nb, bs, Hkv, Dh); tables (B, max_blk) i32;
 // seq_lens (B,) i32; start_lens (B,) i32 or null; out (B, H, Dh); scratch:
 // paged_attention_scratch_bytes, or null where that is 0.
-// dtype: 0 = f32, 1 = bf16 (q, pools and out share it).
+// dtype: 0 = f32, 1 = bf16 (q, pools and out share it).  took_latent (may
+// be null): set to 1 when the launch runs latent_kernel, else 0.
 // Returns the first launch's cudaError_t (0 = launched).
 int paged_attention(const void* q, const void* k_pool, const void* v_pool,
                     const void* tables, const void* seq_lens,
                     const void* start_lens, void* out, void* scratch, int B,
                     int H, int Hkv, int Dh, int bs, int max_blk, int dtype,
-                    void* stream) {
+                    void* stream, int* took_latent) {
   const int* tb = static_cast<const int*>(tables);
   const int* sl = static_cast<const int*>(seq_lens);
   const int* st = static_cast<const int*>(start_lens);
@@ -30,9 +31,9 @@ int paged_attention(const void* q, const void* k_pool, const void* v_pool,
       dtype == 1
           ? paged::launch<__nv_bfloat16>(q, k_pool, v_pool, tb, sl, st, out,
                                          scratch, B, H, Hkv, Dh, bs, max_blk,
-                                         s)
+                                         s, took_latent)
           : paged::launch<float>(q, k_pool, v_pool, tb, sl, st, out, scratch,
-                                 B, H, Hkv, Dh, bs, max_blk, s);
+                                 B, H, Hkv, Dh, bs, max_blk, s, took_latent);
   return (int)err;
 }
 

@@ -1024,12 +1024,14 @@ cudaError_t launch_gt(const T* q, const T* k_pool, const T* v_pool,
 
 // Enqueue the split kernel and, with more than one split, the merge: out
 // (B, H, Dh) in T.  start_lens may be null; part holds scratch_bytes.
+// took_latent, where not null, is set to 1 when the launch runs
+// latent_kernel and to 0 otherwise (the wrapper counts it).
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const int* tables, const int* seq_lens,
                    const int* start_lens, void* out, void* part, int B, int H,
-                   int Hkv, int Dh, int bs, int max_blk,
-                   cudaStream_t stream) {
+                   int Hkv, int Dh, int bs, int max_blk, cudaStream_t stream,
+                   int* took_latent = nullptr) {
   if (Dh < 1 || Dh > kMaxWideDh || Hkv < 1 || H % Hkv)
     return cudaErrorInvalidValue;
   const int ns = n_splits(bs, max_blk, Dh);
@@ -1047,6 +1049,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                       Dh == kLatDh && G % kLatHeads == 0;
   if (latent && !(al(q) && al(k_pool) && al(out)))
     return cudaErrorMisalignedAddress;
+  if (took_latent != nullptr) *took_latent = latent ? 1 : 0;
   const int gt = latent               ? kLatHeads
                  : G == 1 && !wide    ? 1
                  : G == 2 && !wide    ? 2

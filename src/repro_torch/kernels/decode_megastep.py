@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import build, launches
 from repro_torch.kernels.moe_fused import moe_fused_plain
 from repro_torch.kernels.paged_attention import (MAX_HEAD_DIM,
+                                                 count_latent,
                                                  paged_attention_plain,
                                                  takes_latent_kernel)
 from repro_torch.kernels.router_topk import router_topk_plain
@@ -33,7 +34,8 @@ from repro_torch.models.layers import rms_norm
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
-    "decode_megastep": ([_VP] * 28 + [_CI] * 14 + [ctypes.c_float, _CI, _VP],
+    "decode_megastep": ([_VP] * 28 + [_CI] * 14
+                        + [ctypes.c_float, _CI, _VP, ctypes.POINTER(_CI)],
                         _CI),
     "decode_megastep_workspace_bytes": ([_CI] * 14, ctypes.c_longlong),
     "decode_megastep_smem_bytes": ([_CI] * 3, ctypes.c_longlong),
@@ -167,6 +169,7 @@ def decode_megastep_cuda(q, k_pool, v_pool, block_table, seq_lens,
         dtype=torch.uint8, device=dev)
     if B:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        took_latent = _CI(0)
         err = lib.decode_megastep(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), seq_lens.data_ptr(), ptr(start_lens),
@@ -179,10 +182,12 @@ def decode_megastep_cuda(q, k_pool, v_pool, block_table, seq_lens,
             route["tok_idx"].data_ptr(), route["wgt"].data_ptr(),
             route["slot_of"].data_ptr(), ws.data_ptr(), B, H, Hkv, Da, bs,
             max_blk, D, E_log, R, E, Fd, Fs, cap, top_k, eps, code,
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.byref(took_latent))
         if err != 0:
             raise RuntimeError(f"decode_megastep launch failed: cudaError "
                                f"{err}")
         launches["decode_megastep"] += 1
         launches["router_topk"] += 1      # its route stage
+        count_latent(took_latent)         # its attention stage's kernel
     return (y, h2, route) if return_route else (y, h2)

@@ -24,13 +24,17 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 768         # the wide kernel: 3 chunks of 8 a lane
 LATENT_HEAD_DIM = 576      # the tensor-core latent kernel's head width
 LATENT_HEADS = 64          # query heads a CTA of it holds
+# the launch count of calls (standalone or the megastep's attention stage)
+# whose attention ran the tensor-core latent kernel
+LATENT = "paged_attention.latent_kernel"
 
 
 def takes_latent_kernel(q, k_pool, v_pool) -> bool:
     """Whether a CUDA launch on these operands runs the tensor-core latent
     kernel, by the layout alone, as ``paged::launch`` in
     ``csrc/paged_attention.cuh`` decides (the card tests hold the two
-    together by the kernel each launch runs): bf16, one pool as K and V,
+    together by ``launches[LATENT]``, which counts the choice each launch
+    reports): bf16, one pool as K and V,
     Dh = 576, G a multiple of 64.  Such a launch whose q, pool or output
     is not 16-byte aligned fails; it never falls back.  That kernel rounds
     the probabilities to bf16 before P V; the others keep them in f32."""
@@ -69,7 +73,8 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, seq_lens,
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
-    "paged_attention": ([_VP] * 8 + [_CI] * 7 + [_VP], _CI),
+    "paged_attention": ([_VP] * 8 + [_CI] * 7 + [_VP,
+                                                 ctypes.POINTER(_CI)], _CI),
     "paged_attention_scratch_bytes": ([_CI] * 5, ctypes.c_longlong),
 }
 
@@ -106,14 +111,23 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens,
     nbytes = lib.paged_attention_scratch_bytes(B, H, Dh, bs, max_blk)
     scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
                if nbytes else None)
+    took_latent = _CI(0)
     err = lib.paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), seq_lens.data_ptr(),
         None if start_lens is None else start_lens.data_ptr(),
         out.data_ptr(), None if scratch is None else scratch.data_ptr(),
         B, H, Hkv, Dh, bs, max_blk, build.DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(took_latent))
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {err}")
     launches["paged_attention"] += 1
+    count_latent(took_latent)
     return out
+
+
+def count_latent(took_latent) -> None:
+    """Count a launch whose attention ran ``latent_kernel``, as the C call
+    reported it (``launches[LATENT]``, beside the op's own count)."""
+    if took_latent.value:
+        launches[LATENT] += 1

@@ -38,8 +38,10 @@ def rope_sincos(positions: torch.Tensor, dim: int, theta: float):
     assert dim % 2 == 0, dim
     exponent = torch.arange(0, dim, 2, dtype=torch.float32,
                             device=positions.device) / dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                            device=positions.device),
+    # the base is filled on the device: a tensor made from host data
+    # would be copied there, and that copy waits on the stream
+    inv_freq = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                          device=positions.device),
                                exponent)
     angles = positions.float()[..., None] * inv_freq
     return torch.sin(angles), torch.cos(angles)

@@ -1,4 +1,4 @@
-"""Structural operations on the paged serving cache (lockstep path).
+"""Structural operations on the paged serving cache.
 
 The cache is a nested dict whose attention leaves are block pools with
 *no* batch axis (requests own physical blocks through block tables);
@@ -11,6 +11,11 @@ Where ``repro.serving.cache_ops`` returns updated arrays (JAX donates the
 pool buffers), these helpers update the pools **in place** and return the
 same cache.  So the §3.3 row capture clones the rows it gathers: capture,
 then step, then restore is bit-exact.
+
+The helpers that take host index arrays accept an ``upload`` callable
+(``staging.upload`` on the pool's device) that stages them through
+pinned memory without waiting on the device; without one they are
+copied as plain tensors.
 
 KV-block streaming (§3.2, §3.4's role switch) gathers one request's
 blocks and slot state with :func:`gather_request_blocks` and installs
@@ -62,19 +67,36 @@ def _index(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.int64), device=device)
 
 
-def copy_block_prefixes(cache, axes_leaves: List[Optional[int]], copies):
+def _indices(device, upload, *arrays) -> List[torch.Tensor]:
+    """Host index arrays as int64 tensors on ``device``: staged through
+    ``upload`` in one copy where given."""
+    arrays = [np.asarray(a, np.int64) for a in arrays]
+    if upload is not None:
+        return upload(*arrays)
+    return [_index(a, device) for a in arrays]
+
+
+def _pool_device(cache, axes_leaves):
+    return next((c.device for c, ax in zip(cache_leaves(cache), axes_leaves)
+                 if ax is None), None)
+
+
+def copy_block_prefixes(cache, axes_leaves: List[Optional[int]], copies,
+                        upload=None):
     """Copy the first ``n`` rows of source pool blocks into destination
     blocks, in place — the device half of prefix-cache copy-on-write.
     ``copies``: [(src_bid, dst_bid, n_tokens)]; all copies of a step go
     in one gather/scatter per pool leaf.  Per-slot state is untouched."""
-    if not copies:
+    dev = _pool_device(cache, axes_leaves)
+    if not copies or dev is None:
         return cache
-    src = np.concatenate([np.full((n,), s) for s, _, n in copies])
-    dst = np.concatenate([np.full((n,), d) for _, d, n in copies])
-    off = np.concatenate([np.arange(n) for _, _, n in copies])
+    s, d, o = _indices(
+        dev, upload,
+        np.concatenate([np.full((n,), src) for src, _, n in copies]),
+        np.concatenate([np.full((n,), dst) for _, dst, n in copies]),
+        np.concatenate([np.arange(n) for _, _, n in copies]))
     for c, ax in zip(cache_leaves(cache), axes_leaves):
         if ax is None:
-            s, d, o = (_index(a, c.device) for a in (src, dst, off))
             c[:, d, o] = c[:, s, o]
     return cache
 
@@ -112,7 +134,7 @@ def install_prefill(cache, raw, axes_leaves: List[Optional[int]],
 
 
 def capture_pool_rows(cache, axes_leaves: List[Optional[int]], bids,
-                      offs) -> Dict[str, Any]:
+                      offs, upload=None) -> Dict[str, Any]:
     """Gather (a copy of) the step's pool write set before the step
     overwrites it in place.  ``bids``/``offs`` (NR,) address every
     (block, offset) row the planned step writes; per-slot state leaves
@@ -120,11 +142,10 @@ def capture_pool_rows(cache, axes_leaves: List[Optional[int]], bids,
     :func:`restore_pool_rows`."""
     rows: List[Any] = []
     state: List[Any] = []
-    idx = None
+    dev = _pool_device(cache, axes_leaves)
+    idx = None if dev is None else tuple(_indices(dev, upload, bids, offs))
     for c, ax in zip(cache_leaves(cache), axes_leaves):
         if ax is None:
-            if idx is None:
-                idx = (_index(bids, c.device), _index(offs, c.device))
             rows.append(c[:, idx[0], idx[1]])    # advanced index: a copy
             state.append(None)
         else:
@@ -143,6 +164,25 @@ def restore_pool_rows(cache, axes_leaves: List[Optional[int]], undo):
             c[:, undo["idx"][0], undo["idx"][1]] = row
         else:
             c.copy_(st)
+    return cache
+
+
+def restore_pool_rows_subset(cache, axes_leaves: List[Optional[int]],
+                             undo, idx, upload=None):
+    """Scatter back, in place, only the captured rows selected by ``idx``
+    (indices into the undo payload's row axis) — the rejected-draft half
+    of a speculation window rolls back while the rest of the step's
+    writes stand.  State leaves are untouched: speculative decode only
+    runs on attention-only models, whose chunk steps write pools
+    exclusively."""
+    dev = _pool_device(cache, axes_leaves)
+    if dev is None:
+        return cache
+    (sel,) = _indices(dev, upload, idx)
+    bids, offs = undo["idx"][0][sel], undo["idx"][1][sel]
+    for c, ax, row in zip(cache_leaves(cache), axes_leaves, undo["rows"]):
+        if ax is None:
+            c[:, bids, offs] = row[:, sel]
     return cache
 
 

@@ -5,9 +5,8 @@ owning physically separate state (expert shards, KV caches, block
 tables), so injected hardware failures destroy real state and recovery
 manipulates real data structures and real weight files.
 
-This is ``repro.serving.engine.InferenceEngine`` in lockstep, with
-chunked admission or serial whole-prompt prefills, in both deployment
-modes (§2.2):
+This is ``repro.serving.engine.InferenceEngine``, with chunked admission
+or serial whole-prompt prefills, in both deployment modes (§2.2):
 
 * ``collocated``    — every device hosts attention plus an EP expert shard.
 * ``disaggregated`` — DPExecutors (attention) and MoEExecutors (experts)
@@ -32,9 +31,14 @@ bank) and ``full_reinit`` (the restart baseline: the process's weights,
 pools and executors released, then everything rebuilt from
 ``weights.npz``, the graph cache and fault injector kept).
 
-``EngineConfig`` keeps every field and every check of the JAX package's;
-options of later slices raise ``NotImplementedError`` naming their
-ROADMAP item.
+Self-speculative decode (``spec_window > 1``: n-gram drafts verified in
+the chunk launch, ``spec_histogram``) and the overlap pipeline
+(``overlap=True``: step N+1 planned and launched before step N drains,
+``overlap_stats`` and ``host_gap_fraction``) run on the collocated
+engine with chunked admission; a model that cannot chunk (Mamba) steps
+in lockstep whatever ``overlap`` says, as in the JAX package.
+
+``EngineConfig`` keeps every field and every check of the JAX package's.
 """
 from __future__ import annotations
 
@@ -241,20 +245,6 @@ class EngineConfig:
                 "and cannot be planned ahead")
 
 
-def check_ported(ec: EngineConfig) -> None:
-    """Raise on the options whose slice of the port has not landed."""
-    unported = [
-        (ec.overlap, "overlap=True",
-         "Queue 1 item 7: the overlap pipeline"),
-        (ec.spec_window > 1, f"spec_window={ec.spec_window}",
-         "Queue 1 item 7: speculation"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"EngineConfig {what} is not ported yet (ROADMAP {item})")
-
-
 @dataclass
 class InstanceHealth:
     """Engine health surface consumed by the fleet control plane."""
@@ -286,7 +276,6 @@ class InferenceEngine:
         if cfg.moe is None:
             # no expert ranks: disaggregated degenerates to collocated
             self.ecfg.mode = "collocated"
-        check_ported(self.ecfg)
         if self.ecfg.moe_impl is not None and cfg.moe is not None:
             cfg = dataclasses.replace(cfg, moe_impl=self.ecfg.moe_impl)
         if self.ecfg.decode_impl is not None:
@@ -313,6 +302,10 @@ class InferenceEngine:
         # campaign determinism hook: a fixed virtual step duration for
         # straggler detection instead of the wall clock
         self.virtual_step_s: Optional[float] = None
+        # wall-clock spent inside executor step calls (summed across
+        # ranks, both lockstep and overlap paths) — the denominator of
+        # ``host_gap_fraction``; the numerator lives on the executors
+        self.perf: Dict[str, float] = {"wall_s": 0.0}
         self._build(first_time=True)
 
     # -- construction / reinitialization ------------------------------------------
@@ -431,7 +424,8 @@ class InferenceEngine:
             token_budget=(ec.token_budget if ec.token_budget is not None
                           else ec.max_batch + ec.prefill_chunk),
             prefix_cache=ec.prefix_cache,
-            pool_undo=ec.pool_undo)
+            pool_undo=ec.pool_undo,
+            spec_window=ec.spec_window)
 
     def _precompile_failure_graphs(self) -> None:
         """§3.6: the post-failure domain version's steps, ready before any
@@ -456,6 +450,12 @@ class InferenceEngine:
     def _chunking(self) -> bool:
         return (self.ecfg.admission == "chunked"
                 and self.model.supports_chunked_prefill)
+
+    @property
+    def _overlap_active(self) -> bool:
+        # recurrent-prefill models fall back to lockstep (they cannot
+        # chunk, so plan-ahead would have to predict whole prefills)
+        return self.ecfg.overlap and self._chunking
 
     def get_compiled(self, phase: str, bucket: Optional[int] = None):
         # the install scatter has no collectives: it is domain-version
@@ -563,6 +563,12 @@ class InferenceEngine:
         out = []
         for ex in self.dp_executors:
             payloads = {}
+            # pipeline quiesce before the export: the in-flight step's
+            # readback already landed, so its outcome commits; leftover
+            # speculative overlays must not leak into migration prompts,
+            # even from dead executors (rollback is cache-None-safe)
+            if ex._inflight is not None:
+                ex.flush(None)
             if ex.has_uncommitted():
                 ex.rollback_inflight()
             if with_kv and ex.alive and ex.cache is not None:
@@ -661,9 +667,21 @@ class InferenceEngine:
                 + ex.block_manager.cache_evictions)
         return out
 
+    def spec_histogram(self) -> Dict[int, int]:
+        """Speculation-window width histogram ({planned rows: count})
+        aggregated across attention ranks — the spec-efficiency surface
+        the benchmarks record next to accepted tokens/step."""
+        out: Dict[int, int] = {}
+        for ex in self.dp_executors:
+            for g, n in ex.scheduler.spec_hist.items():
+                out[g] = out.get(g, 0) + n
+        return out
+
     # -- main loop --------------------------------------------------------------------
 
     def step(self) -> List[Request]:
+        if self._overlap_active:
+            return self._step_overlap()
         self.step_no += 1
         # finish deferred role switches (§4.3): service already resumed,
         # so these timings are not downtime
@@ -706,6 +724,7 @@ class InferenceEngine:
             n_timings = len(self.graph_cache.timings)
             finished.extend(ex.compute(ctx, self.step_no))
             ex.commit()
+            self.perf["wall_s"] += time.perf_counter() - t0
             # a step that built a graph (its first lookup of a key) is no
             # sample of the device's pace, as repro drops compile steps
             if self.graph_cache.fresh_since(n_timings):
@@ -719,6 +738,116 @@ class InferenceEngine:
             self._handle(ev)
         self._beat_survivors()
         return finished
+
+    def _step_overlap(self) -> List[Request]:
+        """Pipelined step: each executor plans+launches step N against
+        the predicted post-(N-1) state, then drains step N-1 (whose
+        readback landed while N's plan was being built on the host).
+        Fault handling is strictly *before* any executor work and always
+        quiesces the pipeline first — flush the in-flight step (its
+        readback predates the fault), roll back anything else — so
+        recovery, and the migration/replay machinery behind it, sees
+        exactly the state lockstep would have committed."""
+        self.step_no += 1
+        while self.pending_switches:
+            plan = self.pending_switches.pop(0)
+            self.background_reports.append(
+                self.recovery.complete_background_switch(plan))
+        self.injector.pre_step_faults(self.step_no)
+        events = list(self.poller.poll()) + list(
+            self.monitor.check(self.step_no))
+        finished: List[Request] = []
+        if events:
+            finished.extend(self._quiesce_inflight())
+            for ev in events:
+                self._handle(ev)
+
+        # mid-step faults fire while the previous step's collective is
+        # still in flight — the canonical §3.3 scenario the pipeline
+        # must survive: the already-drained-readback step commits, the
+        # faulted step's partial work rolls back, and replay regenerates
+        # everything after the commit point bit-identically
+        hit = False
+        alive_dp = [ex for ex in self.dp_executors
+                    if ex.alive and ex.cache is not None]
+        for ex in alive_dp + [m for m in self.moe_executors
+                              if m.device_alive]:
+            try:
+                self.injector.maybe_fail_mid_step(self.step_no,
+                                                  ex.physical_id)
+            except SimulatedDeviceFailure:
+                ex.fail_device()
+                hit = True
+        if hit:
+            finished.extend(self._quiesce_inflight())
+            for ev in self.poller.poll():
+                self._handle(ev)
+            return finished
+
+        ctx = _Ctx(self)
+        for ex in self.dp_executors:
+            if not (ex.alive and ex.cache is not None):
+                continue
+            if not (ex.scheduler.num_requests or ex._inflight is not None):
+                continue
+            t0 = time.perf_counter()
+            n_timings = len(self.graph_cache.timings)
+            finished.extend(ex.overlap_step(ctx, self.step_no))
+            self.perf["wall_s"] += time.perf_counter() - t0
+            # as in lockstep: a step that looked a graph up fresh is no
+            # sample of the device's pace
+            if self.graph_cache.fresh_since(n_timings):
+                continue
+            base = (self.virtual_step_s if self.virtual_step_s is not None
+                    else time.perf_counter() - t0)
+            self.straggler.record(ex.physical_id,
+                                  base + ex.simulated_slowdown_s)
+        self.soft_signals = self.straggler.suspects()
+        events = list(self.straggler.check())
+        if events:
+            finished.extend(self._quiesce_inflight())
+            for ev in events:
+                self._handle(ev)
+        self._beat_survivors()
+        return finished
+
+    def _quiesce_inflight(self) -> List[Request]:
+        """Retire the pipeline before recovery or migration reads
+        request/table state.  The in-flight step launched a full engine
+        step before the fault fired, so its readback was already on the
+        wire — flush commits its authoritative outcome through the
+        normal drain path, exactly the step lockstep had already
+        committed synchronously (this is what keeps fault-path token
+        streams bit-identical to lockstep).  Anything still uncommitted
+        afterwards rolls back via §3.3.  Runs on *all* DP executors — a
+        FAILED executor's pending outcome still commits (its readback
+        preceded the fault), and its overlays must never leak into the
+        migration replay prompt (rollback is cache-None-safe)."""
+        finished: List[Request] = []
+        for ex in self.dp_executors:
+            if ex._inflight is not None:
+                finished.extend(ex.flush(None))
+            if ex.has_uncommitted():
+                ex.rollback_inflight()
+        return finished
+
+    def host_gap_fraction(self) -> float:
+        """Fraction of executor-step wall time the device spent idle
+        waiting on host work (planning, sampling, readback).  The
+        overlap pipeline exists to drive this toward zero."""
+        wall = self.perf["wall_s"]
+        if wall <= 0.0:
+            return 0.0
+        busy = sum(ex.perf["device_busy_s"] for ex in self.dp_executors)
+        return max(0.0, 1.0 - busy / wall)
+
+    def overlap_stats(self) -> Dict[str, int]:
+        """Aggregated pipeline counters across attention ranks."""
+        out = {"steps": 0, "planned_ahead": 0, "replans": 0, "drains": 0}
+        for ex in self.dp_executors:
+            for k, v in ex.overlap_stats.items():
+                out[k] = out.get(k, 0) + v
+        return out
 
     def run(self, max_steps: int = 1000) -> List[Request]:
         done: List[Request] = []
@@ -915,6 +1044,12 @@ class InferenceEngine:
         included: their token ids live in host memory) are requeued."""
         in_flight = []
         for ex in self.dp_executors:
+            # dead executors included: their requests' token ids survive
+            # in host memory and are requeued after the rebuild — the
+            # in-flight step's readback landed (commit it), minus any
+            # speculative overlay still riding on the requests
+            if ex._inflight is not None:
+                ex.flush(None)
             if ex.has_uncommitted():
                 ex.rollback_inflight()
             in_flight.extend(ex.scheduler.drain())

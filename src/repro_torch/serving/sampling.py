@@ -1,13 +1,16 @@
-"""Token sampling: greedy / temperature / top-p, host-side.
+"""Token sampling: greedy / temperature / top-p.
 
 The host sampler of ``repro.serving.sampling`` (``sample`` and its
-position-seeded uniforms), copied; the device-side predictive sampler of
-the overlap pipeline comes with that slice."""
+position-seeded uniforms) and the accept/reject of self-speculative
+decode (``spec_verify``), copied; ``device_predict`` is the overlap
+pipeline's sampling epilogue on the engine's device, as plain functions
+on tensors."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -178,3 +181,105 @@ def sample(logits: np.ndarray, params: SamplingParams,
     idx = np.minimum((cdf < u[:, None]).sum(axis=-1), logits.shape[-1] - 1)
     return np.take_along_axis(order, idx[:, None], axis=-1)[:, 0].astype(
         np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Device-side predictive sampling (the overlap pipeline's readback).
+#
+# The overlapped executor does not wait for a step's logits before it
+# launches the next: an epilogue on the device samples every window's
+# tokens with the same math as `sample` (greedy argmax, or the seeded
+# top-p inverse CDF in f32 against uniforms `seeded_uniforms` computed on
+# the host), chains the chosen last tokens into a device-resident
+# next-token vector, and its token ids come back with the logits.
+# Greedy prediction is exact (argmax keeps the first maximum on both
+# sides); at temperature > 0 the f32 CDF may part from the host's
+# f64 one in its last ulp.  The host sampler re-derives every token from
+# the drained logits and stays authoritative, so a disagreement costs a
+# replan, never a wrong token.
+# ---------------------------------------------------------------------------
+
+
+def device_predict(logits: torch.Tensor, row0: torch.Tensor,
+                   lens: torch.Tensor, drafts: torch.Tensor,
+                   u: torch.Tensor, dev_last: torch.Tensor,
+                   slots: torch.Tensor, *, temperature: float,
+                   top_p: float):
+    """Sample all windows of one step's logits on their device.
+
+    logits: (R, V).  Per window i (of S, padded): ``row0[i]`` its first
+    logits row, ``lens[i]`` rows used (0 = padding), ``drafts[i]`` (G,)
+    the tokens forwarded (entry 0 unused), ``u[i]`` (G,) f32 uniforms,
+    ``slots[i]`` its decode batch slot (out of range = dropped); every
+    index int32 on ``logits``' device.  Returns ``(targets (S, G),
+    accepted (S,), new_dev_last)``: each row's sampled token, the number
+    of drafts matched, and a copy of ``dev_last`` with each window's
+    emitted last token scattered in.  Nothing waits on the device."""
+    dev = logits.device
+    G = drafts.shape[1]
+    idx = (row0.long()[:, None]
+           + torch.arange(G, device=dev)[None, :]).clamp(
+               0, logits.shape[0] - 1)
+    rows = logits[idx].float()                      # (S, G, V)
+    if temperature <= 0.0:
+        targets = rows.argmax(dim=-1).int()
+    else:
+        z = rows / temperature
+        z = z - z.amax(dim=-1, keepdim=True)
+        p = torch.exp(z)
+        p = p / p.sum(dim=-1, keepdim=True)
+        # descending, ties by index: jnp.argsort(-p) is stable too
+        sp, order = torch.sort(p, dim=-1, descending=True, stable=True)
+        if top_p < 1.0:
+            csum = sp.cumsum(dim=-1)
+            sp = torch.where(csum - sp > top_p, torch.zeros_like(sp), sp)
+            sp = sp / sp.sum(dim=-1, keepdim=True)
+        cdf = sp.cumsum(dim=-1)
+        k = (cdf < u[..., None]).sum(dim=-1).clamp(max=rows.shape[-1] - 1)
+        targets = order.gather(-1, k[..., None])[..., 0].int()
+    lens = lens.int()
+    if G > 1:
+        ok = targets[:, :-1] == drafts[:, 1:]
+        live = (torch.arange(1, G, device=dev)[None, :] < lens[:, None])
+        accepted = torch.cumprod((ok & live).int(), dim=1).sum(dim=1).int()
+    else:
+        accepted = torch.zeros_like(lens)
+    accepted = torch.minimum(accepted, (lens - 1).clamp(min=0))
+    last = targets.gather(1, accepted.long()[:, None])[:, 0]
+    # a scatter into one spare entry past the end drops padding rows and
+    # slots out of range (jnp's mode="drop"), with no host round trip
+    n = dev_last.shape[0]
+    safe = torch.where((lens > 0) & (slots < n), slots.long(), n)
+    ext = torch.cat([dev_last.int(), dev_last.new_zeros(1, dtype=torch.int32)])
+    ext.scatter_(0, safe, last)
+    return targets, accepted, ext[:n]
+
+
+def spec_verify(logits: np.ndarray, drafts, params: SamplingParams, *,
+                start_step: int):
+    """Deterministic accept/reject for self-speculative decode.
+
+    ``logits`` (g, V) are the verifier's outputs for one speculation
+    window: row r holds the logits for sequence position
+    ``start_step + r`` (row 0 re-forwarded the last committed token;
+    rows 1..g-1 forwarded ``drafts``).  Each row is sampled with the
+    *same* seeded sampler a non-speculative decode step would use at
+    that position, and a draft is accepted iff it equals the sampled
+    target exactly — so the emitted stream is token-identical to plain
+    decode, whatever the temperature.  Rows past the first mismatch
+    conditioned on rejected drafts and are discarded.
+
+    Returns ``(tokens, accepted)``: the emitted token ids (1 + accepted
+    drafts; the final entry is the verifier's "bonus" token, fresh for
+    the first rejected position or appended after a fully-accepted
+    window) and the number of drafts accepted.
+    """
+    g = logits.shape[0]
+    steps = start_step + np.arange(g, dtype=np.int64)
+    targets = sample(logits, params, step=steps)
+    accepted = 0
+    for d in drafts:
+        if accepted >= g - 1 or int(targets[accepted]) != int(d):
+            break
+        accepted += 1
+    return targets[:accepted + 1], accepted

@@ -213,10 +213,21 @@ def test_start_up_writes_no_shard_files(pair):
 @pytest.mark.parametrize("option", [dict(overlap=True),
                                     dict(spec_window=2)])
 def test_unported_options_raise(tmp_path, option):
+    """The options that raised until their slice was ported (speculation,
+    the overlap pipeline; the name is that check's) now build and serve:
+    the streams equal the lockstep engine's without them."""
     cfg = get_smoke_config("qwen2-moe-a2.7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(cfg, EngineConfig(workdir=str(tmp_path), **option),
-                        device="cpu")
+    out = []
+    for sub, opt in (("plain", {}), ("option", option)):
+        eng = InferenceEngine(cfg, EngineConfig(
+            workdir=str(tmp_path / sub), **opt), device="cpu")
+        reqs = [eng.submit([5, 9, 2, 7] * 5, 8), eng.submit([3, 1] * 8, 8)]
+        eng.run(max_steps=100)
+        out.append([list(r.output_tokens) for r in reqs])
+    assert eng._overlap_active == option.get("overlap", False)
+    assert eng.dp_executors[0].scheduler.spec_window == option.get(
+        "spec_window", 0)
+    assert out[0] == out[1]
 
 
 @pytest.mark.parametrize("bad", [dict(mode="x"), dict(num_dp=0),
