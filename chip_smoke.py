@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases device,build,kernels   # a subset
-    python3 chip_smoke.py --layers 24     # the collocated qwen paths' depth
+    python3 chip_smoke.py --layers 24     # the qwen paths' depth
     python3 chip_smoke.py --paths ssm     # serve one engine path
-    python3 chip_smoke.py --paths disagg  # the role switch, 24 layers
+    python3 chip_smoke.py --paths disagg  # the role switch
+    python3 chip_smoke.py --paths composed,http,dense  # the launcher's
+                                          # HTTP drill; internlm2-20b
     python3 chip_smoke.py --paths composed,fleet  # revive, spare, restart
     python3 chip_smoke.py --paths mla_composed,mla_megakernel,mla_serial
     python3 chip_smoke.py --profile       # + where the device time goes
@@ -48,7 +50,12 @@ Phases, in order; any failure raises and the script exits non-zero:
              Dq = 192, Dv = 128, H = 128 at S = 256 and 512 with and
              without window 6; the fused MoE at T = 8 and 40 and the
              expert FFN at C = 8, 9, 18 over 288 experts of D = 7168, F
-             = 2048 (f32 over a third of the bank).  Every
+             = 2048 (f32 over a third of the bank).  Then the dense
+             family's layouts: paged attention at internlm2-20b's GQA (H
+             48 over Hkv 8: G = 6, Dh 128) and minicpm3-4b's latent layout
+             (Hkv 1, G 40, Da 288, K = V: the wide kernel) at B = 8 and
+             40, and whole-prompt attention at internlm2-20b's widths at
+             S = 200 and 256, with and without window 6.  Every
              kernel runs twice and must be bitwise equal; kernel and plain
              version are timed at the main path's shapes (the fused MoE at
              T = 8 and 40 with its device time split between its kernels
@@ -69,7 +76,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              layers, f32: a
              whole-prompt prefill at bucket 256, its state installed, two
              decode steps; logits and state within tolerance, greedy
-             tokens equal.
+             tokens equal.  Then the dense family at full width, 2
+             layers, f32, weights drawn on the card: internlm2-20b (GQA,
+             G = 6) and minicpm3-4b (MLA, latent 256 + 32), a chunk step,
+             a decode step and the whole-prompt prefill each.
 5. engine  — behind the ``InferenceEngine`` (2 DP ranks, collocated but
              on ``disagg``), in bf16.  Each group of paths below shares
              one workdir: its first build writes ``weights.npz`` (no
@@ -91,8 +101,12 @@ Phases, in order; any failure raises and the script exits non-zero:
              requests without a fault, then the same workload with an L6
              fault on physical 1 mid-step at step 6 (``attn+moe`` on the
              MoE paths, ``attn`` on the ssm path), revived in place.
-             Last the ``disagg`` path: qwen2-moe-a2.7b at full width and
-             all 24 layers (a 30.31 GB ``weights.npz``) in disaggregated
+             The ``dense`` path serves internlm2-20b at full width (d_model
+             6144, vocab 92544) cut to 8 of its 48 layers (~8.5 GB of
+             ``weights.npz``) on the composed chunked path the same way,
+             its fault ``attn`` (no experts), revived by migration.  The
+             ``disagg`` path: qwen2-moe-a2.7b at full width in the qwen
+             group (its depth and weights.npz) in disaggregated
              mode, 2 attention ranks (physicals 0-1) and 2 expert ranks
              (physicals 2-3), the same 8 requests three times: without a
              fault; with an L6 ``moe`` fault mid-step on physical 2 (EP
@@ -105,8 +119,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              under ``background_role_switch`` (logicals 4-31 masked until
              the switch finishes at the next step, 32 experts restored,
              the mask cleared), after which that engine restarts in
-             place (``full_reinit``, timed: the restart baseline at 24
-             layers; the card's memory after it within 5% of before the
+             place (``full_reinit``, timed: the restart baseline; the
+             card's memory after it within 5% of before the
              fault, no second copy of the weights at the peak, the
              rebuilt decode graph ``cached``).  The ``fleet`` path runs
              in the 8-layer qwen group: ``repro_torch.fleet.build_fleet``
@@ -122,14 +136,28 @@ Phases, in order; any failure raises and the script exits non-zero:
              it prints each policy's stall, the arbiter's un-forced
              estimates, tokens/s, TTFT p50/p99 and the greedy tokens each
              request shares with the composed path's fault-free run.
-             Each path's kernels' launch counts are read from its faulted
-             run (``disagg``: the synchronous switch's; ``fleet``: the
-             whole fleet run), counted from 0 just before it.  Each engine build
+             Last in that group the ``http`` path: the launcher
+             (``python -m repro_torch.launch.serve --fleet 2 --mode
+             collocated --overlap --http 0 --config full --layers 8
+             --device cuda``, the group's workdir, so both instances load
+             its weights.npz) in a child process, drilled by
+             ``scripts/http_smoke_torch.py``: 48 tokens streamed over SSE
+             through a device fault sent to ``/control`` after 6 of them
+             and revived in place (the arbiter unforced), the revive
+             decision in ``/instances``, ``/health`` degraded and then
+             healthy after ``planned_restart``; it prints the client's
+             seconds to boot, TTFT over HTTP, the largest gap between SSE
+             chunks, the revive's Table-1 seconds and the seconds from the
+             restart to healthy.  Its launches are not counted (another
+             process).  Each path's kernels' launch counts are read from
+             its faulted run (``disagg``: the synchronous switch's;
+             ``fleet``: the whole fleet run), counted from 0 just before
+             it.  Each engine build
              prints its start-up files, its memory on the card and the
              host's MemTotal and MemAvailable.
 6. a ``{"kernels": [...]}`` line (each kernel's row at the qwen or
-   falcon shapes, with its deepseek-v3 rows under ``mla``), then the
-   ``{"ok": true, ...}`` line.
+   falcon shapes, with its deepseek-v3 rows under ``mla`` and the dense
+   family's under ``dense``), then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -173,7 +201,7 @@ KERNEL_META = {
 # layers keep the composed chain)
 KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
                                    "mla_megakernel", "mla_serial", "disagg",
-                                   "fleet", "spec", "overlap"),
+                                   "fleet", "spec", "overlap", "dense"),
                "moe_fused": ("composed", "mla_composed", "disagg", "fleet",
                              "spec", "overlap"),
                "decode_megastep": ("megakernel", "mla_megakernel",
@@ -192,7 +220,11 @@ IMPLS = ("composed", "megakernel")
 # fleet of such engines (``repro_torch.fleet``: 2 instances and a spare),
 # ``spec`` and ``spec_megakernel`` with self-speculative decode (windows
 # of up to 6 rows verified in the chunk launch), ``overlap`` with the
-# overlap pipeline (step N+1 launched before step N drains).
+# overlap pipeline (step N+1 launched before step N drains); ``dense``
+# serves internlm2-20b (no experts); ``http`` is the launcher
+# (``python -m repro_torch.launch.serve``) in a child process, a fleet of
+# 2 such engines with the overlap pipeline behind the HTTP front end,
+# drilled by ``scripts/http_smoke_torch.py``.
 PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "megakernel": dict(moe_impl="fused", decode_impl="megakernel"),
          "serial": dict(admission="serial", decode_impl="composed"),
@@ -208,10 +240,14 @@ PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "spec_megakernel": dict(moe_impl="fused", decode_impl="megakernel",
                                  spec_window=6),
          "overlap": dict(moe_impl="fused", decode_impl="composed",
-                         overlap=True)}
+                         overlap=True),
+         "dense": dict(decode_impl="composed"),
+         "http": dict(mode="collocated", overlap=True)}
 QWEN_ARCH = "qwen2-moe-a2.7b"
+DENSE_ARCHS = ("internlm2-20b", "minicpm3-4b")
 PATH_ARCH = {"ssm": "falcon-mamba-7b", "mla_composed": "deepseek-v3",
-             "mla_megakernel": "deepseek-v3", "mla_serial": "deepseek-v3"}
+             "mla_megakernel": "deepseek-v3", "mla_serial": "deepseek-v3",
+             "dense": "internlm2-20b"}
 # card-vs-plain tolerances (allclose: |got - want| <= atol + rtol |want|).
 # f32: both accumulate in f32 in different orders.  bf16: the plain
 # versions round intermediates to bf16 where the kernels keep f32 (the
@@ -234,13 +270,19 @@ MODEL_LOGIT_ATOL = 1e-3       # f32, 2 layers at full width, card vs CPU
 # products before the scan sum in other orders
 STATE_TOL = (1e-4, 1e-3)
 ENGINE_LAYERS = 24            # qwen2-moe-a2.7b's full depth
-# the depth of the collocated qwen paths (``--layers``): every engine build
-# reads its whole weights.npz (~1.2 GB a layer) and these paths build six
-# (~250 s at 24 layers on the H100's host), so they run cut to keep the
-# script well inside its 1200 s limit; the paths named here keep their
-# own depth (and workdir)
+# the depth of the qwen paths (``--layers``): every engine build reads its
+# whole weights.npz (~1.2 GB a layer) and these paths build six (~250 s
+# at 24 layers on the H100's host), so they run cut to keep the script
+# well inside its 1200 s limit.  ``disagg`` ran all 24 layers in its own
+# workdir until the dense and http paths came (~180 s of its ~1020 s run
+# went to its three 24-layer builds, a 30 GB start-up write and a 24-layer
+# restart); it now shares the qwen group's depth and weights.npz.  The
+# paths named here keep their own depth (and workdir)
 COLLOCATED_LAYERS = 8
-PATH_LAYERS = {"disagg": ENGINE_LAYERS}
+# internlm2-20b cut from 48 layers: ~0.78 GB of bf16 a layer plus 2.3 GB
+# of embedding and head, ~8.5 GB of weights.npz at 8
+DENSE_LAYERS = 8
+PATH_LAYERS = {"dense": DENSE_LAYERS}
 # the kernels phase's shapes: the engine phase's batch, chunk and paging,
 # qwen2-moe-a2.7b's widths
 SHAPES = dict(max_batch=8, chunk=32, block_size=16, num_blocks=256,
@@ -604,6 +646,8 @@ def phase_kernels(torch, shapes):
     out["ssm_scan"] = kernels_ssm_scan(torch)
     for name, rows in kernels_mla(torch, shapes).items():
         out[name]["mla"] = rows
+    for name, rows in kernels_dense(torch, shapes).items():
+        out[name]["dense"] = rows
     for name, r in out.items():
         _log_row(name, r)
     return out
@@ -1412,6 +1456,137 @@ def mla_paged(torch, S):
     return rows
 
 
+INTERNLM = dict(H=48, Hkv=8, Dh=128)        # internlm2-20b: G = 6
+MINICPM = dict(H=40, Da=256 + 32)           # minicpm3-4b's latent layout
+
+
+def kernels_dense(torch, S):
+    """The dense family's new layouts, each against its plain version in
+    f32 and bf16, twice and bitwise equal: paged attention at
+    internlm2-20b's GQA (H 48 over Hkv 8, G = 6 query heads a KV head,
+    Dh 128: two head groups a CTA pair) and at minicpm3-4b's MLA latent
+    layout (Hkv 1, G 40, Da = 256 + 32 = 288, one pool as K and V: the
+    wide kernel, since the latent kernel takes Da 576 and G a multiple of
+    64), at decode (B=8) and chunk (B=40) rows over the engine's context,
+    internlm2's also windowed; whole-prompt attention at internlm2-20b's
+    widths, S = 200 and 256, with and without window 6.  The bf16 decode
+    rows and S = 256 are timed beside their bounds (flash_prefill also
+    beside ``scaled_dot_product_attention``).  Returns {kernel: [rows]}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
+                                                   flash_prefill_plain)
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_plain,
+                                                     takes_latent_kernel)
+    log("kernels: paged_attention at internlm2-20b's GQA (H=48, Hkv=8, "
+        "Dh=128) and minicpm3-4b's latent layout (H=40, Hkv=1, Da=288, K "
+        "= V one pool) vs its plain version")
+    mb, nblk = S["max_blk"], S["num_blocks"] + 1
+    dec, chunk = S["max_batch"], S["chunk"] + S["max_batch"]
+    gi, lat = INTERNLM, MINICPM
+    cases = [
+        # name, B, H, Hkv, Dh, window, idle, max_len, same pool
+        ("internlm2 decode", dec, gi["H"], gi["Hkv"], gi["Dh"], 0, True,
+         288, False),
+        ("internlm2 chunk step", chunk, gi["H"], gi["Hkv"], gi["Dh"], 0,
+         True, 512, False),
+        ("internlm2 window 70", 5, gi["H"], gi["Hkv"], gi["Dh"], 70, True,
+         512, False),
+        ("minicpm3 latent decode", dec, lat["H"], 1, lat["Da"], 0, True,
+         512, True),
+        ("minicpm3 latent chunk step", chunk, lat["H"], 1, lat["Da"], 0,
+         True, 512, True),
+    ]
+    errs, timed = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for i, (name, B, H, Hkv, Dh, window, idle, max_len, same) in \
+                enumerate(cases):
+            args, n_valid = paged_case(
+                torch, B=B, H=H, Hkv=Hkv, Dh=Dh, bs=S["block_size"],
+                nb=nblk, max_blk=mb, max_len=max_len, window=window,
+                idle=idle, dtype=dtype, seed=80 + i, same=same)
+            if takes_latent_kernel(*args[:3]):
+                raise AssertionError(f"paged_attention {name}: took the "
+                                     f"latent kernel's layout")
+            got = paged_attention_cuda(*args)
+            again = paged_attention_cuda(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_attention {name}: not bitwise "
+                                     f"equal run to run")
+            if idle and got[1].abs().max().item() != 0.0:
+                raise AssertionError(f"paged_attention {name}: idle row "
+                                     f"not 0")
+            errs.append(compare(f"{name} B={B} H={H}/{Hkv} Dh={Dh} "
+                                f"({n_valid} rows) {dn}", got,
+                                paged_attention_plain(*args), dn))
+            if dtype is torch.bfloat16 and "window" not in name:
+                timed[name] = (args, n_valid, dn)
+            del args, got, again
+    rows = {"paged_attention": [], "flash_prefill": []}
+    for name, (args, n_valid, dn) in timed.items():
+        B, H, Dh = args[0].shape
+        rows["paged_attention"].append(_row(
+            errs, time_ms(torch, lambda: paged_attention_cuda(*args)),
+            time_ms(torch, lambda: paged_attention_plain(*args)),
+            paged_bound_ms(args, n_valid, dn),
+            f"{name} B={B} H={H} Hkv={args[1].shape[2]} Dh={Dh} bf16, "
+            f"{n_valid} valid K/V rows"
+            + (" (K = V)" if args[1] is args[2] else "")))
+    del timed
+    _free(torch)
+
+    log("kernels: flash_prefill at internlm2-20b's widths (B=1, H=48, "
+        "Hkv=8, Dh=128) vs its plain version")
+    H, Hkv, Dh = gi["H"], gi["Hkv"], gi["Dh"]
+    errs, timed = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for Sq in (200, 256):
+            for window in (0, 6):
+                gen = torch.Generator(device="cuda").manual_seed(Sq + window)
+                q, k, v = (torch.randn((1, Sq, h, Dh), generator=gen,
+                                       device="cuda").to(dtype)
+                           for h in (H, Hkv, Hkv))
+                pos = torch.arange(Sq, dtype=torch.int32, device="cuda")
+                kw = dict(causal=True, window=window)
+                got = flash_prefill_cuda(q, k, v, pos, pos, **kw)
+                again = flash_prefill_cuda(q, k, v, pos, pos, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"flash_prefill internlm2 S={Sq}: "
+                                         f"not bitwise equal run to run")
+                errs.append(compare(
+                    f"internlm2 S={Sq} window {window} {dn}", got,
+                    flash_prefill_plain(q, k, v, pos, pos, **kw), dn,
+                    FLASH_TOL))
+                if Sq == 256 and not window and dtype is torch.bfloat16:
+                    timed = (q, k, v, pos)
+    q, k, v, pos = timed
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    def kernel():
+        return flash_prefill_cuda(q, k, v, pos, pos)
+
+    rows["flash_prefill"].append(_row(
+        errs, time_ms(torch, kernel),
+        time_ms(torch, lambda: flash_prefill_plain(q, k, v, pos, pos)),
+        flash_bound_ms(256, H, Hkv, Dh, 0, q.element_size(), "bfloat16"),
+        f"B=1 S=256 H={H} Hkv={Hkv} Dh={Dh} causal bf16 (library: "
+        f"scaled_dot_product_attention)", time_ms(torch, library)))
+    del timed, q, k, v
+    _free(torch)
+    for name, rs in rows.items():
+        for r in rs:
+            _log_row(name, r)
+    return rows
+
+
 def mla_megastep(torch, S):
     """The megastep at deepseek-v3's latent layout (w_post (73728, 7168),
     E_log 256 + 32 redundant, top-8): a decode step (B=8), one with a
@@ -1637,7 +1812,8 @@ def _map(tree, fn):
 
 def phase_model(torch, seed):
     """qwen2-moe-a2.7b and deepseek-v3 (MLA) at full width, 2 layers,
-    f32, card against CPU; then falcon-mamba-7b."""
+    f32, card against CPU; then falcon-mamba-7b; then the dense family's
+    internlm2-20b (GQA, G = 6) and minicpm3-4b (MLA, Da 288)."""
     import dataclasses
     from repro_torch.configs import get_config
     model_moe(torch, dataclasses.replace(
@@ -1660,19 +1836,37 @@ def phase_model(torch, seed):
               f"{ds.moe.num_redundant_experts} to 16 + 4 experts, top-"
               f"{ds.moe.top_k} kept")
     model_ssm(torch, seed)
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        heads = (f"{cfg.num_heads} MLA heads, latent "
+                 f"{cfg.mla.kv_lora_rank} + {cfg.mla.qk_rope_head_dim}"
+                 if cfg.attention_type == "mla" else
+                 f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads "
+                 f"of {cfg.head_dim}")
+        model_moe(torch, dataclasses.replace(cfg, num_layers=2), seed,
+                  f"{arch} full width (d_model {cfg.d_model}, {heads}, "
+                  f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), 2 layers, "
+                  f"dense", impls=("composed",), init_on="cuda")
 
 
-def model_moe(torch, base, seed, what):
-    """One attention+MoE config, card against CPU: a chunk step and a
-    decode step per decode implementation, then the serial prefill."""
+def model_moe(torch, base, seed, what, impls=IMPLS, init_on="cpu"):
+    """One attention+MoE (or dense) config, card against CPU: a chunk step
+    and a decode step per decode implementation of ``impls``, then the
+    serial prefill.  ``init_on``: where the f32 weights are drawn (then
+    copied to the other side); a dense model's are drawn on the card,
+    since 2 full-width internlm2-20b layers are 7.3 GB of draws."""
     import dataclasses
     from repro_torch.kernels import launches
     from repro_torch.models.model import Model
     bs, nblk, max_blk, width, batch = 16, 16, 4, 32, 8
     trash = nblk
     t0 = time.perf_counter()
-    p_cpu = Model(base, torch.float32, device="cpu").init(seed)
-    p_card = _map(p_cpu, lambda t: t.to("cuda"))
+    if init_on == "cpu":
+        p_cpu = Model(base, torch.float32, device="cpu").init(seed)
+        p_card = _map(p_cpu, lambda t: t.to("cuda"))
+    else:
+        p_card = Model(base, torch.float32, device="cuda").init(seed)
+        p_cpu = _map(p_card, lambda t: t.cpu())
     log(f"model: {what}, f32; weights from seed {seed} in "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
@@ -1701,7 +1895,7 @@ def model_moe(torch, base, seed, what):
     slots = {"a": 0, "b": 3}
     live = [slots["a"], slots["b"]]
     card_logits = {}
-    for impl in IMPLS:
+    for impl in impls:
         cfg = dataclasses.replace(base, decode_impl=impl)
         cpu = Model(cfg, torch.float32, device="cpu")
         card = Model(cfg, torch.float32, device="cuda")
@@ -1745,7 +1939,8 @@ def model_moe(torch, base, seed, what):
                 == res_d["cpu"][live].argmax(-1)).all():
             raise AssertionError(f"model {impl}: decode-step greedy tokens "
                                  f"differ")
-        used = [k for k, paths in KERNEL_PATH.items() if impl in paths]
+        path = impl if base.moe is not None else "dense"
+        used = [k for k, paths in KERNEL_PATH.items() if path in paths]
         if min(launches.get(k, 0) for k in used) <= 0:
             raise AssertionError(f"model {impl}: kernel launches "
                                  f"{dict(launches)}")
@@ -1758,6 +1953,16 @@ def model_moe(torch, base, seed, what):
         del models, cpu, card, caches
         gc.collect()
         torch.cuda.empty_cache()
+    if len(impls) > 1:
+        model_impls_agree(card_logits, rows, live)
+    model_prefill(torch, base, p_cpu, p_card, seed)
+    del p_card, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def model_impls_agree(card_logits, rows, live):
+    """The megakernel and composed logits on the card agree."""
     (mc, md), (cc, cd) = card_logits["megakernel"], card_logits["composed"]
     err = max(float(np.abs(mc - cc).max()), float(np.abs(md - cd).max()))
     same = ((mc[rows].argmax(-1) == cc[rows].argmax(-1)).all()
@@ -1766,10 +1971,6 @@ def model_moe(torch, base, seed, what):
         f"{MODEL_LOGIT_ATOL:g}); greedy tokens {'equal' if same else 'DIFFER'}")
     if err > MODEL_LOGIT_ATOL or not same:
         raise AssertionError("model: megakernel and composed disagree")
-    model_prefill(torch, base, p_cpu, p_card, seed)
-    del p_card, p_cpu
-    gc.collect()
-    torch.cuda.empty_cache()
 
 
 def model_prefill(torch, base, p_cpu, p_card, seed):
@@ -1829,9 +2030,11 @@ def model_prefill(torch, base, p_cpu, p_card, seed):
     greedy = (int(lg[0].argmax()) == first
               and int(dg[0].argmax()) == int(dc[0].argmax()))
     counts = {k: launches.get(k, 0) for k in ("flash_prefill", "expert_ffn",
-                                              "paged_attention")}
-    log(f"  serial prefill ({n} tokens, bucket {bucket}, dense-scatter "
-        f"MoE), card vs CPU: " + ", ".join(f"{k} max_abs_err {v:.3e}"
+                                              "paged_attention")
+              if k != "expert_ffn" or cfg.moe is not None}
+    log(f"  serial prefill ({n} tokens, bucket {bucket}"
+        + (", dense-scatter MoE" if cfg.moe is not None else "")
+        + "), card vs CPU: " + ", ".join(f"{k} max_abs_err {v:.3e}"
                                           for k, v in errs.items())
         + f" (atol {MODEL_LOGIT_ATOL:g}); greedy tokens "
         f"{'equal' if greedy else 'DIFFER'} ({first} -> "
@@ -2032,8 +2235,10 @@ def _trace(torch, fn):
 
 def phase_engine(torch, seed, layers, paths, profile=False):
     """Serve each path twice, without and with a fault (``disagg``: three
-    times; ``fleet``: once, with its three events).  The paths of one architecture and depth share one workdir
-    (the first writes ``weights.npz``, the others load it), removed before
+    times; ``fleet``: once, with its three events; ``http``: one drill of
+    the launcher).  The paths of one architecture and depth share one
+    workdir (the first writes ``weights.npz``, the others load it),
+    removed before
     the next group writes its own.  Returns the kernels' launch counts,
     each summed over the paths it runs on."""
     log(f"engine: before the first build, "
@@ -2097,10 +2302,10 @@ def phase_engine(torch, seed, layers, paths, profile=False):
 
 
 def engine_config(arch, layers):
-    """qwen2-moe-a2.7b at full width and depth ``layers`` (all 24 by
-    default); deepseek-v3 at full width with its depth cut from 61 to its
-    3 dense layers and 1 MoE layer; falcon-mamba-7b whole (width and all
-    64 layers)."""
+    """qwen2-moe-a2.7b at full width and depth ``layers``; deepseek-v3 at
+    full width with its depth cut from 61 to its 3 dense layers and 1 MoE
+    layer; falcon-mamba-7b whole (width and all 64 layers); internlm2-20b
+    at full width and depth ``layers``."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
@@ -2111,6 +2316,16 @@ def engine_config(arch, layers):
             f"width one MoE layer holds 25.4 GB of experts, and the "
             f"start-up file is ~33 GB of the 45 GiB a run may write")
         layers = depth
+    if cfg.family == "dense":
+        log(f"engine: depth cut from {cfg.num_layers} to {layers} layers, "
+            f"width kept (~0.78 GB of bf16 a layer plus 2.3 GB of embedding "
+            f"and head)")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        log(f"engine: {cfg.name}: {cfg.num_layers} dense layers, d_model "
+            f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} "
+            f"KV heads of {cfg.head_dim}, d_ff {cfg.d_ff} "
+            f"({cfg.activation}), vocab {cfg.vocab_size}")
+        return cfg
     if cfg.moe is None:
         mb = cfg.mamba
         log(f"engine: {cfg.name}: {cfg.num_layers} Mamba layers, d_model "
@@ -3050,8 +3265,58 @@ def serve_overlap(torch, cfg, path, workdir, seed, profile, kept):
     return {k: counts[k] for k in used}, (clean, fault), streams
 
 
+def serve_http_path(torch, cfg, path, workdir, seed, profile, kept):
+    """The launcher behind its HTTP front end, in a child process: ``python
+    -m repro_torch.launch.serve --fleet 2 --mode collocated --overlap
+    --http 0 --config full --layers N --device cuda --workdir <the qwen
+    group's workdir>`` (both instances load the group's weights.npz),
+    drilled by ``scripts/http_smoke_torch.py``: 48 tokens streamed over
+    SSE, a device fault through ``/control`` after 6 of them, revived in
+    place; ``/instances`` shows the revive decision with its cost table;
+    ``/health`` degraded, then healthy after ``planned_restart``.  The
+    arbiter is not forced.  A failed drill fails the run; the child is
+    stopped in the drill's ``finally``.  Its kernel launches (another
+    process) are not counted.  Returns ({}, None, None)."""
+    import importlib.util
+    from repro_torch.core.weights import RecoveryPolicy
+    if profile:
+        log("  http: not traced (the engines run in the child process)")
+    if not (workdir / "weights.npz").exists():
+        log("  http: the group's weights.npz is written first, by one "
+            "composed engine")
+        eng = make_engine(torch, cfg, "composed", workdir, seed,
+                          RecoveryPolicy(allow_role_switch=False))
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = importlib.util.spec_from_file_location(
+        "http_smoke_torch", ROOT / "scripts" / "http_smoke_torch.py")
+    drill = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(drill)
+    args = drill.parse_args(["--device", "cuda", "--config", "full",
+                             "--layers", str(cfg.num_layers),
+                             "--workdir", str(workdir)])
+    log(f"engine: path {path!r}: " + json.dumps(PATHS[path])
+        + "; launcher: " + " ".join(drill.launcher_cmd(args)[1:]))
+    weights = workdir / "weights.npz"
+    stamp = weights.stat().st_mtime_ns
+    numbers = drill.run(args)
+    if weights.stat().st_mtime_ns != stamp:
+        raise AssertionError("engine http: the launcher wrote weights.npz")
+    log(f"  http drill passed: " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v)
+         for k, v in numbers.items()}))
+    log(f"  http client: boot {numbers['boot_s']:.3f} s, TTFT "
+        f"{numbers['ttft_s']:.4f} s over HTTP, largest SSE gap "
+        f"{numbers['max_sse_gap_s']:.4f} s across the revive, revive "
+        f"{numbers['revive_s']:.4f} s (Table-1 total), planned restart to "
+        f"healthy {numbers['restart_to_healthy_s']:.3f} s")
+    return {}, None, None
+
+
 SERVE = {"disagg": serve_disagg, "fleet": serve_fleet, "spec": serve_spec,
-         "spec_megakernel": serve_spec, "overlap": serve_overlap}
+         "spec_megakernel": serve_spec, "overlap": serve_overlap,
+         "http": serve_http_path}
 
 
 # -- main ---------------------------------------------------------------------------
@@ -3060,8 +3325,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--layers", type=int, default=COLLOCATED_LAYERS,
-                    help="depth of the collocated qwen paths (disagg "
-                         f"serves all {ENGINE_LAYERS})")
+                    help="depth of the qwen paths (at most "
+                         f"{ENGINE_LAYERS})")
     ap.add_argument("--paths", default=",".join(PATHS),
                     help="engine paths to serve, of " + ", ".join(PATHS))
     ap.add_argument("--seed", type=int, default=0)
@@ -3117,7 +3382,7 @@ def main() -> int:
             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
             library_ms=r.get("library_ms"), shape=r.get("shape"),
-            mla=r.get("mla")))
+            mla=r.get("mla"), dense=r.get("dense")))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

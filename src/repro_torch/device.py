@@ -22,4 +22,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     dev = torch.device(device)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device is available for {dev}; pass device='cpu' to "
+            f"run the plain PyTorch path")
     return dev

@@ -22,8 +22,10 @@ cache is per-slot ``conv``/``ssm`` state with a batch axis, a whole
 prompt's forward returns each layer's final state, and both paths run the
 recurrence through ``ops.ssm_scan``.  It cannot chunk its prefill.
 
-The dense, hybrid (Jamba), audio and VLM families are later slices of
-the port and raise here.
+The dense family (``family="dense"``: internlm2-20b's GQA, minicpm3-4b's
+MLA; SwiGLU or squared-ReLU FFNs of width ``d_ff``) runs the same blocks
+with a dense FFN in every layer; it has no experts.  The hybrid (Jamba),
+audio and VLM families are later slices of the port and raise here.
 """
 from __future__ import annotations
 
@@ -47,13 +49,12 @@ class Model:
                  device=None):
         cfg.validate()
         unported = {
-            "dense": "Queue 1 item 10", "vlm": "Queue 1 item 10",
-            "audio": "Queue 1 item 10",
+            "vlm": "Queue 1 item 10", "audio": "Queue 1 item 10",
             "hybrid": "Queue 1 item 1h, the Jamba hybrid period"}
         if cfg.family in unported:
             raise NotImplementedError(
-                f"family {cfg.family!r}: only attention+MoE and Mamba "
-                f"models are ported so far (ROADMAP "
+                f"family {cfg.family!r}: only attention+MoE, dense and "
+                f"Mamba models are ported so far (ROADMAP "
                 f"{unported[cfg.family]})")
         self.cfg = cfg
         self.dtype = dtype
@@ -75,6 +76,8 @@ class Model:
         cfg = self.cfg
         if cfg.family == "ssm":
             return [("layers", cfg.num_layers, "mamba", None, False)]
+        if cfg.moe is None:         # dense
+            return [("layers", cfg.num_layers, "attn", "dense", False)]
         groups = []
         if cfg.moe.first_k_dense:
             groups.append(("dense_layers", cfg.moe.first_k_dense, "attn",
@@ -123,9 +126,12 @@ class Model:
                                       device=self.device)
             if ffn_kind == "moe":
                 p["moe"] = MoE.moe_init(gen, cfg, dtype, n)
-            elif ffn_kind is not None:
+            elif ffn_kind == "dense_first":
                 p["ffn"] = Fn.ffn_init(gen, D, cfg.moe.dense_d_ff or cfg.d_ff,
                                        cfg.activation, dtype, (n,))
+            elif ffn_kind == "dense":
+                p["ffn"] = Fn.ffn_init(gen, D, cfg.d_ff, cfg.activation,
+                                       dtype, (n,))
             params[name] = p
         return params
 

@@ -23,6 +23,9 @@ PAGED_CASES = [
     (2, 12, 1, 576, 16, 3, True, False),
     # rows over several of the latent layout's 256-position splits
     (2, 64, 1, 576, 16, 40, True, False),
+    # internlm2-20b's GQA: 6 query heads a KV head at Dh 128 (two head
+    # groups a split on the card), windowed, an idle row
+    (4, 48, 8, 128, 16, 4, True, True),
 ]
 
 

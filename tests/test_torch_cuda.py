@@ -138,6 +138,9 @@ LATENT_CASES = {
     "window_in_second_split": (2, 128, 576, 64, [900, 600], 300, True),
     "b40_1024": (40, 128, 576, 64, [1024] * 40, 0, True),
     "g64": (8, 64, 576, 32, None, 0, True),
+    # minicpm3-4b's dense MLA: Da = 256 + 32, G = 40 (the wide kernel)
+    "minicpm3_decode_b8": (8, 40, 288, 32, None, 0, True),
+    "minicpm3_chunk_b40": (40, 40, 288, 32, None, 0, True),
 }
 
 
@@ -531,7 +534,10 @@ FLASH_CARD_CASES = dict(
     s256=(1, 256, 16, 16, 128, True, 0, 0),
     s256_window6=(1, 256, 16, 16, 128, True, 6, 0),
     s512=(1, 512, 16, 16, 128, True, 0, 0),
-    s512_window6=(1, 512, 16, 16, 128, True, 6, 0))
+    s512_window6=(1, 512, 16, 16, 128, True, 6, 0),
+    # internlm2-20b's widths: 6 query heads a KV head at Dh 128
+    internlm2_s256=(1, 256, 48, 8, 128, True, 0, 0),
+    internlm2_s200_window6=(1, 200, 48, 8, 128, True, 6, 0))
 
 
 @pytest.mark.cuda
@@ -654,15 +660,20 @@ def test_ssm_scan_cuda_in_place_vs_plain(card, case, dtype):
     assert ys[0].dtype == dtype and torch.equal(ys[0], y_def.to(dtype))
 
 
-def _smoke_engine(tmp_path, card, dtype, **over):
-    """The qwen2-moe smoke model with capacity to spare, on the card."""
+def _smoke_cfg():
+    """The qwen2-moe smoke model with capacity to spare."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
-    from repro_torch.serving.engine import EngineConfig, InferenceEngine
     cfg = get_smoke_config("qwen2-moe-a2.7b")
-    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, num_experts=4, num_redundant_experts=2, top_k=2,
         capacity_factor=8.0, min_capacity=64))
+
+
+def _smoke_engine(tmp_path, card, dtype, **over):
+    """The qwen2-moe smoke model with capacity to spare, on the card."""
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = _smoke_cfg()
     ec = dict(mode="collocated", num_dp=2, max_batch=4, max_seq=64,
               block_size=8, num_blocks=64, moe_impl="fused")
     ec.update(over)
@@ -814,3 +825,56 @@ def test_plan_and_launch_makes_no_sync(card, tmp_path, decode_impl):
         ex._plan_and_launch = strict
     _serve_smoke(eng)
     assert len(checked) > 10
+
+
+@pytest.mark.cuda
+def test_frontend_driver_thread_serves_the_main_threads_stream(card,
+                                                               tmp_path):
+    """A completion through ``ServingFrontend`` on a 1-instance fleet on
+    the card: the driver thread ticks the engine on the stream, device and
+    grad mode of the thread that built the front end, and its tokens equal
+    bit for bit those of the same prompt stepped through the same engine
+    on the main thread (no prefix cache, so both runs make the same
+    launches)."""
+    import asyncio
+    import json
+    from repro_torch.fleet import VirtualCostProfile, build_fleet
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.frontend import ServingFrontend
+    fleet = build_fleet(_smoke_cfg(), EngineConfig(
+        mode="collocated", num_dp=2, max_batch=4, max_seq=64, block_size=8,
+        num_blocks=64, moe_impl="fused", prefix_cache=False,
+        workdir=str(tmp_path)), instances=1,
+        cost_profile=VirtualCostProfile(), device=card)
+    prompt, n = PAT_A * 5, 16
+    lockstep = fleet.submit(prompt, n, eos_token=None)
+    fleet.run(max_ticks=300)
+    want = list(lockstep.committed_output)
+    assert len(want) == n
+    main_state = (torch.cuda.current_stream().cuda_stream,
+                  torch.cuda.current_device(), torch.is_grad_enabled())
+
+    async def serve():
+        fe = ServingFrontend(fleet, port=0)
+        await fe.start()
+        try:
+            state = await fe._call(lambda: (
+                torch.cuda.current_stream().cuda_stream,
+                torch.cuda.current_device(), torch.is_grad_enabled()))
+            reader, writer = await asyncio.open_connection("127.0.0.1",
+                                                           fe.port)
+            body = json.dumps({"prompt": prompt, "max_tokens": n,
+                               "eos_token": None}).encode()
+            writer.write(b"POST /v1/completions HTTP/1.1\r\n"
+                         b"Content-Length: %d\r\n\r\n" % len(body) + body)
+            await writer.drain()
+            data = await asyncio.wait_for(reader.read(), 120)
+            writer.close()
+            return state, json.loads(data.split(b"\r\n\r\n", 1)[1])
+        finally:
+            await fe.stop()
+
+    state, reply = asyncio.run(serve())
+    assert state == main_state
+    assert reply["choices"][0]["tokens"] == want
+    assert reply["choices"][0]["finish_reason"] == "length"
