@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernels   # a subset
     python3 chip_smoke.py --layers 24     # the qwen paths' depth
     python3 chip_smoke.py --paths ssm     # serve one engine path
+    python3 chip_smoke.py --paths hybrid  # one Jamba period
     python3 chip_smoke.py --paths disagg  # the role switch
     python3 chip_smoke.py --paths composed,http,dense  # the launcher's
                                           # HTTP drill; internlm2-20b
@@ -55,7 +56,14 @@ Phases, in order; any failure raises and the script exits non-zero:
              48 over Hkv 8: G = 6, Dh 128) and minicpm3-4b's latent layout
              (Hkv 1, G 40, Da 288, K = V: the wide kernel) at B = 8 and
              40, and whole-prompt attention at internlm2-20b's widths at
-             S = 200 and 256, with and without window 6.  Every
+             S = 200 and 256, with and without window 6.  Then the
+             hybrid path's layouts (jamba-1.5-large-398b): paged
+             attention at H 64 over Hkv 8 (G = 8), Dh 128, decode B = 8;
+             whole-prompt attention at those heads, S = 200 and 256; the
+             scan at d_inner 16384 (prefill S = 200, 256; the decode
+             step, also in place); the fused MoE at D 8192, F 24576
+             over 4 experts, top-2, at T = 8 (cap 8) and T = 256 (cap
+             160).  Every
              kernel runs twice and must be bitwise equal; kernel and plain
              version are timed at the main path's shapes (the fused MoE at
              T = 8 and 40 with its device time split between its kernels
@@ -76,7 +84,12 @@ Phases, in order; any failure raises and the script exits non-zero:
              layers, f32: a
              whole-prompt prefill at bucket 256, its state installed, two
              decode steps; logits and state within tolerance, greedy
-             tokens equal.  Then the dense family at full width, 2
+             tokens equal.  Then one period of jamba-1.5-large-398b at
+             full width, f32, weights drawn on the card, its bank cut to
+             2 + 0 experts (top-2 kept) for this check alone: a
+             whole-prompt prefill at bucket 256 installed into slot 2
+             (pool rows and seven Mamba states), two decode steps, the
+             fused MoE; the same checks.  Then the dense family at full width, 2
              layers, f32, weights drawn on the card: internlm2-20b (GQA,
              G = 6) and minicpm3-4b (MLA, latent 256 + 32), a chunk step,
              a decode step and the whole-prompt prefill each.
@@ -95,12 +108,21 @@ Phases, in order; any failure raises and the script exits non-zero:
              (``mla_composed``, ``mla_megakernel``, ``mla_serial``) at full
              width, depth cut from 61 to its 3 dense + 1 MoE layers (a ~33
              GB ``weights.npz``).  Then the ``ssm`` path: falcon-mamba-7b
-             at full width and full depth (64 layers; a 14.55 GB
-             ``weights.npz``, no shards), whose chunked admission falls
-             back to whole-prompt installs.  Each of these serves 8
+             at full width cut to 16 of its 64 layers (no shards), whose
+             chunked admission falls back to whole-prompt installs.  Then
+             the ``hybrid`` path: one period (8 sublayers) of
+             jamba-1.5-large-398b at full width, its bank cut from 16 +
+             16 to 4 + 0 experts a MoE sublayer with top-2 kept (a 32.5
+             GB ``weights.npz``), the fused MoE, whole-prompt installs of
+             pool rows and seven Mamba states; its fault ``attn+moe``
+             masks logicals 2-3.  Each of these serves 8
              requests without a fault, then the same workload with an L6
-             fault on physical 1 mid-step at step 6 (``attn+moe`` on the
-             MoE paths, ``attn`` on the ssm path), revived in place.
+             fault on physical 1 mid-step at the run's step 6
+             (``attn+moe`` on the MoE paths, ``attn`` on the ssm path),
+             revived in place, on a second build; the paths whose
+             whole-prompt installs bypass the prefix cache (``serial``,
+             ``mla_serial``, ``ssm``, ``hybrid``) serve it on the first
+             engine once the clean run has drained.
              The ``dense`` path serves internlm2-20b at full width (d_model
              6144, vocab 92544) cut to 8 of its 48 layers (~8.5 GB of
              ``weights.npz``) on the composed chunked path the same way,
@@ -156,8 +178,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              prints its start-up files, its memory on the card and the
              host's MemTotal and MemAvailable.
 6. a ``{"kernels": [...]}`` line (each kernel's row at the qwen or
-   falcon shapes, with its deepseek-v3 rows under ``mla`` and the dense
-   family's under ``dense``), then the ``{"ok": true, ...}`` line.
+   falcon shapes, with its deepseek-v3 rows under ``mla``, the dense
+   family's under ``dense`` and Jamba's under ``hybrid``; its launches
+   summed over the paths and per path), then the ``{"ok": true, ...}``
+   line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -201,16 +225,17 @@ KERNEL_META = {
 # layers keep the composed chain)
 KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
                                    "mla_megakernel", "mla_serial", "disagg",
-                                   "fleet", "spec", "overlap", "dense"),
+                                   "fleet", "spec", "overlap", "dense",
+                                   "hybrid"),
                "moe_fused": ("composed", "mla_composed", "disagg", "fleet",
-                             "spec", "overlap"),
+                             "spec", "overlap", "hybrid"),
                "decode_megastep": ("megakernel", "mla_megakernel",
                                    "spec_megakernel"),
                "router_topk": ("megakernel", "mla_megakernel",
                                "spec_megakernel"),
                "expert_ffn": ("serial", "mla_serial"),
-               "flash_prefill": ("serial", "mla_serial"),
-               "ssm_scan": ("ssm",)}
+               "flash_prefill": ("serial", "mla_serial", "hybrid"),
+               "ssm_scan": ("ssm", "hybrid")}
 IMPLS = ("composed", "megakernel")
 # the engine paths: EngineConfig options of each.  ``ssm`` serves
 # falcon-mamba-7b, whose chunked admission falls back to whole-prompt
@@ -224,7 +249,10 @@ IMPLS = ("composed", "megakernel")
 # serves internlm2-20b (no experts); ``http`` is the launcher
 # (``python -m repro_torch.launch.serve``) in a child process, a fleet of
 # 2 such engines with the overlap pipeline behind the HTTP front end,
-# drilled by ``scripts/http_smoke_torch.py``.
+# drilled by ``scripts/http_smoke_torch.py``; ``hybrid`` serves one
+# period of jamba-1.5-large-398b (attention and seven Mamba sublayers,
+# the fused MoE on four), whose chunked admission falls back to
+# whole-prompt installs.
 PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "megakernel": dict(moe_impl="fused", decode_impl="megakernel"),
          "serial": dict(admission="serial", decode_impl="composed"),
@@ -242,12 +270,13 @@ PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "overlap": dict(moe_impl="fused", decode_impl="composed",
                          overlap=True),
          "dense": dict(decode_impl="composed"),
-         "http": dict(mode="collocated", overlap=True)}
+         "http": dict(mode="collocated", overlap=True),
+         "hybrid": dict(moe_impl="fused", decode_impl="composed")}
 QWEN_ARCH = "qwen2-moe-a2.7b"
 DENSE_ARCHS = ("internlm2-20b", "minicpm3-4b")
 PATH_ARCH = {"ssm": "falcon-mamba-7b", "mla_composed": "deepseek-v3",
              "mla_megakernel": "deepseek-v3", "mla_serial": "deepseek-v3",
-             "dense": "internlm2-20b"}
+             "dense": "internlm2-20b", "hybrid": "jamba-1.5-large-398b"}
 # card-vs-plain tolerances (allclose: |got - want| <= atol + rtol |want|).
 # f32: both accumulate in f32 in different orders.  bf16: the plain
 # versions round intermediates to bf16 where the kernels keep f32 (the
@@ -282,7 +311,23 @@ COLLOCATED_LAYERS = 8
 # internlm2-20b cut from 48 layers: ~0.78 GB of bf16 a layer plus 2.3 GB
 # of embedding and head, ~8.5 GB of weights.npz at 8
 DENSE_LAYERS = 8
-PATH_LAYERS = {"dense": DENSE_LAYERS}
+# falcon-mamba-7b cut from 64 layers (~0.23 GB of bf16 a layer) to make
+# room for the hybrid path, which runs the same scan at twice its width
+SSM_LAYERS = 16
+# jamba-1.5-large-398b: one period of its 72 layers (8 sublayers)
+HYBRID_LAYERS = 8
+PATH_LAYERS = {"dense": DENSE_LAYERS, "ssm": SSM_LAYERS,
+               "hybrid": HYBRID_LAYERS}
+# the hybrid path's bank: 4 + 0 experts a MoE sublayer (top-2 kept), as
+# the config's 16 + 16 are 38.65 GB a sublayer in bf16
+HYBRID_EXPERTS = 4
+# paths whose faulted run is served on the clean run's engine once that
+# has drained, instead of on a second build: their whole-prompt installs
+# bypass the prefix cache, so the drained engine serves the same prompts
+# as a fresh one would, and the builds it saves (the hybrid's 32.5 GB and
+# mla_serial's 33 GB weights.npz read again, ~27 and ~33 s on the H100's
+# host) keep the script inside its time limit
+FAULT_ON_SAME_ENGINE = ("serial", "mla_serial", "ssm", "hybrid")
 # the kernels phase's shapes: the engine phase's batch, chunk and paging,
 # qwen2-moe-a2.7b's widths
 SHAPES = dict(max_batch=8, chunk=32, block_size=16, num_blocks=256,
@@ -648,6 +693,8 @@ def phase_kernels(torch, shapes):
         out[name]["mla"] = rows
     for name, rows in kernels_dense(torch, shapes).items():
         out[name]["dense"] = rows
+    for name, rows in kernels_hybrid(torch, shapes).items():
+        out[name]["hybrid"] = rows
     for name, r in out.items():
         _log_row(name, r)
     return out
@@ -1209,11 +1256,11 @@ def kernels_flash_prefill(torch):
 FALCON = dict(d_inner=8192, N=16)
 
 
-def ssm_case(torch, B, S, *, with_h0, dtype, seed):
-    """falcon-mamba-7b's scan operands at full width, drawn as
-    tests/test_kernels.py draws them: dt = softplus(z - 2), A = -exp(0.3
-    z); h0 (the slot state) in the working type."""
-    d, N = FALCON["d_inner"], FALCON["N"]
+def ssm_case(torch, B, S, *, with_h0, dtype, seed, d=FALCON["d_inner"]):
+    """falcon-mamba-7b's scan operands at full width (or ``d`` channels),
+    drawn as tests/test_kernels.py draws them: dt = softplus(z - 2), A =
+    -exp(0.3 z); h0 (the slot state) in the working type."""
+    N = FALCON["N"]
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
@@ -1587,6 +1634,195 @@ def kernels_dense(torch, S):
     return rows
 
 
+# jamba-1.5-large-398b's widths, its bank as the hybrid path cuts it
+JAMBA = dict(H=64, Hkv=8, Dh=128, D=8192, F=24576, E=HYBRID_EXPERTS, k=2,
+             d_inner=16384)
+
+
+def kernels_hybrid(torch, S):
+    """The hybrid path's four kernels at jamba-1.5-large-398b's layouts,
+    each against its plain version in f32 and bf16, twice and bitwise
+    equal: paged attention at H 64 over Hkv 8 (G = 8: two head groups a
+    split), Dh 128, at decode B = 8 over 288 and over the engine's 512
+    positions; whole-prompt attention at those heads, S = 200 and 256;
+    the selective scan at d_inner 16384, N 16: a prefill row at S = 200
+    and 256 from zero, and the decode step of 8 slots from their state
+    (also in the engine's in-place mode); the fused MoE at D 8192, F
+    24576, the path's bank of 4 experts, top-2: decode T = 8 (cap 8) and
+    one prompt's prefill T = 256 (cap 160).  The bf16 decode and S = 256
+    or T = 256 rows are timed beside their bounds (flash_prefill beside
+    ``scaled_dot_product_attention``).  Returns {kernel: [rows]}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
+                                                   flash_prefill_plain)
+    from repro_torch.kernels.moe_fused import moe_fused_cuda, moe_fused_plain
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_plain)
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
+    J = JAMBA
+    rows = {"paged_attention": [], "flash_prefill": [], "ssm_scan": [],
+            "moe_fused": []}
+    log("kernels: paged_attention at jamba-1.5-large-398b's GQA (H=64, "
+        "Hkv=8: G = 8, Dh=128) vs its plain version")
+    mb, nblk = S["max_blk"], S["num_blocks"] + 1
+    errs, timed = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for i, (name, max_len) in enumerate((("decode", 288),
+                                             ("full context", 512))):
+            args, n_valid = paged_case(
+                torch, B=S["max_batch"], H=J["H"], Hkv=J["Hkv"], Dh=J["Dh"],
+                bs=S["block_size"], nb=nblk, max_blk=mb, max_len=max_len,
+                window=0, idle=True, dtype=dtype, seed=90 + i)
+            got = paged_attention_cuda(*args)
+            again = paged_attention_cuda(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_attention jamba {name}: not "
+                                     f"bitwise equal run to run")
+            if got[1].abs().max().item() != 0.0:
+                raise AssertionError("paged_attention jamba: idle row not 0")
+            errs.append(compare(f"jamba {name} B={S['max_batch']} H=64/8 "
+                                f"Dh=128 ({n_valid} rows) {dn}", got,
+                                paged_attention_plain(*args), dn))
+            if dtype is torch.bfloat16:
+                timed[name] = (args, n_valid, dn)
+            del args, got, again
+    for name, (args, n_valid, dn) in timed.items():
+        rows["paged_attention"].append(_row(
+            errs, time_ms(torch, lambda: paged_attention_cuda(*args)),
+            time_ms(torch, lambda: paged_attention_plain(*args)),
+            paged_bound_ms(args, n_valid, dn),
+            f"jamba {name} B={S['max_batch']} H=64 Hkv=8 Dh=128 bf16, "
+            f"{n_valid} valid K/V rows"))
+    del timed
+    _free(torch)
+
+    log("kernels: flash_prefill at jamba-1.5-large-398b's heads (B=1, "
+        "H=64, Hkv=8, Dh=128) vs its plain version")
+    H, Hkv, Dh = J["H"], J["Hkv"], J["Dh"]
+    errs, timed = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for Sq in (200, 256):
+            gen = torch.Generator(device="cuda").manual_seed(Sq + 7)
+            q, k, v = (torch.randn((1, Sq, h, Dh), generator=gen,
+                                   device="cuda").to(dtype)
+                       for h in (H, Hkv, Hkv))
+            pos = torch.arange(Sq, dtype=torch.int32, device="cuda")
+            got = flash_prefill_cuda(q, k, v, pos, pos)
+            again = flash_prefill_cuda(q, k, v, pos, pos)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"flash_prefill jamba S={Sq}: not "
+                                     f"bitwise equal run to run")
+            errs.append(compare(f"jamba S={Sq} {dn}", got,
+                                flash_prefill_plain(q, k, v, pos, pos), dn,
+                                FLASH_TOL))
+            if Sq == 256 and dtype is torch.bfloat16:
+                timed = (q, k, v, pos)
+    q, k, v, pos = timed
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    rows["flash_prefill"].append(_row(
+        errs, time_ms(torch, lambda: flash_prefill_cuda(q, k, v, pos, pos)),
+        time_ms(torch, lambda: flash_prefill_plain(q, k, v, pos, pos)),
+        flash_bound_ms(256, H, Hkv, Dh, 0, q.element_size(), "bfloat16"),
+        f"jamba B=1 S=256 H={H} Hkv={Hkv} Dh={Dh} causal bf16 (library: "
+        f"scaled_dot_product_attention)", time_ms(torch, library)))
+    del timed, q, k, v
+    _free(torch)
+
+    log("kernels: ssm_scan at jamba-1.5-large-398b's width (d_inner 16384, "
+        "N 16) vs its plain version")
+    errs, timed = [], {}
+    cases = [("prefill", 1, 200, False), ("prefill", 1, 256, False),
+             ("decode", 8, 1, True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for i, (name, B, Sq, with_h0) in enumerate(cases):
+            args = ssm_case(torch, B, Sq, with_h0=with_h0, dtype=dtype,
+                            seed=95 + i, d=J["d_inner"])
+            y, h = ssm_scan_cuda(*args)
+            y2, h2 = ssm_scan_cuda(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(h, h2)):
+                raise AssertionError(f"ssm_scan jamba {name} S={Sq}: not "
+                                     f"bitwise equal run to run")
+            want_y, want_h = ssm_scan_plain(*args)
+            for part, got, want in (("y", y, want_y), ("h_final", h, want_h)):
+                errs.append(compare(f"jamba {name} B={B} S={Sq} {part} {dn}",
+                                    got, want, dn, SSM_TOL))
+            if with_h0:
+                errs += ssm_in_place(torch, args, dn)
+            if dtype is torch.bfloat16 and Sq in (1, 256):
+                timed[name] = args
+            del y, y2, h, h2, want_y, want_h
+    args = timed["prefill"]
+    rows["ssm_scan"].append(_row(
+        errs, time_ms(torch, lambda: ssm_scan_cuda(*args)),
+        time_ms(torch, lambda: ssm_scan_plain(*args)), ssm_bound_ms(args),
+        "jamba prefill B=1 S=256 d=16384 N=16 bf16 (library: none)"))
+    args = timed["decode"]
+    state, bf16 = args[5].clone(), torch.bfloat16
+    rows["ssm_scan"].append(_row(
+        errs, time_ms(torch, lambda: ssm_scan_cuda(
+            *args[:5], state, h_out=state, y_dtype=bf16)),
+        time_ms(torch, lambda: ssm_scan_plain(
+            *args[:5], state, h_out=state, y_dtype=bf16)),
+        ssm_bound_ms(args, bf16, bf16),
+        "jamba decode B=8 S=1 d=16384 N=16 in place (bf16 state, y in "
+        "bf16; library: none)"))
+    del timed, args, state
+    _free(torch)
+
+    log("kernels: moe_fused at jamba-1.5-large-398b's widths (D=8192, "
+        "F=24576, 4 experts, top-2) vs its plain version")
+    errs, timed = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for i, (name, T, cap) in enumerate((("decode", S["max_batch"], 8),
+                                            ("prefill", 256, 160))):
+            args, kw = moe_case(torch, T=T, E=J["E"], e_local=J["E"], off=0,
+                                D=J["D"], Fd=J["F"], k=J["k"], cap=cap,
+                                dtype=dtype, seed=97 + i)
+            got = moe_fused_cuda(*args, **kw)
+            again = moe_fused_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"moe_fused jamba {name}: not bitwise "
+                                     f"equal run to run")
+            _, _, live_e, live_s = moe_bound_ms(args, kw, dn)
+            errs.append(compare(
+                f"jamba {name} T={T} cap={cap} ({live_e} experts, {live_s} "
+                f"slots) {dn}", got, moe_fused_plain(*args, **kw), dn))
+            if dtype is torch.bfloat16:
+                timed[name] = (args, kw, dn)
+            del got, again
+            if dtype is torch.float32:
+                del args
+                _free(torch)
+    for name, (args, kw, dn) in timed.items():
+        bound, by, live_e, live_s = moe_bound_ms(args, kw, dn)
+        rows["moe_fused"].append(_row(
+            errs, time_ms(torch, lambda: moe_fused_cuda(*args, **kw)),
+            time_ms(torch, lambda: moe_fused_plain(*args, **kw)),
+            (bound, by),
+            f"jamba {name} T={args[0].shape[0]} D=8192 F=24576 E=4 k=2 "
+            f"cap={kw['cap']} bf16, {live_e} experts / {live_s} slots "
+            f"live"))
+    del timed
+    _free(torch)
+    for name, rs in rows.items():
+        for r in rs:
+            _log_row(name, r)
+    return rows
+
+
 def mla_megastep(torch, S):
     """The megastep at deepseek-v3's latent layout (w_post (73728, 7168),
     E_log 256 + 32 redundant, top-8): a decode step (B=8), one with a
@@ -1812,8 +2048,9 @@ def _map(tree, fn):
 
 def phase_model(torch, seed):
     """qwen2-moe-a2.7b and deepseek-v3 (MLA) at full width, 2 layers,
-    f32, card against CPU; then falcon-mamba-7b; then the dense family's
-    internlm2-20b (GQA, G = 6) and minicpm3-4b (MLA, Da 288)."""
+    f32, card against CPU; then falcon-mamba-7b; then one period of
+    jamba-1.5-large-398b; then the dense family's internlm2-20b (GQA, G =
+    6) and minicpm3-4b (MLA, Da 288)."""
     import dataclasses
     from repro_torch.configs import get_config
     model_moe(torch, dataclasses.replace(
@@ -1836,6 +2073,7 @@ def phase_model(torch, seed):
               f"{ds.moe.num_redundant_experts} to 16 + 4 experts, top-"
               f"{ds.moe.top_k} kept")
     model_ssm(torch, seed)
+    model_hybrid(torch, seed)
     for arch in DENSE_ARCHS:
         cfg = get_config(arch)
         heads = (f"{cfg.num_heads} MLA heads, latent "
@@ -2128,6 +2366,116 @@ def model_ssm(torch, seed):
     torch.cuda.empty_cache()
 
 
+def model_hybrid(torch, seed):
+    """The hybrid path's model calls, card against CPU: one period of
+    jamba-1.5-large-398b at full width in f32 (attention at sublayer 4,
+    seven Mamba sublayers, the fused MoE on the odd ones), weights drawn
+    on the card; one whole-prompt prefill of 200 tokens at bucket 256,
+    its K/V rows and seven states installed into slot 2 of 8, then two
+    greedy decode steps.  The bank is cut to 2 + 0 experts (top-2 kept)
+    for this check alone: at 4 experts the f32 period is 65 GB."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.models.model import Model
+    from repro_torch.serving import cache_ops
+    from repro_torch.serving.executor import next_bucket
+    from repro_torch.serving.kvcache import padded_block_ids
+    full = get_config("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(
+        full, num_layers=full.hybrid_period, moe_impl="fused",
+        moe=dataclasses.replace(full.moe, num_experts=2,
+                                num_redundant_experts=0))
+    bs, nblk, max_blk, batch, slot, n = 16, 20, 16, 8, 2, 200
+    bucket = next_bucket(n, 512)
+    blocks = list(range(nblk - 1, nblk - 1 - (n + 2 + bs) // bs, -1))
+    bids = padded_block_ids(blocks, bucket // bs, nblk)
+    log(f"model: before jamba-1.5-large-398b's f32 period, {host_memory()}")
+    t0 = time.perf_counter()
+    p_card = Model(cfg, torch.float32, device="cuda").init(seed)
+    p_cpu = _map(p_card, lambda t: t.cpu())
+    log(f"model: jamba-1.5-large-398b full width (d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads of "
+        f"{cfg.head_dim}, d_inner {cfg.mamba.expand * cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, expert d_ff {cfg.moe.expert_d_ff}, vocab "
+        f"{cfg.vocab_size}), one "
+        f"period of {cfg.hybrid_period} sublayers, bank cut from "
+        f"{full.moe.num_experts} + {full.moe.num_redundant_experts} to 2 + "
+        f"0 experts, top-{cfg.moe.top_k} kept, f32; weights from seed "
+        f"{seed} in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    rng = np.random.default_rng(seed + 3)
+    tokens = np.zeros((1, bucket), np.int32)
+    tokens[0, :n] = rng.integers(0, cfg.vocab_size, n)
+    page = dict(tables=np.zeros((batch, max_blk), np.int32),
+                seq_lens=np.zeros(batch, np.int32),
+                write_bid=np.full(batch, nblk, np.int32),
+                write_off=np.zeros(batch, np.int32))
+    page["tables"][slot, :len(blocks)] = blocks
+    launches.clear()
+    res = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_card)):
+        m = Model(cfg, torch.float32, device=dev)
+        cache = m.init_paged_cache(batch, nblk, bs)
+        axes = cache_ops.infer_paged_axes(m, nblk, bs)
+        last, raw = m.prefill_paged(p, {
+            "tokens": torch.from_numpy(tokens).to(dev),
+            "lengths": torch.tensor([n], dtype=torch.int32, device=dev)})
+        cache_ops.install_prefill(cache, raw, axes, bids, slot)
+        entry = cache["periods"]
+        installed = {f"attn/{k}": v[:, blocks].float().cpu().clone().numpy()
+                     for k, v in entry["attn"].items()}
+        installed.update({f"ssm/{k}": v[:, :, slot].float().cpu().clone()
+                          .numpy() for k, v in entry["ssm"].items()})
+        logits = [last.float().cpu().numpy()[0]]
+        if dev == "cpu":
+            greedy = [int(logits[0].argmax())]
+        for step in range(2):
+            pos = n + step
+            tok = torch.zeros(batch, dtype=torch.int32, device=dev)
+            tok[slot] = greedy[step]
+            page["seq_lens"][slot] = pos + 1
+            page["write_bid"][slot] = blocks[pos // bs]
+            page["write_off"][slot] = pos % bs
+            out, _ = m.decode_step_paged(
+                p, cache, tok, {k: torch.from_numpy(v).to(dev)
+                                for k, v in page.items()})
+            logits.append(out.float().cpu().numpy()[slot])
+            if dev == "cpu":
+                greedy.append(int(logits[-1].argmax()))
+        res[dev] = (logits, installed)
+        del m, cache, raw
+    (lc, ic), (lg, ig) = res["cpu"], res["cuda"]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(lg, lc))
+    atol, rtol = STATE_TOL
+    state_err = {k: float(np.abs(ig[k] - ic[k]).max()) for k in ic}
+    state_ok = all(np.allclose(ig[k], ic[k], atol=atol, rtol=rtol)
+                   for k in ic)
+    same = [int(a.argmax()) for a in lg] == greedy
+    counts = {k: launches.get(k, 0) for k in
+              ("flash_prefill", "paged_attention", "ssm_scan", "moe_fused")}
+    log(f"  hybrid prefill ({n} tokens, bucket {bucket}) + 2 decode steps, "
+        f"card vs CPU: logits max_abs_err {err:.3e} (atol "
+        f"{MODEL_LOGIT_ATOL:g}); installed pool rows and states "
+        f"max_abs_err " + ", ".join(f"{k} {v:.3e}"
+                                   for k, v in state_err.items())
+        + f" (atol {atol:g}, rtol {rtol:g}); greedy tokens "
+        f"{'equal' if same else 'DIFFER'} ({greedy}); launches {counts}")
+    if err > MODEL_LOGIT_ATOL or not state_ok or not same \
+            or not all(np.isfinite(a).all() for a in lg):
+        raise AssertionError("model: the hybrid prefill and decode disagree")
+    # on the card's calls: one prefill and two decode steps, through one
+    # attention sublayer, seven Mamba sublayers and four MoE sublayers
+    want = {"flash_prefill": 1, "paged_attention": 2, "ssm_scan": 21,
+            "moe_fused": 12}
+    if counts != want:
+        raise AssertionError(f"model: hybrid launches {counts}, expected "
+                             f"{want}")
+    del p_card, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # -- phase 5: engine --------------------------------------------------------------
 
 def _prompts(vocab, seed):
@@ -2240,11 +2588,11 @@ def phase_engine(torch, seed, layers, paths, profile=False):
     workdir (the first writes ``weights.npz``, the others load it),
     removed before
     the next group writes its own.  Returns the kernels' launch counts,
-    each summed over the paths it runs on."""
+    each summed over the paths it runs on, and each per path."""
     log(f"engine: before the first build, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the "
         f"card")
-    counts, rates, streams = {}, {}, {}
+    counts, by_path, rates, streams = {}, {}, {}, {}
     # streams a later path compares with: (path, "fault") for a faulted
     # run's, ("spec", "plain") for the plain engine on the pattern prompts
     kept = {}
@@ -2273,6 +2621,7 @@ def phase_engine(torch, seed, layers, paths, profile=False):
                     rates[path], streams[path] = path_rates, path_streams
                 for k, v in path_counts.items():
                     counts[k] = counts.get(k, 0) + v
+                    by_path.setdefault(k, {})[path] = v
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     for path, (clean, fault) in rates.items():
@@ -2298,14 +2647,14 @@ def phase_engine(torch, seed, layers, paths, profile=False):
             f"{sum(len(c) for c in streams[base])} greedy output "
             f"tokens with the {base} run, position by position "
             f"({prefix} in the requests' common prefixes; not checked)")
-    return counts
+    return counts, by_path
 
 
 def engine_config(arch, layers):
     """qwen2-moe-a2.7b at full width and depth ``layers``; deepseek-v3 at
     full width with its depth cut from 61 to its 3 dense layers and 1 MoE
-    layer; falcon-mamba-7b whole (width and all 64 layers); internlm2-20b
-    at full width and depth ``layers``."""
+    layer; falcon-mamba-7b, internlm2-20b and jamba-1.5-large-398b at full
+    width and depth ``layers`` (Jamba's bank cut to HYBRID_EXPERTS)."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
@@ -2328,11 +2677,36 @@ def engine_config(arch, layers):
         return cfg
     if cfg.moe is None:
         mb = cfg.mamba
+        log(f"engine: depth cut from {cfg.num_layers} to {layers} layers, "
+            f"width kept (~0.23 GB of bf16 a layer)")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
         log(f"engine: {cfg.name}: {cfg.num_layers} Mamba layers, d_model "
             f"{cfg.d_model}, d_inner {mb.expand * cfg.d_model}, d_state "
             f"{mb.d_state}, d_conv {mb.d_conv}, dt_rank "
-            f"{mb.resolved_dt_rank(cfg.d_model)}, vocab {cfg.vocab_size}; "
-            f"full width and depth")
+            f"{mb.resolved_dt_rank(cfg.d_model)}, vocab {cfg.vocab_size}")
+        return cfg
+    if cfg.hybrid_period:
+        m = cfg.moe
+        log(f"engine: depth cut from {cfg.num_layers} to {layers} layers "
+            f"({layers // cfg.hybrid_period} period), width kept; the bank "
+            f"cut from {m.num_experts} + {m.num_redundant_experts} to "
+            f"{HYBRID_EXPERTS} + 0 experts a MoE sublayer, top-{m.top_k} "
+            f"kept: one expert is 3 x {cfg.d_model} x {m.expert_d_ff} bf16 "
+            f"= 1.208 GB, the config's bank 38.65 GB a MoE sublayer and "
+            f"154.6 GB a period, over the card's 80 GB")
+        cfg = dataclasses.replace(
+            cfg, num_layers=layers, moe=dataclasses.replace(
+                m, num_experts=HYBRID_EXPERTS, num_redundant_experts=0))
+        mb = cfg.mamba
+        log(f"engine: {cfg.name}: {cfg.num_layers} sublayers (attention at "
+            f"{cfg.hybrid_attn_index}, Mamba elsewhere; MoE on the odd "
+            f"ones, a dense FFN on the others), d_model {cfg.d_model}, "
+            f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads of "
+            f"{cfg.head_dim}, d_inner {mb.expand * cfg.d_model}, d_state "
+            f"{mb.d_state}, dt_rank {mb.resolved_dt_rank(cfg.d_model)}, "
+            f"d_ff {cfg.d_ff}, expert d_ff {cfg.moe.expert_d_ff}, "
+            f"{cfg.moe.num_experts}+0 experts, top-{cfg.moe.top_k}, vocab "
+            f"{cfg.vocab_size}")
         return cfg
     if layers != cfg.num_layers and cfg.attention_type != "mla":
         log(f"engine: depth cut from {cfg.num_layers} to {layers} layers, "
@@ -2402,7 +2776,7 @@ def serve_path(torch, cfg, path, workdir, seed, profile, kept):
     """One engine path: 8 requests without a fault, then with an L6 fault
     on physical 1 mid-step at step 6 (``attn+moe`` on an MoE model, where
     the lost experts are masked; ``attn`` on the ssm path), revived in
-    place.  Returns (launch counts of the faulted run, (clean, fault)
+    place, on a second engine (``FAULT_ON_SAME_ENGINE``: on the first).  Returns (launch counts of the faulted run, (clean, fault)
     rates, the clean run's output streams); the faulted run's streams go
     to ``kept``."""
     from repro_torch.core.weights import RecoveryPolicy
@@ -2424,19 +2798,24 @@ def serve_path(torch, cfg, path, workdir, seed, profile, kept):
     streams = [list(r.output_tokens) for r in reqs]
     log("  no fault: " + json.dumps(
         {k: round(v, 3) for k, v in clean.items()}))
-    del eng, reqs
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    eng = make()
+    del reqs
+    if path in FAULT_ON_SAME_ENGINE:
+        log("  the faulted run is served on the same engine, once the "
+            "clean run has drained (no second build)")
+    else:
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = make()
     schedule_fault(eng, cfg)
+    before = eng.prefill_stats()
     launches.clear()
     reqs, fault = _serve(torch, eng, cfg.vocab_size, seed, new_tokens)
     path_counts = dict(launches)
     kept[path, "fault"] = [list(r.output_tokens) for r in reqs]
     log("  with fault: " + json.dumps(
         {k: round(v, 3) for k, v in fault.items()}))
-    used = check_revived(eng, cfg, path, reqs, path_counts)
+    used = check_revived(eng, cfg, path, reqs, path_counts, before)
     del eng, reqs
     gc.collect()
     torch.cuda.empty_cache()
@@ -2445,19 +2824,22 @@ def serve_path(torch, cfg, path, workdir, seed, profile, kept):
 
 def schedule_fault(eng, cfg):
     """The L6 fault of every path's faulted run: physical 1, mid-step at
-    step 6 (``attn+moe`` on an MoE model, ``attn`` on the ssm path)."""
+    the run's step 6 (``attn+moe`` on an MoE model, ``attn`` on the ssm
+    path)."""
     from repro_torch.core.fault_codes import Severity
-    eng.injector.schedule(6, 1, severity=Severity.L6,
+    eng.injector.schedule(eng.step_no + 6, 1, severity=Severity.L6,
                           component="attn+moe" if cfg.moe is not None
                           else "attn", mid_step=True)
 
 
-def check_revived(eng, cfg, path, reqs, path_counts):
+def check_revived(eng, cfg, path, reqs, path_counts, before=None):
     """The checks of a run with the step-6 L6 fault on physical 1: every
     request finished, the fault revived in place (an MoE model's lost
     experts masked, ``moe+missing_experts``; the ssm path's ``attn``) on
     a "precompiled" graph, the prefix cache hit where prompts chunk, and
-    every kernel of the path launched.  Returns the path's kernels."""
+    every kernel of the path launched.  ``before``: the engine's
+    ``prefill_stats()`` when the run began (its counts are cumulative).
+    Returns the path's kernels."""
     moe = cfg.moe is not None
     states = [r.state.value for r in reqs]
     if any(s != "finished" for s in states):
@@ -2493,7 +2875,8 @@ def check_revived(eng, cfg, path, reqs, path_counts):
     if rep.compile_source != "precompiled":
         raise AssertionError(f"engine {path}: compile_source "
                              f"{rep.compile_source}")
-    stats = eng.prefill_stats()
+    stats = {k: v - (before or {}).get(k, 0)
+             for k, v in eng.prefill_stats().items()}
     hits = stats["prefix_cache_hits"]
     # whole-prompt installs (serial, or a model that cannot chunk) bypass
     # the prefix cache
@@ -3366,9 +3749,9 @@ def main() -> int:
         results = timed("kernels", lambda: phase_kernels(torch, SHAPES))
     if "model" in phases:
         timed("model", lambda: phase_model(torch, args.seed))
-    counts = {}
+    counts, by_path = {}, {}
     if "engine" in phases:
-        counts = timed("engine", lambda: phase_engine(
+        counts, by_path = timed("engine", lambda: phase_engine(
             torch, args.seed, args.layers, args.paths.split(","),
             args.profile))
     log(f"phases {phases} passed in {time.perf_counter() - t_start:.1f} s "
@@ -3378,11 +3761,14 @@ def main() -> int:
         r = results.get(name, {})
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts.get(name, 0), max_abs_err=r.get("max_abs_err"),
+            launches=counts.get(name, 0),
+            launches_by_path=by_path.get(name, {}),
+            max_abs_err=r.get("max_abs_err"),
             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
             library_ms=r.get("library_ms"), shape=r.get("shape"),
-            mla=r.get("mla"), dense=r.get("dense")))
+            mla=r.get("mla"), dense=r.get("dense"),
+            hybrid=r.get("hybrid")))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

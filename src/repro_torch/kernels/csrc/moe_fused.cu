@@ -39,8 +39,9 @@
 // f32 keeps FMA kernels: the tensor cores would multiply f32 as TF32,
 // which breaks the 1e-4 card-vs-CPU tolerance.  In them one CTA takes
 // (expert, slot tile of kRows, column tile of kCols); the tile's x rows
-// are gathered into shared memory, each thread owns one output column and
-// keeps kRows sums in registers.
+// (h rows for down) are gathered into shared memory kStage positions at a
+// time, each thread owns one output column and keeps kRows sums in
+// registers, added in position order.
 #include "common.cuh"
 #include "ffn_mma.cuh"
 
@@ -49,6 +50,10 @@ namespace {
 constexpr int kRows = 8;    // slots per CTA
 constexpr int kCols = 128;  // output columns per CTA (one per thread)
 constexpr int kCombineThreads = 256;
+// reduction positions of x (gate/up) or h (down) staged in shared memory
+// at a time: 32 KB a CTA, whatever D and F (a whole row of x at D = 8192,
+// or of h at F = 24576, would not fit)
+constexpr int kStage = 1024;
 
 // Which of the tile's slots hold a live copy; false for the whole tile
 // lets the CTA return before touching the expert's weights.
@@ -72,42 +77,47 @@ __global__ void __launch_bounds__(kCols) gate_up_kernel(
     const T* __restrict__ up, const int* __restrict__ tok_idx,
     const float* __restrict__ wgt, float* __restrict__ h_buf, int D, int F,
     int cap) {
-  extern __shared__ __align__(16) float x_s[];  // kRows * D
+  extern __shared__ __align__(16) float x_s[];  // kRows * min(D, kStage)
   __shared__ bool live_s[kRows];
   const int e = blockIdx.z;
   const int c0 = blockIdx.y * kRows;
   if (!tile_live(wgt, e, c0, cap, live_s)) return;
 
-  for (int i = threadIdx.x; i < kRows * D; i += kCols) {
-    const int r = i / D;
-    const int d = i - r * D;
-    float v = 0.f;
-    if (live_s[r]) {
-      const long long t = tok_idx[(long long)e * cap + c0 + r];
-      v = to_float(x[t * D + d]);
-    }
-    x_s[i] = v;
-  }
-  __syncthreads();
-
   const int f = blockIdx.x * kCols + threadIdx.x;
-  if (f >= F) return;
+  const int ld = min(D, kStage);
   float g[kRows], u[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) g[r] = u[r] = 0.f;
   const T* gcol = gate + (long long)e * D * F + f;
   const T* ucol = up + (long long)e * D * F + f;
+  for (int d0 = 0; d0 < D; d0 += kStage) {
+    const int n = min(kStage, D - d0);
+    __syncthreads();              // the last stage is consumed
+    for (int i = threadIdx.x; i < kRows * n; i += kCols) {
+      const int r = i / n;
+      const int d = i - r * n;
+      float v = 0.f;
+      if (live_s[r]) {
+        const long long t = tok_idx[(long long)e * cap + c0 + r];
+        v = to_float(x[t * D + d0 + d]);
+      }
+      x_s[r * ld + d] = v;
+    }
+    __syncthreads();
+    if (f >= F) continue;
 #pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    const float gv = to_float(gcol[(long long)d * F]);
-    const float uv = to_float(ucol[(long long)d * F]);
+    for (int d = 0; d < n; ++d) {
+      const float gv = to_float(gcol[(long long)(d0 + d) * F]);
+      const float uv = to_float(ucol[(long long)(d0 + d) * F]);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float xv = x_s[r * D + d];
-      g[r] += xv * gv;
-      u[r] += xv * uv;
+      for (int r = 0; r < kRows; ++r) {
+        const float xv = x_s[r * ld + d];
+        g[r] += xv * gv;
+        u[r] += xv * uv;
+      }
     }
   }
+  if (f >= F) return;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int c = c0 + r;
@@ -124,31 +134,38 @@ __global__ void __launch_bounds__(kCols) down_kernel(
     const T* __restrict__ down, const float* __restrict__ wgt,
     const float* __restrict__ h_buf, float* __restrict__ out_buf, int D,
     int F, int cap) {
-  extern __shared__ __align__(16) float h_s[];  // kRows * F
+  extern __shared__ __align__(16) float h_s[];  // kRows * min(F, kStage)
   __shared__ bool live_s[kRows];
   const int e = blockIdx.z;
   const int c0 = blockIdx.y * kRows;
   if (!tile_live(wgt, e, c0, cap, live_s)) return;
 
   const int rows = min(kRows, cap - c0);
-  for (int i = threadIdx.x; i < kRows * F; i += kCols) {
-    const int r = i / F;
-    h_s[i] = r < rows ? h_buf[((long long)e * cap + c0) * F + i] : 0.f;
-  }
-  __syncthreads();
-
   const int dcol = blockIdx.x * kCols + threadIdx.x;
-  if (dcol >= D) return;
+  const int ld = min(F, kStage);
   float acc[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
   const T* col = down + (long long)e * F * D + dcol;
+  for (int f0 = 0; f0 < F; f0 += kStage) {
+    const int n = min(kStage, F - f0);
+    __syncthreads();              // the last stage is consumed
+    for (int i = threadIdx.x; i < kRows * n; i += kCols) {
+      const int r = i / n;
+      const int f = i - r * n;
+      h_s[r * ld + f] =
+          r < rows ? h_buf[((long long)e * cap + c0 + r) * F + f0 + f] : 0.f;
+    }
+    __syncthreads();
+    if (dcol >= D) continue;
 #pragma unroll 4
-  for (int f = 0; f < F; ++f) {
-    const float w = to_float(col[(long long)f * D]);
+    for (int f = 0; f < n; ++f) {
+      const float w = to_float(col[(long long)(f0 + f) * D]);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] += h_s[r * F + f] * w;
+      for (int r = 0; r < kRows; ++r) acc[r] += h_s[r * ld + f] * w;
+    }
   }
+  if (dcol >= D) return;
   for (int r = 0; r < rows; ++r) {
     out_buf[((long long)e * cap + c0 + r) * D + dcol] = acc[r];
   }
@@ -178,8 +195,8 @@ cudaError_t launch(const void* x, const void* gate, const void* up,
                    int T_tok, int k, int D, int F, int E, int cap,
                    cudaStream_t stream) {
   const int ctiles = (cap + kRows - 1) / kRows;
-  const size_t smem_gu = (size_t)kRows * D * sizeof(float);
-  const size_t smem_dn = (size_t)kRows * F * sizeof(float);
+  const size_t smem_gu = (size_t)kRows * std::min(D, kStage) * sizeof(float);
+  const size_t smem_dn = (size_t)kRows * std::min(F, kStage) * sizeof(float);
   cudaError_t err = allow_smem(gate_up_kernel<T>, smem_gu);
   if (err != cudaSuccess) return err;
   err = allow_smem(down_kernel<T>, smem_dn);
@@ -248,9 +265,7 @@ extern "C" {
 // Shared memory the two product kernels need (the wrapper checks it).
 long long moe_fused_smem_bytes(int D, int F, int cap, int dtype) {
   if (dtype == 1) return (long long)tc::smem_for(cap);
-  const long long a = (long long)kRows * D * sizeof(float);
-  const long long b = (long long)kRows * F * sizeof(float);
-  return a > b ? a : b;
+  return (long long)kRows * std::min(std::max(D, F), kStage) * sizeof(float);
 }
 
 // x (T, D); gate / up (E, D, F); down (E, F, D); tok_idx / wgt (E, cap);

@@ -106,9 +106,12 @@ def _config(args):
     cfg = get_config(args.arch)
     if args.layers is not None and args.layers != cfg.num_layers:
         least = cfg.moe.first_k_dense + 1 if cfg.moe is not None else 1
-        if not least <= args.layers <= cfg.num_layers:
+        period = cfg.hybrid_period or 1     # a hybrid cuts whole periods
+        if not least <= args.layers <= cfg.num_layers or args.layers % period:
             raise SystemExit(f"--layers {args.layers}: {cfg.name} takes "
-                             f"{least} to {cfg.num_layers} layers")
+                             f"{max(least, period)} to {cfg.num_layers} "
+                             f"layers" + (f", a multiple of {period}"
+                                          if period > 1 else ""))
         print(f"config: {cfg.name} at full width (d_model {cfg.d_model}, "
               f"vocab {cfg.vocab_size}), depth cut from {cfg.num_layers} "
               f"to {args.layers} layers")

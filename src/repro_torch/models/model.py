@@ -24,8 +24,17 @@ recurrence through ``ops.ssm_scan``.  It cannot chunk its prefill.
 
 The dense family (``family="dense"``: internlm2-20b's GQA, minicpm3-4b's
 MLA; SwiGLU or squared-ReLU FFNs of width ``d_ff``) runs the same blocks
-with a dense FFN in every layer; it has no experts.  The hybrid (Jamba),
-audio and VLM families are later slices of the port and raise here.
+with a dense FFN in every layer; it has no experts.
+
+The hybrid family (``family="hybrid"``, Jamba) stacks periods of
+``hybrid_period`` sublayers ``sub_i``: attention at ``hybrid_attn_index``,
+Mamba elsewhere, each followed by an MoE on the sublayers where ``i %
+moe_layer_period == 1`` and a dense FFN on the others.  A period's cache
+entry holds both kinds of state: ``{"attn": its K/V pools, "ssm": the
+stack of its Mamba sublayers' per-slot states}``.  It cannot chunk its
+prefill, and the megastep never runs in it (its attention sublayer
+carries a dense FFN).  The audio and VLM families are later slices of
+the port and raise here.
 """
 from __future__ import annotations
 
@@ -48,13 +57,11 @@ class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                  device=None):
         cfg.validate()
-        unported = {
-            "vlm": "Queue 1 item 10", "audio": "Queue 1 item 10",
-            "hybrid": "Queue 1 item 1h, the Jamba hybrid period"}
+        unported = {"vlm": "Queue 1 item 10", "audio": "Queue 1 item 10"}
         if cfg.family in unported:
             raise NotImplementedError(
-                f"family {cfg.family!r}: only attention+MoE, dense and "
-                f"Mamba models are ported so far (ROADMAP "
+                f"family {cfg.family!r}: only attention+MoE, dense, Mamba "
+                f"and hybrid models are ported so far (ROADMAP "
                 f"{unported[cfg.family]})")
         self.cfg = cfg
         self.dtype = dtype
@@ -64,7 +71,8 @@ class Model:
         # package's traced int32 (this model holds the whole bank)
         self.expert_offset = torch.zeros(1, dtype=torch.int32,
                                          device=self.device)
-        # per Mamba group: (its A_log, that tensor's version, A)
+        # per Mamba group (a hybrid period's: per group and sublayer):
+        # (its A_log, that tensor's version, A)
         self._ssm_A: Dict[str, Any] = {}
         # per MLA group: ((its wuv, wo), their versions, w_post)
         self._w_post: Dict[str, Any] = {}
@@ -76,6 +84,9 @@ class Model:
         cfg = self.cfg
         if cfg.family == "ssm":
             return [("layers", cfg.num_layers, "mamba", None, False)]
+        if cfg.hybrid_period:
+            return [("periods", cfg.num_layers // cfg.hybrid_period,
+                     "hybrid", None, False)]
         if cfg.moe is None:         # dense
             return [("layers", cfg.num_layers, "attn", "dense", False)]
         groups = []
@@ -85,6 +96,14 @@ class Model:
         groups.append(("layers", cfg.num_layers - cfg.moe.first_k_dense,
                        "attn", "moe", False))
         return groups
+
+    def period_sublayers(self):
+        """A hybrid period's sublayers: (name, mixer, ffn_kind) each."""
+        cfg = self.cfg
+        return [(f"sub_{i}", "attn" if i == cfg.hybrid_attn_index
+                 else "mamba",
+                 "moe" if i % cfg.moe.moe_layer_period == 1 else "dense")
+                for i in range(cfg.hybrid_period)]
 
     @property
     def supports_chunked_prefill(self) -> bool:
@@ -114,36 +133,57 @@ class Model:
             "lm_head": embed_init(gen, self.vpad, D, dtype).T.contiguous(),
         }
         for name, n, mixer, ffn_kind, _ in self.layer_groups():
-            p: Dict[str, Any] = {
-                "ln1": torch.ones((n, D), dtype=dtype, device=self.device)}
-            if mixer == "mamba":        # a Mamba block has no FFN
-                p["mixer"] = M.mamba_init(gen, cfg, dtype, (n,))
+            if mixer == "hybrid":
+                params[name] = {
+                    sub: self._block_init(gen, n, sub_mixer, sub_ffn)
+                    for sub, sub_mixer, sub_ffn in self.period_sublayers()}
             else:
-                init = (A.mla_init if cfg.attention_type == "mla"
-                        else A.gqa_init)
-                p["mixer"] = init(gen, cfg, dtype, (n,))
-                p["ln2"] = torch.ones((n, D), dtype=dtype,
-                                      device=self.device)
-            if ffn_kind == "moe":
-                p["moe"] = MoE.moe_init(gen, cfg, dtype, n)
-            elif ffn_kind == "dense_first":
-                p["ffn"] = Fn.ffn_init(gen, D, cfg.moe.dense_d_ff or cfg.d_ff,
-                                       cfg.activation, dtype, (n,))
-            elif ffn_kind == "dense":
-                p["ffn"] = Fn.ffn_init(gen, D, cfg.d_ff, cfg.activation,
-                                       dtype, (n,))
-            params[name] = p
+                params[name] = self._block_init(gen, n, mixer, ffn_kind)
         return params
 
-    def ssm_rates(self, params, name: str) -> torch.Tensor:
+    def _block_init(self, gen, n: int, mixer: str, ffn_kind):
+        """``n`` stacked blocks of one (mixer, ffn_kind); a block without
+        an FFN (a falcon-mamba layer) has no ``ln2``."""
+        cfg, dtype = self.cfg, self.dtype
+        D = cfg.d_model
+        p: Dict[str, Any] = {
+            "ln1": torch.ones((n, D), dtype=dtype, device=self.device)}
+        if mixer == "mamba":
+            p["mixer"] = M.mamba_init(gen, cfg, dtype, (n,))
+        else:
+            init = A.mla_init if cfg.attention_type == "mla" else A.gqa_init
+            p["mixer"] = init(gen, cfg, dtype, (n,))
+        if ffn_kind is not None:
+            p["ln2"] = torch.ones((n, D), dtype=dtype, device=self.device)
+        if ffn_kind == "moe":
+            p["moe"] = MoE.moe_init(gen, cfg, dtype, n)
+        elif ffn_kind == "dense_first":
+            p["ffn"] = Fn.ffn_init(gen, D, cfg.moe.dense_d_ff or cfg.d_ff,
+                                   cfg.activation, dtype, (n,))
+        elif ffn_kind == "dense":
+            p["ffn"] = Fn.ffn_init(gen, D, cfg.d_ff, cfg.activation, dtype,
+                                   (n,))
+        return p
+
+    def ssm_rates(self, params, name: str,
+                  sub: Optional[str] = None) -> torch.Tensor:
         """Mamba group ``name``'s scan rates A = -exp(A_log), (L, d_inner,
-        N) f32, computed once per weight load: again only when ``A_log`` is
+        N) f32 — of its sublayer ``sub`` in a hybrid period group —
+        computed once per weight load: again only when ``A_log`` is
         another tensor (a reload) or was written in place since."""
-        A_log = params[name]["mixer"]["A_log"]
-        hit = self._ssm_A.get(name)
+        group = params[name] if sub is None else params[name][sub]
+        A_log = group["mixer"]["A_log"]
+        key = name if sub is None else f"{name}/{sub}"
+        hit = self._ssm_A.get(key)
         if hit is None or hit[0] is not A_log or hit[1] != A_log._version:
-            hit = self._ssm_A[name] = (A_log, A_log._version, M.ssm_A(A_log))
+            hit = self._ssm_A[key] = (A_log, A_log._version, M.ssm_A(A_log))
         return hit[2]
+
+    def _period_rates(self, params, name: str) -> Dict[str, torch.Tensor]:
+        """A hybrid group's scan rates, per Mamba sublayer."""
+        return {sub: self.ssm_rates(params, name, sub)
+                for sub, mixer, _ in self.period_sublayers()
+                if mixer == "mamba"}
 
     def mla_post(self, params, name: str) -> torch.Tensor:
         """MLA group ``name``'s absorbed readouts ``mla_post_matrix``, (L,
@@ -191,12 +231,14 @@ class Model:
         if mixer == "mamba":
             out, state = M.mamba_forward(p["mixer"], cfg, h,
                                          return_state=True, A=ssm_A)
-            return x + out, state._asdict()
-        if cfg.attention_type == "mla":
+            entry = state._asdict()
+        elif cfg.attention_type == "mla":
             out, entry = self._mla_fwd_cache(p["mixer"], h, positions)
         else:
             out, entry = self._gqa_fwd_cache(p["mixer"], h, positions)
         x = x + out
+        if ffn_kind is None:
+            return x, entry
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if ffn_kind == "moe":
             y = self._moe(p["moe"], h2.reshape(-1, h2.shape[-1]), runtime,
@@ -218,21 +260,46 @@ class Model:
         """Every layer group, layer by layer.  Returns (x, caches): per
         group the stacked (L, B, S, Hkv, Dh) raw K and V (MLA: the (L, B,
         S, 1, R + dr) latent rows), or the stacked (L, B, ...) Mamba
-        state."""
+        state; a hybrid group's ``{"attn": (L, B, S, Hkv, Dh) K and V,
+        "ssm": (L, n_mamba, B, ...) state}``."""
         cap = self._cap(x.shape[0] * x.shape[1])
         caches: Dict[str, Any] = {}
         for name, n, mixer, ffn_kind, _ in self.layer_groups():
-            rates = self.ssm_rates(params, name) if mixer == "mamba" else None
             entries = []
-            for i in range(n):
-                x, entry = self._block_fwd(
-                    take_layer(params[name], i), x, positions, mixer=mixer,
-                    ffn_kind=ffn_kind, runtime=runtime, cap=cap,
-                    ssm_A=None if rates is None else rates[i])
-                entries.append(entry)
-            caches[name] = {key: torch.stack([e[key] for e in entries])
-                            for key in entries[0]}
+            if mixer == "hybrid":
+                rates = self._period_rates(params, name)
+                for i in range(n):
+                    x, entry = self._period_fwd(
+                        take_layer(params[name], i), x, positions, runtime,
+                        cap, {sub: a[i] for sub, a in rates.items()})
+                    entries.append(entry)
+            else:
+                rates = (self.ssm_rates(params, name) if mixer == "mamba"
+                         else None)
+                for i in range(n):
+                    x, entry = self._block_fwd(
+                        take_layer(params[name], i), x, positions,
+                        mixer=mixer, ffn_kind=ffn_kind, runtime=runtime,
+                        cap=cap, ssm_A=None if rates is None else rates[i])
+                    entries.append(entry)
+            caches[name] = _stack(entries)
         return x, caches
+
+    def _period_fwd(self, p, x, positions, runtime, cap, rates):
+        """One hybrid period over a whole sequence, sublayer by sublayer.
+        ``rates``: each Mamba sublayer's scan rates.  Returns (x, {"attn":
+        the attention sublayer's raw K/V, "ssm": the Mamba sublayers'
+        final states stacked on a leading axis})."""
+        attn, states = None, []
+        for sub, mixer, ffn_kind in self.period_sublayers():
+            x, entry = self._block_fwd(
+                p[sub], x, positions, mixer=mixer, ffn_kind=ffn_kind,
+                runtime=runtime, cap=cap, ssm_A=rates.get(sub))
+            if mixer == "attn":
+                attn = entry
+            else:
+                states.append(entry)
+        return x, {"attn": attn, "ssm": _stack(states)}
 
     def _embed_inputs(self, params, batch):
         x = params["embed"][batch["tokens"].long()]
@@ -277,13 +344,23 @@ class Model:
         physical blocks through block tables), plus one trailing *trash*
         block (id ``num_blocks``) that idle rows write into; a Mamba
         group keeps fixed-size per-slot ``conv``/``ssm`` state with a
-        batch axis, (L, batch, ...).  Callers tell pool leaves from
-        per-slot state by varying ``batch``."""
+        batch axis, (L, batch, ...), and a hybrid group both: ``{"attn":
+        its pools, "ssm": (L, n_mamba, batch, ...) state}``.  Callers tell
+        pool leaves from per-slot state by varying ``batch``."""
         dtype = dtype or self.dtype
         device = self.device if device is None else device
         caches = {}
         for name, n, mixer, _, _ in self.layer_groups():
-            if mixer == "mamba":
+            if mixer == "hybrid":
+                n_mamba = sum(mx == "mamba"
+                              for _, mx, _ in self.period_sublayers())
+                caches[name] = {
+                    "attn": A.gqa_paged_pools(
+                        self.cfg, num_blocks + 1, block_size, dtype, device,
+                        (n,)),
+                    "ssm": M.mamba_init_state(self.cfg, batch, dtype,
+                                              device, (n, n_mamba))}
+            elif mixer == "mamba":
                 caches[name] = M.mamba_init_state(self.cfg, batch, dtype,
                                                   device, (n,))
             elif self.cfg.attention_type == "mla":
@@ -320,6 +397,14 @@ class Model:
                         if starts is None else starts)
         mega = cfg.decode_impl == "megakernel"
         for name, n, mixer, ffn_kind, _ in self.layer_groups():
+            if mixer == "hybrid":
+                rates = self._period_rates(params, name)
+                for i in range(n):
+                    x = self._period_decode_paged(
+                        take_layer(params[name], i), x,
+                        take_layer(cache[name], i), page, runtime, cap,
+                        {sub: a[i] for sub, a in rates.items()})
+                continue
             rates = self.ssm_rates(params, name) if mixer == "mamba" else None
             post = (self.mla_post(params, name)
                     if mega and ffn_kind == "moe"
@@ -340,19 +425,39 @@ class Model:
         the block's scan rates).  ``w_post``: an MLA block's absorbed
         readout, for the megastep."""
         cfg = self.cfg
-        if cfg.decode_impl == "megakernel" and ffn_kind == "moe":
+        if (cfg.decode_impl == "megakernel" and mixer == "attn"
+                and ffn_kind == "moe"):
             return self._block_decode_megastep(p, x, csl, page, runtime,
                                                cap, w_post)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if mixer == "mamba":
-            return x + M.mamba_decode(p["mixer"], cfg, h, csl, A=ssm_A)
-        decode = (A.mla_decode_paged if cfg.attention_type == "mla"
-                  else A.gqa_decode_paged)
-        x = x + decode(p["mixer"], cfg, h, csl, page)
+            x = x + M.mamba_decode(p["mixer"], cfg, h, csl, A=ssm_A)
+        else:
+            decode = (A.mla_decode_paged if cfg.attention_type == "mla"
+                      else A.gqa_decode_paged)
+            x = x + decode(p["mixer"], cfg, h, csl, page)
+        if ffn_kind is None:
+            return x
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if ffn_kind == "moe":
             return x + self._moe(p["moe"], h2, runtime, cap)
         return x + Fn.ffn_apply(p["ffn"], h2, cfg.activation)
+
+    def _period_decode_paged(self, p, x, csl, page, runtime, cap, rates):
+        """One hybrid period's decode step.  ``csl``: the period's cache
+        entry; Mamba sublayer j updates its slice ``j`` of the state
+        stack in place, the attention sublayer its pools."""
+        j = 0
+        for sub, mixer, ffn_kind in self.period_sublayers():
+            if mixer == "attn":
+                sub_cache = csl["attn"]
+            else:
+                sub_cache = take_layer(csl["ssm"], j)
+                j += 1
+            x = self._block_decode_paged(p[sub], x, sub_cache, page,
+                                         runtime, cap, mixer, ffn_kind,
+                                         rates.get(sub))
+        return x
 
     def _block_decode_megastep(self, p, x, pools, page, runtime, cap,
                                w_post=None):
@@ -390,3 +495,11 @@ class Model:
             top_k=cfg.moe.top_k, cap=cap,
             e_local=MoE.physical_experts(cfg.moe), eps=cfg.norm_eps)
         return y
+
+
+def _stack(entries):
+    """Stack a list of equally nested cache entries on a new leading
+    axis, leaf by leaf."""
+    if isinstance(entries[0], dict):
+        return {key: _stack([e[key] for e in entries]) for key in entries[0]}
+    return torch.stack(entries)

@@ -82,6 +82,9 @@ PAGED_SPLIT_CASES = {
     "window_mid_split": (2, 16, 16, 128, 16, 32, [300, 290], 100),
     "window_empty_splits": (2, 16, 16, 128, 16, 32, [500, 451], 70),
     "gqa_long_window": (3, 8, 2, 64, 16, 64, [1024, 700, 0], 300),
+    # jamba-1.5-large-398b's attention sublayer: G = 8 at Dh 128, a
+    # decode step over the engine's context
+    "jamba_g8_b8": (8, 64, 8, 128, 16, 32, None, 0),
 }
 
 
@@ -368,6 +371,33 @@ def test_moe_fused_cuda_vs_plain_main_shapes(card, case, dtype):
                                atol=tol)
 
 
+# jamba-1.5-large-398b's MoE sublayers (D 8192, F 24576) over the hybrid
+# path's bank of 4 experts, top-2: a decode step (T=8, cap 8) and one
+# prompt's whole prefill (T=256, cap 160: two passes of the gate/up rows)
+MOE_JAMBA_CASES = {"decode": (8, 8), "prefill": (256, 160)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(MOE_JAMBA_CASES))
+def test_moe_fused_cuda_vs_plain_jamba(card, case, dtype):
+    T, cap = MOE_JAMBA_CASES[case]
+    args = moe_main_inputs(card, dtype, T, 4, 0, 0, 8192, 24576, k=2, E=4)
+    kw = dict(cap=cap, expert_offset=0, e_local=4)
+    n0 = launches["moe_fused"]
+    got = moe_fused_cuda(*args, **kw)
+    again = moe_fused_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches["moe_fused"] == n0 + 2
+    assert torch.equal(got, again)       # bitwise run to run
+    want = moe_fused_plain(*args, **kw)
+    # the tolerances of test_moe_fused_cuda_vs_plain_main_shapes
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
 def megastep_main_inputs(card, dtype, B, seed=0, max_len=288):
     """A full-width qwen2-moe-a2.7b block (D=2048, 16 x 128 heads, 60
     routed experts + 4 redundant of F=1408 in a 64-expert bank, Fs=5632
@@ -537,7 +567,10 @@ FLASH_CARD_CASES = dict(
     s512_window6=(1, 512, 16, 16, 128, True, 6, 0),
     # internlm2-20b's widths: 6 query heads a KV head at Dh 128
     internlm2_s256=(1, 256, 48, 8, 128, True, 0, 0),
-    internlm2_s200_window6=(1, 200, 48, 8, 128, True, 6, 0))
+    internlm2_s200_window6=(1, 200, 48, 8, 128, True, 6, 0),
+    # jamba-1.5-large-398b's: 8 query heads a KV head at Dh 128
+    jamba_s256=(1, 256, 64, 8, 128, True, 0, 0),
+    jamba_s200=(1, 200, 64, 8, 128, True, 0, 0))
 
 
 @pytest.mark.cuda
@@ -599,7 +632,11 @@ def test_flash_prefill_cuda_v_width(card, case, dtype):
 SSM_CARD_CASES = dict(SSM_CASES, prefill_d8192=(1, 256, 8192, 16, 0, 0, False),
                       decode_d8192=(8, 1, 8192, 16, 0, 0, True),
                       prefill_d8192_s512=(1, 512, 8192, 16, 0, 0, False),
-                      prefill_d8192_s2048=(1, 2048, 8192, 16, 0, 0, False))
+                      prefill_d8192_s2048=(1, 2048, 8192, 16, 0, 0, False),
+                      # jamba-1.5-large-398b's Mamba sublayers: d_inner
+                      # 16384, a prompt's bucket and the decode step
+                      prefill_d16384=(1, 256, 16384, 16, 0, 0, False),
+                      decode_d16384=(8, 1, 16384, 16, 0, 0, True))
 
 
 @pytest.mark.cuda

@@ -52,8 +52,7 @@ LOGIT_TOL = 2e-4                 # tests/test_paged_serving.py:180
 DENSE = {"internlm2-20b": dict(sliding_window=16), "minicpm3-4b": {},
          "mistral-large-123b": {}, "nemotron-4-340b": {}}
 # the families the port does not serve yet, with their ROADMAP item
-UNPORTED = {"jamba-1.5-large-398b": "item 1h",
-            "internvl2-26b": "item 10", "seamless-m4t-large-v2": "item 10"}
+UNPORTED = {"internvl2-26b": "item 10", "seamless-m4t-large-v2": "item 10"}
 
 
 def _configs(arch):
@@ -88,6 +87,26 @@ def test_unported_families_raise_naming_their_item(arch):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 {UNPORTED[arch]}"):
         Model(get_smoke_config(arch), device="cpu")
+
+
+@pytest.mark.parametrize("arch", [a for a in ALL_ARCHS
+                                  if a not in UNPORTED])
+def test_served_families_build_and_decode(arch):
+    """Every registered arch but the two unported families builds, draws
+    its weights and runs one paged decode step on the CPU (the hybrid
+    Jamba among them)."""
+    model = Model(get_smoke_config(arch), device="cpu")
+    params = model.init(0)
+    cache = model.init_paged_cache(2, NUM_BLOCKS, BS)
+    page = {k: torch.zeros((2,) + s, dtype=torch.int32)
+            for k, s in (("tables", (4,)), ("seq_lens", ()),
+                         ("write_bid", ()), ("write_off", ()))}
+    page["write_bid"].fill_(TRASH)
+    page["seq_lens"][1] = 1
+    logits, _ = model.decode_step_paged(params, cache, torch.tensor([3, 5]),
+                                        page)
+    assert tuple(logits.shape) == (2, model.vpad)
+    assert torch.isfinite(logits).all()
 
 
 def test_full_dense_widths_and_why_two_stay_on_the_cpu():

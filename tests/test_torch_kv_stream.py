@@ -3,7 +3,9 @@
 - ``cache_ops.gather_request_blocks`` / ``scatter_request_blocks`` against
   ``repro``'s on the same cache (numpy from a seed), for every cache
   layout the port serves: GQA pools (``qwen2-moe-a2.7b``), MLA's latent
-  pool (``deepseek-v3``) and Mamba state leaves (``falcon-mamba-7b``).
+  pool (``deepseek-v3``), Mamba state leaves (``falcon-mamba-7b``) and a
+  hybrid period's pools and stack of seven Mamba states in one entry
+  (``jamba-1.5-large-398b``).
   The payloads and the caches after the install must be equal exactly.
 - ``DPExecutor.export_kv_blocks`` → ``import_kv_blocks`` between two port
   executors: the request's next decode logits on the target equal the
@@ -33,7 +35,8 @@ from repro_torch.serving import cache_ops
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.kvcache import build_page_context
 
-ARCHES = ("qwen2-moe-a2.7b", "deepseek-v3", "falcon-mamba-7b")
+ARCHES = ("qwen2-moe-a2.7b", "deepseek-v3", "falcon-mamba-7b",
+          "jamba-1.5-large-398b")
 BATCH, NUM_BLOCKS, BS = 3, 12, 4
 PAYLOAD_TOL = 1e-5
 
@@ -75,8 +78,10 @@ def test_gather_matches_repro(arch):
     pp, ps = cache_ops.gather_request_blocks(pcache, axes, bids, slot)
     _equal_lists(pp, jp)
     _equal_lists(ps, js)
-    kinds = {ax is None for ax in axes}
-    assert kinds == ({False} if arch == "falcon-mamba-7b" else {True})
+    kinds = {ax is None for ax in axes}       # True: a pool leaf
+    assert kinds == {"falcon-mamba-7b": {False},
+                     "jamba-1.5-large-398b": {True, False}}.get(arch,
+                                                                {True})
     # a copy: later writes to the cache leave the payload as it was
     before = [t.clone() for t in pp + ps if t is not None]
     for t in cache_ops.cache_leaves(pcache):

@@ -89,9 +89,39 @@ def test_fleet_run_serves_every_request(workdirs, capsys):
     assert re.search(r"finished 4/4 requests in \d+ ticks", out)
 
 
+def test_hybrid_arch_serves_and_revives(tmp_path, capsys):
+    """``--arch jamba-1.5-large-398b --device cpu``: the smoke hybrid
+    period serves in the default disaggregated mode and revives an
+    attention fault in place."""
+    rc = serve.main(["--arch", "jamba-1.5-large-398b", "--device", "cpu",
+                     "--requests", "3", "--max-new", "6", "--inject-fault",
+                     "attn", "--fault-step", "3", "--workdir",
+                     str(tmp_path)])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert out.startswith("building engine: jamba-1.5-large-398b "
+                          "(disaggregated, 2 DP + 2 MoE ranks)")
+    assert "finished 3/3 requests" in out
+    assert "RECOVERY: [attn/disaggregated]" in out
+    assert "compile=precompiled" in out
+
+
+def test_hybrid_full_config_cuts_whole_periods(capsys):
+    """``--config full --layers N`` keeps Jamba's widths and takes N only
+    in whole periods of 8 sublayers."""
+    args = argparse.Namespace(arch="jamba-1.5-large-398b", config="full",
+                              layers=8)
+    cfg = serve._config(args)
+    assert (cfg.num_layers, cfg.d_model, cfg.vocab_size) == (8, 8192, 65536)
+    assert "depth cut from 72 to 8 layers" in capsys.readouterr().out
+    for bad in ("4", "12", "80"):
+        with pytest.raises(SystemExit, match="a multiple of 8"):
+            serve.main(["--arch", "jamba-1.5-large-398b", "--config", "full",
+                        "--layers", bad, "--requests", "0"])
+
+
 @pytest.mark.parametrize("arch,item", [
-    ("jamba-1.5-large-398b", "item 1h"), ("internvl2-26b", "item 10"),
-    ("seamless-m4t-large-v2", "item 10")])
+    ("internvl2-26b", "item 10"), ("seamless-m4t-large-v2", "item 10")])
 def test_unported_arch_raises_naming_its_item(tmp_path, arch, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         serve.main(["--arch", arch, "--device", "cpu", "--requests", "1",

@@ -275,10 +275,9 @@ def test_capture_step_restore_state_only_cache(models):
         assert torch.equal(cache["layers"][key], before["layers"][key])
 
 
-@pytest.mark.parametrize("family", ["hybrid", "audio", "vlm"])
+@pytest.mark.parametrize("family", ["audio", "vlm"])
 def test_unported_families_raise(family):
     cfg = dataclasses.replace(get_smoke_config(ARCH), family=family,
-                              hybrid_period=2 if family == "hybrid" else 0,
                               encoder_layers=2 if family == "audio" else 0,
                               encoder_seq=16 if family == "audio" else 0,
                               num_patches=8 if family == "vlm" else 0)
