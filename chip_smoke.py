@@ -10,6 +10,7 @@
     python3 chip_smoke.py --paths composed,http,dense  # the launcher's
                                           # HTTP drill; internlm2-20b
     python3 chip_smoke.py --paths composed,fleet  # revive, spare, restart
+    python3 chip_smoke.py --paths vlm,audio  # the ring serve step
     python3 chip_smoke.py --paths mla_composed,mla_megakernel,mla_serial
     python3 chip_smoke.py --profile       # + where the device time goes
 
@@ -63,7 +64,16 @@ Phases, in order; any failure raises and the script exits non-zero:
              scan at d_inner 16384 (prefill S = 200, 256; the decode
              step, also in place); the fused MoE at D 8192, F 24576
              over 4 experts, top-2, at T = 8 (cap 8) and T = 256 (cap
-             160).  Every
+             160).  Then the ring serve step's layouts
+             (internvl2-26b, seamless-m4t-large-v2; B = 4): whole-prompt
+             attention not causal over keys of another length (the
+             audio encoder, S 1536, H = Hkv = 16, Dh 64; the cross
+             prefill, 16 queries over the 1536 frames) and causal over
+             internvl2-26b's 256 patches + 64 tokens (H 48, Hkv 8, Dh
+             128); paged attention over a ring viewed as a pool of one
+             block a row, at internvl2-26b's G = 6 over W 384,
+             seamless's G = 1, Dh 64 over W 128 and its cross decode
+             over 1536 frames.  Every
              kernel runs twice and must be bitwise equal; kernel and plain
              version are timed at the main path's shapes (the fused MoE at
              T = 8 and 40 with its device time split between its kernels
@@ -92,14 +102,21 @@ Phases, in order; any failure raises and the script exits non-zero:
              fused MoE; the same checks.  Then the dense family at full width, 2
              layers, f32, weights drawn on the card: internlm2-20b (GQA,
              G = 6) and minicpm3-4b (MLA, latent 256 + 32), a chunk step,
-             a decode step and the whole-prompt prefill each.
+             a decode step and the whole-prompt prefill each.  Then the
+             ring serve step (``Model.prefill`` into per-row rings, 4
+             ``decode_step``s) of every registered arch at its smoke
+             config, and of internvl2-26b and seamless-m4t-large-v2 at
+             full width, 2 layers (the audio's 2 encoder layers over
+             1536 frames), f32: logits within tolerance, greedy tokens
+             equal, the attention, scan and expert kernels launched as
+             often as the layers say.
 5. engine  — behind the ``InferenceEngine`` (2 DP ranks, collocated but
              on ``disagg``), in bf16.  Each group of paths below shares
              one workdir: its first build writes ``weights.npz`` (no
              per-rank shard file), the others load it, and it is removed
              before the next group writes its own (a run may write at
              most 45 GiB to its disk).  Three qwen paths, qwen2-moe-a2.7b
-             at full width cut to 8 of its 24 layers (``--layers``; ~1.2
+             at full width cut to 6 of its 24 layers (``--layers``; ~1.2
              GB of checkpoint a layer plus 1.3 GB, read whole by each of
              their six builds): chunked admission with the fused MoE and
              each decode implementation (composed, megakernel), and serial
@@ -145,7 +162,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              card's memory after it within 5% of before the
              fault, no second copy of the weights at the peak, the
              rebuilt decode graph ``cached``).  The ``fleet`` path runs
-             in the 8-layer qwen group: ``repro_torch.fleet.build_fleet``
+             in the 6-layer qwen group: ``repro_torch.fleet.build_fleet``
              of 2 instances and 1 spare of the composed engine serves the
              8 prompts twice over; instance 0's redundant slots are
              rebalanced from its routing; then three L6 faults, each a
@@ -160,7 +177,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              request shares with the composed path's fault-free run.
              Last in that group the ``http`` path: the launcher
              (``python -m repro_torch.launch.serve --fleet 2 --mode
-             collocated --overlap --http 0 --config full --layers 8
+             collocated --overlap --http 0 --config full --layers 6
              --device cuda``, the group's workdir, so both instances load
              its weights.npz) in a child process, drilled by
              ``scripts/http_smoke_torch.py``: 48 tokens streamed over SSE
@@ -171,7 +188,19 @@ Phases, in order; any failure raises and the script exits non-zero:
              seconds to boot, TTFT over HTTP, the largest gap between SSE
              chunks, the revive's Table-1 seconds and the seconds from the
              restart to healthy.  Its launches are not counted (another
-             process).  Each path's kernels' launch counts are read from
+             process).  The ``vlm`` and ``audio`` paths build no engine
+             (the paged engine serves neither family, in the port as in
+             the JAX package): the ring serve step of internvl2-26b at
+             full width cut to 8 of its 48 layers and of
+             seamless-m4t-large-v2 at full width and depth (24 encoder
+             + 24 decoder layers), in bf16, weights from ``Model.init``
+             on the card: 4 rows (256 seeded patches and 16-64 text
+             tokens, rings of 384; 1536 seeded frames and 8-16 text
+             tokens, rings of 128), a prefill and 32 greedy decode
+             steps, timed (the audio's encoder and cross K/V alone
+             too), then the same fed the same tokens through the plain
+             attention versions on the card, each step's logits within
+             RING_LOGIT_RTOL.  Each path's kernels' launch counts are read from
              its faulted run (``disagg``: the synchronous switch's;
              ``fleet``: the whole fleet run), counted from 0 just before
              it.  Each engine build
@@ -179,7 +208,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              host's MemTotal and MemAvailable.
 6. a ``{"kernels": [...]}`` line (each kernel's row at the qwen or
    falcon shapes, with its deepseek-v3 rows under ``mla``, the dense
-   family's under ``dense`` and Jamba's under ``hybrid``; its launches
+   family's under ``dense``, Jamba's under ``hybrid`` and the ring serve
+   step's under ``ring``; its launches
    summed over the paths and per path), then the ``{"ok": true, ...}``
    line.
 
@@ -188,6 +218,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -226,7 +257,7 @@ KERNEL_META = {
 KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
                                    "mla_megakernel", "mla_serial", "disagg",
                                    "fleet", "spec", "overlap", "dense",
-                                   "hybrid"),
+                                   "hybrid", "vlm", "audio"),
                "moe_fused": ("composed", "mla_composed", "disagg", "fleet",
                              "spec", "overlap", "hybrid"),
                "decode_megastep": ("megakernel", "mla_megakernel",
@@ -234,7 +265,8 @@ KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
                "router_topk": ("megakernel", "mla_megakernel",
                                "spec_megakernel"),
                "expert_ffn": ("serial", "mla_serial"),
-               "flash_prefill": ("serial", "mla_serial", "hybrid"),
+               "flash_prefill": ("serial", "mla_serial", "hybrid", "vlm",
+                                 "audio"),
                "ssm_scan": ("ssm", "hybrid")}
 IMPLS = ("composed", "megakernel")
 # the engine paths: EngineConfig options of each.  ``ssm`` serves
@@ -252,7 +284,10 @@ IMPLS = ("composed", "megakernel")
 # drilled by ``scripts/http_smoke_torch.py``; ``hybrid`` serves one
 # period of jamba-1.5-large-398b (attention and seven Mamba sublayers,
 # the fused MoE on four), whose chunked admission falls back to
-# whole-prompt installs.
+# whole-prompt installs.  ``vlm`` (internvl2-26b) and ``audio``
+# (seamless-m4t-large-v2) build no engine: the paged engine serves
+# neither, in the port as in the JAX package, so they drive the model's
+# ring serve step (``Model.prefill``, ``decode_step``; RING_PATHS).
 PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "megakernel": dict(moe_impl="fused", decode_impl="megakernel"),
          "serial": dict(admission="serial", decode_impl="composed"),
@@ -271,12 +306,14 @@ PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
                          overlap=True),
          "dense": dict(decode_impl="composed"),
          "http": dict(mode="collocated", overlap=True),
-         "hybrid": dict(moe_impl="fused", decode_impl="composed")}
+         "hybrid": dict(moe_impl="fused", decode_impl="composed"),
+         "vlm": dict(), "audio": dict()}
 QWEN_ARCH = "qwen2-moe-a2.7b"
 DENSE_ARCHS = ("internlm2-20b", "minicpm3-4b")
 PATH_ARCH = {"ssm": "falcon-mamba-7b", "mla_composed": "deepseek-v3",
              "mla_megakernel": "deepseek-v3", "mla_serial": "deepseek-v3",
-             "dense": "internlm2-20b", "hybrid": "jamba-1.5-large-398b"}
+             "dense": "internlm2-20b", "hybrid": "jamba-1.5-large-398b",
+             "vlm": "internvl2-26b", "audio": "seamless-m4t-large-v2"}
 # card-vs-plain tolerances (allclose: |got - want| <= atol + rtol |want|).
 # f32: both accumulate in f32 in different orders.  bf16: the plain
 # versions round intermediates to bf16 where the kernels keep f32 (the
@@ -306,8 +343,10 @@ ENGINE_LAYERS = 24            # qwen2-moe-a2.7b's full depth
 # workdir until the dense and http paths came (~180 s of its ~1020 s run
 # went to its three 24-layer builds, a 30 GB start-up write and a 24-layer
 # restart); it now shares the qwen group's depth and weights.npz.  The
+# group ran 8 layers from PR 20 until the ring paths came (that whole run
+# took 1,137 s of the limit on the H100's host); 6 keep the margin.  The
 # paths named here keep their own depth (and workdir)
-COLLOCATED_LAYERS = 8
+COLLOCATED_LAYERS = 6
 # internlm2-20b cut from 48 layers: ~0.78 GB of bf16 a layer plus 2.3 GB
 # of embedding and head, ~8.5 GB of weights.npz at 8
 DENSE_LAYERS = 8
@@ -316,8 +355,27 @@ DENSE_LAYERS = 8
 SSM_LAYERS = 16
 # jamba-1.5-large-398b: one period of its 72 layers (8 sublayers)
 HYBRID_LAYERS = 8
+# internvl2-26b cut from 48 layers as internlm2-20b (its backbone)
+VLM_LAYERS = 8
+# seamless-m4t-large-v2 at its full 24 decoder (and 24 encoder) layers:
+# ~2.3 B parameters, 4.6 GB in bf16
+AUDIO_LAYERS = 24
 PATH_LAYERS = {"dense": DENSE_LAYERS, "ssm": SSM_LAYERS,
-               "hybrid": HYBRID_LAYERS}
+               "hybrid": HYBRID_LAYERS, "vlm": VLM_LAYERS,
+               "audio": AUDIO_LAYERS}
+# the ring paths' workloads: rows, each row's text tokens (drawn from
+# the range), the rings' slots (max_seq); each row feeds 32 greedy tokens
+# through 32 decode steps
+RING_PATHS = {"vlm": dict(rows=4, text=(16, 64), max_seq=384),
+              "audio": dict(rows=4, text=(8, 16), max_seq=128)}
+RING_NEW_TOKENS = 32
+# the ring paths' bf16 logits, kernels against the plain versions on the
+# card, each step fed the same tokens: |d| <= RTOL * (max |plain| +
+# |plain|), TOL["bfloat16"]'s 3e-2 against the step's logit scale, since
+# the two round the attention's probabilities at different places (the
+# plain versions to bf16, paged_attention's GQA kernel keeps f32) through
+# 8 (vlm) or 48 (audio) layers
+RING_LOGIT_RTOL = 3e-2
 # the hybrid path's bank: 4 + 0 experts a MoE sublayer (top-2 kept), as
 # the config's 16 + 16 are 38.65 GB a sublayer in bf16
 HYBRID_EXPERTS = 4
@@ -695,6 +753,8 @@ def phase_kernels(torch, shapes):
         out[name]["dense"] = rows
     for name, rows in kernels_hybrid(torch, shapes).items():
         out[name]["hybrid"] = rows
+    for name, rows in kernels_ring(torch).items():
+        out[name]["ring"] = rows
     for name, r in out.items():
         _log_row(name, r)
     return out
@@ -1178,16 +1238,20 @@ def kernels_expert_ffn(torch):
     return rows[8]
 
 
-def flash_bound_ms(S, H, Hkv, Dh, window, el, dtype_name, Dv=None):
+def flash_bound_ms(S, H, Hkv, Dh, window, el, dtype_name, Dv=None, *,
+                   B=1, Skv=None, causal=True):
     """Bytes: q, k, v and out once; operations: QK^T and PV over the
     (query, key) pairs this mask leaves visible.  ``Dv``: V's width where
-    it is not the QK width Dh."""
+    it is not the QK width Dh.  S queries over ``Skv`` keys (default S),
+    ``B`` rows; not ``causal``: every pair is visible."""
     Dv = Dv or Dh
+    Skv = Skv or S
     i = np.arange(S)
-    visible = int(np.minimum(i + 1, window).sum() if window
-                  else (i + 1).sum())
-    nbytes = el * (S * H * (Dh + Dv) + S * Hkv * (Dh + Dv))
-    flops = 2 * visible * H * (Dh + Dv)
+    visible = (S * Skv if not causal else
+               int(np.minimum(i + 1, window).sum() if window
+                   else (i + 1).sum()))
+    nbytes = el * B * (S * H * (Dh + Dv) + Skv * Hkv * (Dh + Dv))
+    flops = 2 * B * visible * H * (Dh + Dv)
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
@@ -1823,6 +1887,138 @@ def kernels_hybrid(torch, S):
     return rows
 
 
+# the ring serve step's layouts: internvl2-26b (G = 6, Dh 128; 256
+# patches) and seamless-m4t-large-v2 (G = 1, Dh 64; 1536 frames), at the
+# engine phase's vlm and audio paths' batch of 4 and rings
+INTERNVL = dict(H=48, Hkv=8, Dh=128, patches=256, ring=384)
+SEAMLESS = dict(H=16, Hkv=16, Dh=64, frames=1536, ring=128)
+
+
+def kernels_ring(torch):
+    """The two attention kernels at the ring serve step's new layouts and
+    modes, each against its plain version in f32 and bf16, twice and
+    bitwise equal; each bf16 case timed beside its bound and, for
+    ``flash_prefill``, ``scaled_dot_product_attention``: whole-prompt
+    attention not causal over keys of another length (seamless's encoder,
+    S 1536; its decoder's cross-attention prefill, 16 queries over the
+    1536 frames) and internvl2's causal prefill of 256 patches + 64
+    tokens; ``paged_attention`` over a ring viewed as a pool
+    (``attention.ring_page``: one block of W rows a row, the identity
+    table, seq_lens = min(pos + 1, W)) at internvl2's W 384, seamless's W
+    128, and the cross decode over all 1536 frames.  Returns {kernel:
+    [rows]}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
+                                                   flash_prefill_plain)
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_plain)
+    from repro_torch.models.attention import ring_page
+    iv, sm = INTERNVL, SEAMLESS
+    log("kernels: flash_prefill and paged_attention at the ring serve "
+        "step's layouts (internvl2-26b, seamless-m4t-large-v2) vs their "
+        "plain versions")
+    rows = {"flash_prefill": [], "paged_attention": []}
+    flash_cases = [
+        # name, B, Sq, Skv, H, Hkv, Dh, causal
+        ("seamless encoder", 4, sm["frames"], sm["frames"], sm["H"],
+         sm["Hkv"], sm["Dh"], False),
+        ("seamless cross prefill", 4, 16, sm["frames"], sm["H"], sm["Hkv"],
+         sm["Dh"], False),
+        ("internvl2 prefill", 4, iv["patches"] + 64, iv["patches"] + 64,
+         iv["H"], iv["Hkv"], iv["Dh"], True),
+    ]
+    for name, B, Sq, Skv, H, Hkv, Dh, causal in flash_cases:
+        errs, timed = [], None
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            gen = torch.Generator(device="cuda").manual_seed(Sq + Skv)
+            q, k, v = (torch.randn((B, n, h, Dh), generator=gen,
+                                   device="cuda").to(dtype)
+                       for n, h in ((Sq, H), (Skv, Hkv), (Skv, Hkv)))
+            qp = torch.arange(Sq, dtype=torch.int32, device="cuda")
+            kp = torch.arange(Skv, dtype=torch.int32, device="cuda")
+            got = flash_prefill_cuda(q, k, v, qp, kp, causal=causal)
+            again = flash_prefill_cuda(q, k, v, qp, kp, causal=causal)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"flash_prefill {name}: not bitwise "
+                                     f"equal run to run")
+            errs.append(compare(
+                f"{name} B={B} Sq={Sq} Skv={Skv} H={H}/{Hkv} Dh={Dh} {dn}",
+                got, flash_prefill_plain(q, k, v, qp, kp, causal=causal),
+                dn, FLASH_TOL))
+            timed = (q, k, v, qp, kp)
+            del got, again
+        q, k, v, qp, kp = timed
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=True)
+
+        rows["flash_prefill"].append(_row(
+            errs,
+            time_ms(torch, lambda: flash_prefill_cuda(q, k, v, qp, kp,
+                                                      causal=causal)),
+            time_ms(torch, lambda: flash_prefill_plain(q, k, v, qp, kp,
+                                                       causal=causal)),
+            flash_bound_ms(Sq, H, Hkv, Dh, 0, q.element_size(), "bfloat16",
+                           B=B, Skv=Skv, causal=causal),
+            f"{name} B={B} Sq={Sq} Skv={Skv} H={H} Hkv={Hkv} Dh={Dh} "
+            f"{'causal' if causal else 'not causal'} bf16 (library: "
+            f"scaled_dot_product_attention)", time_ms(torch, library)))
+        del timed, q, k, v
+        _free(torch)
+
+    ring_cases = [
+        # name, H, Hkv, Dh, W, each row's position (B = 4)
+        ("internvl2 ring decode", iv["H"], iv["Hkv"], iv["Dh"], iv["ring"],
+         [272, 300, 330, 383]),
+        ("seamless ring decode", sm["H"], sm["Hkv"], sm["Dh"], sm["ring"],
+         [10, 17, 30, 47]),
+        ("seamless cross decode", sm["H"], sm["Hkv"], sm["Dh"],
+         sm["frames"], [sm["frames"] - 1] * 4),
+    ]
+    for i, (name, H, Hkv, Dh, W, pos) in enumerate(ring_cases):
+        errs, timed = [], None
+        B = len(pos)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            gen = torch.Generator(device="cuda").manual_seed(90 + i)
+            q = torch.randn((B, H, Dh), generator=gen,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn((B, W, Hkv, Dh), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            tables, seq_lens = ring_page(
+                torch.tensor(pos, dtype=torch.int32, device="cuda"), W)
+            args = (q, k, v, tables, seq_lens)
+            got = paged_attention_cuda(*args)
+            again = paged_attention_cuda(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_attention {name}: not bitwise "
+                                     f"equal run to run")
+            n_valid = int(seq_lens.sum())
+            errs.append(compare(f"{name} B={B} H={H}/{Hkv} Dh={Dh} W={W} "
+                                f"({n_valid} rows) {dn}", got,
+                                paged_attention_plain(*args), dn))
+            timed = args
+        args = timed
+        rows["paged_attention"].append(_row(
+            errs, time_ms(torch, lambda: paged_attention_cuda(*args)),
+            time_ms(torch, lambda: paged_attention_plain(*args)),
+            paged_bound_ms(args, n_valid, "bfloat16"),
+            f"{name} B={B} H={H} Hkv={Hkv} Dh={Dh} W={W} bf16, {n_valid} "
+            f"valid K/V rows (the ring as a pool of one {W}-row block a "
+            f"row)"))
+        del timed, args
+        _free(torch)
+    for name, rs in rows.items():
+        for r in rs:
+            _log_row(name, r)
+    return rows
+
+
 def mla_megastep(torch, S):
     """The megastep at deepseek-v3's latent layout (w_post (73728, 7168),
     E_log 256 + 32 redundant, top-8): a decode step (B=8), one with a
@@ -2074,6 +2270,7 @@ def phase_model(torch, seed):
               f"{ds.moe.top_k} kept")
     model_ssm(torch, seed)
     model_hybrid(torch, seed)
+    model_ring(torch, seed)
     for arch in DENSE_ARCHS:
         cfg = get_config(arch)
         heads = (f"{cfg.num_heads} MLA heads, latent "
@@ -2476,6 +2673,136 @@ def model_hybrid(torch, seed):
     torch.cuda.empty_cache()
 
 
+RING_ARCHS = ("internvl2-26b", "seamless-m4t-large-v2")
+
+
+def model_ring(torch, seed):
+    """The ring serve step (``Model.prefill``, ``decode_step``), card
+    against CPU in f32: every registered arch at its smoke config, then
+    internvl2-26b and seamless-m4t-large-v2 at full width, 2 layers (the
+    audio's 2 encoder and 2 decoder layers), weights drawn on the card."""
+    import dataclasses
+    from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
+    for arch in ALL_ARCHS:
+        ring_card_vs_cpu(torch, get_smoke_config(arch), seed,
+                         f"{arch} smoke", "cpu")
+    for arch in RING_ARCHS:
+        cfg = get_config(arch)
+        cut = dataclasses.replace(cfg, num_layers=2, encoder_layers=min(
+            cfg.encoder_layers, 2))
+        ring_card_vs_cpu(torch, cut, seed,
+                         f"{arch} full width (d_model {cfg.d_model}, "
+                         f"{cfg.num_heads} heads over {cfg.num_kv_heads} "
+                         f"KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+                         f"vocab {cfg.vocab_size}), 2 layers"
+                         + (", 2 encoder layers over "
+                            f"{cfg.encoder_seq} frames"
+                            if cfg.family == "audio" else
+                            f", {cfg.num_patches} patches"), "cuda")
+
+
+def ring_inputs(cfg, seed, n_text):
+    """numpy inputs of the ring serve step, a row per entry of ``n_text``
+    (its real text tokens): ``tokens`` (B, max(n_text)), ``lengths`` (a
+    vlm row's counting its patches), a vlm's ``patches`` and an audio
+    model's ``frames`` from N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    B, extra = len(n_text), cfg.num_patches if cfg.family == "vlm" else 0
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, max(n_text)))
+             .astype(np.int32),
+             "lengths": (extra + np.asarray(n_text)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.num_patches, cfg.d_model), np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model), np.float32)
+    return batch
+
+
+def ring_launches(model, steps):
+    """The attention, scan and MoE launches of one prefill and ``steps``
+    ring decode steps: a flash_prefill per attention layer (encoder's
+    and decoder's) and per cross-attention layer, a paged_attention per
+    decoder attention and cross layer and step, an ssm_scan per Mamba
+    layer and call, an expert kernel per MoE layer and call."""
+    n = {"attn": 0, "mamba": 0, "moe": 0, "cross": 0, "enc": 0}
+    for name, L, mixer, ffn_kind, cross in model.layer_groups():
+        if mixer == "hybrid":
+            for _, mx, fk in model.period_sublayers():
+                n[mx] += L
+                n["moe"] += L * (fk == "moe")
+            continue
+        n["enc" if name == "enc_layers" else mixer] += L
+        n["moe"] += L * (ffn_kind == "moe")
+        n["cross"] += L * cross
+    calls = steps + 1
+    return {"flash_prefill": n["attn"] + n["enc"] + n["cross"],
+            "paged_attention": steps * (n["attn"] + n["cross"]),
+            "ssm_scan": calls * n["mamba"], "moe": calls * n["moe"]}
+
+
+def ring_card_vs_cpu(torch, cfg, seed, what, init_on, steps=4):
+    """``prefill`` of 2 rows (the second 5 tokens shorter) into rings of
+    the prompt + 8 slots, then ``steps`` greedy ``decode_step``s, on the
+    card and on the CPU from the same f32 weights (drawn on
+    ``init_on``); the card's steps take the CPU's tokens.  Logits within
+    MODEL_LOGIT_ATOL, greedy tokens equal, and the card's launches those
+    of :func:`ring_launches`."""
+    from repro_torch.kernels import launches
+    from repro_torch.models.model import Model
+    t0 = time.perf_counter()
+    if init_on == "cpu":
+        p_cpu = Model(cfg, torch.float32, device="cpu").init(seed)
+        p_card = _map(p_cpu, lambda t: t.to("cuda"))
+    else:
+        p_card = Model(cfg, torch.float32, device="cuda").init(seed)
+        p_cpu = _map(p_card, lambda t: t.cpu())
+    init_s = time.perf_counter() - t0
+    batch = ring_inputs(cfg, seed + 4, [16, 11])
+    max_seq = int(batch["lengths"][0]) + 8
+    tokens, res = [], {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_card)):
+        m = Model(cfg, torch.float32, device=dev)
+        launches.clear()
+        last, cache = m.prefill(p, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in batch.items()},
+                                max_seq=max_seq)
+        out = [last.float().cpu().numpy()]
+        for i in range(steps):
+            if dev == "cpu":
+                tokens.append(out[-1][:, :cfg.vocab_size].argmax(-1)
+                              .astype(np.int32))
+            last, cache = m.decode_step(p, cache,
+                                        torch.from_numpy(tokens[i]).to(dev))
+            out.append(last.float().cpu().numpy())
+        res[dev] = out
+        del cache
+    counts = {k: v for k, v in launches.items() if v}
+    want = ring_launches(m, steps)
+    got = dict(counts, moe=counts.get("moe_fused", 0)
+               + counts.get("expert_ffn", 0))
+    bad_counts = {k: (got.get(k, 0), v) for k, v in want.items()
+                  if got.get(k, 0) != v}
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(res["cuda"], res["cpu"]))
+    greedy = [a[:, :cfg.vocab_size].argmax(-1).tolist() for a in res["cuda"]]
+    same = greedy[:steps] == [t.tolist() for t in tokens]
+    log(f"model: ring serve step, {what}, f32 (weights from seed {seed} on "
+        f"{init_on} in {init_s:.1f} s): prefill of "
+        f"{batch['lengths'].tolist()} positions + {steps} decode steps, "
+        f"card vs CPU logits max_abs_err {err:.3e} (atol "
+        f"{MODEL_LOGIT_ATOL:g}); greedy tokens "
+        f"{'equal' if same else 'DIFFER'}; launches {counts}")
+    if (err > MODEL_LOGIT_ATOL or not same or bad_counts
+            or not all(np.isfinite(a).all() for a in res["cuda"])):
+        raise AssertionError(f"model: ring serve step of {what}: err {err}, "
+                             f"greedy {'equal' if same else 'DIFFER'}, "
+                             f"launches (got, want) {bad_counts}")
+    del p_card, p_cpu, m
+    _free(torch)
+
+
 # -- phase 5: engine --------------------------------------------------------------
 
 def _prompts(vocab, seed):
@@ -2658,6 +2985,20 @@ def engine_config(arch, layers):
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
+    if cfg.family == "vlm":
+        log(f"engine: depth cut from {cfg.num_layers} to {layers} layers, "
+            f"width kept (internlm2-20b's backbone, ~0.78 GB of bf16 a "
+            f"layer)")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if cfg.family in ("vlm", "audio"):
+        log(f"engine: {cfg.name}: {cfg.num_layers} decoder layers"
+            + (f" after {cfg.encoder_layers} encoder layers over "
+               f"{cfg.encoder_seq} frames" if cfg.family == "audio" else
+               f" after {cfg.num_patches} patch embeddings")
+            + f", d_model {cfg.d_model}, {cfg.num_heads} heads over "
+            f"{cfg.num_kv_heads} KV heads of {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}")
+        return cfg
     if cfg.attention_type == "mla":
         depth = cfg.moe.first_k_dense + 1
         log(f"engine: depth cut from {cfg.num_layers} to {depth} layers "
@@ -3697,9 +4038,128 @@ def serve_http_path(torch, cfg, path, workdir, seed, profile, kept):
     return {}, None, None
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """``ops.paged_attention`` and ``ops.flash_prefill`` rebound to their
+    plain versions, for the ring paths' checks on the card (the kernels'
+    wrappers, and so their counts, are not called)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_prefill import flash_prefill_plain
+    from repro_torch.kernels.paged_attention import paged_attention_plain
+    saved = ops.paged_attention, ops.flash_prefill
+    ops.paged_attention, ops.flash_prefill = (paged_attention_plain,
+                                              flash_prefill_plain)
+    try:
+        yield
+    finally:
+        ops.paged_attention, ops.flash_prefill = saved
+
+
+def serve_ring(torch, cfg, path, workdir, seed, profile, kept):
+    """The ``vlm`` or ``audio`` path: the ring serve step of ``cfg`` in
+    bf16 on the card, weights from ``Model.init(seed)`` there (no engine,
+    no weights.npz): one ``prefill`` of RING_PATHS[path]'s rows (seeded
+    patches or frames, 16-64 or 8-16 text tokens) into rings of its
+    ``max_seq``, then RING_NEW_TOKENS greedy ``decode_step``s, timed
+    (the audio's encoder and cross K/V also alone, before), its launches
+    counted from 0 just before the prefill.  Then the same prefill and
+    steps, fed the same tokens, through the plain attention versions on
+    the card: each step's logits within RING_LOGIT_RTOL.  Returns
+    (launch counts, None, None)."""
+    from repro_torch.kernels import launches
+    from repro_torch.models.model import Model
+    spec, n_new = RING_PATHS[path], RING_NEW_TOKENS
+    t0 = time.perf_counter()
+    m = Model(cfg, torch.bfloat16, device="cuda")
+    params = m.init(seed)
+    torch.cuda.synchronize()
+    log(f"engine: path {path!r}: the ring serve step (Model.prefill, "
+        f"decode_step; no engine); bf16 weights from seed {seed} in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    rng = np.random.default_rng(seed + 11)
+    B, (lo, hi) = spec["rows"], spec["text"]
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in ring_inputs(
+        cfg, seed + 12, [hi, *rng.integers(lo, hi + 1, B - 1)]).items()}
+
+    def run(fed=None):
+        """prefill, then the decode steps, fed ``fed`` or greedy tokens:
+        (per-step logits, fed tokens, prefill s, decode s, the cache)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = m.prefill(params, batch, max_seq=spec["max_seq"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, tokens = [last], []
+        for i in range(n_new):
+            tokens.append(logits[-1][:, :cfg.vocab_size].argmax(-1)
+                          if fed is None else fed[i])
+            last, cache = m.decode_step(params, cache, tokens[-1])
+            logits.append(last)
+        torch.cuda.synchronize()
+        return logits, tokens, t1 - t0, time.perf_counter() - t1, cache
+
+    run()                                           # warm-up
+    stages = {}
+    if cfg.family == "audio":   # the prefill's first two stages alone
+        frames = batch["frames"].to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = m._encode(params, frames)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m._cross_kv(params, enc)
+        torch.cuda.synchronize()
+        stages = {"encoder": t1 - t0, "cross K/V": time.perf_counter() - t1}
+        del enc, frames
+    launches.clear()
+    logits, fed, prefill_s, decode_s, cache = run()
+    counts = {k: v for k, v in launches.items() if v}
+    want_pos = (batch["lengths"] + n_new).tolist()
+    if cache["pos"].tolist() != want_pos:
+        raise AssertionError(f"engine {path}: positions "
+                             f"{cache['pos'].tolist()}, expected {want_pos}")
+    del cache
+    with plain_attention():
+        plain = run(fed)[0]
+    errs, agree = [], 0
+    for i, (got, want) in enumerate(zip(logits, plain)):
+        g, w = got.float(), want.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"engine {path}: step {i} logits not "
+                                 f"finite")
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        errs.append(err)
+        if not bool(((g - w).abs()
+                     <= RING_LOGIT_RTOL * (scale + w.abs())).all()):
+            raise AssertionError(f"engine {path}: step {i} logits vs the "
+                                 f"plain attention: max_abs_err {err} "
+                                 f"(logit scale {scale})")
+        agree += int((g[:, :cfg.vocab_size].argmax(-1)
+                      == w[:, :cfg.vocab_size].argmax(-1)).sum())
+    used = [k for k, ps in KERNEL_PATH.items() if path in ps]
+    if min(counts.get(k, 0) for k in used) <= 0:
+        raise AssertionError(f"engine {path}: kernel launches {counts}")
+    rate = B * n_new / decode_s
+    log(f"  {B} rows of {batch['lengths'].tolist()} positions"
+        + (f" ({cfg.num_patches} patches each)" if cfg.family == "vlm"
+           else f" over {cfg.encoder_seq} frames each")
+        + f", rings of {spec['max_seq']} slots: "
+        + "".join(f"{k} {v:.4f} s, " for k, v in stages.items())
+        + f"prefill {prefill_s:.4f} s, {n_new} decode steps {decode_s:.4f} "
+        f"s ({rate:.1f} tok/s); launches {counts}; logits vs the plain "
+        f"attention on the card, same fed tokens: max_abs_err "
+        f"{max(errs):.3e} (rtol {RING_LOGIT_RTOL:g} of the step's scale), "
+        f"greedy argmax equal in {agree} of {B * (n_new + 1)}")
+    del logits, plain, params, m
+    _free(torch)
+    return {k: counts[k] for k in used}, None, None
+
+
 SERVE = {"disagg": serve_disagg, "fleet": serve_fleet, "spec": serve_spec,
          "spec_megakernel": serve_spec, "overlap": serve_overlap,
-         "http": serve_http_path}
+         "http": serve_http_path, "vlm": serve_ring, "audio": serve_ring}
 
 
 # -- main ---------------------------------------------------------------------------
@@ -3768,7 +4228,7 @@ def main() -> int:
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
             library_ms=r.get("library_ms"), shape=r.get("shape"),
             mla=r.get("mla"), dense=r.get("dense"),
-            hybrid=r.get("hybrid")))
+            hybrid=r.get("hybrid"), ring=r.get("ring")))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

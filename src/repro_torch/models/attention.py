@@ -1,17 +1,32 @@
-"""GQA and MLA attention: whole-prompt (prefill) and against the paged
-KV pools (decode and chunk steps).
+"""GQA and MLA attention: whole-prompt (prefill), against the paged KV
+pools (decode and chunk steps), and against per-row ring caches (the
+ring serve step).
 
 The port's counterpart of ``repro.models.attention``'s serving functions:
 the chunked flash attention of a whole-prompt prefill
-(``flash_attention``, ``gqa_forward``, ``gqa_forward_with_kv``), the GQA
-paged helpers (``gqa_init``, ``gqa_paged_pools``, ``window_starts``,
-``gqa_decode_qkv``, ``gqa_write_token``, ``gqa_decode_paged``) and
-multi-head latent attention (``mla_init``, ``mla_forward``,
-``mla_forward_with_cache``, ``mla_paged_pools``, ``mla_decode_q_token``,
-``mla_write_token``, ``mla_post_matrix``, ``mla_decode_paged``).  Where
-JAX returns updated pools, the port writes the incoming token's K/V (or
-latent row) into the pools in place (JAX donates the pool buffers into
-the compiled step for the same effect).
+(``flash_attention``, ``gqa_forward`` with cross-attention's
+``kv_input``, ``kv_positions`` and ``use_rope``, ``gqa_forward_with_kv``),
+the GQA paged helpers (``gqa_init``, ``gqa_paged_pools``,
+``window_starts``, ``gqa_decode_qkv``, ``gqa_write_token``,
+``gqa_decode_paged``), the ring caches (``gqa_init_cache``,
+``_ring_validity``, ``gqa_decode``, ``gqa_cross_decode``,
+``mla_init_cache``, ``mla_decode``) and multi-head latent attention
+(``mla_init``, ``mla_forward``, ``mla_forward_with_cache``,
+``mla_paged_pools``, ``mla_decode_q_token``, ``mla_write_token``,
+``mla_post_matrix``, ``mla_decode_paged``).  Where JAX returns updated
+pools or rings, the port writes the incoming token's K/V (or latent row)
+into them in place (JAX donates the buffers into the compiled step for
+the same effect).
+
+A ring cache is a dict like a pool's: GQA's ``{"k", "v"}`` of (B, W,
+Hkv, Dh), MLA's one latent ring ``{"ckr"}`` of (B, W, 1, R + dr), each
+row ``concat([c_kv, k_rope])`` as in the latent pool (``repro``'s
+``GQACache`` and ``MLACache``; its ``MLACache.c_kv`` and ``.k_rope`` are
+the ring's two column ranges).  W = min(window or max_seq, max_seq) and
+position ``p`` lives in slot ``p % W``.  Decode attends through
+``ops.paged_attention`` with the ring viewed as a pool of B blocks of W
+rows (:func:`ring_page`), as cross-attention decode does over the
+encoder's K/V.
 """
 from __future__ import annotations
 
@@ -118,20 +133,27 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
 
 
 def gqa_forward(p, cfg: ModelConfig, x, positions, *, causal=True,
-                window=0, return_kv=False):
-    """Full-sequence GQA self-attention with rope.  x: (B, S, D);
-    positions (S,) int32.  With ``return_kv`` also returns the (B, S,
-    Hkv, Dh) K (rope applied) and V."""
+                kv_input=None, kv_positions=None, window=0, use_rope=True,
+                return_kv=False):
+    """Full-sequence GQA.  x: (B, S, D); positions (S,) int32.
+    ``kv_input`` (B, F, D), with its ``kv_positions`` (F,), overrides the
+    K/V source (cross-attention, which also passes ``use_rope=False``).
+    With ``return_kv`` also returns the K (rope applied) and V, (B, S or
+    F, Hkv, Dh)."""
     B, S, _ = x.shape
     Dh = cfg.resolved_head_dim()
     H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    src = x if kv_input is None else kv_input
+    kv_pos = positions if kv_positions is None else kv_positions
     q = (x @ p["wq"]).reshape(B, S, H, Dh)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, Dh)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, Dh)
-    sin, cos = rope_sincos(positions, Dh, cfg.rope_theta)
-    q = apply_rope(q, sin[None, :, None, :], cos[None, :, None, :])
-    k = apply_rope(k, sin[None, :, None, :], cos[None, :, None, :])
-    out = flash_attention(q, k, v, positions, positions, causal=causal,
+    k = (src @ p["wk"]).reshape(B, src.shape[1], Hkv, Dh)
+    v = (src @ p["wv"]).reshape(B, src.shape[1], Hkv, Dh)
+    if use_rope:
+        sin_q, cos_q = rope_sincos(positions, Dh, cfg.rope_theta)
+        sin_k, cos_k = rope_sincos(kv_pos, Dh, cfg.rope_theta)
+        q = apply_rope(q, sin_q[None, :, None, :], cos_q[None, :, None, :])
+        k = apply_rope(k, sin_k[None, :, None, :], cos_k[None, :, None, :])
+    out = flash_attention(q, k, v, positions, kv_pos, causal=causal,
                           window=window)
     y = out.reshape(B, S, H * Dh) @ p["wo"]
     if return_kv:
@@ -144,6 +166,74 @@ def gqa_forward_with_kv(p, cfg: ModelConfig, x, positions):
     k, ready to be written into pool blocks."""
     return gqa_forward(p, cfg, x, positions, causal=True,
                        window=cfg.sliding_window, return_kv=True)
+
+
+def gqa_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   dtype: torch.dtype, device, lead: Sequence[int] = ()):
+    """Empty ring K/V: (*lead, batch, W, Hkv, Dh), W = min(window or
+    max_seq, max_seq)."""
+    W = min(cfg.sliding_window or max_seq, max_seq)
+    return gqa_paged_pools(cfg, batch, W, dtype, device, lead)
+
+
+def _ring_validity(pos, W: int):
+    """For each ring slot s, the absolute position it holds and whether
+    that is a position >= 0, given each row's current position ``pos``
+    (B,).  Once position ``pos`` is written, the valid slots are exactly
+    ``[0, min(pos + 1, W))``: slot s holds ``pos - ((pos % W - s) % W)``,
+    which is >= 0 for s <= pos while pos < W and for every s after."""
+    s = torch.arange(W, device=pos.device)[None, :]
+    slot_pos = pos[:, None] - (pos[:, None] % W - s) % W
+    return slot_pos, slot_pos >= 0
+
+
+def _row_blocks(B: int, device) -> torch.Tensor:
+    """The identity block table (B, 1): row b's one block is block b."""
+    return torch.arange(B, dtype=torch.int32, device=device)[:, None]
+
+
+def ring_page(pos, W: int):
+    """A ring of W slots a row as ``ops.paged_attention``'s pool of one
+    block of W rows a row: the identity table (B, 1) and ``seq_lens =
+    min(pos + 1, W)``, the valid prefix :func:`_ring_validity` gives.  A
+    sliding window never masks more, since W <= window."""
+    return (_row_blocks(pos.shape[0], pos.device),
+            torch.clamp_max(pos + 1, W).to(torch.int32))
+
+
+def _write_ring(ring, pos, row) -> None:
+    """Write each row's new entry ``row`` (B, ...) into slot pos % W of
+    its ring (B, W, ...), in place."""
+    B, W = ring.shape[:2]
+    ring[torch.arange(B, device=pos.device), (pos % W).long()] = \
+        row.to(ring.dtype)
+
+
+def gqa_decode(p, cfg: ModelConfig, x, cache, pos):
+    """One-token decode against one layer's ring.  x: (B, D); pos (B,)
+    int32, the position of x.  Writes the new K/V into slot pos % W of
+    ``cache`` {"k", "v"} (B, W, Hkv, Dh) in place and attends over the
+    valid slots through ``ops.paged_attention``.  Returns (B, D)."""
+    B, _ = x.shape
+    q, k, v = _gqa_qkv(p, cfg, x, pos)
+    _write_ring(cache["k"], pos, k)
+    _write_ring(cache["v"], pos, v)
+    tables, seq_lens = ring_page(pos, cache["k"].shape[1])
+    out = ops.paged_attention(q, cache["k"], cache["v"], tables, seq_lens)
+    return out.reshape(B, -1).to(x.dtype) @ p["wo"]
+
+
+def gqa_cross_decode(p, cfg: ModelConfig, x, ck, cv):
+    """Cross-attention decode against the encoder's precomputed K/V, (B,
+    F, Hkv, Dh), viewed as a pool of one block of F rows a row, every
+    frame valid (``repro``'s model passes ``kv_valid`` all true); no
+    rope.  x: (B, D) -> (B, D)."""
+    B, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, cfg.num_heads, cfg.resolved_head_dim())
+    seq_lens = torch.full((B,), ck.shape[1], dtype=torch.int32,
+                          device=x.device)
+    out = ops.paged_attention(q, ck, cv, _row_blocks(B, x.device), seq_lens)
+    return out.reshape(B, -1).to(x.dtype) @ p["wo"]
 
 
 def gqa_paged_pools(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -164,10 +254,14 @@ def window_starts(cfg: ModelConfig, seq_lens) -> Optional[torch.Tensor]:
 
 def gqa_decode_qkv(p, cfg: ModelConfig, x, page):
     """q/k/v projection with rope at ``seq_lens - 1``.  x: (B, D)."""
+    return _gqa_qkv(p, cfg, x, page["seq_lens"] - 1)
+
+
+def _gqa_qkv(p, cfg: ModelConfig, x, pos):
+    """One token's q (B, H, Dh), k and v (B, Hkv, Dh), rope at ``pos``."""
     B, _ = x.shape
     Dh = cfg.resolved_head_dim()
     H, Hkv = cfg.num_heads, cfg.num_kv_heads
-    pos = page["seq_lens"] - 1
     q = (x @ p["wq"]).reshape(B, H, Dh)
     k = (x @ p["wk"]).reshape(B, Hkv, Dh)
     v = (x @ p["wv"]).reshape(B, Hkv, Dh)
@@ -292,10 +386,14 @@ def mla_decode_q_token(p, cfg: ModelConfig, x, page):
     fused pool row (B, R + dr) at position ``seq_lens - 1``.  The query
     is pre-scaled by sqrt(R + dr) / sqrt(dn + dr), so that the paged
     attention's 1 / sqrt(R + dr) gives MLA's 1 / sqrt(dn + dr)."""
+    return _mla_q_token(p, cfg, x, page["seq_lens"] - 1)
+
+
+def _mla_q_token(p, cfg: ModelConfig, x, pos):
+    """:func:`mla_decode_q_token` at the positions ``pos`` (B,)."""
     m = cfg.mla
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
     R = m.kv_lora_rank
-    pos = page["seq_lens"] - 1
     q_nope, q_rope, c_kv, k_rope, sin, cos = _mla_qkr(p, cfg, x, pos)
     q_rope = apply_rope(q_rope, sin[:, None, :], cos[:, None, :])
     k_rope = apply_rope(k_rope, sin, cos)
@@ -341,5 +439,30 @@ def mla_decode_paged(p, cfg: ModelConfig, x, pools, page):
     out = ops.paged_attention(q_eff.to(pool.dtype), pool, pool,
                               page["tables"], page["seq_lens"],
                               window_starts(cfg, page["seq_lens"]))
+    o = torch.einsum("bhr,hrv->bhv", out[..., :R].to(x.dtype), p["wuv"])
+    return o.reshape(B, -1) @ p["wo"]
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   dtype: torch.dtype, device, lead: Sequence[int] = ()):
+    """Empty latent ring: {"ckr": (*lead, batch, W, 1, R + dr)}, W as
+    :func:`gqa_init_cache`'s."""
+    W = min(cfg.sliding_window or max_seq, max_seq)
+    return mla_paged_pools(cfg, batch, W, dtype, device, lead)
+
+
+def mla_decode(p, cfg: ModelConfig, x, cache, pos):
+    """Absorbed-matmul MLA decode against one layer's latent ring,
+    written in place at slot pos % W: the ring viewed as a pool, one
+    ``ops.paged_attention`` launch with K = V = the ring, as
+    :func:`mla_decode_paged`.  x: (B, D); pos (B,).  Returns (B, D)."""
+    B, _ = x.shape
+    R = cfg.mla.kv_lora_rank
+    q_eff, token = _mla_q_token(p, cfg, x, pos)
+    ring = cache["ckr"]
+    _write_ring(ring[:, :, 0], pos, token)
+    tables, seq_lens = ring_page(pos, ring.shape[1])
+    out = ops.paged_attention(q_eff.to(ring.dtype), ring, ring, tables,
+                              seq_lens)
     o = torch.einsum("bhr,hrv->bhv", out[..., :R].to(x.dtype), p["wuv"])
     return o.reshape(B, -1) @ p["wo"]

@@ -8,9 +8,11 @@ CPU); decode starts the scan from the slot's state.  The causal
 depthwise conv, softplus, the D skip and the ``silu(z)`` gate stay plain
 PyTorch, as they are plain ``jnp`` there.
 
-The paged serving cache holds a layer's state as a dict ``{"conv": (B,
-d_conv, d_inner), "ssm": (B, d_inner, N)}``; :func:`mamba_decode` updates
-it in place, the scan writing the new ``ssm`` state into it directly.
+The paged serving cache and the ring serve step's cache both hold a
+layer's state as a dict ``{"conv": (B, d_conv, d_inner), "ssm": (B,
+d_inner, N)}`` (``repro``'s ``MambaState`` fields, by name);
+:func:`mamba_decode` updates it in place, the scan writing the new
+``ssm`` state into it directly.
 ``A = -exp(A_log)`` is the caller's to keep (``Model`` computes it once per
 weight load); without it both functions compute it from ``A_log``.
 """

@@ -33,11 +33,29 @@ moe_layer_period == 1`` and a dense FFN on the others.  A period's cache
 entry holds both kinds of state: ``{"attn": its K/V pools, "ssm": the
 stack of its Mamba sublayers' per-slot states}``.  It cannot chunk its
 prefill, and the megastep never runs in it (its attention sublayer
-carries a dense FFN).  The audio and VLM families are later slices of
-the port and raise here.
+carries a dense FFN).
+
+The vlm family (internvl2-26b) is the dense model with precomputed patch
+embeddings (``batch["patches"]``, (B, num_patches, D)) before the
+tokens.  The audio family (seamless-m4t-large-v2) is an encoder-decoder:
+a non-causal encoder stack ``enc_layers`` over precomputed frame
+embeddings (``batch["frames"]``, (B, encoder_seq, D)) and ``enc_norm``,
+then decoder ``layers`` whose blocks add cross-attention (``ln_cross``,
+``cross``) after self-attention.  Neither can chunk its prefill, and
+the paged cache refuses the audio family, as ``repro``'s does.
+
+Besides the paged cache, every family has ``repro``'s ring-cache serve
+step: :meth:`Model.prefill` builds per-row ring caches of ``max_seq``
+slots (W = min(window, max_seq)) and :meth:`Model.decode_step` attends
+over them through ``ops.paged_attention``, each ring viewed as a pool of
+one block a row (``attention.ring_page``); the audio decoder's cache
+entry is ``{"self": its rings, "cross": the encoder's K/V per layer}``,
+and the cache carries ``pos`` (B,), each row's next position.  Rings and
+states are updated in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -57,12 +75,6 @@ class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                  device=None):
         cfg.validate()
-        unported = {"vlm": "Queue 1 item 10", "audio": "Queue 1 item 10"}
-        if cfg.family in unported:
-            raise NotImplementedError(
-                f"family {cfg.family!r}: only attention+MoE, dense, Mamba "
-                f"and hybrid models are ported so far (ROADMAP "
-                f"{unported[cfg.family]})")
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -84,10 +96,14 @@ class Model:
         cfg = self.cfg
         if cfg.family == "ssm":
             return [("layers", cfg.num_layers, "mamba", None, False)]
+        if cfg.family == "audio":
+            return [("enc_layers", cfg.encoder_layers, "attn", "dense",
+                     False),
+                    ("layers", cfg.num_layers, "attn", "dense", True)]
         if cfg.hybrid_period:
             return [("periods", cfg.num_layers // cfg.hybrid_period,
                      "hybrid", None, False)]
-        if cfg.moe is None:         # dense
+        if cfg.moe is None:         # dense, vlm
             return [("layers", cfg.num_layers, "attn", "dense", False)]
         groups = []
         if cfg.moe.first_k_dense:
@@ -111,7 +127,10 @@ class Model:
         against the paged pools, which needs every mixer to be attention.
         A Mamba mixer carries per-slot state that must be threaded
         through the prompt in order, so its models keep whole-prompt
-        prefills."""
+        prefills; so do the vlm and audio families, whose prefills embed
+        inputs that are not tokens."""
+        if self.cfg.family in ("vlm", "audio"):
+            return False
         return all(mixer == "attn"
                    for _, _, mixer, _, _ in self.layer_groups())
 
@@ -132,18 +151,25 @@ class Model:
             "final_norm": torch.ones(D, dtype=dtype, device=self.device),
             "lm_head": embed_init(gen, self.vpad, D, dtype).T.contiguous(),
         }
-        for name, n, mixer, ffn_kind, _ in self.layer_groups():
+        for name, n, mixer, ffn_kind, cross in self.layer_groups():
             if mixer == "hybrid":
                 params[name] = {
                     sub: self._block_init(gen, n, sub_mixer, sub_ffn)
                     for sub, sub_mixer, sub_ffn in self.period_sublayers()}
             else:
-                params[name] = self._block_init(gen, n, mixer, ffn_kind)
+                params[name] = self._block_init(gen, n, mixer, ffn_kind,
+                                                cross)
+        if cfg.family == "audio":
+            params["enc_norm"] = torch.ones(D, dtype=dtype,
+                                            device=self.device)
         return params
 
-    def _block_init(self, gen, n: int, mixer: str, ffn_kind):
+    def _block_init(self, gen, n: int, mixer: str, ffn_kind,
+                    cross: bool = False):
         """``n`` stacked blocks of one (mixer, ffn_kind); a block without
-        an FFN (a falcon-mamba layer) has no ``ln2``."""
+        an FFN (a falcon-mamba layer) has no ``ln2``, and a decoder block
+        of the audio family (``cross``) adds ``ln_cross`` and ``cross``,
+        its cross-attention's GQA weights."""
         cfg, dtype = self.cfg, self.dtype
         D = cfg.d_model
         p: Dict[str, Any] = {
@@ -153,6 +179,10 @@ class Model:
         else:
             init = A.mla_init if cfg.attention_type == "mla" else A.gqa_init
             p["mixer"] = init(gen, cfg, dtype, (n,))
+        if cross:
+            p["ln_cross"] = torch.ones((n, D), dtype=dtype,
+                                       device=self.device)
+            p["cross"] = A.gqa_init(gen, cfg, dtype, (n,))
         if ffn_kind is not None:
             p["ln2"] = torch.ones((n, D), dtype=dtype, device=self.device)
         if ffn_kind == "moe":
@@ -221,57 +251,92 @@ class Model:
     # -- full-sequence forward (whole-prompt prefill) --------------------------
 
     def _block_fwd(self, p, x, positions, *, mixer, ffn_kind, runtime, cap,
-                   ssm_A=None):
+                   ssm_A=None, causal=True, enc_out=None, enc_positions=None,
+                   max_seq=0):
         """One block over a whole sequence.  x: (B, S, D).  Returns (x,
         cache entry): the block's raw (B, S, Hkv, Dh) K (rope applied)
-        and V, or a Mamba block's final (B, ...) ``conv`` and ``ssm``
-        state.  ``ssm_A``: a Mamba block's scan rates."""
+        and V, or with ``max_seq`` their ring of min(window, max_seq)
+        slots a row (MLA: the latent rows, raw or as a ring); a Mamba
+        block's final (B, ...) ``conv`` and ``ssm`` state; None for a
+        non-causal block (the audio encoder's).  ``ssm_A``: a Mamba
+        block's scan rates.  ``enc_out`` (B, F, D) at ``enc_positions``:
+        what a decoder block with cross-attention attends to."""
         cfg = self.cfg
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if mixer == "mamba":
             out, state = M.mamba_forward(p["mixer"], cfg, h,
                                          return_state=True, A=ssm_A)
             entry = state._asdict()
+        elif not causal:            # the audio encoder's (GQA) blocks
+            out = A.gqa_forward(p["mixer"], cfg, h, positions, causal=False,
+                                window=cfg.sliding_window)
+            entry = None
         elif cfg.attention_type == "mla":
-            out, entry = self._mla_fwd_cache(p["mixer"], h, positions)
+            out, entry = self._mla_fwd_cache(p["mixer"], h, positions,
+                                             max_seq)
         else:
-            out, entry = self._gqa_fwd_cache(p["mixer"], h, positions)
+            out, entry = self._gqa_fwd_cache(p["mixer"], h, positions,
+                                             max_seq)
         x = x + out
+        if enc_out is not None:
+            hc = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+            x = x + A.gqa_forward(p["cross"], cfg, hc, positions,
+                                  causal=False, kv_input=enc_out,
+                                  kv_positions=enc_positions, use_rope=False)
+        return self._ffn(p, x, ffn_kind, runtime, cap), entry
+
+    def _ffn(self, p, x, ffn_kind, runtime, cap):
+        """A block's FFN half, its residual included: x (..., D)."""
         if ffn_kind is None:
-            return x, entry
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+            return x
+        h2 = rms_norm(x, p["ln2"], self.cfg.norm_eps)
         if ffn_kind == "moe":
             y = self._moe(p["moe"], h2.reshape(-1, h2.shape[-1]), runtime,
                           cap)
-            return x + y.reshape(x.shape), entry
-        return x + Fn.ffn_apply(p["ffn"], h2, cfg.activation), entry
+            return x + y.reshape(x.shape)
+        return x + Fn.ffn_apply(p["ffn"], h2, self.cfg.activation)
 
-    def _gqa_fwd_cache(self, p, h, positions):
+    def _gqa_fwd_cache(self, p, h, positions, max_seq=0):
         out, (k, v) = A.gqa_forward_with_kv(p, self.cfg, h, positions)
-        return out, {"k": k, "v": v}
+        entry = {"k": k, "v": v}
+        if max_seq:
+            entry = _ring_from_full(entry, positions, self.cfg.sliding_window,
+                                    max_seq)
+        return out, entry
 
-    def _mla_fwd_cache(self, p, h, positions):
-        """The fused latent rows (B, S, 1, R + dr), the pool's layout."""
+    def _mla_fwd_cache(self, p, h, positions, max_seq=0):
+        """The fused latent rows (B, S, 1, R + dr), the pool's layout, or
+        with ``max_seq`` their ring."""
         out, (c_kv, k_rope) = A.mla_forward_with_cache(p, self.cfg, h,
                                                        positions)
-        return out, {"ckr": torch.cat([c_kv, k_rope], dim=-1)[:, :, None]}
+        entry = {"ckr": torch.cat([c_kv, k_rope], dim=-1)[:, :, None]}
+        if max_seq:
+            entry = _ring_from_full(entry, positions, self.cfg.sliding_window,
+                                    max_seq)
+        return out, entry
 
-    def _trunk(self, params, x, positions, runtime):
-        """Every layer group, layer by layer.  Returns (x, caches): per
-        group the stacked (L, B, S, Hkv, Dh) raw K and V (MLA: the (L, B,
-        S, 1, R + dr) latent rows), or the stacked (L, B, ...) Mamba
-        state; a hybrid group's ``{"attn": (L, B, S, Hkv, Dh) K and V,
-        "ssm": (L, n_mamba, B, ...) state}``."""
+    def _trunk(self, params, x, positions, runtime, *, max_seq=0,
+               enc_out=None, enc_positions=None):
+        """Every decoder layer group, layer by layer (the audio encoder is
+        :meth:`_encode`'s).  Returns (x, caches): per group the stacked
+        (L, B, S, Hkv, Dh) raw K and V (MLA: the (L, B, S, 1, R + dr)
+        latent rows), or with ``max_seq`` their (L, B, W, ...) rings, or
+        the stacked (L, B, ...) Mamba state; a hybrid group's ``{"attn":
+        K and V, "ssm": (L, n_mamba, B, ...) state}``.  ``enc_out`` goes
+        to the groups with cross-attention."""
         cap = self._cap(x.shape[0] * x.shape[1])
         caches: Dict[str, Any] = {}
-        for name, n, mixer, ffn_kind, _ in self.layer_groups():
+        for name, n, mixer, ffn_kind, cross in self.layer_groups():
+            if name == "enc_layers":
+                continue
             entries = []
             if mixer == "hybrid":
                 rates = self._period_rates(params, name)
                 for i in range(n):
                     x, entry = self._period_fwd(
                         take_layer(params[name], i), x, positions, runtime,
-                        cap, {sub: a[i] for sub, a in rates.items()})
+                        cap, {sub: a[i] for sub, a in rates.items()},
+                        max_seq)
                     entries.append(entry)
             else:
                 rates = (self.ssm_rates(params, name) if mixer == "mamba"
@@ -280,42 +345,119 @@ class Model:
                     x, entry = self._block_fwd(
                         take_layer(params[name], i), x, positions,
                         mixer=mixer, ffn_kind=ffn_kind, runtime=runtime,
-                        cap=cap, ssm_A=None if rates is None else rates[i])
+                        cap=cap, ssm_A=None if rates is None else rates[i],
+                        enc_out=enc_out if cross else None,
+                        enc_positions=enc_positions, max_seq=max_seq)
                     entries.append(entry)
             caches[name] = _stack(entries)
         return x, caches
 
-    def _period_fwd(self, p, x, positions, runtime, cap, rates):
+    def _period_fwd(self, p, x, positions, runtime, cap, rates, max_seq=0):
         """One hybrid period over a whole sequence, sublayer by sublayer.
         ``rates``: each Mamba sublayer's scan rates.  Returns (x, {"attn":
-        the attention sublayer's raw K/V, "ssm": the Mamba sublayers'
-        final states stacked on a leading axis})."""
+        the attention sublayer's raw K/V (or ring), "ssm": the Mamba
+        sublayers' final states stacked on a leading axis})."""
         attn, states = None, []
         for sub, mixer, ffn_kind in self.period_sublayers():
             x, entry = self._block_fwd(
                 p[sub], x, positions, mixer=mixer, ffn_kind=ffn_kind,
-                runtime=runtime, cap=cap, ssm_A=rates.get(sub))
+                runtime=runtime, cap=cap, ssm_A=rates.get(sub),
+                max_seq=max_seq)
             if mixer == "attn":
                 attn = entry
             else:
                 states.append(entry)
         return x, {"attn": attn, "ssm": _stack(states)}
 
+    def _encode(self, params, frames, runtime=None):
+        """The audio encoder over precomputed frame embeddings (B, F, D):
+        ``encoder_layers`` non-causal blocks, then ``enc_norm``."""
+        cfg = self.cfg
+        positions = torch.arange(frames.shape[1], dtype=torch.int32,
+                                 device=frames.device)
+        x = frames
+        for i in range(cfg.encoder_layers):
+            x, _ = self._block_fwd(
+                take_layer(params["enc_layers"], i), x, positions,
+                mixer="attn", ffn_kind="dense", runtime=runtime, cap=0,
+                causal=False)
+        return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _cross_kv(self, params, enc_out):
+        """Each decoder layer's cross-attention K and V of the encoder's
+        output (B, F, D): {"k", "v"} of (L, B, F, Hkv, Dh), no rope."""
+        cfg = self.cfg
+        B, F, _ = enc_out.shape
+        shape = (B, F, cfg.num_kv_heads, cfg.resolved_head_dim())
+        cross = params["layers"]["cross"]
+        return {key: torch.stack([(enc_out @ w).reshape(shape)
+                                  for w in cross[f"w{key}"]])
+                for key in ("k", "v")}
+
     def _embed_inputs(self, params, batch):
+        """The embedded inputs (B, S, D) and their positions: a vlm row
+        is its ``patches`` (B, num_patches, D) then its tokens."""
         x = params["embed"][batch["tokens"].long()]
+        if self.cfg.family == "vlm":
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         return x, positions
 
-    def logits_full(self, params, batch, runtime=None):
-        """Full-sequence forward over ``batch["tokens"]`` (B, S).  Returns
-        (logits (B, S, vocab), raw per-layer K/V caches)."""
+    def logits_full(self, params, batch, runtime=None, *, max_seq=0):
+        """Full-sequence forward over ``batch["tokens"]`` (B, S), a vlm's
+        ``patches`` before them, an audio model's decoder attending to
+        the encoding of ``batch["frames"]``.  Returns (logits (B, S,
+        vocab), per-layer caches as :meth:`_trunk` builds them; an audio
+        model's decoder entry is ``{"self": ..., "cross":
+        :meth:`_cross_kv`}``)."""
         cfg = self.cfg
         runtime = runtime if runtime is not None else self.default_runtime()
         x, positions = self._embed_inputs(params, batch)
-        x, caches = self._trunk(params, x, positions, runtime)
+        enc_out = enc_positions = None
+        if cfg.family == "audio":
+            enc_out = self._encode(params, batch["frames"].to(x.dtype),
+                                   runtime)
+            enc_positions = torch.arange(enc_out.shape[1],
+                                         dtype=torch.int32, device=x.device)
+        x, caches = self._trunk(params, x, positions, runtime,
+                                max_seq=max_seq, enc_out=enc_out,
+                                enc_positions=enc_positions)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if cfg.family == "audio":
+            caches["layers"] = {"self": caches["layers"],
+                                "cross": self._cross_kv(params, enc_out)}
         return x @ params["lm_head"], caches
+
+    @staticmethod
+    def _last(logits, batch):
+        """The logits at each row's last real position (``lengths``)."""
+        if "lengths" not in batch:
+            return logits[:, -1]
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        return logits[rows, batch["lengths"].long() - 1]
+
+    @torch.no_grad()
+    def prefill(self, params, batch, runtime=None, max_seq: int = 0):
+        """Prefill for the ring cache.  ``batch`` as :meth:`logits_full`'s,
+        optionally with ``lengths`` (B,), each row's real length (a vlm
+        row's counts its patches).  ``max_seq``: the rings' size (>= the
+        sequence; 0: the sequence's length).  Returns ``(last_logits,
+        cache)``: the logits at each row's last real position, and the
+        per-group rings (or Mamba states) with ``pos`` (B,) int32, each
+        row's next position.  As in the JAX package, a padded row's rings
+        hold its padding's K/V past its length, never valid at decode."""
+        cfg = self.cfg
+        S = batch["tokens"].shape[1] + (cfg.num_patches
+                                        if cfg.family == "vlm" else 0)
+        logits, caches = self.logits_full(params, batch, runtime,
+                                          max_seq=max_seq or S)
+        if "lengths" in batch:
+            pos = batch["lengths"]
+        else:
+            pos = torch.full((logits.shape[0],), S, device=logits.device)
+        caches["pos"] = pos.to(torch.int32)
+        return self._last(logits, batch), caches
 
     @torch.no_grad()
     def prefill_paged(self, params, batch, runtime=None):
@@ -329,12 +471,7 @@ class Model:
         bucket runs its padding tokens through the recurrence too: the
         state is the one after the bucket, not after the prompt."""
         logits, caches = self.logits_full(params, batch, runtime)
-        if "lengths" in batch:
-            rows = torch.arange(logits.shape[0], device=logits.device)
-            last = logits[rows, batch["lengths"].long() - 1]
-        else:
-            last = logits[:, -1]
-        return last, caches
+        return self._last(logits, batch), caches
 
     # -- paged serving cache ---------------------------------------------------
 
@@ -350,7 +487,13 @@ class Model:
         dtype = dtype or self.dtype
         device = self.device if device is None else device
         caches = {}
-        for name, n, mixer, _, _ in self.layer_groups():
+        for name, n, mixer, _, cross in self.layer_groups():
+            if name == "enc_layers":
+                continue
+            if cross:
+                raise ValueError(
+                    "paged serving does not support encoder-decoder "
+                    "(audio) models")
             if mixer == "hybrid":
                 n_mamba = sum(mx == "mamba"
                               for _, mx, _ in self.period_sublayers())
@@ -400,10 +543,12 @@ class Model:
             if mixer == "hybrid":
                 rates = self._period_rates(params, name)
                 for i in range(n):
-                    x = self._period_decode_paged(
+                    x = self._period_decode(
                         take_layer(params[name], i), x,
-                        take_layer(cache[name], i), page, runtime, cap,
-                        {sub: a[i] for sub, a in rates.items()})
+                        take_layer(cache[name], i), rates, i,
+                        functools.partial(self._block_decode_paged,
+                                          page=page, runtime=runtime,
+                                          cap=cap))
                 continue
             rates = self.ssm_rates(params, name) if mixer == "mamba" else None
             post = (self.mla_post(params, name)
@@ -436,17 +581,15 @@ class Model:
             decode = (A.mla_decode_paged if cfg.attention_type == "mla"
                       else A.gqa_decode_paged)
             x = x + decode(p["mixer"], cfg, h, csl, page)
-        if ffn_kind is None:
-            return x
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        if ffn_kind == "moe":
-            return x + self._moe(p["moe"], h2, runtime, cap)
-        return x + Fn.ffn_apply(p["ffn"], h2, cfg.activation)
+        return self._ffn(p, x, ffn_kind, runtime, cap)
 
-    def _period_decode_paged(self, p, x, csl, page, runtime, cap, rates):
-        """One hybrid period's decode step.  ``csl``: the period's cache
+    def _period_decode(self, p, x, csl, rates, i, block):
+        """Period ``i`` of a hybrid group's decode step, sublayer by
+        sublayer: ``block(p_sub, x, sub_cache, mixer, ffn_kind, ssm_A)``
+        is the paged or the ring block step.  ``csl``: the period's cache
         entry; Mamba sublayer j updates its slice ``j`` of the state
-        stack in place, the attention sublayer its pools."""
+        stack in place, the attention sublayer its pools or ring.
+        ``rates``: the group's scan rates per Mamba sublayer."""
         j = 0
         for sub, mixer, ffn_kind in self.period_sublayers():
             if mixer == "attn":
@@ -454,9 +597,8 @@ class Model:
             else:
                 sub_cache = take_layer(csl["ssm"], j)
                 j += 1
-            x = self._block_decode_paged(p[sub], x, sub_cache, page,
-                                         runtime, cap, mixer, ffn_kind,
-                                         rates.get(sub))
+            x = block(p[sub], x, sub_cache, mixer=mixer, ffn_kind=ffn_kind,
+                      ssm_A=rates[sub][i] if sub in rates else None)
         return x
 
     def _block_decode_megastep(self, p, x, pools, page, runtime, cap,
@@ -496,6 +638,100 @@ class Model:
             e_local=MoE.physical_experts(cfg.moe), eps=cfg.norm_eps)
         return y
 
+    # -- ring cache (the ring serve step) ---------------------------------------
+
+    def init_cache(self, batch: int, max_seq: int,
+                   dtype: Optional[torch.dtype] = None, device=None):
+        """An empty ring cache: per layer group the (L, batch, W, ...)
+        rings of :func:`attention.gqa_init_cache` (MLA: the latent ring),
+        the (L, batch, ...) Mamba states, a hybrid group's ``{"attn":
+        rings, "ssm": (L, n_mamba, batch, ...) states}``, the audio
+        decoder's ``{"self": rings, "cross": {"k", "v"}: (L, batch,
+        encoder_seq, Hkv, Dh)}``; and ``pos`` (batch,) int32 zeros."""
+        cfg = self.cfg
+        dtype = dtype or self.dtype
+        device = self.device if device is None else device
+        init = (A.mla_init_cache if cfg.attention_type == "mla"
+                else A.gqa_init_cache)
+        caches: Dict[str, Any] = {}
+        for name, n, mixer, _, cross in self.layer_groups():
+            if name == "enc_layers":
+                continue
+            if mixer == "hybrid":
+                n_mamba = sum(mx == "mamba"
+                              for _, mx, _ in self.period_sublayers())
+                caches[name] = {
+                    "attn": A.gqa_init_cache(cfg, batch, max_seq, dtype,
+                                             device, (n,)),
+                    "ssm": M.mamba_init_state(cfg, batch, dtype, device,
+                                              (n, n_mamba))}
+            elif mixer == "mamba":
+                caches[name] = M.mamba_init_state(cfg, batch, dtype, device,
+                                                  (n,))
+            else:
+                caches[name] = init(cfg, batch, max_seq, dtype, device, (n,))
+            if cross:
+                shape = (n, batch, cfg.encoder_seq, cfg.num_kv_heads,
+                         cfg.resolved_head_dim())
+                caches[name] = {"self": caches[name], "cross": {
+                    key: torch.zeros(shape, dtype=dtype, device=device)
+                    for key in ("k", "v")}}
+        caches["pos"] = torch.zeros(batch, dtype=torch.int32, device=device)
+        return caches
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, token, runtime=None):
+        """One decode step against the ring cache: token (B,) int at each
+        row's position ``cache["pos"]``.  Every ring and Mamba state is
+        updated in place and ``cache["pos"]`` advances by one.  Returns
+        ``(logits, cache)``."""
+        cfg = self.cfg
+        runtime = runtime if runtime is not None else self.default_runtime()
+        pos = cache["pos"]
+        x = params["embed"][token.long()]                # (B, D)
+        cap = self._cap(x.shape[0])
+        block = functools.partial(self._block_decode, pos=pos,
+                                  runtime=runtime, cap=cap)
+        for name, n, mixer, ffn_kind, cross in self.layer_groups():
+            if name == "enc_layers":
+                continue
+            if mixer == "hybrid":
+                rates = self._period_rates(params, name)
+                for i in range(n):
+                    x = self._period_decode(
+                        take_layer(params[name], i), x,
+                        take_layer(cache[name], i), rates, i, block)
+                continue
+            rates = self.ssm_rates(params, name) if mixer == "mamba" else None
+            for i in range(n):
+                x = block(take_layer(params[name], i), x,
+                          take_layer(cache[name], i), mixer=mixer,
+                          ffn_kind=ffn_kind, cross=cross,
+                          ssm_A=None if rates is None else rates[i])
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        cache["pos"] = pos + 1
+        return x @ params["lm_head"], cache
+
+    def _block_decode(self, p, x, csl, *, pos, runtime, cap, mixer,
+                      ffn_kind, cross=False, ssm_A=None):
+        """One block's ring decode step at positions ``pos``.  ``csl``:
+        the layer's ring (or Mamba state; ``ssm_A`` its scan rates), an
+        audio decoder layer's ``{"self": ring, "cross": {"k", "v"}}``."""
+        cfg = self.cfg
+        self_csl = csl["self"] if cross else csl
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if mixer == "mamba":
+            x = x + M.mamba_decode(p["mixer"], cfg, h, self_csl, A=ssm_A)
+        else:
+            decode = (A.mla_decode if cfg.attention_type == "mla"
+                      else A.gqa_decode)
+            x = x + decode(p["mixer"], cfg, h, self_csl, pos)
+        if cross:
+            hc = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+            x = x + A.gqa_cross_decode(p["cross"], cfg, hc,
+                                       csl["cross"]["k"], csl["cross"]["v"])
+        return self._ffn(p, x, ffn_kind, runtime, cap)
+
 
 def _stack(entries):
     """Stack a list of equally nested cache entries on a new leading
@@ -503,3 +739,20 @@ def _stack(entries):
     if isinstance(entries[0], dict):
         return {key: _stack([e[key] for e in entries]) for key in entries[0]}
     return torch.stack(entries)
+
+
+def _ring_from_full(rows, positions, window: int, max_seq: int):
+    """Arrange a whole prompt's (B, S, ...) cache rows (GQA's ``k`` and
+    ``v``, MLA's ``ckr``) into rings of W = min(window or max_seq,
+    max_seq) slots a row: position p in slot p % W, the last W positions
+    where S > W."""
+    S = positions.shape[0]
+    W = min(window or max_seq, max_seq)
+    first = max(S - W, 0)
+    slots = (positions[first:] % W).long()
+    rings = {}
+    for key, t in rows.items():
+        ring = t.new_zeros((t.shape[0], W) + tuple(t.shape[2:]))
+        ring[:, slots] = t[:, first:]
+        rings[key] = ring
+    return rings

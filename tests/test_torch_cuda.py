@@ -570,7 +570,9 @@ FLASH_CARD_CASES = dict(
     internlm2_s200_window6=(1, 200, 48, 8, 128, True, 6, 0),
     # jamba-1.5-large-398b's: 8 query heads a KV head at Dh 128
     jamba_s256=(1, 256, 64, 8, 128, True, 0, 0),
-    jamba_s200=(1, 200, 64, 8, 128, True, 0, 0))
+    jamba_s200=(1, 200, 64, 8, 128, True, 0, 0),
+    # internvl2-26b's vlm prefill: 256 patches + 64 tokens, G = 6
+    internvl2_s320=(4, 320, 48, 8, 128, True, 0, 0))
 
 
 @pytest.mark.cuda
@@ -596,6 +598,136 @@ def test_flash_prefill_cuda_vs_plain(card, case, dtype):
                                atol=tol)
     if shift:
         assert not got[:, :shift].any()  # rows that see no key give 0
+
+
+# queries over keys of another length, not causal: the audio encoder
+# (seamless-m4t-large-v2: S 1536, H = Hkv = 16, Dh 64) and its decoder's
+# cross-attention prefill (16 text positions over the 1536 frames), and a
+# ragged pair of lengths
+FLASH_CROSS_CARD_CASES = {
+    # id: (B, Sq, Skv, H, Hkv, Dh)
+    "seamless_encoder": (4, 1536, 1536, 16, 16, 64),
+    "seamless_cross": (4, 16, 1536, 16, 16, 64),
+    "ragged_g2": (2, 7, 300, 4, 2, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_CROSS_CARD_CASES))
+def test_flash_prefill_cuda_cross_not_causal(card, case, dtype):
+    B, Sq, Skv, H, Hkv, Dh = FLASH_CROSS_CARD_CASES[case]
+    rng = np.random.default_rng(Sq + Skv)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, n, h, Dh))
+                                .astype(np.float32)).to(card, dtype)
+               for n, h in ((Sq, H), (Skv, Hkv), (Skv, Hkv)))
+    qpos = torch.arange(Sq, dtype=torch.int32, device=card)
+    kvpos = torch.arange(Skv, dtype=torch.int32, device=card)
+    got = flash_prefill_cuda(q, k, v, qpos, kvpos, causal=False)
+    again = flash_prefill_cuda(q, k, v, qpos, kvpos, causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)       # bitwise run to run
+    want = flash_prefill_plain(q, k, v, qpos, kvpos, causal=False)
+    # the tolerances of test_flash_prefill_cuda_vs_plain
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+# a ring cache viewed as a pool (``attention.ring_page``): B blocks of W
+# rows, the identity table, seq_lens = min(pos + 1, W), rows before and
+# after the ring wrapped; internvl2-26b's G = 6 at Dh 128 over W 384,
+# seamless-m4t-large-v2's G = 1 at Dh 64 over W 128 and its cross decode
+# over all 1536 frames
+RING_CARD_CASES = {
+    # id: (H, Hkv, Dh, W, positions)
+    "internvl2_w384": (48, 8, 128, 384, [271, 300, 383, 400]),
+    "seamless_w128": (16, 16, 64, 128, [8, 127, 128, 200]),
+    "seamless_cross": (16, 16, 64, 1536, [1535] * 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(RING_CARD_CASES))
+def test_paged_attention_cuda_ring_view(card, case, dtype):
+    from repro_torch.models.attention import ring_page
+    H, Hkv, Dh, W, positions = RING_CARD_CASES[case]
+    rng = np.random.default_rng(W)
+    B = len(positions)
+    q = torch.from_numpy(rng.normal(size=(B, H, Dh)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(B, W, Hkv, Dh))
+                             .astype(np.float32)).to(card, dtype)
+            for _ in range(2))
+    tables, seq_lens = ring_page(
+        torch.tensor(positions, dtype=torch.int32, device=card), W)
+    args = (q.to(card, dtype), k, v, tables, seq_lens)
+    got = paged_attention_cuda(*args)
+    again = paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)       # bitwise run to run
+    want = paged_attention_plain(*args)
+    # the tolerances of test_paged_attention_cuda_vs_plain
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internvl2-26b", "seamless-m4t-large-v2"])
+def test_ring_decode_step_card_vs_cpu(card, arch):
+    """The ring serve step of the vlm and audio smoke models in f32:
+    ``prefill`` and 3 greedy ``decode_step``s on the card, through
+    ``flash_prefill`` and ``paged_attention``, against the same weights
+    and inputs on the CPU (the plain versions)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    cfg = get_smoke_config(arch)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.num_patches, cfg.d_model)).astype(np.float32))
+    else:
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    extra = cfg.num_patches if cfg.family == "vlm" else 0
+    batch["lengths"] = torch.tensor([12 + extra, 7 + extra],
+                                    dtype=torch.int32)
+    p_cpu = Model(cfg, device="cpu").init(0)
+    # per device: the prefill's and each step's logits; the card's steps
+    # take the CPU's greedy tokens
+    logits, tokens = {}, []
+    for dev in ("cpu", "cuda"):
+        m = Model(cfg, device=dev)
+        p = _to(p_cpu, dev)
+        n0 = {k: launches[k] for k in ("flash_prefill", "paged_attention")}
+        last, cache = m.prefill(p, _to(batch, dev), max_seq=32)
+        out = [last.cpu()]
+        for i in range(3):
+            if dev == "cpu":
+                tokens.append(last.argmax(-1))
+            last, cache = m.decode_step(p, cache, tokens[i].to(dev))
+            out.append(last.cpu())
+        logits[dev] = out
+    n = {k: launches[k] - n0[k] for k in n0}
+    # the prefill: a launch per attention layer (encoder and decoder),
+    # the audio's decoder layers one more for cross-attention; the decode
+    # steps: one per decoder layer, the audio's two (ring and cross)
+    cross = cfg.num_layers if cfg.family == "audio" else 0
+    assert n == {"flash_prefill": cfg.num_layers + cfg.encoder_layers + cross,
+                 "paged_attention": 3 * (cfg.num_layers + cross)}
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
 
 
 # MLA's whole-prompt attention (QK width 192, V width 128, 128 heads, G =

@@ -51,8 +51,8 @@ LOGIT_TOL = 2e-4                 # tests/test_paged_serving.py:180
 # the dense archs, each with the change the tests make to its smoke config
 DENSE = {"internlm2-20b": dict(sliding_window=16), "minicpm3-4b": {},
          "mistral-large-123b": {}, "nemotron-4-340b": {}}
-# the families the port does not serve yet, with their ROADMAP item
-UNPORTED = {"internvl2-26b": "item 10", "seamless-m4t-large-v2": "item 10"}
+# the encoder-decoder arch, which paged serving refuses
+AUDIO = "seamless-m4t-large-v2"
 
 
 def _configs(arch):
@@ -82,19 +82,22 @@ def test_long_context_window_rule():
     assert get_config("falcon-mamba-7b", "long_500k").sliding_window == 0
 
 
-@pytest.mark.parametrize("arch", list(UNPORTED))
-def test_unported_families_raise_naming_their_item(arch):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 {UNPORTED[arch]}"):
-        Model(get_smoke_config(arch), device="cpu")
+def test_audio_paged_cache_raises_as_repro():
+    """The audio family builds and draws its weights, but its paged
+    cache raises ``repro``'s ``ValueError``: paged serving has no
+    encoder-decoder (its ring serve step: tests/test_torch_multimodal.py)."""
+    model = Model(get_smoke_config(AUDIO), device="cpu")
+    assert "enc_norm" in model.init(0)
+    with pytest.raises(ValueError, match="paged serving does not support "
+                       r"encoder-decoder \(audio\) models"):
+        model.init_paged_cache(2, NUM_BLOCKS, BS)
 
 
-@pytest.mark.parametrize("arch", [a for a in ALL_ARCHS
-                                  if a not in UNPORTED])
+@pytest.mark.parametrize("arch", [a for a in ALL_ARCHS if a != AUDIO])
 def test_served_families_build_and_decode(arch):
-    """Every registered arch but the two unported families builds, draws
-    its weights and runs one paged decode step on the CPU (the hybrid
-    Jamba among them)."""
+    """Every registered arch but the encoder-decoder builds, draws its
+    weights and runs one paged decode step on the CPU (the hybrid Jamba
+    and the vlm, whose decode step is the dense model's, among them)."""
     model = Model(get_smoke_config(arch), device="cpu")
     params = model.init(0)
     cache = model.init_paged_cache(2, NUM_BLOCKS, BS)

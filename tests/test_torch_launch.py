@@ -5,7 +5,8 @@
 with an attention fault from the same ``weights.npz``: every line that
 does not depend on the wall clock must be equal.  The port's own options
 (``--device``, ``--dtype``, ``--config``, ``--layers``) and its refusals
-are checked beside, and ``scripts/http_smoke_torch.py --device cpu``
+are checked beside (the vlm and audio archs fail as ``repro``'s
+launcher does), and ``scripts/http_smoke_torch.py --device cpu``
 runs once as a subprocess.
 """
 import argparse
@@ -120,12 +121,25 @@ def test_hybrid_full_config_cuts_whole_periods(capsys):
                         "--layers", bad, "--requests", "0"])
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("internvl2-26b", "item 10"), ("seamless-m4t-large-v2", "item 10")])
-def test_unported_arch_raises_naming_its_item(tmp_path, arch, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        serve.main(["--arch", arch, "--device", "cpu", "--requests", "1",
-                    "--workdir", str(tmp_path)])
+@pytest.mark.parametrize("arch", ["internvl2-26b", "seamless-m4t-large-v2"])
+def test_vlm_and_audio_arch_fail_as_repros_launcher(tmp_path, arch):
+    """Neither launcher serves the vlm or the audio family: the vlm fails
+    at its first prefill (the engine passes no patches), the audio at
+    engine build (the paged cache refuses an encoder-decoder), with the
+    same exception and message in both packages."""
+    errors = []
+    for main, extra in ((jax_serve.main, []),
+                        (serve.main, ["--device", "cpu"])):
+        with pytest.raises(Exception) as info:
+            main(["--arch", arch, "--requests", "1", "--workdir",
+                  str(tmp_path / str(len(errors)))] + extra)
+        errors.append((info.type, str(info.value)))
+    assert errors[0] == errors[1]
+    assert errors[1] == {
+        "internvl2-26b": (KeyError, "'patches'"),
+        "seamless-m4t-large-v2": (ValueError, "paged serving does not "
+                                  "support encoder-decoder (audio) "
+                                  "models")}[arch]
 
 
 def test_device_defaults_to_the_card(tmp_path):

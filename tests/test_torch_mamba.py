@@ -276,13 +276,28 @@ def test_capture_step_restore_state_only_cache(models):
 
 
 @pytest.mark.parametrize("family", ["audio", "vlm"])
-def test_unported_families_raise(family):
+def test_audio_and_vlm_families_build_and_decode(family):
+    """falcon-mamba's smoke config recast as the audio or vlm family
+    builds, prefills its ring cache and decodes two steps (their blocks
+    are attention ones: the Mamba fields go unused)."""
     cfg = dataclasses.replace(get_smoke_config(ARCH), family=family,
+                              num_heads=4, num_kv_heads=2, head_dim=64,
+                              d_ff=512, attention_type="gqa",
                               encoder_layers=2 if family == "audio" else 0,
                               encoder_seq=16 if family == "audio" else 0,
                               num_patches=8 if family == "vlm" else 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        Model(cfg, device="cpu")
+    model = Model(cfg, device="cpu")
+    params = model.init(0)
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 5),
+                                     generator=gen)}
+    extra = {"audio": ("frames", 16), "vlm": ("patches", 8)}[family]
+    batch[extra[0]] = torch.randn((2, extra[1], cfg.d_model), generator=gen)
+    last, cache = model.prefill(params, batch, max_seq=24)
+    for _ in range(2):
+        last, cache = model.decode_step(params, cache, last.argmax(-1))
+    assert torch.isfinite(last).all()
+    assert cache["pos"].tolist() == [5 + 2 + (8 if family == "vlm" else 0)] * 2
 
 
 # -- the weight carry-across -------------------------------------------------------
