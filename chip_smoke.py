@@ -11,6 +11,7 @@
                                           # HTTP drill; internlm2-20b
     python3 chip_smoke.py --paths composed,fleet  # revive, spare, restart
     python3 chip_smoke.py --paths vlm,audio  # the ring serve step
+    python3 chip_smoke.py --paths train,examples  # training; the twins
     python3 chip_smoke.py --paths mla_composed,mla_megakernel,mla_serial
     python3 chip_smoke.py --profile       # + where the device time goes
 
@@ -18,7 +19,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  — require CUDA, print the card's name and power limit, turn
              TF32 off for matmuls and cuDNN.
-2. build   — compile the seven CUDA kernels from
+2. build   — compile the nine CUDA kernels from
              ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
              parallel) into ``build/kernels``.
 3. kernels — each kernel against its plain PyTorch version on the card, at
@@ -79,7 +80,16 @@ Phases, in order; any failure raises and the script exits non-zero:
              T = 8 and 40 with its device time split between its kernels
              and its sort pass, the megastep at B = 8 and 40 also beside
              the composed chain of the same block), and beside a library
-             call where one computes the same function.
+             call where one computes the same function.  Last the
+             two backward kernels (new in the port) against their
+             written-out plain versions, f32 and bf16, each twice and
+             bitwise equal: flash_prefill_bwd at qwen2-moe-a2.7b's
+             training shape (B 4, S 256, H = Hkv = 16, Dh 128, causal),
+             with window 6, at internlm2-20b's G = 6 and at MLA's Dq 192
+             / Dv 128 (H 128); expert_ffn_bwd over the training step's
+             capacity buffer (E 64, C 80, D 2048, F 1408) with empty
+             rows; timed beside ``torch.autograd.grad`` through
+             ``scaled_dot_product_attention`` and the bmm chain.
 4. model   — qwen2-moe-a2.7b at full width, 2 layers, f32: one chunk step
              and one decode step on the card against the same weights on
              the CPU (plain versions), once per decode implementation
@@ -138,8 +148,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              (``attn+moe`` on the MoE paths, ``attn`` on the ssm path),
              revived in place, on a second build; the paths whose
              whole-prompt installs bypass the prefix cache (``serial``,
-             ``mla_serial``, ``ssm``, ``hybrid``) serve it on the first
-             engine once the clean run has drained.
+             ``mla_serial``, ``ssm``, ``hybrid``), and ``mla_composed``
+             and ``mla_megakernel``, serve it on the first engine once
+             the clean run has drained and its parked prefix-cache
+             blocks are dropped, so it admits as a fresh engine would.
              The ``dense`` path serves internlm2-20b at full width (d_model
              6144, vocab 92544) cut to 8 of its 48 layers (~8.5 GB of
              ``weights.npz``) on the composed chunked path the same way,
@@ -200,14 +212,33 @@ Phases, in order; any failure raises and the script exits non-zero:
              steps, timed (the audio's encoder and cross K/V alone
              too), then the same fed the same tokens through the plain
              attention versions on the card, each step's logits within
-             RING_LOGIT_RTOL.  Each path's kernels' launch counts are read from
+             RING_LOGIT_RTOL.  The ``train`` path builds no engine:
+             ``train_loop.train`` of qwen2-moe-a2.7b at full width cut
+             to 2 layers (~1.83 B parameters) in f32 on the card, 3
+             steps of 4 x 256 tokens from ``Model.init(seed)`` at
+             AdamW's lr 3e-4 after a one-step warmup, through
+             flash_prefill, expert_ffn and their backward kernels; then
+             the same steps from the same params through the plain
+             versions and the written-out plain backward on the card,
+             every step's loss, ce, aux and grad_norm within 1e-3, and
+             step 0's gradient of every leaf within 1e-3 of the leaf's
+             scale; it prints the step seconds, training tokens/s, the
+             peak card memory and the final params' largest relative
+             difference,
+             then runs ``python -m repro_torch.launch.train`` (the same
+             model, 3 steps) in a child process.  The ``examples`` path
+             runs the four ``examples/*_torch.py`` twins with ``--device
+             cuda`` in child processes at once; each must exit 0 with
+             its OK line (``train_moe_torch.py`` after its own "did not
+             learn" assertion, 300 steps).  Each path's kernels' launch counts are read from
              its faulted run (``disagg``: the synchronous switch's;
              ``fleet``: the whole fleet run), counted from 0 just before
              it.  Each engine build
              prints its start-up files, its memory on the card and the
              host's MemTotal and MemAvailable.
 6. a ``{"kernels": [...]}`` line (each kernel's row at the qwen or
-   falcon shapes, with its deepseek-v3 rows under ``mla``, the dense
+   falcon shapes, the backward kernels' at the train path's in f32 with
+   their bf16 row under ``bf16``, with its deepseek-v3 rows under ``mla``, the dense
    family's under ``dense``, Jamba's under ``hybrid`` and the ring serve
    step's under ``ring``; its launches
    summed over the paths and per path), then the ``{"ok": true, ...}``
@@ -221,6 +252,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -250,6 +282,12 @@ KERNEL_META = {
                       "src/repro/kernels/flash_prefill.py:83"),
     "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:52"),
+    # new in the port: repro has no Pallas backward, and differentiates
+    # the jnp functions these kernels' gradients replace
+    "flash_prefill_bwd": ("src/repro_torch/kernels/csrc/flash_prefill_bwd.cu",
+                          "src/repro/models/attention.py:78"),
+    "expert_ffn_bwd": ("src/repro_torch/kernels/csrc/expert_ffn_bwd.cu",
+                       "src/repro/models/moe.py:163"),
 }
 # the engine paths each kernel runs on; its launches are counted there
 # (the megakernel paths run paged_attention too: MLA's first-k dense
@@ -264,10 +302,12 @@ KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
                                    "spec_megakernel"),
                "router_topk": ("megakernel", "mla_megakernel",
                                "spec_megakernel"),
-               "expert_ffn": ("serial", "mla_serial"),
+               "expert_ffn": ("serial", "mla_serial", "train"),
                "flash_prefill": ("serial", "mla_serial", "hybrid", "vlm",
-                                 "audio"),
-               "ssm_scan": ("ssm", "hybrid")}
+                                 "audio", "train"),
+               "ssm_scan": ("ssm", "hybrid"),
+               "flash_prefill_bwd": ("train",),
+               "expert_ffn_bwd": ("train",)}
 IMPLS = ("composed", "megakernel")
 # the engine paths: EngineConfig options of each.  ``ssm`` serves
 # falcon-mamba-7b, whose chunked admission falls back to whole-prompt
@@ -288,6 +328,11 @@ IMPLS = ("composed", "megakernel")
 # (seamless-m4t-large-v2) build no engine: the paged engine serves
 # neither, in the port as in the JAX package, so they drive the model's
 # ring serve step (``Model.prefill``, ``decode_step``; RING_PATHS).
+# ``train`` builds no engine either: ``train_loop.train`` of qwen2-moe-
+# a2.7b at full width, TRAIN_LAYERS deep, in f32, then the launcher
+# (``python -m repro_torch.launch.train``) in a child process;
+# ``examples`` runs the four ``examples/*_torch.py`` twins on the card,
+# each in a child process.
 PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "megakernel": dict(moe_impl="fused", decode_impl="megakernel"),
          "serial": dict(admission="serial", decode_impl="composed"),
@@ -307,7 +352,7 @@ PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "dense": dict(decode_impl="composed"),
          "http": dict(mode="collocated", overlap=True),
          "hybrid": dict(moe_impl="fused", decode_impl="composed"),
-         "vlm": dict(), "audio": dict()}
+         "vlm": dict(), "audio": dict(), "train": dict(), "examples": dict()}
 QWEN_ARCH = "qwen2-moe-a2.7b"
 DENSE_ARCHS = ("internlm2-20b", "minicpm3-4b")
 PATH_ARCH = {"ssm": "falcon-mamba-7b", "mla_composed": "deepseek-v3",
@@ -360,9 +405,14 @@ VLM_LAYERS = 8
 # seamless-m4t-large-v2 at its full 24 decoder (and 24 encoder) layers:
 # ~2.3 B parameters, 4.6 GB in bf16
 AUDIO_LAYERS = 24
+# qwen2-moe-a2.7b cut to 2 of 24 layers for the train path: ~1.83 B
+# parameters, whose f32 params, grads and AdamW moments are ~29 GB (the
+# examples path shares its group: the twins run smoke configs)
+TRAIN_LAYERS = 2
 PATH_LAYERS = {"dense": DENSE_LAYERS, "ssm": SSM_LAYERS,
                "hybrid": HYBRID_LAYERS, "vlm": VLM_LAYERS,
-               "audio": AUDIO_LAYERS}
+               "audio": AUDIO_LAYERS, "train": TRAIN_LAYERS,
+               "examples": TRAIN_LAYERS}
 # the ring paths' workloads: rows, each row's text tokens (drawn from
 # the range), the rings' slots (max_seq); each row feeds 32 greedy tokens
 # through 32 decode steps
@@ -380,12 +430,18 @@ RING_LOGIT_RTOL = 3e-2
 # the config's 16 + 16 are 38.65 GB a sublayer in bf16
 HYBRID_EXPERTS = 4
 # paths whose faulted run is served on the clean run's engine once that
-# has drained, instead of on a second build: their whole-prompt installs
-# bypass the prefix cache, so the drained engine serves the same prompts
-# as a fresh one would, and the builds it saves (the hybrid's 32.5 GB and
-# mla_serial's 33 GB weights.npz read again, ~27 and ~33 s on the H100's
-# host) keep the script inside its time limit
-FAULT_ON_SAME_ENGINE = ("serial", "mla_serial", "ssm", "hybrid")
+# has drained, instead of on a second build, to keep the script inside
+# its time limit: the builds it saves read the hybrid's 32.5 GB and
+# deepseek-v3's 33 GB weights.npz again (~27 and ~29-33 s each on the
+# H100's host).  The clean run's parked prefix-cache blocks are dropped
+# first (``BlockManager.drop_cached``), so the faulted run admits and
+# prefills as a fresh engine's would: the whole-prompt installs of
+# serial, mla_serial, ssm and hybrid bypass the prefix cache anyway, and
+# the mla_composed and mla_megakernel runs chunk and hit it only within
+# the run.  ``composed`` keeps its second build: the overlap path holds
+# its faulted streams as a fresh engine's
+FAULT_ON_SAME_ENGINE = ("serial", "mla_serial", "ssm", "hybrid",
+                        "mla_composed", "mla_megakernel")
 # the kernels phase's shapes: the engine phase's batch, chunk and paging,
 # qwen2-moe-a2.7b's widths
 SHAPES = dict(max_batch=8, chunk=32, block_size=16, num_blocks=256,
@@ -747,6 +803,7 @@ def phase_kernels(torch, shapes):
     out["expert_ffn"] = kernels_expert_ffn(torch)
     out["flash_prefill"] = kernels_flash_prefill(torch)
     out["ssm_scan"] = kernels_ssm_scan(torch)
+    out.update(kernels_backward(torch))
     for name, rows in kernels_mla(torch, shapes).items():
         out[name]["mla"] = rows
     for name, rows in kernels_dense(torch, shapes).items():
@@ -2237,6 +2294,172 @@ def mla_expert_ffn(torch):
 
 # -- phase 4: model, card against CPU -------------------------------------------
 
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# flash_prefill_bwd's cases: (name, B, S, H, Hkv, Dq, Dv, window); the
+# first is the train path's shape (qwen2-moe-a2.7b, B 4, S 256), timed
+FLASH_BWD_SHAPES = (
+    ("qwen train", 4, 256, QWEN["H"], QWEN["Hkv"], 128, 128, 0),
+    ("qwen window 6", 4, 256, QWEN["H"], QWEN["Hkv"], 128, 128, 6),
+    ("internlm2-20b G=6", 1, 256, INTERNLM["H"], INTERNLM["Hkv"], 128, 128,
+     0),
+    ("mla Dq=192 Dv=128", 1, 256, 128, 128, 192, 128, 0))
+# expert_ffn_bwd at the train path's capacity buffer: 64 experts of
+# qwen2-moe-a2.7b, C = 80 (4 x 256 tokens, top-4, capacity factor 1.25),
+# the rows from EMPTY_FROM on empty in every expert (dropped copies)
+FFN_BWD = dict(E=64, C=80, EMPTY_FROM=70)
+
+
+def _scaled_err(name, got, want, dn):
+    """|got - want| <= BWD_TOL * (the gradient's largest |value|)."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    err = float((g - w).abs().max())
+    ok = bool(g.isfinite().all()) and err <= BWD_TOL[dn] * scale
+    log(f"  {name:<44} max_abs_err {err:.3e} at scale {scale:.3e} "
+        f"(tol {BWD_TOL[dn]:g} of it)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: max_abs_err {err} at scale {scale}")
+    return err
+
+
+def flash_bwd_bound_ms(B, S, H, Hkv, Dq, Dv, window, el, dn):
+    """Bytes: q, k, v, o and dO read once, dq, dk, dv written once;
+    operations: the five products of the backward (S = q k^T, dP = dO
+    v^T, dV = P^T dO, dQ = dS k, dK = dS^T q) over the (query, key) pairs
+    the causal mask and window leave visible."""
+    i = np.arange(S)
+    visible = int(np.minimum(i + 1, window).sum() if window
+                  else (i + 1).sum())
+    nbytes = el * B * S * 2 * (H + Hkv) * (Dq + Dv)
+    flops = 2 * B * visible * H * (3 * Dq + 2 * Dv)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dn]
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def ffn_bwd_bound_ms(E, C, live, D, Fd, el, dn):
+    """Bytes: x, the three weights and dy read once, dx and the three
+    weight gradients written once; operations: the eight products (a, b
+    and dh recomputed or formed, dx's two, dgate, dup, ddown) over the
+    ``live`` rows of each expert (an empty row adds nothing)."""
+    nbytes = el * (3 * E * C * D + 6 * E * D * Fd)
+    flops = 8 * 2 * E * live * D * Fd
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dn]
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def kernels_backward(torch):
+    """The two backward kernels (new in the port: repro differentiates its
+    jnp functions) against their written-out plain versions on the card,
+    in f32 (BWD_TOL 1e-4 of each gradient's scale) and bf16 (2e-2), each
+    run twice and bitwise equal: flash_prefill_bwd at FLASH_BWD_SHAPES,
+    expert_ffn_bwd at FFN_BWD with empty rows (their gradients zero).
+    Timed at the train path's shapes in f32 (its type) and bf16, beside
+    the bound and ``torch.autograd.grad`` of the same output through
+    ``scaled_dot_product_attention`` and through the ``silu(bmm) * bmm``
+    then ``bmm`` chain (their backward alone: the graph is kept)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.expert_ffn import (expert_ffn_bwd_cuda,
+                                                expert_ffn_bwd_plain,
+                                                expert_ffn_cuda)
+    from repro_torch.kernels.flash_prefill import (flash_prefill_bwd_cuda,
+                                                   flash_prefill_bwd_plain,
+                                                   flash_prefill_cuda)
+    out = {}
+    log("kernels: flash_prefill_bwd vs flash_prefill_bwd_plain on the card")
+    errs, rows = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for i, (name, B, S, H, Hkv, Dq, Dv, window) in enumerate(
+                FLASH_BWD_SHAPES):
+            gen = torch.Generator(device="cuda").manual_seed(40 + i)
+            q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(
+                dtype) for s in ((B, S, H, Dq), (B, S, Hkv, Dq),
+                                 (B, S, Hkv, Dv), (B, S, H, Dv)))
+            pos = torch.arange(S, dtype=torch.int32, device="cuda")
+            kw = dict(causal=True, window=window)
+            o = flash_prefill_cuda(q, k, v, pos, pos, **kw)
+            got = flash_prefill_bwd_cuda(q, k, v, o, do, pos, pos, **kw)
+            again = flash_prefill_bwd_cuda(q, k, v, o, do, pos, pos, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash_prefill_bwd {name}: not bitwise "
+                                     f"equal run to run")
+            want = flash_prefill_bwd_plain(q, k, v, o, do, pos, pos, **kw)
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                errs.append(_scaled_err(f"{name} S={S} {gname} {dn}", g, w,
+                                        dn))
+            del got, again, want
+            if i:
+                continue
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True,
+                                                   enable_gqa=True)
+            do_t = do.transpose(1, 2)
+            bound = flash_bwd_bound_ms(B, S, H, Hkv, Dq, Dv, window,
+                                       q.element_size(), dn)
+            rows[dn] = _row(
+                errs, time_ms(torch, lambda: flash_prefill_bwd_cuda(
+                    q, k, v, o, do, pos, pos)),
+                time_ms(torch, lambda: flash_prefill_bwd_plain(
+                    q, k, v, o, do, pos, pos)), bound,
+                f"B={B} S={S} H=Hkv={H} Dh={Dq} causal {dn} (library: "
+                f"autograd.grad through scaled_dot_product_attention)",
+                time_ms(torch, lambda: torch.autograd.grad(
+                    o_lib, (qt, kt, vt), do_t, retain_graph=True)))
+            del qt, kt, vt, o_lib
+        _free(torch)
+    out["flash_prefill_bwd"] = dict(rows["float32"], bf16=rows["bfloat16"])
+
+    log(f"kernels: expert_ffn_bwd vs expert_ffn_bwd_plain on the card "
+        f"(E={FFN_BWD['E']}, C={FFN_BWD['C']}, D={QWEN['D']}, "
+        f"F={QWEN['F']}, rows from {FFN_BWD['EMPTY_FROM']} empty)")
+    E, C, cut = FFN_BWD["E"], FFN_BWD["C"], FFN_BWD["EMPTY_FROM"]
+    D, Fd = QWEN["D"], QWEN["F"]
+    errs, rows = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        x, g, u, d = expert_ffn_args(torch, C, dtype, E=E)
+        x[:, cut:] = 0
+        dy = torch.randn((E, C, D), generator=torch.Generator(
+            device="cuda").manual_seed(50), device="cuda").to(dtype)
+        got = expert_ffn_bwd_cuda(x, g, u, d, dy)
+        again = expert_ffn_bwd_cuda(x, g, u, d, dy)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("expert_ffn_bwd: not bitwise equal run to "
+                                 "run")
+        if got[0][:, cut:].any():
+            raise AssertionError("expert_ffn_bwd: an empty row's dx is not 0")
+        want = expert_ffn_bwd_plain(x, g, u, d, dy)
+        for gname, a, w in zip(("dx", "dgate", "dup", "ddown"), got, want):
+            errs.append(_scaled_err(f"E={E} C={C} {gname} {dn}", a, w, dn))
+        del got, again, want
+        ts = [t.detach().requires_grad_() for t in (x, g, u, d)]
+        y_lib = torch.bmm(F.silu(torch.bmm(ts[0], ts[1]))
+                          * torch.bmm(ts[0], ts[2]), ts[3])
+        rows[dn] = _row(
+            errs, time_ms(torch, lambda: expert_ffn_bwd_cuda(x, g, u, d, dy)),
+            time_ms(torch, lambda: expert_ffn_bwd_plain(x, g, u, d, dy)),
+            ffn_bwd_bound_ms(E, C, cut, D, Fd, x.element_size(), dn),
+            f"E={E} C={C} ({cut} live rows) D={D} F={Fd} {dn} (library: "
+            f"autograd.grad through silu(bmm) * bmm, then bmm)",
+            time_ms(torch, lambda: torch.autograd.grad(
+                y_lib, ts, dy, retain_graph=True)))
+        log(f"  expert_ffn_bwd's kernels in {dn} (torch.profiler, mean of "
+            f"20 calls, L2 warm):")
+        for us, key in kernel_breakdown(
+                torch, lambda: expert_ffn_bwd_cuda(x, g, u, d, dy)):
+            log(f"    {us:9.2f} us  {key[:90]}")
+        del x, g, u, d, dy, ts, y_lib
+        _free(torch)
+    out["expert_ffn_bwd"] = dict(rows["float32"], bf16=rows["bfloat16"])
+    for name, r in out.items():
+        _log_row(name + " (bf16)", r["bf16"])
+    return out
+
+
 def _map(tree, fn):
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
@@ -3117,9 +3340,10 @@ def serve_path(torch, cfg, path, workdir, seed, profile, kept):
     """One engine path: 8 requests without a fault, then with an L6 fault
     on physical 1 mid-step at step 6 (``attn+moe`` on an MoE model, where
     the lost experts are masked; ``attn`` on the ssm path), revived in
-    place, on a second engine (``FAULT_ON_SAME_ENGINE``: on the first).  Returns (launch counts of the faulted run, (clean, fault)
-    rates, the clean run's output streams); the faulted run's streams go
-    to ``kept``."""
+    place, on a second engine (``FAULT_ON_SAME_ENGINE``: on the first,
+    its prefix cache dropped).  Returns (launch counts of the faulted
+    run, (clean, fault) rates, the clean run's output streams); the
+    faulted run's streams go to ``kept``."""
     from repro_torch.core.weights import RecoveryPolicy
     from repro_torch.kernels import launches
     new_tokens = 32
@@ -3141,8 +3365,11 @@ def serve_path(torch, cfg, path, workdir, seed, profile, kept):
         {k: round(v, 3) for k, v in clean.items()}))
     del reqs
     if path in FAULT_ON_SAME_ENGINE:
+        for ex in eng.dp_executors:
+            ex.block_manager.drop_cached()
         log("  the faulted run is served on the same engine, once the "
-            "clean run has drained (no second build)")
+            "clean run has drained and its prefix cache is dropped (no "
+            "second build)")
     else:
         del eng
         gc.collect()
@@ -4157,9 +4384,224 @@ def serve_ring(torch, cfg, path, workdir, seed, profile, kept):
     return {k: counts[k] for k in used}, None, None
 
 
+@contextlib.contextmanager
+def plain_training_kernels():
+    """The launchers that ``FlashPrefill`` and ``ExpertFFN`` take for CUDA
+    tensors (forward and backward) rebound to the plain versions and
+    the written-out plain backward: the train path's reference on the
+    card (the kernels' wrappers, and so their counts, are not called)."""
+    from repro_torch.kernels import expert_ffn, flash_prefill
+    swaps = [(flash_prefill, "flash_prefill_cuda", "flash_prefill_plain"),
+             (flash_prefill, "flash_prefill_bwd_cuda",
+              "flash_prefill_bwd_plain"),
+             (expert_ffn, "expert_ffn_cuda", "expert_ffn_plain"),
+             (expert_ffn, "expert_ffn_bwd_cuda", "expert_ffn_bwd_plain")]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, getattr(mod, plain))
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+# the train path's steps, each of TRAIN_BATCH rows of TRAIN_SEQ tokens
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 4, 256
+# kernel and plain trainers: every logged number (relative), and step
+# 0's gradient of every leaf (of the leaf's largest |gradient|)
+TRAIN_RTOL = 1e-3
+
+
+def train_grads(torch, m, params, batch):
+    """The gradient of ``m.loss`` at ``params`` on ``batch`` (a train
+    step's, before its update), as (key, tensor) pairs in leaf order."""
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.train_loop import as_leaves
+    leaves = as_leaves(params)
+    batch = {k: torch.as_tensor(v).to(m.device) for k, v in batch.items()}
+    with torch.enable_grad():
+        loss, _ = m.loss(leaves, batch)
+    keys, ts = zip(*flatten(leaves))
+    grads = torch.autograd.grad(loss, ts, allow_unused=True)
+    return [(k, torch.zeros_like(t) if g is None else g)
+            for k, t, g in zip(keys, ts, grads)]
+
+
+def serve_train(torch, cfg, path, workdir, seed, profile, kept):
+    """The ``train`` path (no engine): ``train_loop.train`` in f32 on the
+    card from ``Model.init(seed)``, batches ``make_batch(DataConfig(vocab,
+    TRAIN_SEQ, TRAIN_BATCH), step)``, AdamW at lr 3e-4 after one warmup
+    step (updates of a real run's size, so steps 1 and 2 follow the
+    gradients), its launches counted from 0 just before; then the same
+    steps from the same params through the plain versions of
+    flash_prefill and expert_ffn and their written-out plain backward on
+    the card (``plain_training_kernels``): every step's loss, ce, aux
+    and grad_norm within TRAIN_RTOL, and step 0's gradient of every leaf
+    (``train_grads``) within TRAIN_RTOL of the leaf's largest |gradient|.
+    Then the launcher (``python
+    -m repro_torch.launch.train``) trains the same model for 3 steps in a
+    child process.  Returns (launch counts, None, None)."""
+    from repro_torch.kernels import launches
+    from repro_torch.models.model import Model
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import train
+    t0 = time.perf_counter()
+    m = Model(cfg, torch.float32, device="cuda")
+    params = m.init(seed)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in flatten(params))
+    log(f"engine: path {path!r}: train_loop.train, no engine; "
+        f"{n_params / 1e9:.3f} B f32 parameters from seed {seed} in "
+        f"{time.perf_counter() - t0:.1f} s; {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    dc = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    batches = [make_batch(dc, step) for step in range(TRAIN_STEPS)]
+
+    opt = OptimizerConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+
+    def run():
+        return train(m, iter(batches), TRAIN_STEPS, opt, log_every=1,
+                     params=params)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    got, hist = run()
+    counts = {k: v for k, v in launches.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    # the kernel trainer's params wait on the host while the plain one runs
+    got = {k: t.detach().cpu() for k, t in flatten(got)}
+    step_s = np.diff([0.0] + [h["elapsed_s"] for h in hist])
+    # step 0's gradients, leaf by leaf: the kernels' on the host while
+    # the plain versions' are taken (these launches are not counted)
+    g_kern = [(k, g.cpu()) for k, g in train_grads(torch, m, params,
+                                                   batches[0])]
+    with plain_training_kernels():
+        g_plain = train_grads(torch, m, params, batches[0])
+    worst = {}
+    for (key, g), (_, w) in zip(g_kern, g_plain):
+        scale = float(w.abs().max())
+        d = float((g.to(w.device) - w).abs().max())
+        worst[key] = d / max(scale, 1e-30)
+        if not d <= TRAIN_RTOL * scale:
+            raise AssertionError(f"engine train: step 0's gradient of {key} "
+                                 f"{d:.3e} from the plain trainer's (scale "
+                                 f"{scale:.3e}, rtol {TRAIN_RTOL:g})")
+    del g_kern, g_plain
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+    log(f"  step 0's gradients vs the plain trainer's, {len(worst)} leaves "
+        f"within {TRAIN_RTOL:g} of scale; largest: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in top))
+    with plain_training_kernels():
+        want, plain_hist = run()
+    rel = 0.0
+    for key, w in flatten(want):
+        d = float((got[key].to(w.device) - w).abs().max())
+        rel = max(rel, d / max(float(w.abs().max()), 1e-30))
+    del want, got
+    for i, (h, p) in enumerate(zip(hist, plain_hist)):
+        log(f"  step {i}: kernels loss {h['loss']:.6f} ce {h['ce']:.6f} aux "
+            f"{h['aux']:.6f} grad_norm {h['grad_norm']:.6f} ({step_s[i]:.3f} "
+            f"s); plain loss {p['loss']:.6f} ce {p['ce']:.6f} aux "
+            f"{p['aux']:.6f} grad_norm {p['grad_norm']:.6f}")
+        for key in ("loss", "ce", "aux", "grad_norm"):
+            if not (math.isfinite(h[key]) and abs(h[key] - p[key])
+                    <= TRAIN_RTOL * abs(p[key])):
+                raise AssertionError(f"engine train: step {i} {key} "
+                                     f"{h[key]} against plain {p[key]}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = float(np.mean(step_s[1:]))
+    log(f"  train: step seconds {[round(float(s), 4) for s in step_s]} "
+        f"(the first builds and warms up), steady {steady:.4f} s = "
+        f"{tokens / steady:.1f} training tokens/s; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; final params vs the plain trainer's: "
+        f"largest relative difference {rel:.3e} (max |d| / max |plain| a "
+        f"leaf); launches {counts}")
+    want_bwd = TRAIN_STEPS * cfg.num_layers
+    if (counts.get("flash_prefill_bwd") != want_bwd
+            or counts.get("flash_prefill") != want_bwd
+            or counts.get("expert_ffn_bwd", 0) <= 0):
+        raise AssertionError(f"engine train: launches {counts}, expected "
+                             f"{want_bwd} flash_prefill(_bwd) (a launch an "
+                             f"attention layer and step) and expert_ffn_bwd")
+    del params, m, batches
+    _free(torch)
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           cfg.name, "--layers", str(cfg.num_layers), "--steps", "3",
+           "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+           "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=dict(
+                              os.environ, PYTHONPATH=str(ROOT / "src")))
+    lines = proc.stdout.strip().splitlines()
+    log(f"  launcher ({' '.join(cmd[1:])}) exited {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s:")
+    for line in lines:
+        log(f"    {line}")
+    final = lines[-1] if lines else ""
+    if (proc.returncode != 0 or not final.startswith("final loss:")
+            or not math.isfinite(float(final.split(":")[1]))):
+        raise AssertionError(f"engine train: the launcher failed:\n"
+                             f"{proc.stderr[-3000:]}")
+    used = [k for k, ps in KERNEL_PATH.items() if path in ps]
+    return {k: counts[k] for k in used}, None, None
+
+
+# the examples path: each twin with its OK line (train_moe_torch.py's
+# last line after its "did not learn" assertion passed)
+EXAMPLES = {"quickstart_torch.py": "OK", "degraded_serving_torch.py": "OK",
+            "failover_serving_torch.py": "OK",
+            "train_moe_torch.py": "checkpoint restores OK"}
+
+
+def serve_examples(torch, cfg, path, workdir, seed, profile, kept):
+    """The ``examples`` path: the four ``examples/*_torch.py`` twins with
+    ``--device cuda``, each in a child process of its own (all four at
+    once: their smoke models take a few hundred MB of the card), each in
+    its own workdir under ``workdir``; each must exit 0 with its OK line.
+    Their launches are not counted (other processes).  Returns ({}, None,
+    None)."""
+    procs = {}
+    t0 = time.perf_counter()
+    for name in EXAMPLES:
+        wd = workdir / name.split(".")[0]
+        procs[name] = subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / name), "--device",
+             "cuda", "--workdir", str(wd)], cwd=ROOT, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    failed = []
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        lines = out.strip().splitlines()
+        ok = proc.returncode == 0 and lines and lines[-1].startswith(
+            EXAMPLES[name])
+        log(f"  {name}: exit {proc.returncode} after "
+            f"{time.perf_counter() - t0:.1f} s; {len(lines)} lines, the "
+            f"last {lines[-1] if lines else ''!r}")
+        for line in lines:
+            if "loss" in line or "recovery" in line or "finished" in line:
+                log(f"    {line}")
+        if not ok:
+            failed.append(f"{name}:\n{out[-2000:]}\n{err[-3000:]}")
+    if failed:
+        raise AssertionError("engine examples: " + "\n".join(failed))
+    return {}, None, None
+
+
 SERVE = {"disagg": serve_disagg, "fleet": serve_fleet, "spec": serve_spec,
          "spec_megakernel": serve_spec, "overlap": serve_overlap,
-         "http": serve_http_path, "vlm": serve_ring, "audio": serve_ring}
+         "http": serve_http_path, "vlm": serve_ring, "audio": serve_ring,
+         "train": serve_train, "examples": serve_examples}
 
 
 # -- main ---------------------------------------------------------------------------
@@ -4228,7 +4670,7 @@ def main() -> int:
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
             library_ms=r.get("library_ms"), shape=r.get("shape"),
             mla=r.get("mla"), dense=r.get("dense"),
-            hybrid=r.get("hybrid"), ring=r.get("ring")))
+            hybrid=r.get("hybrid"), ring=r.get("ring"), bf16=r.get("bf16")))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

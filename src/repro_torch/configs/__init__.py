@@ -1,16 +1,20 @@
 """Architecture registry of the port.
 
-The port serves the attention+MoE family, with three configs of that
-family the JAX package serves (``qwen2-moe-a2.7b``, the paper's
-``deepseek-v3`` and ``kimi-k2-1t-a32b``: GQA, first-k dense, 384 + 32
-experts; one of its MoE layers is ~34 GB in bf16, so it serves on the
-CPU, at smoke size, only), the attention-free Mamba family
-(``falcon-mamba-7b``) and the dense family (``internlm2-20b``: GQA;
+It holds every config of the JAX package's registry, and ``Model`` builds
+each: the attention+MoE family (``qwen2-moe-a2.7b``; the paper's
+``deepseek-v3`` with MLA; ``kimi-k2-1t-a32b``: GQA, first-k dense, 384 +
+32 experts, one of its MoE layers ~34 GB in bf16, so it runs on the CPU,
+at smoke size, only), the attention-free Mamba family
+(``falcon-mamba-7b``), the dense family (``internlm2-20b``: GQA;
 ``minicpm3-4b``: MLA; ``mistral-large-123b`` and ``nemotron-4-340b``,
-whose full depth does not fit one card).  The registry holds every
-config of the JAX package's: the hybrid (``jamba-1.5-large-398b``), VLM
-(``internvl2-26b``) and audio (``seamless-m4t-large-v2``) configs resolve,
-and ``Model`` raises for them, naming their ROADMAP item.
+whose full depth does not fit one card), the hybrid family
+(``jamba-1.5-large-398b``: Mamba and attention sublayers with MoE in
+periods), the vlm family (``internvl2-26b``: patch embeddings before the
+tokens) and the audio family (``seamless-m4t-large-v2``: an
+encoder-decoder).  The paged engine serves neither the vlm nor the audio
+family, as in the JAX package; the ring serve step
+(``Model.prefill``, ``Model.decode_step``) and training
+(``Model.loss``) take all eleven.
 ``get_config(name, shape)`` returns the full-size config, adapted to an
 input shape as the JAX package's is; ``get_smoke_config`` the reduced
 same-family variant the CPU tests use.

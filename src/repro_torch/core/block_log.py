@@ -369,6 +369,16 @@ class BlockManager:
         if log is not None:
             log.record(BlockOp("hash_set", bid, meta=digest))
 
+    def drop_cached(self) -> None:
+        """Forget the content of every parked (ref==0) cached block and
+        put it back on the free list: a later prompt hits only blocks
+        that live requests hold (none, once the engine has drained, as
+        in a fresh manager)."""
+        for bid in self._cached_free:
+            self._drop_hash(bid)
+            self._free.append(bid)
+        self._cached_free.clear()
+
     def children_of(self, parent: bytes
                     ) -> Iterable[Tuple[int, Tuple[int, ...]]]:
         """(bid, tokens) of cached blocks whose prefix chain ends at

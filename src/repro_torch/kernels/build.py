@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("paged_attention", "moe_fused", "router_topk",
-           "decode_megastep", "expert_ffn", "flash_prefill", "ssm_scan")
+           "decode_megastep", "expert_ffn", "flash_prefill", "ssm_scan",
+           "flash_prefill_bwd", "expert_ffn_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -112,6 +113,20 @@ def load(name: str, prototypes: Dict[str, Tuple[list, Any]]
             getattr(lib, fn).restype = restype
         _LIBS[name] = lib
     return lib
+
+
+def refuse_grad(name: str, *tensors, hint: str = "") -> None:
+    """A launcher's first check: under grad mode, a floating input that
+    requires grad raises, since the output a launcher allocates carries
+    no autograd history and would drop the gradient without an error."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.is_floating_point() and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and "
+            + (hint or "the kernel's backward is not ported")
+            + "; call it under torch.no_grad() or on tensors that need "
+            "no gradient")
 
 
 def check_arg(name: str, t, dtype, shape, device) -> None:

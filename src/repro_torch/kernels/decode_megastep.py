@@ -96,6 +96,9 @@ def decode_megastep_cuda(q, k_pool, v_pool, block_table, seq_lens,
     input the chain does not take; never falls back.  With ``return_route`` it also
     returns the route and slot tables it built: ``{"sel", "w"}`` (B, k)
     and ``{"tok_idx", "wgt"}`` (E, cap), ``"slot_of"`` (B, k)."""
+    build.refuse_grad("decode_megastep_cuda", q, k_pool, v_pool, x, w_post,
+                      ln2_w, router_w, gate_w, up_w, down_w, shared_gate,
+                      shared_up, shared_down)
     if x.device.type != "cuda":
         raise ValueError(f"decode_megastep_cuda needs CUDA tensors, got "
                          f"{x.device}")

@@ -98,6 +98,7 @@ def moe_fused_cuda(x, gate_w, up_w, down_w, weights, phys, alive, *,
                    cap: int, expert_offset: int = 0, e_local: int):
     """The sort pass on the device, then the CUDA kernel on PyTorch's
     current stream.  Raises on any input the kernel does not take."""
+    build.refuse_grad("moe_fused_cuda", x, gate_w, up_w, down_w, weights)
     if x.device.type != "cuda":
         raise ValueError(f"moe_fused_cuda needs CUDA tensors, got {x.device}")
     if x.dtype not in build.DTYPE_CODES:

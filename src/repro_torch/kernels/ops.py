@@ -4,6 +4,12 @@ A CUDA tensor launches the hand-written kernel; a CPU tensor runs its
 plain PyTorch version (``repro.kernels.ops`` decides by the JAX backend
 instead, through ``_on_cpu``).  There is no fallback from one to the
 other: a launcher that cannot take its inputs raises.
+
+``flash_prefill`` and ``expert_ffn`` have backward kernels: under grad
+mode, with an input that requires grad, they go through their
+``torch.autograd.Function`` (a training forward); otherwise they launch
+the forward kernel directly, as serving does.  The other kernels have no
+backward, and their launchers raise on an input that requires grad.
 """
 from __future__ import annotations
 
@@ -11,8 +17,10 @@ import torch
 
 from repro_torch.kernels.decode_megastep import (decode_megastep_cuda,
                                                  decode_megastep_plain)
-from repro_torch.kernels.expert_ffn import expert_ffn_cuda, expert_ffn_plain
-from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
+from repro_torch.kernels.expert_ffn import (ExpertFFN, expert_ffn_cuda,
+                                            expert_ffn_plain)
+from repro_torch.kernels.flash_prefill import (FlashPrefill,
+                                               flash_prefill_cuda,
                                                flash_prefill_plain)
 from repro_torch.kernels.moe_fused import moe_fused_cuda, moe_fused_plain
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -20,6 +28,12 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
 from repro_torch.kernels.router_topk import (router_topk_cuda,
                                              router_topk_plain)
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and some input requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tensors)
 
 
 def on_cpu(t: torch.Tensor) -> bool:
@@ -51,7 +65,10 @@ def moe_dispatch_ffn_combine(x, gate_w, up_w, down_w, weights, phys, alive,
 def expert_ffn(x, gate_w, up_w, down_w):
     """Grouped expert SwiGLU over a dense capacity buffer:
     (E, C, D) -> (E, C, D), f32 accumulate, h cast to x's type."""
-    fn = expert_ffn_plain if on_cpu(x) else expert_ffn_cuda
+    cpu = on_cpu(x)
+    if needs_grad(x, gate_w, up_w, down_w):
+        return ExpertFFN.apply(x, gate_w, up_w, down_w)
+    fn = expert_ffn_plain if cpu else expert_ffn_cuda
     return fn(x, gate_w, up_w, down_w)
 
 
@@ -60,7 +77,10 @@ def flash_prefill(q, k, v, q_pos=None, kv_pos=None, *, causal: bool = True,
     """Whole-prompt attention, q (B, Sq, H, Dq) over k (B, Skv, Hkv, Dq)
     and v (B, Skv, Hkv, Dv) -> (B, Sq, H, Dv), masked by positions (None:
     ``arange``): causal, and within ``window`` where it is > 0."""
-    fn = flash_prefill_plain if on_cpu(q) else flash_prefill_cuda
+    cpu = on_cpu(q)
+    if needs_grad(q, k, v):
+        return FlashPrefill.apply(q, k, v, q_pos, kv_pos, causal, window)
+    fn = flash_prefill_plain if cpu else flash_prefill_cuda
     return fn(q, k, v, q_pos, kv_pos, causal=causal, window=window)
 
 

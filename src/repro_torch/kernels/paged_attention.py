@@ -84,6 +84,7 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens,
     """Launch the CUDA kernels (split, then merge where a row spans more
     than one split) on PyTorch's current stream.  Raises on any input the
     kernels do not take; never falls back."""
+    build.refuse_grad("paged_attention_cuda", q, k_pool, v_pool)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")

@@ -38,6 +38,7 @@ def router_topk_plain(logits, expert_mask, k: int):
 def router_topk_cuda(logits, expert_mask, k: int):
     """Launch the CUDA kernel on PyTorch's current stream.  Raises on any
     input the kernel does not take; never falls back."""
+    build.refuse_grad("router_topk_cuda", logits)
     if logits.device.type != "cuda":
         raise ValueError(f"router_topk_cuda needs CUDA tensors, got "
                          f"{logits.device}")

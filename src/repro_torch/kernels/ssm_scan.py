@@ -60,6 +60,7 @@ def ssm_scan_cuda(u, dt, A, B_ssm, C_ssm, h0=None, *, h_out=None,
     and ``y_dtype`` sets y's type (both rounded to nearest, as a cast
     rounds).  Raises on any input the kernel does not take; never falls
     back."""
+    build.refuse_grad("ssm_scan_cuda", u, dt, A, B_ssm, C_ssm, h0)
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan_cuda needs CUDA tensors, got {u.device}")
     if u.dtype not in build.DTYPE_CODES:

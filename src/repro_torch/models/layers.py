@@ -92,3 +92,20 @@ def take_layer(stacked, i: int):
     if isinstance(stacked, dict):
         return {k: take_layer(v, i) for k, v in stacked.items()}
     return stacked[i]
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Mean next-token cross entropy, in f32, over the positions where
+    ``mask`` is 1.  logits: (B, S, Vpad), the padded vocab columns masked
+    to -1e30; labels: (B, S) int; mask: (B, S) {0, 1}."""
+    vpad = logits.shape[-1]
+    logits = logits.float()
+    if vpad > vocab_size:
+        col = torch.arange(vpad, device=logits.device) < vocab_size
+        logits = logits.masked_fill(~col, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

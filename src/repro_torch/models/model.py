@@ -52,6 +52,12 @@ one block a row (``attention.ring_page``); the audio decoder's cache
 entry is ``{"self": its rings, "cross": the encoder's K/V per layer}``,
 and the cache carries ``pos`` (B,), each row's next position.  Rings and
 states are updated in place.
+
+:meth:`Model.loss` is ``repro``'s training loss: the full-sequence
+forward under grad (on the card through ``flash_prefill``, ``expert_ffn``
+and their backward kernels), next-token cross entropy, and the MoE
+layers' load-balance term, which :meth:`logits_full` sums when asked
+(``with_aux``).
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -67,9 +74,22 @@ from repro_torch.models import attention as A
 from repro_torch.models import ffn as Fn
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MoE
-from repro_torch.models.layers import (embed_init, padded_vocab_size,
-                                       rms_norm, take_layer)
+from repro_torch.models.layers import (cross_entropy_loss, embed_init,
+                                       padded_vocab_size, rms_norm,
+                                       take_layer)
 
+
+
+class _MetaFactories(TorchFunctionMode):
+    """Tensor factories called with a ``device`` make meta tensors and
+    draw nothing, so :meth:`Model.init` under it gives shapes alone."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+            kwargs.pop("generator", None)
+        return func(*args, **kwargs)
 
 class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
@@ -200,9 +220,14 @@ class Model:
         """Mamba group ``name``'s scan rates A = -exp(A_log), (L, d_inner,
         N) f32 — of its sublayer ``sub`` in a hybrid period group —
         computed once per weight load: again only when ``A_log`` is
-        another tensor (a reload) or was written in place since."""
+        another tensor (a reload) or was written in place since.  Under
+        grad, for an ``A_log`` that requires it, A is computed anew in the
+        graph and the cache is neither read nor filled."""
         group = params[name] if sub is None else params[name][sub]
         A_log = group["mixer"]["A_log"]
+        if torch.is_grad_enabled() and A_log.requires_grad:
+            # a training forward: A inside the graph, the cache untouched
+            return M.ssm_A(A_log)
         key = name if sub is None else f"{name}/{sub}"
         hit = self._ssm_A.get(key)
         if hit is None or hit[0] is not A_log or hit[1] != A_log._version:
@@ -236,8 +261,15 @@ class Model:
 
     # -- moe application -------------------------------------------------------
 
-    def _moe(self, p, x, runtime, cap):
-        y = MoE.moe_apply_local(p, self.cfg, x, runtime, cap=cap)
+    def _moe(self, p, x, runtime, cap, aux=None):
+        """Routed plus shared experts over x (T, D).  ``aux``: a list that
+        takes the layer's load-balance loss, or None (not computed)."""
+        if aux is None:
+            y = MoE.moe_apply_local(p, self.cfg, x, runtime, cap=cap)
+        else:
+            y, layer_aux = MoE.moe_apply_local(p, self.cfg, x, runtime,
+                                               cap=cap, with_aux=True)
+            aux.append(layer_aux)
         return y + MoE.shared_expert_apply(p, self.cfg, x)
 
     def _cap(self, n_tokens: int) -> int:
@@ -252,7 +284,7 @@ class Model:
 
     def _block_fwd(self, p, x, positions, *, mixer, ffn_kind, runtime, cap,
                    ssm_A=None, causal=True, enc_out=None, enc_positions=None,
-                   max_seq=0):
+                   max_seq=0, aux=None):
         """One block over a whole sequence.  x: (B, S, D).  Returns (x,
         cache entry): the block's raw (B, S, Hkv, Dh) K (rope applied)
         and V, or with ``max_seq`` their ring of min(window, max_seq)
@@ -260,7 +292,8 @@ class Model:
         block's final (B, ...) ``conv`` and ``ssm`` state; None for a
         non-causal block (the audio encoder's).  ``ssm_A``: a Mamba
         block's scan rates.  ``enc_out`` (B, F, D) at ``enc_positions``:
-        what a decoder block with cross-attention attends to."""
+        what a decoder block with cross-attention attends to.  ``aux``:
+        see :meth:`_moe`."""
         cfg = self.cfg
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if mixer == "mamba":
@@ -283,16 +316,17 @@ class Model:
             x = x + A.gqa_forward(p["cross"], cfg, hc, positions,
                                   causal=False, kv_input=enc_out,
                                   kv_positions=enc_positions, use_rope=False)
-        return self._ffn(p, x, ffn_kind, runtime, cap), entry
+        return self._ffn(p, x, ffn_kind, runtime, cap, aux), entry
 
-    def _ffn(self, p, x, ffn_kind, runtime, cap):
-        """A block's FFN half, its residual included: x (..., D)."""
+    def _ffn(self, p, x, ffn_kind, runtime, cap, aux=None):
+        """A block's FFN half, its residual included: x (..., D).
+        ``aux``: see :meth:`_moe`."""
         if ffn_kind is None:
             return x
         h2 = rms_norm(x, p["ln2"], self.cfg.norm_eps)
         if ffn_kind == "moe":
             y = self._moe(p["moe"], h2.reshape(-1, h2.shape[-1]), runtime,
-                          cap)
+                          cap, aux)
             return x + y.reshape(x.shape)
         return x + Fn.ffn_apply(p["ffn"], h2, self.cfg.activation)
 
@@ -316,14 +350,16 @@ class Model:
         return out, entry
 
     def _trunk(self, params, x, positions, runtime, *, max_seq=0,
-               enc_out=None, enc_positions=None):
+               enc_out=None, enc_positions=None, aux=None):
         """Every decoder layer group, layer by layer (the audio encoder is
         :meth:`_encode`'s).  Returns (x, caches): per group the stacked
         (L, B, S, Hkv, Dh) raw K and V (MLA: the (L, B, S, 1, R + dr)
         latent rows), or with ``max_seq`` their (L, B, W, ...) rings, or
         the stacked (L, B, ...) Mamba state; a hybrid group's ``{"attn":
         K and V, "ssm": (L, n_mamba, B, ...) state}``.  ``enc_out`` goes
-        to the groups with cross-attention."""
+        to the groups with cross-attention.  ``aux``: a list that takes
+        each MoE layer's load-balance loss in layer order (a hybrid
+        period's MoE sublayers included), or None."""
         cap = self._cap(x.shape[0] * x.shape[1])
         caches: Dict[str, Any] = {}
         for name, n, mixer, ffn_kind, cross in self.layer_groups():
@@ -336,7 +372,7 @@ class Model:
                     x, entry = self._period_fwd(
                         take_layer(params[name], i), x, positions, runtime,
                         cap, {sub: a[i] for sub, a in rates.items()},
-                        max_seq)
+                        max_seq, aux)
                     entries.append(entry)
             else:
                 rates = (self.ssm_rates(params, name) if mixer == "mamba"
@@ -347,12 +383,14 @@ class Model:
                         mixer=mixer, ffn_kind=ffn_kind, runtime=runtime,
                         cap=cap, ssm_A=None if rates is None else rates[i],
                         enc_out=enc_out if cross else None,
-                        enc_positions=enc_positions, max_seq=max_seq)
+                        enc_positions=enc_positions, max_seq=max_seq,
+                        aux=aux)
                     entries.append(entry)
             caches[name] = _stack(entries)
         return x, caches
 
-    def _period_fwd(self, p, x, positions, runtime, cap, rates, max_seq=0):
+    def _period_fwd(self, p, x, positions, runtime, cap, rates, max_seq=0,
+                    aux=None):
         """One hybrid period over a whole sequence, sublayer by sublayer.
         ``rates``: each Mamba sublayer's scan rates.  Returns (x, {"attn":
         the attention sublayer's raw K/V (or ring), "ssm": the Mamba
@@ -362,7 +400,7 @@ class Model:
             x, entry = self._block_fwd(
                 p[sub], x, positions, mixer=mixer, ffn_kind=ffn_kind,
                 runtime=runtime, cap=cap, ssm_A=rates.get(sub),
-                max_seq=max_seq)
+                max_seq=max_seq, aux=aux)
             if mixer == "attn":
                 attn = entry
             else:
@@ -404,13 +442,16 @@ class Model:
                                  device=x.device)
         return x, positions
 
-    def logits_full(self, params, batch, runtime=None, *, max_seq=0):
+    def logits_full(self, params, batch, runtime=None, *, max_seq=0,
+                    with_aux=False):
         """Full-sequence forward over ``batch["tokens"]`` (B, S), a vlm's
         ``patches`` before them, an audio model's decoder attending to
         the encoding of ``batch["frames"]``.  Returns (logits (B, S,
         vocab), per-layer caches as :meth:`_trunk` builds them; an audio
         model's decoder entry is ``{"self": ..., "cross":
-        :meth:`_cross_kv`}``)."""
+        :meth:`_cross_kv`}``), and with ``with_aux`` also the MoE
+        layers' load-balance losses summed in layer order (0-d f32; zero
+        without MoE layers), as ``repro``'s third output."""
         cfg = self.cfg
         runtime = runtime if runtime is not None else self.default_runtime()
         x, positions = self._embed_inputs(params, batch)
@@ -420,14 +461,62 @@ class Model:
                                    runtime)
             enc_positions = torch.arange(enc_out.shape[1],
                                          dtype=torch.int32, device=x.device)
+        aux = [] if with_aux else None
         x, caches = self._trunk(params, x, positions, runtime,
                                 max_seq=max_seq, enc_out=enc_out,
-                                enc_positions=enc_positions)
+                                enc_positions=enc_positions, aux=aux)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         if cfg.family == "audio":
             caches["layers"] = {"self": caches["layers"],
                                 "cross": self._cross_kv(params, enc_out)}
-        return x @ params["lm_head"], caches
+        if not with_aux:
+            return x @ params["lm_head"], caches
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer_aux in aux:
+            total = total + layer_aux
+        return x @ params["lm_head"], caches, total
+
+    # -- training ------------------------------------------------------------
+
+    def loss(self, params, batch, runtime=None):
+        """Next-token cross entropy over ``batch["tokens"]`` where
+        ``batch["loss_mask"]`` is 1 (a vlm's over its text positions only,
+        after the patches), plus ``aux_loss_coef * aux / max(n_moe, 1)``
+        with ``aux`` the MoE layers' summed load-balance loss.  Returns
+        ``(total, {"ce": ce, "aux": aux})``, 0-d f32 tensors."""
+        cfg = self.cfg
+        logits, _, aux = self.logits_full(params, batch, runtime,
+                                          with_aux=True)
+        if cfg.family == "vlm":
+            logits = logits[:, cfg.num_patches:]
+        labels = batch["tokens"][:, 1:]
+        mask = batch["loss_mask"][:, 1:].float()
+        ce = cross_entropy_loss(logits[:, :-1], labels, mask, cfg.vocab_size)
+        aux_coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
+        total = ce + aux_coef * aux / max(self._num_moe_layers(), 1)
+        return total, {"ce": ce, "aux": aux}
+
+    def _num_moe_layers(self) -> int:
+        cfg = self.cfg
+        if cfg.moe is None:
+            return 0
+        if cfg.hybrid_period:
+            per = sum(1 for i in range(cfg.hybrid_period)
+                      if i % cfg.moe.moe_layer_period == 1)
+            return per * (cfg.num_layers // cfg.hybrid_period)
+        return cfg.num_layers - cfg.moe.first_k_dense
+
+    def count_params(self) -> int:
+        """The number of parameters :meth:`init` draws, from their shapes
+        alone (nothing is allocated)."""
+        with _MetaFactories():
+            shapes = Model(self.cfg, self.dtype, device="cpu").init(0)
+
+        def count(tree):
+            if isinstance(tree, dict):
+                return sum(count(v) for v in tree.values())
+            return tree.numel()
+        return count(shapes)
 
     @staticmethod
     def _last(logits, batch):

@@ -78,11 +78,16 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
     return params
 
 
-def route(router_w, x_flat, runtime: MoERuntime, moe: MoEConfig):
+def route(router_w, x_flat, runtime: MoERuntime, moe: MoEConfig, *,
+          with_aux: bool = False):
     """Top-k routing over logical experts with the §3.4 failure mask.
 
-    Returns (weights (T,k) f32, sel (T,k) int64 logical ids).  Ties go to
-    the lower expert id, as ``jax.lax.top_k`` breaks them.
+    Returns (weights (T,k) f32, sel (T,k) int64 logical ids), and with
+    ``with_aux`` also the GShard load-balance loss ``E * sum(frac_tokens
+    * frac_prob)`` over the logical experts, ``frac_prob`` the mean of
+    the masked gates (a 0-d f32 tensor, as ``repro``'s ``route``
+    returns it).  Ties go to the lower expert id, as ``jax.lax.top_k``
+    breaks them.
     """
     logits = (x_flat @ router_w).float()                   # (T, E_log)
     logits = logits.masked_fill(~runtime.expert_mask[None, :],
@@ -91,7 +96,13 @@ def route(router_w, x_flat, runtime: MoERuntime, moe: MoEConfig):
     weights, sel = torch.sort(gates, dim=-1, descending=True, stable=True)
     weights, sel = weights[:, :moe.top_k], sel[:, :moe.top_k]
     weights = weights / weights.sum(dim=-1, keepdim=True).clamp_min(1e-9)
-    return weights, sel
+    if not with_aux:
+        return weights, sel
+    E = moe.num_experts
+    onehot = torch.nn.functional.one_hot(sel, E).sum(dim=1)    # (T, E)
+    frac_tokens = onehot.float().mean(dim=0)
+    aux = E * torch.sum(frac_tokens * gates.mean(dim=0))
+    return weights, sel, aux
 
 
 def select_replicas(sel, runtime: MoERuntime):
@@ -166,16 +177,23 @@ def dispatch_fn(cfg: ModelConfig):
 
 def moe_apply_local(p, cfg: ModelConfig, x_flat, runtime: MoERuntime, *,
                     cap: int, expert_offset: int = 0,
-                    e_local: Optional[int] = None):
+                    e_local: Optional[int] = None, with_aux: bool = False):
     """Single-rank MoE application over local expert slots (router and
-    routed experts; the shared experts are applied by the caller)."""
+    routed experts; the shared experts are applied by the caller).
+    Returns y (T, D), and with ``with_aux`` ``(y, aux)``: the routing's
+    load-balance loss (:func:`route`)."""
     moe = cfg.moe
     e_local = e_local if e_local is not None else physical_experts(moe)
-    weights, sel = route(p["router"], x_flat, runtime, moe)
+    if with_aux:
+        weights, sel, aux = route(p["router"], x_flat, runtime, moe,
+                                  with_aux=True)
+    else:
+        weights, sel = route(p["router"], x_flat, runtime, moe)
     phys, alive = select_replicas(sel, runtime)
-    return dispatch_fn(cfg)(
+    y = dispatch_fn(cfg)(
         x_flat, weights, phys, alive, p["gate"], p["up"], p["down"],
         cap=cap, expert_offset=expert_offset, e_local=e_local)
+    return (y, aux) if with_aux else y
 
 
 def shared_expert_apply(p, cfg: ModelConfig, x):

@@ -38,6 +38,19 @@ def flatten(params, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
             yield key, v
 
 
+def unflatten(items) -> Dict[str, Any]:
+    """The nested dict of ``(key, leaf)`` pairs, keys ``/``-joined paths
+    (the inverse of :func:`flatten`)."""
+    tree: Dict[str, Any] = {}
+    for key, leaf in items:
+        node = tree
+        *parents, name = key.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[name] = leaf
+    return tree
+
+
 def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, Optional[str]]:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
@@ -83,6 +96,23 @@ def load_flat(path: str, predicate: Callable[[str], bool] = lambda k: True
             elif not k.startswith("__extra__/") and predicate(k):
                 arrays[k] = z[k]
     return arrays, tags
+
+
+def restore_like(path: str, template) -> Dict[str, Any]:
+    """A nested parameter dict shaped like ``template`` (a nested dict of
+    tensors), each leaf read from the checkpoint at ``path`` and cast to
+    its template leaf's type and device; a missing key or another shape
+    raises."""
+    arrays, tags = load_flat(path)
+    items = []
+    for key, leaf in flatten(template):
+        arr = arrays[key]
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"{path}: {key} has shape {arr.shape}, "
+                             f"expected {tuple(leaf.shape)}")
+        items.append((key, tensor_from_numpy(arr, tags.get(key)).to(
+            device=leaf.device, dtype=leaf.dtype)))
+    return unflatten(items)
 
 
 def tensor_from_numpy(arr: np.ndarray, tag: Optional[str]) -> torch.Tensor:

@@ -1047,3 +1047,128 @@ def test_frontend_driver_thread_serves_the_main_threads_stream(card,
     assert state == main_state
     assert reply["choices"][0]["tokens"] == want
     assert reply["choices"][0]["finish_reason"] == "length"
+
+
+# the backward kernels (training): shapes of the CPU tests' plain cases,
+# G = 6 at internlm2-20b's width, MLA's Dq 192 / Dv 128, a sliding
+# window, queries over keys of another length, rows that see no key
+FLASH_BWD_CARD_CASES = {
+    # id: (B, Sq, Skv, H, Hkv, Dq, Dv, causal, window, kv position shift)
+    "g1": (2, 64, 64, 4, 4, 64, 64, True, 0, 0),
+    "g6": (1, 80, 80, 12, 2, 128, 128, True, 0, 0),
+    "window6": (1, 96, 96, 4, 2, 128, 128, True, 6, 0),
+    "mla": (1, 72, 72, 8, 8, 192, 128, True, 0, 0),
+    "dh256": (1, 40, 40, 4, 1, 256, 256, True, 0, 0),
+    "not_causal_ragged": (2, 7, 70, 4, 2, 64, 64, False, 0, 0),
+    "no_key_rows": (1, 48, 48, 4, 2, 32, 32, True, 0, 5),
+}
+# |kernel - plain| <= tol * (the gradient's largest |value|)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _scaled_close(got, want, tol, what):
+    g, w = got.float().cpu(), want.float().cpu()
+    scale = float(w.abs().max())
+    err = float((g - w).abs().max())
+    assert torch.isfinite(g).all() and err <= tol * scale, (
+        f"{what}: max err {err:.3e} at scale {scale:.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_BWD_CARD_CASES))
+def test_flash_prefill_bwd_cuda_vs_plain(card, case, dtype):
+    from repro_torch.kernels.flash_prefill import (flash_prefill_bwd_cuda,
+                                                   flash_prefill_bwd_plain)
+    B, Sq, Skv, H, Hkv, Dq, Dv, causal, window, shift = \
+        FLASH_BWD_CARD_CASES[case]
+    rng = np.random.default_rng(5)
+    q, k, v, do = (_t(rng.normal(size=s).astype(np.float32)).to(card, dtype)
+                   for s in ((B, Sq, H, Dq), (B, Skv, Hkv, Dq),
+                             (B, Skv, Hkv, Dv), (B, Sq, H, Dv)))
+    qpos = (torch.arange(Sq, dtype=torch.int32) + (Skv - Sq)).to(card)
+    kvpos = (torch.arange(Skv, dtype=torch.int32) + shift).to(card)
+    kw = dict(causal=causal, window=window)
+    o = flash_prefill_cuda(q, k, v, qpos, kvpos, **kw)
+    n0 = launches["flash_prefill_bwd"]
+    got = flash_prefill_bwd_cuda(q, k, v, o, do, qpos, kvpos, **kw)
+    again = flash_prefill_bwd_cuda(q, k, v, o, do, qpos, kvpos, **kw)
+    torch.cuda.synchronize()
+    assert launches["flash_prefill_bwd"] == n0 + 2
+    want = flash_prefill_bwd_plain(q, k, v, o, do, qpos, kvpos, **kw)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == dtype and torch.equal(g, a), name  # bitwise
+        _scaled_close(g, w, BWD_TOL[dtype], f"{case} {name}")
+    if shift:
+        assert not got[0][:, :shift].any()   # rows that see no key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F", EXPERT_FFN_GRID + [(3, 13, 36, 44)])
+def test_expert_ffn_bwd_cuda_vs_plain(card, E, C, D, F, dtype):
+    from repro_torch.kernels.expert_ffn import (expert_ffn_bwd_cuda,
+                                                expert_ffn_bwd_plain)
+    x, g, u, d = (_t(a).to(card, dtype)
+                  for a in expert_ffn_inputs(E, C, D, F))
+    x[0, C // 2:] = 0                         # empty rows (dropped copies)
+    dy = _t(np.random.default_rng(6).normal(size=(E, C, D)).astype(
+        np.float32)).to(card, dtype)
+    n0 = launches["expert_ffn_bwd"]
+    got = expert_ffn_bwd_cuda(x, g, u, d, dy)
+    again = expert_ffn_bwd_cuda(x, g, u, d, dy)
+    torch.cuda.synchronize()
+    assert launches["expert_ffn_bwd"] == n0 + 2
+    want = expert_ffn_bwd_plain(x, g, u, d, dy)
+    for name, a, b, w in zip(("dx", "dgate", "dup", "ddown"), got, again,
+                             want):
+        assert a.dtype == dtype and torch.equal(a, b), name     # bitwise
+        _scaled_close(a, w, BWD_TOL[dtype], f"E={E} C={C} {name}")
+    assert not got[0][0, C // 2:].any()       # empty rows: zero gradient
+
+
+@pytest.mark.cuda
+def test_train_steps_card_vs_cpu(card):
+    """Two train() steps of the smoke qwen2-moe-a2.7b in f32 on the card,
+    through flash_prefill, expert_ffn and their backward kernels, against
+    the same weights and batches on the CPU (the plain versions), at lr
+    1e-3 after a one-step warmup (updates of a real run's size, so step
+    1 follows the gradients): step 0's gradient of every leaf within
+    1e-3 of the leaf's scale, every logged number within 1e-3 relative,
+    the final params finite.  The final params are not held elementwise:
+    AdamW divides each update by |g|, so f32 noise on a gradient near
+    zero moves an element by up to the lr either way (the embedding's
+    rows differ by 1.6e-4 at a scale of 0.093 on the H100)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.data import DataConfig, lm_batches
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import as_leaves, train
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    p_cpu = Model(cfg, device="cpu").init(0)
+    dc = DataConfig(cfg.vocab_size, 32, 4)
+    out, grads = {}, {}
+    n0 = {k: launches[k] for k in ("flash_prefill_bwd", "expert_ffn_bwd")}
+    for dev in ("cpu", "cuda"):
+        m = Model(cfg, device=dev)
+        leaves = as_leaves(_to(p_cpu, dev))
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in next(lm_batches(dc)).items()}
+        keys, ts = zip(*flatten(leaves))
+        grads[dev] = dict(zip(keys, torch.autograd.grad(
+            m.loss(leaves, batch)[0], ts)))
+        out[dev] = train(m, lm_batches(dc), 2,
+                         OptimizerConfig(lr=1e-3, warmup_steps=1),
+                         log_every=1, params=_to(p_cpu, dev))
+    n = {k: launches[k] - n0[k] for k in n0}
+    n_moe = cfg.num_layers - cfg.moe.first_k_dense
+    assert n == {"flash_prefill_bwd": 3 * cfg.num_layers,
+                 "expert_ffn_bwd": 3 * n_moe}
+    for key, w in grads["cpu"].items():
+        _scaled_close(grads["cuda"][key], w, 1e-3, f"step 0 grad {key}")
+    for hg, hw in zip(out["cuda"][1], out["cpu"][1]):
+        for key in ("loss", "ce", "aux", "lr", "grad_norm"):
+            assert abs(hg[key] - hw[key]) <= 1e-3 * abs(hw[key]), key
+    for key, g in flatten(out["cuda"][0]):
+        assert torch.isfinite(g).all(), key

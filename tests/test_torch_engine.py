@@ -301,3 +301,37 @@ def test_chunked_nocache_serial_token_parity(tmp_path):
     assert stats["prefill_chunks"] >= 2          # the 45-token prompt chunked
     assert stats["prefill_tokens_cached"] > 0    # shared prefix hit
     assert serial.prefill_stats()["prefill_chunks"] == 0
+
+
+def test_drop_cached_serves_as_a_fresh_engine(tmp_path):
+    """Once an engine has drained, ``BlockManager.drop_cached`` on its
+    ranks makes a second run of the same prompts prefill and hit the
+    prefix cache as the first run did (without it, the second run finds
+    every full prompt block cached)."""
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    eng = InferenceEngine(cfg, EngineConfig(
+        num_dp=2, max_batch=2, max_seq=64, block_size=8, num_blocks=64,
+        moe_impl="fused", workdir=str(tmp_path),
+        policy=RecoveryPolicy(allow_role_switch=False)), device="cpu")
+    keys = ("prefill_tokens_computed", "prefill_tokens_cached",
+            "prefix_cache_hits")
+
+    def run(drop):
+        if drop:
+            for ex in eng.dp_executors:
+                ex.block_manager.drop_cached()
+        before = eng.prefill_stats()
+        reqs = _serve(eng, cfg.vocab_size, False, Severity)
+        assert all(r.state.value == "finished" for r in reqs)
+        after = eng.prefill_stats()
+        return ([list(r.output_tokens) for r in reqs],
+                {k: after[k] - before[k] for k in keys})
+
+    first = run(False)
+    assert first[1]["prefix_cache_hits"] > 0
+    warm = run(False)
+    assert warm[1]["prefill_tokens_cached"] > first[1]["prefill_tokens_cached"]
+    assert run(True) == first
+    for ex in eng.dp_executors:
+        bm = ex.block_manager
+        assert len(bm._free) + len(bm._cached_free) == bm.num_blocks
