@@ -12,6 +12,7 @@
     python3 chip_smoke.py --paths composed,fleet  # revive, spare, restart
     python3 chip_smoke.py --paths vlm,audio  # the ring serve step
     python3 chip_smoke.py --paths train,examples  # training; the twins
+    python3 chip_smoke.py --paths dist    # the distributed MoE layer
     python3 chip_smoke.py --paths mla_composed,mla_megakernel,mla_serial
     python3 chip_smoke.py --profile       # + where the device time goes
 
@@ -230,7 +231,21 @@ Phases, in order; any failure raises and the script exits non-zero:
              runs the four ``examples/*_torch.py`` twins with ``--device
              cuda`` in child processes at once; each must exit 0 with
              its OK line (``train_moe_torch.py`` after its own "did not
-             learn" assertion, 300 steps).  Each path's kernels' launch counts are read from
+             learn" assertion, 300 steps).  The ``dist`` path builds no
+             engine: the distributed MoE layer
+             (``repro_torch.distributed``) on a world of one under NCCL,
+             qwen2-moe-a2.7b at full width, 2 layers, bf16, weights from
+             ``Model.init`` on the card; for each of ``gather_psum``,
+             ``gather_psum_fused``, ``a2a`` and ``a2a_fused``,
+             ``logits_full`` over 4 x 256 tokens, the ring prefill and 16
+             decode steps, with ``moe_dist`` and without it, fed the same
+             tokens: ``gather_psum_fused`` bitwise equal to the local
+             fused path, ``gather_psum`` and ``a2a`` within tolerance,
+             every MoE layer of each impl within tolerance of the local
+             layer on the same inputs, ``moe_fused`` or ``expert_ffn``
+             launched once a layer and call; it prints the NCCL set-up's
+             seconds, each run's seconds and each collective's host and
+             device time in one decode step (torch.profiler).  Each path's kernels' launch counts are read from
              its faulted run (``disagg``: the synchronous switch's;
              ``fleet``: the whole fleet run), counted from 0 just before
              it.  Each engine build
@@ -295,16 +310,16 @@ KERNEL_META = {
 KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
                                    "mla_megakernel", "mla_serial", "disagg",
                                    "fleet", "spec", "overlap", "dense",
-                                   "hybrid", "vlm", "audio"),
+                                   "hybrid", "vlm", "audio", "dist"),
                "moe_fused": ("composed", "mla_composed", "disagg", "fleet",
-                             "spec", "overlap", "hybrid"),
+                             "spec", "overlap", "hybrid", "dist"),
                "decode_megastep": ("megakernel", "mla_megakernel",
                                    "spec_megakernel"),
                "router_topk": ("megakernel", "mla_megakernel",
                                "spec_megakernel"),
-               "expert_ffn": ("serial", "mla_serial", "train"),
+               "expert_ffn": ("serial", "mla_serial", "train", "dist"),
                "flash_prefill": ("serial", "mla_serial", "hybrid", "vlm",
-                                 "audio", "train"),
+                                 "audio", "train", "dist"),
                "ssm_scan": ("ssm", "hybrid"),
                "flash_prefill_bwd": ("train",),
                "expert_ffn_bwd": ("train",)}
@@ -352,7 +367,8 @@ PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "dense": dict(decode_impl="composed"),
          "http": dict(mode="collocated", overlap=True),
          "hybrid": dict(moe_impl="fused", decode_impl="composed"),
-         "vlm": dict(), "audio": dict(), "train": dict(), "examples": dict()}
+         "vlm": dict(), "audio": dict(), "train": dict(), "examples": dict(),
+         "dist": dict()}
 QWEN_ARCH = "qwen2-moe-a2.7b"
 DENSE_ARCHS = ("internlm2-20b", "minicpm3-4b")
 PATH_ARCH = {"ssm": "falcon-mamba-7b", "mla_composed": "deepseek-v3",
@@ -412,7 +428,7 @@ TRAIN_LAYERS = 2
 PATH_LAYERS = {"dense": DENSE_LAYERS, "ssm": SSM_LAYERS,
                "hybrid": HYBRID_LAYERS, "vlm": VLM_LAYERS,
                "audio": AUDIO_LAYERS, "train": TRAIN_LAYERS,
-               "examples": TRAIN_LAYERS}
+               "examples": TRAIN_LAYERS, "dist": TRAIN_LAYERS}
 # the ring paths' workloads: rows, each row's text tokens (drawn from
 # the range), the rings' slots (max_seq); each row feeds 32 greedy tokens
 # through 32 decode steps
@@ -4597,11 +4613,239 @@ def serve_examples(torch, cfg, path, workdir, seed, profile, kept):
         raise AssertionError("engine examples: " + "\n".join(failed))
     return {}, None, None
 
+# the dist path: each impl of the distributed MoE layer on a world of one
+# under NCCL, qwen2-moe-a2.7b at full width in bf16, in the train path's
+# group (TRAIN_LAYERS deep): logits_full over DIST_ROWS x DIST_SEQ
+# tokens, then the ring prefill of the same rows and DIST_STEPS decode
+# steps (T = DIST_ROWS a step)
+DIST_IMPLS = ("gather_psum", "gather_psum_fused", "a2a", "a2a_fused")
+DIST_ROWS, DIST_SEQ, DIST_STEPS = 4, 256, 16
+# the collectives' ops in a torch.profiler trace: the c10d op on the host,
+# NCCL's kernels (or copies) on the device
+# a2a_fused's end-to-end bound: the share of the forward's token rows
+# within TOL["bfloat16"] of the local path (the rest: tokens whose experts
+# a rounding flipped in the second layer; 1.74% of the logits of the
+# card test's 2 x 64 tokens when it was first run)
+DIST_ROWS_WITHIN = 0.9
+DIST_OPS = ("nccl", "c10d")
+
+
+def dist_run(torch, model, params, tokens, fed=None):
+    """logits_full, then the ring prefill and DIST_STEPS decode steps,
+    greedy or fed ``fed`` (DIST_STEPS, B).  Returns (logits of the
+    forward, each step's logits, the tokens fed, forward s, decode s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model.logits_full(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    last, cache = model.prefill(params, {"tokens": tokens},
+                                max_seq=tokens.shape[1] + DIST_STEPS)
+    steps, toks = [last], []
+    V = model.cfg.vocab_size
+    for i in range(DIST_STEPS):
+        toks.append(last[:, :V].argmax(-1) if fed is None else fed[i])
+        last, cache = model.decode_step(params, cache, toks[-1])
+        steps.append(last)
+    torch.cuda.synchronize()
+    return (logits, torch.stack(steps), torch.stack(toks), t1 - t0,
+            time.perf_counter() - t1)
+
+
+def dist_collectives(torch, model, params, tokens):
+    """One ring decode step of ``model`` (after a 4-token prefill) under
+    torch.profiler: each collective op's host and device time, and the
+    step's device busy time and wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    last, cache = model.prefill(params, {"tokens": tokens[:, :4]},
+                                max_seq=8)
+    tok = last[:, :model.cfg.vocab_size].argmax(-1)
+    model.decode_step(params, cache, tok)          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    ops = {e.key: (e.count, e.cpu_time_total / 1e3,
+                   e.self_device_time_total / 1e3)
+           for e in ev if any(k in e.key.lower() for k in DIST_OPS)}
+    return ops, busy, wall * 1e3
+
+
+def dist_layer_check(torch, local, model, params, block, T, seed):
+    """Each MoE layer's ``Model._moe`` (routed + shared experts) through
+    ``model``'s distributed layer on its ``block`` of the bank against
+    ``local``'s on the whole bank, over the same seeded (T, D) bf16
+    input: the largest difference (0.0 when bitwise equal)."""
+    from repro_torch.models.layers import take_layer
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((T, local.cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    rt = local.default_runtime()
+    worst = 0.0
+    for i in range(local.cfg.num_layers):
+        w = local._moe(take_layer(params["layers"], i)["moe"], x, rt,
+                       local._cap(T))
+        g = model._moe(take_layer(block["layers"], i)["moe"], x, rt,
+                       model._cap(T))
+        compare(f"dist {model.cfg.moe_impl} MoE layer {i}, T={T}", g, w,
+                "bfloat16")
+        worst = max(worst, float((g.float() - w.float()).abs().max()))
+    return worst
+
+
+def serve_dist(torch, cfg, path, workdir, seed, profile, kept):
+    """The ``dist`` path (no engine): a world of one under NCCL
+    (``init_process_group("nccl", ...)`` through a FileStore in the
+    workdir, ``make_mesh((1, 1), ("data", "model"), "cuda")``), bf16
+    weights from ``Model.init(seed)`` on the card; for each impl of
+    DIST_IMPLS the model without ``moe_dist`` (``dist_run``, greedy), then
+    with ``make_moe_dist(mesh, impl)`` on its ``shard_params`` block (the
+    whole bank at a world of one), fed the same tokens, its launches
+    counted: each fused run launches ``moe_fused`` once a layer and call,
+    each other run ``expert_ffn``.  ``gather_psum_fused`` must be bitwise
+    equal to the local fused path in the forward's and every step's
+    logits (its collectives are identities and ``cap_for`` gives the
+    local capacity); ``gather_psum`` and ``a2a`` within TOL["bfloat16"]
+    of the local path.  ``a2a_fused`` rounds otherwise (its received rows
+    leave the fused kernel in bf16, one a copy, and are weighted and
+    summed outside it), so a near-tie in the second layer's router can
+    flip a token's experts: each MoE layer is held within
+    TOL["bfloat16"] of the local fused layer on the same inputs at the
+    forward's and a decode step's token counts (``dist_layer_check``, for
+    every impl), and at least DIST_ROWS_WITHIN of the forward's token rows
+    must be within TOL["bfloat16"] end to end.  Then one decode step of
+    each under torch.profiler: the collectives' host and device time.
+    Returns (launch counts, None, None)."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import make_moe_dist
+    from repro_torch.kernels import launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    workdir.mkdir(parents=True, exist_ok=True)
+    store = workdir / "nccl_store"
+    store.unlink(missing_ok=True)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(store), 1),
+                            device_id=dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        probe = torch.ones(8, device=dev)
+        for axis in mesh.mesh_dim_names:
+            dist.all_reduce(probe, group=mesh.get_group(axis))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if any(dist.get_backend(mesh.get_group(a)) != "nccl"
+               for a in mesh.mesh_dim_names):
+            raise AssertionError("engine dist: the mesh's groups are not "
+                                 "NCCL's")
+        t0 = time.perf_counter()
+        params = Model(cfg, torch.bfloat16, device=dev).init(seed)
+        torch.cuda.synchronize()
+        log(f"engine: path {path!r}: the distributed MoE layer on a world "
+            f"of one, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))} "
+            f"(init_process_group, make_mesh and a first all_reduce on each "
+            f"axis {init_s:.3f} s); bf16 weights from seed {seed} in "
+            f"{time.perf_counter() - t0:.1f} s; {DIST_ROWS} x {DIST_SEQ} "
+            f"tokens, then {DIST_STEPS} decode steps")
+        tokens = torch.from_numpy(np.random.default_rng(seed + 21).integers(
+            0, cfg.vocab_size, (DIST_ROWS, DIST_SEQ))).to(dev)
+        # the first forward builds cuBLAS's handles and the allocator's
+        # pools: not any impl's time
+        dist_run(torch, Model(cfg, torch.bfloat16, device=dev), params,
+                 tokens)
+        counts = {}
+        calls = cfg.num_layers * (2 + DIST_STEPS)
+        atol, rtol = TOL["bfloat16"]
+        for impl in DIST_IMPLS:
+            c = dataclasses.replace(cfg, moe_impl=impl)
+            local = Model(c, torch.bfloat16, device=dev)
+            want = dist_run(torch, local, params, tokens)
+            md = make_moe_dist(mesh, impl)
+            md.place(DIST_ROWS)
+            model = Model(c, torch.bfloat16, device=dev, moe_dist=md)
+            block = md.shard_params(params)
+            before = dict(launches)
+            got = dist_run(torch, model, block, tokens, fed=want[2])
+            grew = {k: v - before.get(k, 0) for k, v in launches.items()
+                    if v != before.get(k, 0)}
+            for k, v in grew.items():
+                counts[k] = counts.get(k, 0) + v
+            expert = "moe_fused" if c.moe_fused else "expert_ffn"
+            if grew.get(expert) != calls:
+                raise AssertionError(f"engine dist {impl}: launches {grew}, "
+                                     f"expected {calls} of {expert}")
+            layer_err = max(dist_layer_check(torch, local, model, params,
+                                             block, T, seed + 22)
+                            for T in (DIST_ROWS * DIST_SEQ, DIST_ROWS))
+            errs, bitwise, within = [], [], 1.0
+            for what, g, w in (("forward", got[0], want[0]),
+                               ("decode", got[1], want[1])):
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"engine dist {impl}: {what} "
+                                         f"logits not finite")
+                d = (g.float() - w.float()).abs()
+                errs.append(float(d.max()))
+                bitwise.append(bool(torch.equal(g, w)))
+                ok = (d <= atol + rtol * w.float().abs()).all(dim=-1)
+                if what == "forward":
+                    within = float(ok.float().mean())
+                if impl == "gather_psum_fused" and not bitwise[-1]:
+                    raise AssertionError(
+                        f"engine dist {impl}: {what} logits differ from "
+                        f"the local fused path by {errs[-1]:.3e}")
+                if impl != "a2a_fused" and not bool(ok.all()):
+                    raise AssertionError(
+                        f"engine dist {impl}: {what} logits vs the local "
+                        f"path: max_abs_err {errs[-1]:.3e} (atol {atol:g}, "
+                        f"rtol {rtol:g})")
+            if within < DIST_ROWS_WITHIN:
+                raise AssertionError(
+                    f"engine dist {impl}: {within:.4f} of the forward's "
+                    f"token rows within tolerance of the local path")
+            V = cfg.vocab_size
+            agree = int((got[1][:DIST_STEPS, :, :V].argmax(-1)
+                         == want[2]).sum())
+            log(f"  {impl}: forward {got[3]:.4f} s (local {want[3]:.4f} s), "
+                f"prefill + {DIST_STEPS} decode steps {got[4]:.4f} s (local "
+                f"{want[4]:.4f} s); vs local: forward max_abs_err "
+                f"{errs[0]:.3e}{' (bitwise)' if bitwise[0] else ''}, "
+                f"{within:.4f} of its token rows within tolerance; decode "
+                f"max_abs_err {errs[1]:.3e}"
+                f"{' (bitwise)' if bitwise[1] else ''}; greedy tokens equal "
+                f"{agree} of {DIST_STEPS * DIST_ROWS}; MoE layers alone "
+                f"max_abs_err {layer_err:.3e}; launches {grew}")
+            ops, busy, wall = dist_collectives(torch, model, block, tokens)
+            log(f"    one decode step under torch.profiler: {wall:.3f} ms "
+                f"wall, device busy {busy:.3f} ms; collectives (calls, host "
+                f"ms, device ms): " + (", ".join(
+                    f"{k} {n}x {h:.3f} {d:.3f}" for k, (n, h, d) in
+                    sorted(ops.items())) or "none seen"))
+            del want, got, model, local, block
+            _free(torch)
+        del params
+        _free(torch)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    used = [k for k, ps in KERNEL_PATH.items() if path in ps]
+    if min(counts.get(k, 0) for k in used) <= 0:
+        raise AssertionError(f"engine dist: launches {counts}")
+    return {k: counts[k] for k in used}, None, None
 
 SERVE = {"disagg": serve_disagg, "fleet": serve_fleet, "spec": serve_spec,
          "spec_megakernel": serve_spec, "overlap": serve_overlap,
          "http": serve_http_path, "vlm": serve_ring, "audio": serve_ring,
-         "train": serve_train, "examples": serve_examples}
+         "train": serve_train, "examples": serve_examples,
+         "dist": serve_dist}
 
 
 # -- main ---------------------------------------------------------------------------

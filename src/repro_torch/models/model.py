@@ -53,6 +53,11 @@ entry is ``{"self": its rings, "cross": the encoder's K/V per layer}``,
 and the cache carries ``pos`` (B,), each row's next position.  Rings and
 states are updated in place.
 
+With ``moe_dist`` (``repro_torch.distributed.collectives``) every MoE
+layer runs over a mesh of processes: this rank's share of the batch
+against its block of the expert bank, the capacity reckoned from the
+global token count, and the megastep off.
+
 :meth:`Model.loss` is ``repro``'s training loss: the full-sequence
 forward under grad (on the card through ``flash_prefill``, ``expert_ffn``
 and their backward kernels), next-token cross entropy, and the MoE
@@ -93,9 +98,14 @@ class _MetaFactories(TorchFunctionMode):
 
 class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, moe_dist=None):
+        """moe_dist: the distributed MoE layer
+        (``repro_torch.distributed.collectives.MoEDist`` or ``MoEDistA2A``)
+        that runs every MoE layer over this rank's share of the batch and
+        its block of the expert bank; None: a single rank."""
         cfg.validate()
         self.cfg = cfg
+        self.moe_dist = moe_dist
         self.dtype = dtype
         self.device = resolve_device(device)
         self.vpad = padded_vocab_size(cfg)
@@ -264,7 +274,15 @@ class Model:
     def _moe(self, p, x, runtime, cap, aux=None):
         """Routed plus shared experts over x (T, D).  ``aux``: a list that
         takes the layer's load-balance loss, or None (not computed)."""
-        if aux is None:
+        if self.moe_dist is not None:
+            out = self.moe_dist.apply(p, self.cfg, x, runtime, cap,
+                                      with_aux=aux is not None)
+            if aux is None:
+                y = out
+            else:
+                y, layer_aux = out
+                aux.append(layer_aux)
+        elif aux is None:
             y = MoE.moe_apply_local(p, self.cfg, x, runtime, cap=cap)
         else:
             y, layer_aux = MoE.moe_apply_local(p, self.cfg, x, runtime,
@@ -273,8 +291,13 @@ class Model:
         return y + MoE.shared_expert_apply(p, self.cfg, x)
 
     def _cap(self, n_tokens: int) -> int:
+        """The per-expert capacity for ``n_tokens`` tokens of this rank
+        (under ``moe_dist``: of its share, reckoned as the global count)."""
         if self.cfg.moe is None:
             return 0
+        if self.moe_dist is not None:
+            return self.moe_dist.cap_for(
+                self.moe_dist.global_tokens(n_tokens), self.cfg.moe)
         return MoE.capacity(n_tokens * self.cfg.moe.top_k,
                             MoE.physical_experts(self.cfg.moe),
                             self.cfg.moe.capacity_factor,
@@ -627,7 +650,7 @@ class Model:
             starts = A.window_starts(cfg, page["seq_lens"])
             page = dict(page, starts=torch.zeros_like(page["seq_lens"])
                         if starts is None else starts)
-        mega = cfg.decode_impl == "megakernel"
+        mega = cfg.decode_impl == "megakernel" and self.moe_dist is None
         for name, n, mixer, ffn_kind, _ in self.layer_groups():
             if mixer == "hybrid":
                 rates = self._period_rates(params, name)
@@ -660,7 +683,7 @@ class Model:
         readout, for the megastep."""
         cfg = self.cfg
         if (cfg.decode_impl == "megakernel" and mixer == "attn"
-                and ffn_kind == "moe"):
+                and ffn_kind == "moe" and self.moe_dist is None):
             return self._block_decode_megastep(p, x, csl, page, runtime,
                                                cap, w_post)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)

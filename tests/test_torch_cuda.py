@@ -1172,3 +1172,85 @@ def test_train_steps_card_vs_cpu(card):
             assert abs(hg[key] - hw[key]) <= 1e-3 * abs(hw[key]), key
     for key, g in flatten(out["cuda"][0]):
         assert torch.isfinite(g).all(), key
+
+
+@pytest.mark.cuda
+def test_moe_dist_world_of_one_nccl(card, tmp_path):
+    """The distributed MoE layer through a real NCCL group of one rank, at
+    qwen2-moe-a2.7b's full width (2 layers, bf16, weights drawn on the
+    card), moe_fused launched once a layer and call.  gather_psum_fused
+    is bitwise equal to the local fused path (its collectives are
+    identities, cap_for gives the local capacity) in logits_full and 4
+    ring decode steps.  a2a_fused's received rows leave the fused kernel
+    in bf16 as top-1 rows of weight 1 and are weighted and summed outside
+    it: each MoE layer is within 3e-2 of the local fused layer on the
+    same inputs (128 and 2 tokens), and end to end, where a rounding can
+    flip a near-tie in the second layer's router, 90% of the token rows."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import make_moe_dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import take_layer
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2,
+                              moe_impl="gather_psum_fused")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "s"), 1),
+                            device_id=dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        local = Model(cfg, torch.bfloat16, device=dev)
+        params = local.init(0)
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 64))).to(dev)
+
+        def run(model, p):
+            logits, _ = model.logits_full(p, {"tokens": tokens})
+            last, cache = model.prefill(p, {"tokens": tokens}, max_seq=68)
+            steps = [last]
+            for i in range(4):
+                tok = tokens[:, i]           # fed: the same on both paths
+                last, cache = model.decode_step(p, cache, tok)
+                steps.append(last)
+            return logits, torch.stack(steps)
+
+        want = run(local, params)
+        rt = local.default_runtime()
+        for impl in ("gather_psum_fused", "a2a_fused"):
+            c = dataclasses.replace(cfg, moe_impl=impl)
+            md = make_moe_dist(mesh, impl)
+            md.place(tokens.shape[0])
+            model = Model(c, torch.bfloat16, device=dev, moe_dist=md)
+            block = md.shard_params(params)
+            n0 = launches["moe_fused"]
+            got = run(model, block)
+            torch.cuda.synchronize()
+            assert launches["moe_fused"] - n0 == 2 * (2 + 4), impl
+            for g, w in zip(got, want):
+                assert torch.isfinite(g).all()
+                if impl == "gather_psum_fused":
+                    assert torch.equal(g, w)
+                    continue
+                d = (g.float() - w.float()).abs()
+                ok = (d <= 3e-2 + 3e-2 * w.float().abs()).all(dim=-1)
+                assert float(ok.float().mean()) >= 0.9, impl
+            for T in (128, 2):
+                x = torch.randn((T, cfg.d_model), device=dev,
+                                generator=torch.Generator(device=dev)
+                                .manual_seed(T), dtype=torch.bfloat16)
+                for i in range(cfg.num_layers):
+                    w = local._moe(take_layer(params["layers"], i)["moe"], x,
+                                   rt, local._cap(T))
+                    g = model._moe(take_layer(block["layers"], i)["moe"], x,
+                                   rt, model._cap(T))
+                    if impl == "gather_psum_fused":
+                        assert torch.equal(g, w)
+                    else:
+                        np.testing.assert_allclose(
+                            g.float().cpu().numpy(),
+                            w.float().cpu().numpy(), rtol=3e-2, atol=3e-2)
+    finally:
+        dist.destroy_process_group()

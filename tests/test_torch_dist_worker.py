@@ -1,0 +1,124 @@
+"""One rank of the gloo groups that ``tests/test_torch_distributed.py``
+drives (no tests of its own; it imports torch and the port, never JAX).
+
+    python tests/test_torch_dist_worker.py RANK WORLD STORE_FILE
+
+joins a gloo group through a ``FileStore`` at STORE_FILE, then reads jobs
+(pickled dicts) from its standard input and writes each job's result
+(a pickled dict, or ``{"error": traceback}``) to its standard output,
+until it reads ``None``; then it destroys its group.  Every rank reads
+the same jobs in the same order, so their collectives pair up.
+
+A job runs the smoke ``qwen2-moe-a2.7b`` in f32 from ``Model.init(seed)``
+with ``moe_dist`` on a mesh of the job's shape, on this rank's share of
+the job's batch (``MoEDist.place``) and its block of the expert bank
+(``MoEDist.shard_params``):
+
+* ``forward``: ``logits_full`` with its aux loss;
+* ``ring``: ``Model.prefill`` and greedy ``decode_step``s;
+* ``grad``: the gradient of ``Model.loss / world`` of every leaf (the
+  ranks' losses then sum to the global loss), or what it raised.
+"""
+import dataclasses
+import datetime
+import os
+import pickle
+import sys
+import traceback
+
+import torch
+import torch.distributed as dist
+
+
+def job_model(job, meshes):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.collectives import make_moe_dist
+    from repro_torch.launch.mesh import dp_axes, make_mesh
+    from repro_torch.models.model import Model
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    moe = cfg.moe
+    if job.get("capacity_factor") is not None:
+        moe = dataclasses.replace(moe, capacity_factor=job["capacity_factor"])
+    if job.get("aux_loss_coef") is not None:
+        moe = dataclasses.replace(moe, aux_loss_coef=job["aux_loss_coef"])
+    cfg = dataclasses.replace(cfg, moe=moe, moe_impl=job["impl"])
+    key = (tuple(job["mesh"]), tuple(job["axes"]))
+    if key not in meshes:
+        meshes[key] = make_mesh(*key, device="cpu")
+    mesh = meshes[key]
+    md = make_moe_dist(mesh, job["impl"], dp_axes=dp_axes(mesh))
+    params = md.shard_params(Model(cfg, device="cpu").init(job["seed"]))
+    return Model(cfg, device="cpu", moe_dist=md), md, params, mesh
+
+
+def run(job, meshes):
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.train_loop import as_leaves
+    model, md, params, mesh = job_model(job, meshes)
+    tokens = torch.from_numpy(job["tokens"])
+    rows = md.place(tokens.shape[0])
+    share = {"tokens": tokens[rows]}
+    out = {"rows": (rows.start, rows.stop),
+           "coords": {a: mesh.get_local_rank(a)
+                      for a in mesh.mesh_dim_names}}
+    if job["kind"] == "forward":
+        with torch.no_grad():
+            logits, _, aux = model.logits_full(params, share, with_aux=True)
+        out.update(logits=logits.numpy(), aux=float(aux))
+    elif job["kind"] == "ring":
+        last, cache = model.prefill(params, share,
+                                    max_seq=tokens.shape[1] + job["steps"])
+        fed, steps = [], [last.numpy()]
+        for _ in range(job["steps"]):
+            fed.append(last[:, :model.cfg.vocab_size].argmax(-1))
+            last, cache = model.decode_step(params, cache, fed[-1])
+            steps.append(last.numpy())
+        out.update(tokens=torch.stack(fed, 1).numpy(), logits=steps)
+    elif job["kind"] == "grad":
+        leaves = as_leaves(params)
+        share["loss_mask"] = torch.ones_like(share["tokens"])
+        try:
+            loss, metrics = model.loss(leaves, share)
+        except RuntimeError as e:
+            out.update(raised=str(e))
+            return out
+        keys, ts = zip(*flatten(leaves))
+        grads = torch.autograd.grad(loss / dist.get_world_size(), ts,
+                                    allow_unused=True)
+        out.update(loss=float(loss), grads={
+            k: (torch.zeros_like(t) if g is None else g).numpy()
+            for k, t, g in zip(keys, ts, grads)})
+    else:
+        raise ValueError(job["kind"])
+    return out
+
+
+def main():
+    rank, world, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    torch.set_num_threads(1)
+    # results go through the original standard output; prints to stderr
+    results = os.fdopen(os.dup(1), "wb")
+    os.dup2(2, 1)
+    jobs = sys.stdin.buffer
+    dist.init_process_group(
+        "gloo", rank=rank, world_size=world,
+        store=dist.FileStore(store, world),
+        timeout=datetime.timedelta(seconds=120))
+    meshes = {}
+    try:
+        while True:
+            job = pickle.load(jobs)
+            if job is None:
+                break
+            try:
+                out = run(job, meshes)
+            except Exception:
+                out = {"error": traceback.format_exc()}
+            pickle.dump(out, results)
+            results.flush()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -37,7 +37,12 @@ def imported_roots(tree):
 def test_the_file_list_covers_the_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "http_smoke_torch.py", "quickstart_torch.py",
-            "train_moe_torch.py", "model.py", "ops.py"} <= names
+            "train_moe_torch.py", "model.py", "ops.py", "collectives.py",
+            "sharding.py", "mesh.py"} <= names
+    paths = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"src/repro_torch/distributed/collectives.py",
+            "src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/launch/mesh.py"} <= paths
     assert len(FILES) > 60
 
 
