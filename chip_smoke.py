@@ -13,6 +13,7 @@
     python3 chip_smoke.py --paths vlm,audio  # the ring serve step
     python3 chip_smoke.py --paths train,examples  # training; the twins
     python3 chip_smoke.py --paths dist    # the distributed MoE layer
+    python3 chip_smoke.py --paths dryrun  # the dry run held to the card
     python3 chip_smoke.py --paths mla_composed,mla_megakernel,mla_serial
     python3 chip_smoke.py --profile       # + where the device time goes
 
@@ -245,7 +246,23 @@ Phases, in order; any failure raises and the script exits non-zero:
              layer on the same inputs, ``moe_fused`` or ``expert_ffn``
              launched once a layer and call; it prints the NCCL set-up's
              seconds, each run's seconds and each collective's host and
-             device time in one decode step (torch.profiler).  Each path's kernels' launch counts are read from
+             device time in one decode step (torch.profiler).  The
+             ``dryrun`` path builds no engine: two child processes run
+             the port's dry run (``python -m repro_torch.launch.dryrun
+             --arch qwen2-moe-a2.7b --shape decode_32k``, then with
+             ``--multi-pod --no-extrapolate``), each record holding the
+             JAX package's keys and the argument bytes that the port's
+             ShardingRules place; meanwhile qwen2-moe-a2.7b at full
+             width, 2 layers, bf16, one rank (the dist path's weights
+             when it ran first): a ring prefill of 4 x 2048 tokens and
+             one decode step, each traced by ``launch.dryrun.trace`` on
+             fake copies of its arguments and run on the card (a
+             warm-up call, then a timed one), the trace's argument bytes
+             equal to the bytes the card's arguments hold; it prints the
+             trace's temp bytes beside the card's peak above the
+             arguments, and the trace's FLOPs and bytes over the card's
+             time as rates against the data sheet
+             (``repro_torch/hardware.py``).  Each path's kernels' launch counts are read from
              its faulted run (``disagg``: the synchronous switch's;
              ``fleet``: the whole fleet run), counted from 0 just before
              it.  Each engine build
@@ -280,8 +297,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "model", "engine")
-HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the H100 SXM data sheet's memory rate and peaks, read from
+# ``repro_torch.hardware`` once the port is imported (main)
+HBM_BYTES_PER_S = None
+PEAK_FLOPS = None
 KERNEL_META = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:82"),
@@ -310,16 +329,18 @@ KERNEL_META = {
 KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
                                    "mla_megakernel", "mla_serial", "disagg",
                                    "fleet", "spec", "overlap", "dense",
-                                   "hybrid", "vlm", "audio", "dist"),
+                                   "hybrid", "vlm", "audio", "dist",
+                                   "dryrun"),
                "moe_fused": ("composed", "mla_composed", "disagg", "fleet",
                              "spec", "overlap", "hybrid", "dist"),
                "decode_megastep": ("megakernel", "mla_megakernel",
                                    "spec_megakernel"),
                "router_topk": ("megakernel", "mla_megakernel",
                                "spec_megakernel"),
-               "expert_ffn": ("serial", "mla_serial", "train", "dist"),
+               "expert_ffn": ("serial", "mla_serial", "train", "dist",
+                              "dryrun"),
                "flash_prefill": ("serial", "mla_serial", "hybrid", "vlm",
-                                 "audio", "train", "dist"),
+                                 "audio", "train", "dist", "dryrun"),
                "ssm_scan": ("ssm", "hybrid"),
                "flash_prefill_bwd": ("train",),
                "expert_ffn_bwd": ("train",)}
@@ -368,7 +389,7 @@ PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "http": dict(mode="collocated", overlap=True),
          "hybrid": dict(moe_impl="fused", decode_impl="composed"),
          "vlm": dict(), "audio": dict(), "train": dict(), "examples": dict(),
-         "dist": dict()}
+         "dist": dict(), "dryrun": dict()}
 QWEN_ARCH = "qwen2-moe-a2.7b"
 DENSE_ARCHS = ("internlm2-20b", "minicpm3-4b")
 PATH_ARCH = {"ssm": "falcon-mamba-7b", "mla_composed": "deepseek-v3",
@@ -428,7 +449,8 @@ TRAIN_LAYERS = 2
 PATH_LAYERS = {"dense": DENSE_LAYERS, "ssm": SSM_LAYERS,
                "hybrid": HYBRID_LAYERS, "vlm": VLM_LAYERS,
                "audio": AUDIO_LAYERS, "train": TRAIN_LAYERS,
-               "examples": TRAIN_LAYERS, "dist": TRAIN_LAYERS}
+               "examples": TRAIN_LAYERS, "dist": TRAIN_LAYERS,
+               "dryrun": TRAIN_LAYERS}
 # the ring paths' workloads: rows, each row's text tokens (drawn from
 # the range), the rings' slots (max_seq); each row feeds 32 greedy tokens
 # through 32 decode steps
@@ -4831,6 +4853,8 @@ def serve_dist(torch, cfg, path, workdir, seed, profile, kept):
                     sorted(ops.items())) or "none seen"))
             del want, got, model, local, block
             _free(torch)
+        # the dryrun path's model when it comes next (the same weights)
+        kept["qwen_bf16"] = (cfg, params)
         del params
         _free(torch)
     finally:
@@ -4841,11 +4865,367 @@ def serve_dist(torch, cfg, path, workdir, seed, profile, kept):
         raise AssertionError(f"engine dist: launches {counts}")
     return {k: counts[k] for k in used}, None, None
 
+DRYRUN_ARCH, DRYRUN_SHAPE = "qwen2-moe-a2.7b", "decode_32k"
+DRYRUN_ROWS, DRYRUN_SEQ = 4, 2048
+# the keys of the JAX package's dry-run record (its run_dryrun)
+DRYRUN_KEYS = ("arch", "shape", "mesh", "chips", "kind", "moe_impl",
+               "lower_s", "compile_s", "memory", "per_device_flops",
+               "per_device_bytes", "cost_extrapolation", "collectives",
+               "collectives_4unit", "collective_wire_bytes", "roofline",
+               "model_flops", "hlo_flops_total", "useful_flops_ratio",
+               "params", "elapsed_s")
+
+
+# the kernels of the dryrun path and the tolerance each is held to
+# against its plain version on the same inputs
+DRYRUN_HELD = {"flash_prefill": FLASH_TOL, "expert_ffn": FFN_TOL,
+               "paged_attention": TOL}
+
+
+def held_on_card(name, got, want, dn, tol):
+    """``compare`` computed on the card (the path's tensors are large):
+    |got - want| <= atol + rtol * |want| everywhere, got finite; the
+    largest difference."""
+    atol, rtol = tol[dn]
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    err = float(d.max()) if d.numel() else 0.0
+    bad = int((d > atol + rtol * w.abs()).sum())
+    ok = bad == 0 and bool(g.isfinite().all())
+    log(f"  {name:<44} max_abs_err {err:.3e}  (atol {atol:g}, rtol {rtol:g})"
+        f"  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: {bad} elements outside tolerance "
+                             f"or not finite, max_abs_err {err}")
+    return err
+
+
+@contextlib.contextmanager
+def held_to_plain(errs):
+    """The wrappers of DRYRUN_HELD's kernels in ``ops`` wrapped: each call
+    launches the kernel, then runs its plain version on the same inputs
+    on the card, holds the two within the kernel's tolerance
+    (``held_on_card``; the largest difference into ``errs[name]``) and
+    returns the kernel's output."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.expert_ffn import expert_ffn_plain
+    from repro_torch.kernels.flash_prefill import flash_prefill_plain
+    from repro_torch.kernels.paged_attention import paged_attention_plain
+    plain = {"flash_prefill": flash_prefill_plain,
+             "expert_ffn": expert_ffn_plain,
+             "paged_attention": paged_attention_plain}
+    saved = {name: getattr(ops, name) for name in DRYRUN_HELD}
+
+    def wrap(name):
+        def held(*args, **kw):
+            got = saved[name](*args, **kw)
+            want = plain[name](*args, **kw)
+            err = held_on_card(
+                f"dryrun {name} {'x'.join(map(str, args[0].shape))} "
+                f"{str(got.dtype).split('.')[-1]}", got, want,
+                str(got.dtype).split(".")[-1], DRYRUN_HELD[name])
+            errs[name] = max(errs.get(name, 0.0), err)
+            return got
+        return held
+    for name in DRYRUN_HELD:
+        setattr(ops, name, wrap(name))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+@contextlib.contextmanager
+def plain_serving():
+    """``plain_attention``, and ``ops.expert_ffn`` rebound to its plain
+    version: the dryrun path's reference on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.expert_ffn import expert_ffn_plain
+    saved = ops.expert_ffn
+    ops.expert_ffn = expert_ffn_plain
+    try:
+        with plain_attention():
+            yield
+    finally:
+        ops.expert_ffn = saved
+
+
+@contextlib.contextmanager
+def routing(log, replay=False):
+    """``models.moe.route`` wrapped: each call's (weights, choices)
+    appended to ``log``, or with ``replay`` the logged ones returned in
+    order in place of the call's own, so that a second run routes every
+    token as the first did.  Yields [choices of the call's own that
+    differ from the logged (rows), rows]."""
+    from repro_torch.models import moe
+    saved, calls, flips = moe.route, iter(list(log)), [0, 0]
+
+    def wrapped(*args, **kw):
+        out = saved(*args, **kw)
+        if not replay:
+            log.append(out[:2])
+            return out
+        weights, sel = next(calls)
+        flips[0] += int((out[1].sort(-1).values != sel.sort(-1).values)
+                        .any(-1).sum())
+        flips[1] += sel.shape[0]
+        return (weights, sel) + tuple(out[2:])
+    moe.route = wrapped
+    try:
+        yield flips
+    finally:
+        moe.route = saved
+
+
+def dryrun_logits(torch, card, params, batch, runtime, step_on=None):
+    """The ring prefill of ``batch``, and one decode step fed its greedy
+    tokens over ``step_on`` = (a cache, tokens) or else over its own
+    cache: (prefill logits, step logits, (a copy of the prefill's cache,
+    its greedy tokens))."""
+    last, cache = card.prefill(params, batch, runtime)
+    tok = last[:, :card.cfg.vocab_size].argmax(-1).to(torch.int32)
+    held = (_map(cache, torch.clone), tok)
+    step, _ = card.decode_step(params, *(step_on or (cache, tok)), runtime)
+    return last, step, held
+
+
+def placed_bytes(torch, arch, shape_name, multi_pod):
+    """Rank 0's argument bytes of the dry run's step, reckoned from the
+    port's ShardingRules placements on the production layout (no process
+    group): each leaf's bytes over the product of its spec's axes."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import axis_sizes, make_production_mesh
+    from repro_torch.launch.specs import step_arg_specs
+    from repro_torch.models.model import Model
+    layout = make_production_mesh(multi_pod=multi_pod)
+    cfg, shape = get_config(arch, shape_name), INPUT_SHAPES[shape_name]
+    args = step_arg_specs(Model(cfg, torch.bfloat16, device="cpu"), cfg,
+                          shape)
+    placed = dryrun.arg_placements(ShardingRules(layout, cfg), shape.kind,
+                                   args, shape.global_batch)
+    sizes = axis_sizes(layout)
+
+    def one(path, leaf, spec):
+        n = 1
+        for entry in spec:
+            for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                n *= sizes[a]
+        return leaf.numel() * leaf.element_size() // n
+    return sum(b for _, b in dryrun._flat(dryrun._map2(one, args, placed)))
+
+
+def held_bytes(tree):
+    """The bytes the storages of a tree's tensors hold (each once)."""
+    from repro_torch.launch import dryrun
+    seen = {}
+    for _, t in dryrun._flat(tree):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def dryrun_card_step(torch, step, args):
+    """One step on the card after a warm-up call: (outputs, seconds, the
+    peak of memory allocated during it above what was allocated
+    before)."""
+    step(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = step(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return (out, start.elapsed_time(end) / 1e3,
+            torch.cuda.max_memory_allocated() - before)
+
+
+def serve_dryrun(torch, cfg, path, workdir, seed, profile, kept):
+    """The ``dryrun`` path (no engine).  (a) Two child processes run the
+    port's dry run of DRYRUN_ARCH at DRYRUN_SHAPE (``python -m
+    repro_torch.launch.dryrun``, on the 16 x 16 mesh with its 2- and
+    4-unit traces, and on 2 x 16 x 16 with ``--no-extrapolate``): each
+    record has the JAX package's keys and its ``argument_bytes`` equals
+    the bytes reckoned from ShardingRules' placements (placed_bytes).
+    (b) The trace held to the card: qwen2-moe-a2.7b at full width,
+    ``cfg``'s 2 layers, bf16, one rank (no process group; the dist
+    path's weights when it ran first): the ring prefill of DRYRUN_ROWS x
+    DRYRUN_SEQ tokens and one decode step over its cache, each traced by
+    ``launch.dryrun.trace`` on fake copies of its arguments and run on
+    the card (flash_prefill, expert_ffn and paged_attention over the
+    ring).  The trace's ``argument_bytes`` must equal the bytes the
+    card's arguments hold; it prints the trace's ``temp_bytes`` beside
+    the card's peak above the arguments, and the trace's FLOPs and bytes
+    over the card step's time as achieved rates against the data sheet.
+    Then the kernels held at these shapes: the same prefill and decode
+    step again (not counted), each call of the three kernels held to its
+    plain version on the same inputs (``held_to_plain``, DRYRUN_HELD's
+    tolerances), and the prefill's and the step's logits held within
+    RING_LOGIT_RTOL of the plain versions' on the card
+    (``plain_serving``), the plain step run over a copy of the kernels'
+    prefill cache and fed the same tokens, and every token routed to
+    the experts the kernels' run chose (``routing``): a bf16 near-tie in
+    the router flips a token's experts on a rounding, as it did for one
+    of the 4 decode rows on the H100 (0.66 of a logit scale of 4.25; the
+    other rows within 0.049) before the routing was replayed.  The plain run's own
+    choices that differ are counted.  Greedy tokens are counted, not
+    required: a bf16 near-tie among the vocabulary's logits can flip
+    one, as on the vlm path.  Returns (launch counts, None, None)."""
+    from repro_torch.hardware import card_sheet
+    from repro_torch.kernels import launches
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import make_step
+    from repro_torch.models.model import Model
+    workdir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    children = {}
+    for multi_pod in (False, True):
+        out = workdir / f"dryrun_{'2x16x16' if multi_pod else '16x16'}.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               DRYRUN_ARCH, "--shape", DRYRUN_SHAPE, "--out", str(out)]
+        if multi_pod:
+            cmd += ["--multi-pod", "--no-extrapolate"]
+        children[multi_pod] = (out, subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True), time.perf_counter())
+    try:
+        sheet = card_sheet()
+        dev = torch.device("cuda", 0)
+        held = kept.pop("qwen_bf16", None)
+        t0 = time.perf_counter()
+        params = (held[1] if held is not None and held[0] == cfg else
+                  Model(cfg, torch.bfloat16, device=dev).init(seed))
+        torch.cuda.synchronize()
+        log(f"engine: path {path!r}: {cfg.name} at full width, "
+            f"{cfg.num_layers} layers, bf16, one rank; weights "
+            + ("of the dist path" if held is not None else
+               f"from seed {seed} in {time.perf_counter() - t0:.1f} s")
+            + f"; {dryrun.card_line(sheet)}")
+        card = Model(cfg, torch.bfloat16, device=dev)
+        host = Model(cfg, torch.bfloat16, device="cpu")   # holds no weights
+        tokens = torch.from_numpy(np.random.default_rng(seed + 31).integers(
+            0, cfg.vocab_size, (DRYRUN_ROWS, DRYRUN_SEQ)).astype(
+                np.int32)).to(dev)
+        runtime = card.default_runtime()
+        counts = {}
+        steps = (("prefill", (params, {"tokens": tokens}, runtime)),
+                 ("decode", None))
+        for kind, args in steps:
+            if kind == "decode":
+                args = (params, cache, nxt, runtime)
+            rec = dryrun.trace(make_step(host, kind), args, sheet=sheet)
+            want = held_bytes(args)
+            if rec["argument_bytes"] != want:
+                raise AssertionError(
+                    f"engine dryrun {kind}: the trace's argument_bytes "
+                    f"{rec['argument_bytes']}, the card's arguments hold "
+                    f"{want}")
+            before = dict(launches)
+            (nxt, cache), secs, peak = dryrun_card_step(
+                torch, make_step(card, kind), args)
+            for k, v in launches.items():
+                if v != before.get(k, 0):
+                    counts[k] = counts.get(k, 0) + (v - before.get(k, 0))
+            if not (bool((nxt >= 0).all()) and bool(
+                    (nxt < cfg.vocab_size).all())):
+                raise AssertionError(f"engine dryrun {kind}: next tokens "
+                                     f"out of the vocabulary")
+            flops, nbytes = rec["flops"], rec["bytes"]
+            log(f"  {kind}: trace {rec['seconds']:.2f} s ({rec['ops']} ops; "
+                f"argument_bytes {want} = the card's arguments); card step "
+                f"{secs * 1e3:.3f} ms; temp_bytes {rec['temp_bytes']} traced"
+                f", {peak} above the arguments on the card (trace / card "
+                f"{rec['temp_bytes'] / max(peak, 1):.3f}); the trace's "
+                f"{flops:.4e} FLOPs and {nbytes:.4e} bytes over the card's "
+                f"time: {flops / secs / 1e12:.2f} TFLOP/s "
+                f"({flops / secs / sheet['bf16_flops']:.4f} of bf16 peak), "
+                f"{nbytes / secs / 1e12:.3f} TB/s "
+                f"({nbytes / secs / sheet['hbm_bytes_per_s']:.4f} of HBM; "
+                f"the trace's bytes are the plain versions' without fusion)")
+        del cache, nxt
+        _free(torch)
+        batch, held_errs, routed = {"tokens": tokens}, {}, []
+        with held_to_plain(held_errs), routing(routed):
+            got = dryrun_logits(torch, card, params, batch, runtime)
+        missing = [k for k in DRYRUN_HELD if k not in held_errs]
+        if missing:
+            raise AssertionError(f"engine dryrun: {missing} not held to "
+                                 f"their plain versions")
+        with plain_serving(), routing(routed, replay=True) as flips:
+            want = dryrun_logits(torch, card, params, batch, runtime,
+                                 step_on=got[2])
+        errs, V = [], cfg.vocab_size
+        for what, g, w in (("prefill", got[0], want[0]),
+                           ("decode", got[1], want[1])):
+            g, w = g.float(), w.float()
+            d = (g - w).abs()
+            scale = float(w.abs().max())
+            errs.append(float(d.max()))
+            if not (bool(g.isfinite().all())
+                    and bool((d <= RING_LOGIT_RTOL * (scale + w.abs()))
+                             .all())):
+                raise AssertionError(
+                    f"engine dryrun {what}: logits vs the plain versions: "
+                    f"max_abs_err {errs[-1]} (logit scale {scale}), by row "
+                    f"{d.amax(dim=-1).tolist()}")
+        agree = sum(int((g[:, :V].argmax(-1) == w[:, :V].argmax(-1)).sum())
+                    for g, w in zip(got[:2], want[:2]))
+        log(f"  the kernels at the path's shapes, each call against its "
+            f"plain version: max_abs_err " + ", ".join(
+                f"{k} {v:.3e}" for k, v in held_errs.items())
+            + f"; logits vs the plain versions, the step on the same "
+            f"cache and tokens, every token routed as the kernels' run "
+            f"routed it (the plain run's own router chose otherwise for "
+            f"{flips[0]} of {flips[1]} token rows): prefill "
+            f"{errs[0]:.3e}, decode {errs[1]:.3e} (rtol "
+            f"{RING_LOGIT_RTOL:g} of the step's scale); greedy argmax "
+            f"equal in {agree} of {2 * DRYRUN_ROWS}")
+        del params, card, got, want
+        _free(torch)
+    finally:
+        results = {}
+        for multi_pod, (out, proc, t0) in children.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            results[multi_pod] = (out, proc.returncode, stdout, stderr,
+                                  time.perf_counter() - t0)
+    for multi_pod, (out, rc, stdout, stderr, secs) in results.items():
+        if rc != 0 or not out.exists():
+            raise AssertionError(f"engine dryrun: the dry run exited {rc}: "
+                                 f"{stderr[-2000:]}")
+        rec = json.loads(out.read_text())
+        missing = [k for k in DRYRUN_KEYS if k not in rec]
+        want = placed_bytes(torch, DRYRUN_ARCH, DRYRUN_SHAPE, multi_pod)
+        if missing or rec["memory"]["argument_bytes"] != want:
+            raise AssertionError(f"engine dryrun {rec.get('mesh')}: missing "
+                                 f"{missing}; argument_bytes "
+                                 f"{rec['memory']['argument_bytes']}, "
+                                 f"placed {want}")
+        roof = rec["roofline"]
+        log(f"  dry run {DRYRUN_ARCH} x {DRYRUN_SHAPE} x {rec['mesh']}: "
+            f"trace {rec['trace_s']:.1f} s ({rec['elapsed_s']:.1f} s in "
+            f"run_dryrun, {secs:.1f} s until its process was read; "
+            f"{rec['ops']} ops); argument_bytes {want} as placed; roofline "
+            f"of the gather-at-entry model (its collectives and temp are "
+            f"the model's, no runtime's) compute {roof['compute_s'] * 1e3:.3f} ms | memory "
+            f"{roof['memory_s'] * 1e3:.3f} ms | collective "
+            f"{roof['collective_s'] * 1e3:.3f} ms -> {roof['dominant']}; "
+            f"useful {rec['useful_flops_ratio']:.4f}; temp "
+            f"{rec['memory']['temp_bytes'] / 2**30:.2f} GiB")
+    used = [k for k, ps in KERNEL_PATH.items() if path in ps]
+    if min(counts.get(k, 0) for k in used) <= 0:
+        raise AssertionError(f"engine dryrun: launches {counts}")
+    return {k: counts[k] for k in used}, None, None
+
+
 SERVE = {"disagg": serve_disagg, "fleet": serve_fleet, "spec": serve_spec,
          "spec_megakernel": serve_spec, "overlap": serve_overlap,
          "http": serve_http_path, "vlm": serve_ring, "audio": serve_ring,
          "train": serve_train, "examples": serve_examples,
-         "dist": serve_dist}
+         "dist": serve_dist, "dryrun": serve_dryrun}
 
 
 # -- main ---------------------------------------------------------------------------
@@ -4878,6 +5258,10 @@ def main() -> int:
     phase_device(torch)
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    from repro_torch import hardware
+    global HBM_BYTES_PER_S, PEAK_FLOPS
+    HBM_BYTES_PER_S, PEAK_FLOPS = hardware.HBM_BYTES_PER_S, \
+        hardware.PEAK_FLOPS
     t_start = time.perf_counter()
     took = {}
 

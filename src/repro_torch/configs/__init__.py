@@ -50,6 +50,21 @@ _REGISTRY = {c.name: c for c in (_qwen_moe, _deepseek, _kimi,
 
 ALL_ARCHS = tuple(_REGISTRY)
 
+# the architectures of the dry-run matrix (``launch.dryrun_all``), in the
+# JAX package's order
+ASSIGNED_ARCHS = (
+    "minicpm3-4b",
+    "kimi-k2-1t-a32b",
+    "jamba-1.5-large-398b",
+    "falcon-mamba-7b",
+    "mistral-large-123b",
+    "seamless-m4t-large-v2",
+    "internvl2-26b",
+    "nemotron-4-340b",
+    "qwen2-moe-a2.7b",
+    "internlm2-20b",
+)
+
 
 def get_config(name: str, shape: str | None = None) -> ModelConfig:
     """The registered config, adapted to an input shape if given: for
@@ -73,6 +88,7 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 __all__ = [
     "ALL_ARCHS",
+    "ASSIGNED_ARCHS",
     "INPUT_SHAPES",
     "LONG_CONTEXT_WINDOW",
     "InputShape",

@@ -40,8 +40,9 @@ to the single-rank path.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -68,12 +69,36 @@ _scatter = getattr(dist, "reduce_scatter_single", None) or \
 
 # -- collectives --------------------------------------------------------------------
 
+# the dry run's tally (``launch.dryrun``): None, or a callable taking (op,
+# per-rank bytes, group) at each collective this module issues, the bytes
+# as the JAX package's HLO parse counts them (an all-gather's and a
+# reduce-scatter's result, an all-reduce's and an all-to-all's operand)
+_recorder = None
+
+
+@contextlib.contextmanager
+def recording(fn):
+    """Calls ``fn(op, nbytes, group)`` at each collective in the block."""
+    global _recorder
+    prev, _recorder = _recorder, fn
+    try:
+        yield
+    finally:
+        _recorder = prev
+
+
+def _note(op, t, group):
+    if _recorder is not None:
+        _recorder(op, t.numel() * t.element_size(), group)
+
+
 def _all_gather(x, group):
     """(n, ...) from every rank of ``group`` -> (size * n, ...), in the
     group's rank order."""
     x = x.contiguous()
     out = x.new_empty((dist.get_world_size(group) * x.shape[0],)
                       + tuple(x.shape[1:]))
+    _note("all-gather", out, group)
     _gather(out, x, group=group)
     return out
 
@@ -86,12 +111,14 @@ def _reduce_scatter(x, group):
         raise ValueError(f"reduce_scatter: {x.shape[0]} rows over {size} "
                          f"ranks")
     out = x.new_empty((x.shape[0] // size,) + tuple(x.shape[1:]))
+    _note("reduce-scatter", out, group)
     _scatter(out, x, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
 def _all_reduce(x, group):
     out = x.clone(memory_format=torch.contiguous_format)
+    _note("all-reduce", out, group)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
@@ -101,6 +128,7 @@ def _all_to_all(x, group):
     came from rank i."""
     x = x.contiguous()
     out = torch.empty_like(x)
+    _note("all-to-all", x, group)
     dist.all_to_all_single(out, x, group=group)
     return out
 
@@ -211,8 +239,12 @@ class MoEDist:
     name = "gather_psum"
 
     def __init__(self, mesh, dp_axes: Tuple[str, ...] = ("data",),
-                 ep_axis: str = "model", tp_axis: str = "data"):
+                 ep_axis: str = "model", tp_axis: str = "data",
+                 backend: Optional[str] = None):
         self.mesh = mesh
+        # the groups' backend the layer requires (None: NCCL for CUDA
+        # tensors, gloo for CPU ones)
+        self.backend = backend
         sizes = axis_sizes(mesh)
         self.sizes = sizes
         self.dp_axes = tuple(dp_axes)
@@ -304,7 +336,8 @@ class MoEDist:
         if self._groups is None:
             groups = {a: self.mesh.get_group(a)
                       for a in self.mesh.mesh_dim_names}
-            want = "nccl" if x.device.type == "cuda" else "gloo"
+            want = self.backend or ("nccl" if x.device.type == "cuda"
+                                    else "gloo")
             for a, g in groups.items():
                 if dist.get_backend(g) != want:
                     raise RuntimeError(f"{self.name}: the {a!r} group runs "
@@ -511,10 +544,13 @@ class MoEDistA2A(MoEDist):
         return y, self._mean_aux(aux, token_axes, n_parts)
 
 
-def make_moe_dist(mesh, impl: str, dp_axes=("data",), ep_axis="model"):
+def make_moe_dist(mesh, impl: str, dp_axes=("data",), ep_axis="model",
+                  backend=None):
     """impl may be any ``ModelConfig.MOE_IMPLS`` value; the '_fused'
     suffix only changes the local compute (``cfg.moe_fused`` at apply
-    time), so both names of a base map onto the same class."""
+    time), so both names of a base map onto the same class.  ``backend``:
+    the process groups' backend the layer requires (None: by the
+    tensors' device)."""
     base = "a2a" if impl.startswith("a2a") else "gather_psum"
     cls = {"gather_psum": MoEDist, "a2a": MoEDistA2A}[base]
-    return cls(mesh, dp_axes, ep_axis)
+    return cls(mesh, dp_axes, ep_axis, backend=backend)

@@ -217,7 +217,8 @@ class ShardingRules:
 
         * GQA K/V (..., B, W, Hkv, Dh): kv-heads over 'model' when they
           divide, else the window W (context-parallel decode).
-        * MLA latent (..., B, W, R): the window over 'model'.
+        * MLA latent (..., B, W, R), or the port's fused ring (..., B, W,
+          1, R + dr): the window over 'model'.
         * Mamba states (..., d_conv|d_inner, d_inner|N): d_inner over
           'model'.
         """
@@ -242,6 +243,10 @@ class ShardingRules:
             elif nd >= 3 and mla_dims and shape[-1] in mla_dims:
                 if shape[-2] % self.model_size == 0:
                     model_axis = nd - 2          # latent window
+            elif (nd >= 4 and mla_dims and shape[-1] == sum(mla_dims)
+                  and shape[-2] == 1):
+                if shape[-3] % self.model_size == 0:
+                    model_axis = nd - 3          # the fused latent window
             elif d_inner and nd >= 2 and shape[-1] == d_inner:
                 model_axis = nd - 1              # mamba conv state
             elif d_inner and nd >= 2 and shape[-2] == d_inner:

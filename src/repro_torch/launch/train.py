@@ -10,8 +10,12 @@ running on the card needs (``--device``, ``--dtype``, ``--layers``):
 
 Without ``--smoke`` the arch's full config is trained, its depth cut to
 ``--layers`` (whole periods for the hybrid) as ``launch.serve`` cuts it.
-``--aot`` lowers and compiles for a TPU mesh in ``repro``; it has no
-counterpart here and exits non-zero.
+``--aot`` traces rank 0's ``train_4k`` step on the production mesh
+(``launch.dryrun.run_dryrun``, no extrapolation; ``--multi-pod`` for 2 x
+16 x 16), as ``repro``'s lowers and compiles it:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch kimi-k2-1t-a32b \\
+      --aot
 """
 from __future__ import annotations
 
@@ -28,8 +32,10 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config, real training")
     ap.add_argument("--aot", action="store_true",
-                    help="AOT lower+compile for the production TPU mesh "
-                    "(not ported: exits non-zero)")
+                    help="trace rank 0's train_4k step on the production "
+                    "mesh (the dry run)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --aot: the 2 x 16 x 16 mesh")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -45,10 +51,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.aot:
-        print("--aot lowers and compiles the train step for a TPU mesh "
-              "(repro.launch.dryrun); the port has no counterpart yet "
-              "(ROADMAP Queue 1A, the dryrun decision)", file=sys.stderr)
-        return 2
+        from repro_torch.launch.dryrun import run_dryrun
+        run_dryrun(args.arch, "train_4k", multi_pod=args.multi_pod,
+                   extrapolate=False)
+        return 0
     if args.smoke and args.layers is not None:
         ap.error("--layers cuts the depth of the full config (no --smoke)")
 

@@ -85,7 +85,7 @@ from repro_torch.models.layers import (cross_entropy_loss, embed_init,
 
 
 
-class _MetaFactories(TorchFunctionMode):
+class MetaFactories(TorchFunctionMode):
     """Tensor factories called with a ``device`` make meta tensors and
     draw nothing, so :meth:`Model.init` under it gives shapes alone."""
 
@@ -95,6 +95,7 @@ class _MetaFactories(TorchFunctionMode):
             kwargs["device"] = "meta"
             kwargs.pop("generator", None)
         return func(*args, **kwargs)
+
 
 class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
@@ -529,17 +530,20 @@ class Model:
             return per * (cfg.num_layers // cfg.hybrid_period)
         return cfg.num_layers - cfg.moe.first_k_dense
 
+    def param_specs(self) -> Dict[str, Any]:
+        """The tree :meth:`init` draws, as ``meta`` tensors of its shapes
+        and dtypes (nothing is allocated or drawn)."""
+        with MetaFactories():
+            return Model(self.cfg, self.dtype, device="cpu").init(0)
+
     def count_params(self) -> int:
         """The number of parameters :meth:`init` draws, from their shapes
         alone (nothing is allocated)."""
-        with _MetaFactories():
-            shapes = Model(self.cfg, self.dtype, device="cpu").init(0)
-
         def count(tree):
             if isinstance(tree, dict):
                 return sum(count(v) for v in tree.values())
             return tree.numel()
-        return count(shapes)
+        return count(self.param_specs())
 
     @staticmethod
     def _last(logits, batch):

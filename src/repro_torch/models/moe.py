@@ -146,14 +146,24 @@ def dispatch_compute_combine(x_flat, weights, phys, alive, gate_w, up_w,
     tok = torch.arange(N, device=x_flat.device) // k
     order, group, slot = group_by_expert(e_id, ok, e_local, cap)
     keep = group < e_local
-    buf = torch.zeros((e_local, cap, D), dtype=x_flat.dtype,
-                      device=x_flat.device)
-    buf[group[keep], slot[keep]] = x_flat[tok[order][keep]]
-    out_buf = experts_compute(gate_w, up_w, down_w, buf)
-    y_sorted = torch.zeros((N, D), dtype=x_flat.dtype, device=x_flat.device)
-    y_sorted[keep] = out_buf[group[keep], slot[keep]]
-    y_flat = torch.empty_like(y_sorted)
-    y_flat[order] = y_sorted
+    # every shape static (no boolean-mask indexing, so nothing waits for
+    # the device): each slot gathers its token row by index (an empty
+    # slot a zero row) and each copy its slot's output; a copy that is not
+    # kept moves only an index, into a spare entry past the slots
+    n_slots = e_local * cap
+    dest = torch.where(keep, group * cap + slot, n_slots)
+    row = torch.full((n_slots + 1,), T, dtype=torch.long,
+                     device=x_flat.device)
+    row = row.scatter_(0, dest, tok[order])[:n_slots]
+    zero = x_flat.new_zeros(())
+    buf = torch.where((row < T)[:, None], x_flat[row.clamp_max(T - 1)],
+                      zero)
+    out_buf = experts_compute(gate_w, up_w, down_w,
+                              buf.view(e_local, cap, D))
+    slot_of = torch.empty_like(dest).scatter_(0, order, dest)
+    y_flat = torch.where((slot_of < n_slots)[:, None],
+                         out_buf.reshape(n_slots, D)[slot_of.clamp_max(
+                             n_slots - 1)], zero)
     return (y_flat.reshape(T, k, D)
             * weights[..., None].to(x_flat.dtype)).sum(dim=1)
 

@@ -29,23 +29,32 @@ def as_leaves(params):
 
 
 def make_train_step(model: Model, opt_cfg: OptimizerConfig,
-                    runtime=None) -> Callable:
+                    runtime=None, *, gather: Optional[Callable] = None,
+                    reduce_grads: Optional[Callable] = None) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``; ``batch`` holds tensors on the model's device.
 
     The MoE runtime is threaded through so a degraded system (masked
     experts after a recovery) can keep serving-consistent fine-tuning, as
-    in ``repro``."""
+    in ``repro``.  ``gather`` / ``reduce_grads`` (both None on one rank)
+    serve a rank that stores its leaves split (``launch.dryrun``):
+    ``gather`` makes the leaves the forward takes from the rank's, and
+    ``reduce_grads`` takes their gradients back to the rank's leaves,
+    which AdamW then updates."""
 
     def train_step(params, opt_state, batch):
-        params = as_leaves(params)
+        leaves_in = as_leaves(params if gather is None else gather(params))
         with torch.enable_grad():
-            loss, metrics = model.loss(params, batch, runtime)
-        keys, leaves = zip(*flatten(params))
+            loss, metrics = model.loss(leaves_in, batch, runtime)
+        keys, leaves = zip(*flatten(leaves_in))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         # a leaf the loss does not reach gets zeros, as under JAX
         grads = unflatten((k, torch.zeros_like(p) if g is None else g)
                           for k, p, g in zip(keys, leaves, grads))
+        if reduce_grads is not None:
+            grads = reduce_grads(grads)
+        else:
+            params = leaves_in
         params, opt_state, opt_metrics = adamw_update(
             opt_cfg, grads, opt_state, params)
         metrics = {k: v.detach() for k, v in metrics.items()}

@@ -2,7 +2,20 @@
 parity against JAX in test_torch_kernels.py, kernel against plain version
 on the card in test_torch_cuda.py).  Imports neither JAX nor a card."""
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread for a module's tests (a module imports this
+    fixture to use it): the suite runs 6 workers on a few cores, and an
+    8-thread pool under that load made a smoke ``index_add_`` thousands
+    of times slower than one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def t(a):

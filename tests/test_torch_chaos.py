@@ -18,6 +18,7 @@ import pytest
 from test_torch_fleet_cases import (JAX, PROMPT, TORCH, both, fleet_cfg,
                                     fleet_ecfg, fleet_record, make_dirs,
                                     profile)
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 TOPO = {                                     # tests/test_chaos.py:25
     0: {"model_id": "a", "groups": {"attn": [0, 1], "moe": [2, 3]}},

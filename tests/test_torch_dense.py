@@ -45,6 +45,7 @@ from repro_torch.training import checkpoint as ckpt
 from test_torch_cases import t as _t
 from test_torch_mla import _run
 from test_torch_model import BS, NUM_BLOCKS, TRASH
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 LOGIT_TOL = 2e-4                 # tests/test_paged_serving.py:180

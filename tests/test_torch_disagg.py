@@ -66,6 +66,7 @@ from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.weights_util import (
     load_expert_shard_from_checkpoint, save_shard_checkpoints)
 from repro_torch.training import checkpoint as ckpt
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 QWEN, MLA, KIMI = "qwen2-moe-a2.7b", "deepseek-v3", "kimi-k2-1t-a32b"
 VIRTUAL_STEP_S = 0.01

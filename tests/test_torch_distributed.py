@@ -50,6 +50,7 @@ import repro_torch.distributed.collectives as pt_coll
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.model import Model
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "test_torch_dist_worker.py"
@@ -61,14 +62,6 @@ GRAD_SCALE_TOL = 1e-5        # of each leaf's largest |gradient|
 NO_DROPS = 100.0             # the capacity factor at which nothing drops
 RING_STEPS = 6
 WORLD = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(impl, capacity_factor=None, aux_loss_coef=None):

@@ -38,6 +38,7 @@ from repro_torch.core.fault_codes import Severity
 from repro_torch.core.weights import RecoveryPolicy
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.sampling import SamplingParams
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 MLA = "deepseek-v3"
 CASES = {

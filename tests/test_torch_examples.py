@@ -33,21 +33,11 @@ import repro.fleet as jax_fleet
 import repro.serving.request as jax_request
 import repro_torch.serving.request as torch_request
 from repro.serving.engine import EngineConfig as JaxEngineConfig
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 # the one regex that strips times before lines are compared
 TIMES = re.compile(r"(?<=engine up: ).*|\s*\d+(?:\.\d+)?m?s\b")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The suite runs several workers on a few cores: the port's small
-    CPU ops run on one thread each, so no worker waits on another's
-    thread pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _load(name):

@@ -20,6 +20,7 @@ import pytest
 from test_torch_fleet_cases import (JAX, PROMPT, SIDES, TORCH, both,
                                     fleet_cfg, fleet_ecfg, fleet_record,
                                     make_dirs, profile)
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ from test_torch_fleet_cases import (JAX, PROMPT, TORCH, both, fleet_cfg,
 from repro_torch.serving.weights_util import (
     expert_leaves, load_expert_shard_from_checkpoint)
 from repro_torch.training.checkpoint import flatten, load_axis1_slices
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

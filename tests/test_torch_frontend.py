@@ -41,6 +41,7 @@ import repro.serving.frontend as jax_frontend
 import repro_torch.serving.frontend as torch_frontend
 from test_torch_fleet_cases import (JAX, PROMPT, SIDES, TORCH, fleet_cfg,
                                     fleet_ecfg, make_dirs, profile)
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 FRONTENDS = {JAX.name: jax_frontend, TORCH.name: torch_frontend}
 TIMEOUT_S = 120

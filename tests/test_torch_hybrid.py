@@ -32,6 +32,7 @@ from repro_torch.serving import cache_ops
 from repro_torch.serving.kvcache import build_page_context, padded_block_ids
 from repro_torch.training import checkpoint as ckpt
 from test_torch_cases import t as _t
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 ARCH = "jamba-1.5-large-398b"
 PREFILL_TOL = 1e-4

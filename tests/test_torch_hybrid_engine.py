@@ -42,6 +42,7 @@ from repro.serving.engine import InferenceEngine as JaxEngine
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.fault_codes import Severity
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 ARCH = "jamba-1.5-large-398b"
 VIRTUAL_STEP_S = 0.01

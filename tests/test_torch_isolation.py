@@ -42,7 +42,11 @@ def test_the_file_list_covers_the_port():
     paths = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"src/repro_torch/distributed/collectives.py",
             "src/repro_torch/distributed/sharding.py",
-            "src/repro_torch/launch/mesh.py"} <= paths
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/specs.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/dryrun_all.py",
+            "src/repro_torch/hardware.py"} <= paths
     assert len(FILES) > 60
 
 

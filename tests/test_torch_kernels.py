@@ -25,6 +25,7 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
 from repro_torch.models import moe as pt_moe
 from test_torch_cases import (MOE_FUSED_GRID, PAGED_CASES, moe_inputs,
                          paged_inputs, t as _t)
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 # tests/test_kernels.py:70 and :135 — f32 parity of kernel vs oracle
 RTOL, ATOL = 1e-4, 1e-5

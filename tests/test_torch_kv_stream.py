@@ -34,6 +34,7 @@ from repro_torch.models.model import Model
 from repro_torch.serving import cache_ops
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.kvcache import build_page_context
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 ARCHES = ("qwen2-moe-a2.7b", "deepseek-v3", "falcon-mamba-7b",
           "jamba-1.5-large-398b")

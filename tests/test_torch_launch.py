@@ -25,6 +25,7 @@ import torch
 
 from repro.launch import serve as jax_serve
 from repro_torch.launch import serve
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 # timing-free options of the single-engine run both launchers get

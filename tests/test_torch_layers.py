@@ -16,6 +16,7 @@ from repro.models import layers as jax_layers
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import ffn as pt_ffn
 from repro_torch.models import layers as pt_layers
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

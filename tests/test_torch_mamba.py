@@ -39,6 +39,7 @@ from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.training import checkpoint as ckpt
 from test_torch_cases import SSM_CASES, ssm_inputs, t as _t
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 ARCH = "falcon-mamba-7b"
 # tests/test_kernels.py:89 in f32; bf16 inputs, f32 state and output

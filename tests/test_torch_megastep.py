@@ -52,6 +52,7 @@ from repro_torch.training import checkpoint as ckpt
 from test_torch_cases import (DEPLOY, MEGASTEP_CASES, ROUTER_CASES,
                               megastep_inputs, router_inputs)
 from test_torch_model import BS, NUM_BLOCKS, TRASH, _port_params, _steps
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 TOL = 2e-4           # tests/test_decode_megakernel.py:103
 ROUTER_RTOL = 2e-5

@@ -34,6 +34,7 @@ from repro_torch.serving.executor import next_bucket
 from repro_torch.training import checkpoint as ckpt
 from test_torch_cases import FLASH_DV_CASES, flash_inputs, t as _t
 from test_torch_model import BS, NUM_BLOCKS, TRASH, _steps
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 ARCH = "deepseek-v3"
 TOL = 1e-4

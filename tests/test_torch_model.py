@@ -26,6 +26,7 @@ from repro_torch.core.graph_cache import GraphCache
 from repro_torch.models.model import Model
 from repro_torch.serving import cache_ops, weights_util
 from repro_torch.training import checkpoint as ckpt
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 BS, NUM_BLOCKS = 4, 12          # pools hold one more: the trash block
 MAX_BLK = 4

@@ -32,6 +32,7 @@ from repro_torch.training import checkpoint as ckpt
 from test_torch_ring import (TOL, assert_cache_close,
                              assert_logits_close, both, carry, make_batch,
                              serve_both)
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 VLM, AUDIO = "internvl2-26b", "seamless-m4t-large-v2"
 

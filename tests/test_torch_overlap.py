@@ -28,6 +28,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.fault_codes import ErrorType, Severity
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.sampling import SamplingParams
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 QWEN, MLA = "qwen2-moe-a2.7b", "deepseek-v3"
 PAT_A = [5, 9, 2, 7]

@@ -34,6 +34,7 @@ from repro_torch.serving import cache_ops
 from repro_torch.serving.executor import next_bucket
 from repro_torch.training import checkpoint as ckpt
 from test_torch_cases import t as _t
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 # tests/test_kernels.py:52 and :237 — kernel vs oracle tolerances
 FFN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}

@@ -29,6 +29,7 @@ from repro_torch.configs import ALL_ARCHS, get_smoke_config
 from repro_torch.models import attention as A
 from repro_torch.models.model import Model
 from repro_torch.training import checkpoint as ckpt
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 LOGIT_TOL = 2e-4                 # tests/test_paged_serving.py:180

@@ -28,8 +28,9 @@ from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.distributed import collectives as pt_coll
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.launch.mesh import MeshLayout, dp_axes, make_production_mesh
-from repro_torch.models.model import _MetaFactories
+from repro_torch.models.model import MetaFactories
 from repro_torch.models.model import Model
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 MESHES = {"16x16": False, "2x16x16": True}
 BATCHES = (1, 16, 32, 48)
@@ -100,7 +101,7 @@ def test_production_layouts():
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_port_params_have_repros_keys_and_shapes(arch, param_shapes):
-    with _MetaFactories():
+    with MetaFactories():
         tree = Model(get_config(arch), device="cpu").init(0)
     got = {keys: tuple(t.shape) for keys, t in _flat(tree)}
     want = {keys: tuple(leaf.shape) for keys, leaf in param_shapes(arch)}

@@ -43,6 +43,7 @@ from repro_torch.serving.cache_ops import (capture_pool_rows,
 from repro_torch.serving.engine import EngineConfig, InferenceEngine, _Ctx
 from repro_torch.serving.sampling import (SamplingParams, device_predict,
                                           sample, spec_verify)
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 QWEN, MLA = "qwen2-moe-a2.7b", "deepseek-v3"
 PAT_A = [5, 9, 2, 7]

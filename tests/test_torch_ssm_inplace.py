@@ -22,6 +22,7 @@ from repro_torch.models import mamba as pt_mamba
 from repro_torch.models.model import Model
 from repro_torch.training import checkpoint as ckpt
 from test_torch_cases import ssm_inputs, t as _t
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 ARCH = "falcon-mamba-7b"
 BLOCK_TOL = 1e-4                 # tests/test_torch_mamba.py

@@ -56,22 +56,12 @@ from repro_torch.training import data as pt_data
 from repro_torch.training import optimizer as pt_opt
 from repro_torch.training.checkpoint import flatten, load_params
 from repro_torch.training.train_loop import as_leaves, train
+from test_torch_cases import one_torch_thread  # noqa: F401
 
 # the gradients: |port - jax| <= ATOL * (the leaf's largest |g|) + RTOL *
 # |g|; f32 sums in other orders through a few layers
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 TRAIN_RTOL = 1e-4            # the 3-step histories and final params
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The suite runs several workers on a few cores: the port's small
-    CPU ops run on one thread each, so no worker waits on another's
-    thread pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):
@@ -655,10 +645,22 @@ def test_launch_train_cpu(capsys):
     assert math.isfinite(float(lines[-1].split(":")[1]))
 
 
-def test_launch_train_needs_a_device_and_refuses_aot(capsys):
+def test_launch_train_needs_a_device_and_refuses_aot(monkeypatch):
+    """Without a card and without --device cpu the launcher raises; --aot
+    runs the dry run's train_4k trace (``launch.dryrun.run_dryrun``, no
+    extrapolation, as repro's launcher) and exits 0."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_train.main(["--arch", "qwen2-moe-a2.7b", "--smoke",
                                "--steps", "1"])
-    assert launch_train.main(["--arch", "qwen2-moe-a2.7b", "--aot"]) != 0
-    assert "TPU mesh" in capsys.readouterr().err
+    from repro_torch.launch import dryrun
+    calls = []
+    monkeypatch.setattr(dryrun, "run_dryrun",
+                        lambda *a, **kw: calls.append((a, kw)) or {})
+    assert launch_train.main(["--arch", "kimi-k2-1t-a32b", "--aot"]) == 0
+    assert launch_train.main(["--arch", "qwen2-moe-a2.7b", "--aot",
+                              "--multi-pod"]) == 0
+    assert calls == [(("kimi-k2-1t-a32b", "train_4k"),
+                      dict(multi_pod=False, extrapolate=False)),
+                     (("qwen2-moe-a2.7b", "train_4k"),
+                      dict(multi_pod=True, extrapolate=False))]
