@@ -12,6 +12,7 @@
     python3 chip_smoke.py --paths composed,fleet  # revive, spare, restart
     python3 chip_smoke.py --paths vlm,audio  # the ring serve step
     python3 chip_smoke.py --paths train,examples  # training; the twins
+    python3 chip_smoke.py --paths train_ssm  # Mamba and hybrid training
     python3 chip_smoke.py --paths dist    # the distributed MoE layer
     python3 chip_smoke.py --paths dryrun  # the dry run held to the card
     python3 chip_smoke.py --paths mla_composed,mla_megakernel,mla_serial
@@ -21,7 +22,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  — require CUDA, print the card's name and power limit, turn
              TF32 off for matmuls and cuDNN.
-2. build   — compile the nine CUDA kernels from
+2. build   — compile the ten CUDA kernels from
              ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
              parallel) into ``build/kernels``.
 3. kernels — each kernel against its plain PyTorch version on the card, at
@@ -83,7 +84,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              and its sort pass, the megastep at B = 8 and 40 also beside
              the composed chain of the same block), and beside a library
              call where one computes the same function.  Last the
-             two backward kernels (new in the port) against their
+             three backward kernels (new in the port) against their
              written-out plain versions, f32 and bf16, each twice and
              bitwise equal: flash_prefill_bwd at qwen2-moe-a2.7b's
              training shape (B 4, S 256, H = Hkv = 16, Dh 128, causal),
@@ -91,7 +92,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              / Dv 128 (H 128); expert_ffn_bwd over the training step's
              capacity buffer (E 64, C 80, D 2048, F 1408) with empty
              rows; timed beside ``torch.autograd.grad`` through
-             ``scaled_dot_product_attention`` and the bmm chain.
+             ``scaled_dot_product_attention`` and the bmm chain;
+             ssm_scan_bwd at falcon-mamba-7b's training shape (B 4, S
+             256, d_inner 8192, N 16), at S 200 with h_final's gradient
+             and at Jamba's d_inner 16384, timed beside its bound and
+             plain version (no library call computes it).
 4. model   — qwen2-moe-a2.7b at full width, 2 layers, f32: one chunk step
              and one decode step on the card against the same weights on
              the CPU (plain versions), once per decode implementation
@@ -135,11 +140,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              admission (whole-prompt prefills) with the model's
              dense-scatter MoE.  Then the same three paths for deepseek-v3
              (``mla_composed``, ``mla_megakernel``, ``mla_serial``) at full
-             width, depth cut from 61 to its 3 dense + 1 MoE layers (a ~33
-             GB ``weights.npz``).  Then the ``ssm`` path: falcon-mamba-7b
-             at full width cut to 16 of its 64 layers (no shards), whose
-             chunked admission falls back to whole-prompt installs.  Then
-             the ``hybrid`` path: one period (8 sublayers) of
+             width, depth cut from 61 to 1 of its 3 dense layers + 1 MoE
+             layer (a ~31 GB ``weights.npz``).  Then the ``ssm`` path:
+             falcon-mamba-7b at full width cut to 16 of its 64 layers (no
+             shards), whose chunked admission falls back to whole-prompt
+             installs.  Then the ``hybrid`` path: one period (8 sublayers) of
              jamba-1.5-large-398b at full width, its bank cut from 16 +
              16 to 4 + 0 experts a MoE sublayer with top-2 kept (a 32.5
              GB ``weights.npz``), the fused MoE, whole-prompt installs of
@@ -228,7 +233,14 @@ Phases, in order; any failure raises and the script exits non-zero:
              peak card memory and the final params' largest relative
              difference,
              then runs ``python -m repro_torch.launch.train`` (the same
-             model, 3 steps) in a child process.  The ``examples`` path
+             model, 3 steps) in a child process.  The ``train_ssm`` path
+             does the same for falcon-mamba-7b at full width cut to 4 of
+             its 64 layers (0.958 B parameters), through ssm_scan and
+             its backward kernel (a launch of each a layer and step),
+             its launcher ``--arch falcon-mamba-7b --layers 4``, and then
+             for the smoke jamba-1.5-large-398b period, whose attention,
+             seven Mamba and four gather_psum MoE sublayers run all three
+             backward kernels in one model.  The ``examples`` path
              runs the four ``examples/*_torch.py`` twins with ``--device
              cuda`` in child processes at once; each must exit 0 with
              its OK line (``train_moe_torch.py`` after its own "did not
@@ -269,7 +281,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              prints its start-up files, its memory on the card and the
              host's MemTotal and MemAvailable.
 6. a ``{"kernels": [...]}`` line (each kernel's row at the qwen or
-   falcon shapes, the backward kernels' at the train path's in f32 with
+   falcon shapes, the backward kernels' at the train paths' in f32 with
    their bf16 row under ``bf16``, with its deepseek-v3 rows under ``mla``, the dense
    family's under ``dense``, Jamba's under ``hybrid`` and the ring serve
    step's under ``ring``; its launches
@@ -322,6 +334,8 @@ KERNEL_META = {
                           "src/repro/models/attention.py:78"),
     "expert_ffn_bwd": ("src/repro_torch/kernels/csrc/expert_ffn_bwd.cu",
                        "src/repro/models/moe.py:163"),
+    "ssm_scan_bwd": ("src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+                     "src/repro/models/mamba.py:90"),
 }
 # the engine paths each kernel runs on; its launches are counted there
 # (the megakernel paths run paged_attention too: MLA's first-k dense
@@ -341,9 +355,10 @@ KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
                               "dryrun"),
                "flash_prefill": ("serial", "mla_serial", "hybrid", "vlm",
                                  "audio", "train", "dist", "dryrun"),
-               "ssm_scan": ("ssm", "hybrid"),
+               "ssm_scan": ("ssm", "hybrid", "train_ssm"),
                "flash_prefill_bwd": ("train",),
-               "expert_ffn_bwd": ("train",)}
+               "expert_ffn_bwd": ("train",),
+               "ssm_scan_bwd": ("train_ssm",)}
 IMPLS = ("composed", "megakernel")
 # the engine paths: EngineConfig options of each.  ``ssm`` serves
 # falcon-mamba-7b, whose chunked admission falls back to whole-prompt
@@ -368,7 +383,9 @@ IMPLS = ("composed", "megakernel")
 # a2.7b at full width, TRAIN_LAYERS deep, in f32, then the launcher
 # (``python -m repro_torch.launch.train``) in a child process;
 # ``examples`` runs the four ``examples/*_torch.py`` twins on the card,
-# each in a child process.
+# each in a child process.  ``train_ssm`` is ``train`` for the Mamba
+# family: falcon-mamba-7b at full width, TRAIN_SSM_LAYERS deep, then the
+# smoke jamba-1.5-large-398b period through all three backward kernels.
 PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "megakernel": dict(moe_impl="fused", decode_impl="megakernel"),
          "serial": dict(admission="serial", decode_impl="composed"),
@@ -389,13 +406,14 @@ PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "http": dict(mode="collocated", overlap=True),
          "hybrid": dict(moe_impl="fused", decode_impl="composed"),
          "vlm": dict(), "audio": dict(), "train": dict(), "examples": dict(),
-         "dist": dict(), "dryrun": dict()}
+         "dist": dict(), "dryrun": dict(), "train_ssm": dict()}
 QWEN_ARCH = "qwen2-moe-a2.7b"
 DENSE_ARCHS = ("internlm2-20b", "minicpm3-4b")
 PATH_ARCH = {"ssm": "falcon-mamba-7b", "mla_composed": "deepseek-v3",
              "mla_megakernel": "deepseek-v3", "mla_serial": "deepseek-v3",
              "dense": "internlm2-20b", "hybrid": "jamba-1.5-large-398b",
-             "vlm": "internvl2-26b", "audio": "seamless-m4t-large-v2"}
+             "vlm": "internvl2-26b", "audio": "seamless-m4t-large-v2",
+             "train_ssm": "falcon-mamba-7b"}
 # card-vs-plain tolerances (allclose: |got - want| <= atol + rtol |want|).
 # f32: both accumulate in f32 in different orders.  bf16: the plain
 # versions round intermediates to bf16 where the kernels keep f32 (the
@@ -426,9 +444,17 @@ ENGINE_LAYERS = 24            # qwen2-moe-a2.7b's full depth
 # went to its three 24-layer builds, a 30 GB start-up write and a 24-layer
 # restart); it now shares the qwen group's depth and weights.npz.  The
 # group ran 8 layers from PR 20 until the ring paths came (that whole run
-# took 1,137 s of the limit on the H100's host); 6 keep the margin.  The
-# paths named here keep their own depth (and workdir)
+# took 1,137 s of the limit on the H100's host); 6 keep the margin.  4
+# saved too little for what they cost (the group's first seven paths took
+# 130.5 s against 153.4 s at 6 on the same host), and there the overlap
+# path's f32 greedy speculation accepted no draft, which its check needs.
+# The paths named here keep their own depth (and workdir)
 COLLOCATED_LAYERS = 6
+# deepseek-v3's engine paths: 1 of its 3 first-k dense layers and 1 MoE
+# layer, whose experts alone are 25.4 GB of bf16; the two dense layers
+# cut are 2.3 GB of the weights.npz that the group writes once and its
+# three builds read (~1 GB/s on the H100's host)
+MLA_DENSE_LAYERS = 1
 # internlm2-20b cut from 48 layers: ~0.78 GB of bf16 a layer plus 2.3 GB
 # of embedding and head, ~8.5 GB of weights.npz at 8
 DENSE_LAYERS = 8
@@ -446,11 +472,14 @@ AUDIO_LAYERS = 24
 # parameters, whose f32 params, grads and AdamW moments are ~29 GB (the
 # examples path shares its group: the twins run smoke configs)
 TRAIN_LAYERS = 2
+# falcon-mamba-7b cut to 4 of 64 layers for the train_ssm path: 0.958 B
+# parameters, ~15.3 GB in f32 with grads and AdamW moments
+TRAIN_SSM_LAYERS = 4
 PATH_LAYERS = {"dense": DENSE_LAYERS, "ssm": SSM_LAYERS,
                "hybrid": HYBRID_LAYERS, "vlm": VLM_LAYERS,
                "audio": AUDIO_LAYERS, "train": TRAIN_LAYERS,
                "examples": TRAIN_LAYERS, "dist": TRAIN_LAYERS,
-               "dryrun": TRAIN_LAYERS}
+               "dryrun": TRAIN_LAYERS, "train_ssm": TRAIN_SSM_LAYERS}
 # the ring paths' workloads: rows, each row's text tokens (drawn from
 # the range), the rings' slots (max_seq); each row feeds 32 greedy tokens
 # through 32 decode steps
@@ -486,6 +515,10 @@ SHAPES = dict(max_batch=8, chunk=32, block_size=16, num_blocks=256,
               max_blk=512 // 16, d_model=2048, d_ff=1408, top_k=4, cap=8)
 
 
+# time_ms: a call slower than this, in ms, is timed over SLOW_REPS calls
+SLOW_CALL_MS, SLOW_REPS = 10.0, 5
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -497,9 +530,21 @@ def time_ms(torch, fn, reps: int = 25) -> float:
     evicts the 50 MB L2 (the serving path finds its operands cold).  A
     ~2 ms device sleep ahead of each call keeps the stream busy while the
     host enqueues it, so the events time the device work, not the host's
-    launch overhead (``fn`` must not synchronise)."""
+    launch overhead (``fn`` must not synchronise).  A call slower than
+    SLOW_CALL_MS on its second warm-up (mostly a plain version's) is
+    timed over SLOW_REPS calls: 28 calls of each 60 ms plain version
+    cost the kernels phase ~20 s of the time limit."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    if a.elapsed_time(b) > SLOW_CALL_MS:
+        reps = min(reps, SLOW_REPS)
+    else:
         fn()
     times = []
     for _ in range(reps):
@@ -513,6 +558,18 @@ def time_ms(torch, fn, reps: int = 25) -> float:
         times.append((a, b))
     torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(b) for a, b in times]))
+
+
+def laps(phase: str):
+    """A function that logs, under a name, the seconds since its last call
+    (or since this one): where a phase's share of the time limit goes."""
+    last = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        log(f"  [{phase} {what}: {now - last[0]:.1f} s]")
+        last[0] = now
+    return lap
 
 
 def kernel_breakdown(torch, fn, reps: int = 20):
@@ -723,6 +780,7 @@ def phase_kernels(torch, shapes):
     from repro_torch.kernels.moe_fused import moe_fused_cuda, moe_fused_plain
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                      paged_attention_plain)
+    lap = laps("kernels")
     S = shapes
     out = {}
     f32, bf16 = torch.float32, torch.bfloat16
@@ -836,20 +894,26 @@ def phase_kernels(torch, shapes):
     del timed, args
     gc.collect()
     torch.cuda.empty_cache()
+    lap("paged_attention, moe_fused")
     out["router_topk"] = kernels_router(torch)
+    lap("router_topk")
     out["decode_megastep"] = kernels_megastep(torch, shapes)
+    lap("decode_megastep")
     out["expert_ffn"] = kernels_expert_ffn(torch)
+    lap("expert_ffn")
     out["flash_prefill"] = kernels_flash_prefill(torch)
+    lap("flash_prefill")
     out["ssm_scan"] = kernels_ssm_scan(torch)
+    lap("ssm_scan")
     out.update(kernels_backward(torch))
-    for name, rows in kernels_mla(torch, shapes).items():
-        out[name]["mla"] = rows
-    for name, rows in kernels_dense(torch, shapes).items():
-        out[name]["dense"] = rows
-    for name, rows in kernels_hybrid(torch, shapes).items():
-        out[name]["hybrid"] = rows
-    for name, rows in kernels_ring(torch).items():
-        out[name]["ring"] = rows
+    lap("backward")
+    for layouts, fn in (("mla", lambda: kernels_mla(torch, shapes)),
+                        ("dense", lambda: kernels_dense(torch, shapes)),
+                        ("hybrid", lambda: kernels_hybrid(torch, shapes)),
+                        ("ring", lambda: kernels_ring(torch))):
+        for name, rows in fn().items():
+            out[name][layouts] = rows
+        lap(layouts)
     for name, r in out.items():
         _log_row(name, r)
     return out
@@ -2345,6 +2409,16 @@ FLASH_BWD_SHAPES = (
 # qwen2-moe-a2.7b, C = 80 (4 x 256 tokens, top-4, capacity factor 1.25),
 # the rows from EMPTY_FROM on empty in every expert (dropped copies)
 FFN_BWD = dict(E=64, C=80, EMPTY_FROM=70)
+# ssm_scan_bwd's cases: (name, B, S, d_inner, with h_final's gradient),
+# N 16; the first is the train_ssm path's shape (falcon-mamba-7b, B 4, S
+# 256), timed; S 200 is not a multiple of the kernel's 32-step chunk
+SSM_BWD_SHAPES = (
+    ("falcon train", 4, 256, FALCON["d_inner"], False),
+    ("falcon S=200 with dh", 2, 200, FALCON["d_inner"], True),
+    ("jamba d=16384", 4, 256, 2 * FALCON["d_inner"], False))
+# f32 operations per (row, step, channel, state): the forward's step
+# recomputed (6, the exp counted once) and the reverse step (18)
+SSM_BWD_OPS = 24
 
 
 def _scaled_err(name, got, want, dn):
@@ -2385,14 +2459,82 @@ def ffn_bwd_bound_ms(E, C, live, D, Fd, el, dn):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
+def ssm_bwd_bound_ms(args, dy, dh):
+    """Bytes: u, dt, A, B, C, dy (and dh) read once, du, ddt, dA, dB and
+    dC written once; operations: SSM_BWD_OPS f32 operations per (row,
+    step, channel, state)."""
+    u, _, A, _, _ = args
+    B, S, d = u.shape
+    N = A.shape[1]
+    el = u.element_size()
+    nbytes = (2 * (2 * B * S * d * el + 2 * B * S * N * el + d * N * 4)
+              + dy.numel() * 4 + (0 if dh is None else dh.numel() * 4))
+    flops = SSM_BWD_OPS * B * S * d * N
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def kernels_ssm_bwd(torch):
+    """ssm_scan_bwd against its written-out plain version on the card at
+    SSM_BWD_SHAPES, f32 (BWD_TOL 1e-4 of each gradient's scale) and bf16
+    (2e-2), each run twice and bitwise equal; timed at the train_ssm
+    path's shape beside its bound and the plain version (no library call
+    computes a selective scan's gradient)."""
+    from repro_torch.kernels.ssm_scan import (ssm_scan_bwd_cuda,
+                                              ssm_scan_bwd_plain)
+    log("kernels: ssm_scan_bwd vs ssm_scan_bwd_plain on the card (N 16)")
+    N = FALCON["N"]
+    errs, rows = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for i, (name, B, S, d, with_dh) in enumerate(SSM_BWD_SHAPES):
+            args = ssm_case(torch, B, S, with_h0=False, dtype=dtype,
+                            seed=60 + i, d=d)[:5]
+            gen = torch.Generator(device="cuda").manual_seed(70 + i)
+            dy = torch.randn((B, S, d), generator=gen, device="cuda")
+            dh = (torch.randn((B, d, N), generator=gen, device="cuda")
+                  if with_dh else None)
+            got = ssm_scan_bwd_cuda(*args, dy, dh)
+            again = ssm_scan_bwd_cuda(*args, dy, dh)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"ssm_scan_bwd {name}: not bitwise "
+                                     f"equal run to run")
+            want = ssm_scan_bwd_plain(*args, dy, dh)
+            for gname, g, w, x in zip(("du", "ddt", "dA", "dB", "dC"), got,
+                                      want, args):
+                if g.dtype != x.dtype:
+                    raise AssertionError(f"ssm_scan_bwd {gname}: {g.dtype}")
+                errs.append(_scaled_err(f"{name} B={B} S={S} {gname} {dn}",
+                                        g, w, dn))
+            del got, again, want
+            if i:
+                continue
+            rows[dn] = _row(
+                errs, time_ms(torch, lambda: ssm_scan_bwd_cuda(*args, dy)),
+                time_ms(torch, lambda: ssm_scan_bwd_plain(*args, dy)),
+                ssm_bwd_bound_ms(args, dy, None),
+                f"B={B} S={S} d={d} N={N} {dn} (library: none, no PyTorch "
+                f"call computes a selective scan's gradient)")
+            log(f"  ssm_scan_bwd's kernels in {dn} (torch.profiler, mean of "
+                f"20 calls, L2 warm):")
+            for us, key in kernel_breakdown(
+                    torch, lambda: ssm_scan_bwd_cuda(*args, dy)):
+                log(f"    {us:9.2f} us  {key[:90]}")
+        del args, dy, dh
+        _free(torch)
+    return dict(rows["float32"], bf16=rows["bfloat16"])
+
+
 def kernels_backward(torch):
-    """The two backward kernels (new in the port: repro differentiates its
-    jnp functions) against their written-out plain versions on the card,
-    in f32 (BWD_TOL 1e-4 of each gradient's scale) and bf16 (2e-2), each
-    run twice and bitwise equal: flash_prefill_bwd at FLASH_BWD_SHAPES,
-    expert_ffn_bwd at FFN_BWD with empty rows (their gradients zero).
-    Timed at the train path's shapes in f32 (its type) and bf16, beside
-    the bound and ``torch.autograd.grad`` of the same output through
+    """The three backward kernels (new in the port: repro differentiates
+    its jnp functions and its lax.scan) against their written-out plain
+    versions on the card, in f32 (BWD_TOL 1e-4 of each gradient's scale)
+    and bf16 (2e-2), each run twice and bitwise equal: flash_prefill_bwd
+    at FLASH_BWD_SHAPES, expert_ffn_bwd at FFN_BWD with empty rows (their
+    gradients zero), ssm_scan_bwd at SSM_BWD_SHAPES.  Timed at the train
+    paths' shapes in f32 (their type) and bf16, beside the bound and
+    ``torch.autograd.grad`` of the same output through
     ``scaled_dot_product_attention`` and through the ``silu(bmm) * bmm``
     then ``bmm`` chain (their backward alone: the graph is kept)."""
     import torch.nn.functional as F
@@ -2493,7 +2635,9 @@ def kernels_backward(torch):
         del x, g, u, d, dy, ts, y_lib
         _free(torch)
     out["expert_ffn_bwd"] = dict(rows["float32"], bf16=rows["bfloat16"])
+    out["ssm_scan_bwd"] = kernels_ssm_bwd(torch)
     for name, r in out.items():
+        _log_row(name, r)
         _log_row(name + " (bf16)", r["bf16"])
     return out
 
@@ -2510,9 +2654,11 @@ def phase_model(torch, seed):
     6) and minicpm3-4b (MLA, Da 288)."""
     import dataclasses
     from repro_torch.configs import get_config
+    lap = laps("model")
     model_moe(torch, dataclasses.replace(
         get_config(QWEN_ARCH), num_layers=2, moe_impl="fused"), seed,
         "qwen2-moe-a2.7b full width, 2 layers")
+    lap(QWEN_ARCH)
     ds = get_config("deepseek-v3")
     # a 288-expert f32 layer is 50.7 GB: this phase alone cuts the bank
     # (its routing keeps top-8); every width stays
@@ -2529,9 +2675,13 @@ def phase_model(torch, seed):
               f"dense + 1 MoE), bank cut from {ds.moe.num_experts} + "
               f"{ds.moe.num_redundant_experts} to 16 + 4 experts, top-"
               f"{ds.moe.top_k} kept")
+    lap("deepseek-v3")
     model_ssm(torch, seed)
+    lap("falcon-mamba-7b")
     model_hybrid(torch, seed)
+    lap("jamba-1.5-large-398b")
     model_ring(torch, seed)
+    lap("ring")
     for arch in DENSE_ARCHS:
         cfg = get_config(arch)
         heads = (f"{cfg.num_heads} MLA heads, latent "
@@ -2542,27 +2692,24 @@ def phase_model(torch, seed):
         model_moe(torch, dataclasses.replace(cfg, num_layers=2), seed,
                   f"{arch} full width (d_model {cfg.d_model}, {heads}, "
                   f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), 2 layers, "
-                  f"dense", impls=("composed",), init_on="cuda")
+                  f"dense", impls=("composed",))
+        lap(arch)
 
 
-def model_moe(torch, base, seed, what, impls=IMPLS, init_on="cpu"):
+def model_moe(torch, base, seed, what, impls=IMPLS):
     """One attention+MoE (or dense) config, card against CPU: a chunk step
     and a decode step per decode implementation of ``impls``, then the
-    serial prefill.  ``init_on``: where the f32 weights are drawn (then
-    copied to the other side); a dense model's are drawn on the card,
-    since 2 full-width internlm2-20b layers are 7.3 GB of draws."""
+    serial prefill.  The f32 weights are drawn on the card and copied to
+    the CPU: drawn on the CPU, qwen2-moe-a2.7b's took 14.2 s and
+    deepseek-v3's 27.2 s of the time limit on the H100's host."""
     import dataclasses
     from repro_torch.kernels import launches
     from repro_torch.models.model import Model
     bs, nblk, max_blk, width, batch = 16, 16, 4, 32, 8
     trash = nblk
     t0 = time.perf_counter()
-    if init_on == "cpu":
-        p_cpu = Model(base, torch.float32, device="cpu").init(seed)
-        p_card = _map(p_cpu, lambda t: t.to("cuda"))
-    else:
-        p_card = Model(base, torch.float32, device="cuda").init(seed)
-        p_cpu = _map(p_card, lambda t: t.cpu())
+    p_card = Model(base, torch.float32, device="cuda").init(seed)
+    p_cpu = _map(p_card, lambda t: t.cpu())
     log(f"model: {what}, f32; weights from seed {seed} in "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
@@ -2757,8 +2904,8 @@ def model_ssm(torch, seed):
     batch, nblk, bs, slot, n = 8, 4, 16, 2, 200
     bucket = next_bucket(n, 512)
     t0 = time.perf_counter()
-    p_cpu = Model(cfg, torch.float32, device="cpu").init(seed)
-    p_card = _map(p_cpu, lambda t: t.to("cuda"))
+    p_card = Model(cfg, torch.float32, device="cuda").init(seed)
+    p_cpu = _map(p_card, lambda t: t.cpu())
     log(f"model: falcon-mamba-7b full width, 2 layers, f32; weights from "
         f"seed {seed} in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed + 2)
@@ -3188,6 +3335,7 @@ def phase_engine(torch, seed, layers, paths, profile=False):
     for p in paths:
         group_of[p] = (PATH_ARCH.get(p, QWEN_ARCH), PATH_LAYERS.get(p, layers))
         groups.setdefault(group_of[p], []).append(p)
+    lap = laps("engine")
     for (arch, depth), group in groups.items():
         workdir = ROOT / "build" / f"smoke_engine_{arch}_{depth}"
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3210,8 +3358,10 @@ def phase_engine(torch, seed, layers, paths, profile=False):
                 for k, v in path_counts.items():
                     counts[k] = counts.get(k, 0) + v
                     by_path.setdefault(k, {})[path] = v
+                lap(f"path {path}")
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
+        lap(f"{arch} at {depth} layers: workdir removed")
     for path, (clean, fault) in rates.items():
         log(f"engine {path}: decode tokens/s "
             f"{clean['decode_tok_s']:.3f} without the fault, "
@@ -3240,9 +3390,10 @@ def phase_engine(torch, seed, layers, paths, profile=False):
 
 def engine_config(arch, layers):
     """qwen2-moe-a2.7b at full width and depth ``layers``; deepseek-v3 at
-    full width with its depth cut from 61 to its 3 dense layers and 1 MoE
-    layer; falcon-mamba-7b, internlm2-20b and jamba-1.5-large-398b at full
-    width and depth ``layers`` (Jamba's bank cut to HYBRID_EXPERTS)."""
+    full width with its depth cut from 61 to MLA_DENSE_LAYERS dense layers
+    and 1 MoE layer; falcon-mamba-7b, internlm2-20b and
+    jamba-1.5-large-398b at full width and depth ``layers`` (Jamba's bank
+    cut to HYBRID_EXPERTS)."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
@@ -3261,11 +3412,14 @@ def engine_config(arch, layers):
             f"{cfg.d_ff}, vocab {cfg.vocab_size}")
         return cfg
     if cfg.attention_type == "mla":
-        depth = cfg.moe.first_k_dense + 1
+        depth = MLA_DENSE_LAYERS + 1
         log(f"engine: depth cut from {cfg.num_layers} to {depth} layers "
-            f"({cfg.moe.first_k_dense} dense + 1 MoE), width kept: at full "
-            f"width one MoE layer holds 25.4 GB of experts, and the "
-            f"start-up file is ~33 GB of the 45 GiB a run may write")
+            f"({MLA_DENSE_LAYERS} of its {cfg.moe.first_k_dense} dense + 1 "
+            f"MoE), width kept: at full width one MoE layer holds 25.4 GB "
+            f"of experts, and the start-up file is ~31 GB of the 45 GiB a "
+            f"run may write")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, first_k_dense=MLA_DENSE_LAYERS))
         layers = depth
     if cfg.family == "dense":
         log(f"engine: depth cut from {cfg.num_layers} to {layers} layers, "
@@ -4424,16 +4578,19 @@ def serve_ring(torch, cfg, path, workdir, seed, profile, kept):
 
 @contextlib.contextmanager
 def plain_training_kernels():
-    """The launchers that ``FlashPrefill`` and ``ExpertFFN`` take for CUDA
-    tensors (forward and backward) rebound to the plain versions and
-    the written-out plain backward: the train path's reference on the
-    card (the kernels' wrappers, and so their counts, are not called)."""
-    from repro_torch.kernels import expert_ffn, flash_prefill
+    """The launchers that ``FlashPrefill``, ``ExpertFFN`` and ``SSMScan``
+    take for CUDA tensors (forward and backward) rebound to the plain
+    versions and the written-out plain backward: the train paths'
+    reference on the card (the kernels' wrappers, and so their counts,
+    are not called)."""
+    from repro_torch.kernels import expert_ffn, flash_prefill, ssm_scan
     swaps = [(flash_prefill, "flash_prefill_cuda", "flash_prefill_plain"),
              (flash_prefill, "flash_prefill_bwd_cuda",
               "flash_prefill_bwd_plain"),
              (expert_ffn, "expert_ffn_cuda", "expert_ffn_plain"),
-             (expert_ffn, "expert_ffn_bwd_cuda", "expert_ffn_bwd_plain")]
+             (expert_ffn, "expert_ffn_bwd_cuda", "expert_ffn_bwd_plain"),
+             (ssm_scan, "ssm_scan_cuda", "ssm_scan_plain"),
+             (ssm_scan, "ssm_scan_bwd_cuda", "ssm_scan_bwd_plain")]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, getattr(mod, plain))
@@ -4466,20 +4623,17 @@ def train_grads(torch, m, params, batch):
             for k, t, g in zip(keys, ts, grads)]
 
 
-def serve_train(torch, cfg, path, workdir, seed, profile, kept):
-    """The ``train`` path (no engine): ``train_loop.train`` in f32 on the
-    card from ``Model.init(seed)``, batches ``make_batch(DataConfig(vocab,
+def train_against_plain(torch, cfg, seed, what):
+    """``train_loop.train`` of ``cfg`` in f32 on the card from
+    ``Model.init(seed)``, batches ``make_batch(DataConfig(vocab,
     TRAIN_SEQ, TRAIN_BATCH), step)``, AdamW at lr 3e-4 after one warmup
     step (updates of a real run's size, so steps 1 and 2 follow the
     gradients), its launches counted from 0 just before; then the same
-    steps from the same params through the plain versions of
-    flash_prefill and expert_ffn and their written-out plain backward on
-    the card (``plain_training_kernels``): every step's loss, ce, aux
-    and grad_norm within TRAIN_RTOL, and step 0's gradient of every leaf
-    (``train_grads``) within TRAIN_RTOL of the leaf's largest |gradient|.
-    Then the launcher (``python
-    -m repro_torch.launch.train``) trains the same model for 3 steps in a
-    child process.  Returns (launch counts, None, None)."""
+    steps from the same params through the plain versions and the
+    written-out plain backward on the card (``plain_training_kernels``):
+    every step's loss, ce, aux and grad_norm within TRAIN_RTOL, and step
+    0's gradient of every leaf (``train_grads``) within TRAIN_RTOL of the
+    leaf's largest |gradient|.  Returns the kernel run's launch counts."""
     from repro_torch.kernels import launches
     from repro_torch.models.model import Model
     from repro_torch.training.checkpoint import flatten
@@ -4491,10 +4645,9 @@ def serve_train(torch, cfg, path, workdir, seed, profile, kept):
     params = m.init(seed)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for _, t in flatten(params))
-    log(f"engine: path {path!r}: train_loop.train, no engine; "
-        f"{n_params / 1e9:.3f} B f32 parameters from seed {seed} in "
-        f"{time.perf_counter() - t0:.1f} s; {TRAIN_STEPS} steps of "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    log(f"  {what}: train_loop.train, no engine; {n_params / 1e9:.3f} B f32 "
+        f"parameters from seed {seed} in {time.perf_counter() - t0:.1f} s; "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
     dc = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
     batches = [make_batch(dc, step) for step in range(TRAIN_STEPS)]
 
@@ -4525,7 +4678,7 @@ def serve_train(torch, cfg, path, workdir, seed, profile, kept):
         d = float((g.to(w.device) - w).abs().max())
         worst[key] = d / max(scale, 1e-30)
         if not d <= TRAIN_RTOL * scale:
-            raise AssertionError(f"engine train: step 0's gradient of {key} "
+            raise AssertionError(f"{what}: step 0's gradient of {key} "
                                  f"{d:.3e} from the plain trainer's (scale "
                                  f"{scale:.3e}, rtol {TRAIN_RTOL:g})")
     del g_kern, g_plain
@@ -4548,25 +4701,61 @@ def serve_train(torch, cfg, path, workdir, seed, profile, kept):
         for key in ("loss", "ce", "aux", "grad_norm"):
             if not (math.isfinite(h[key]) and abs(h[key] - p[key])
                     <= TRAIN_RTOL * abs(p[key])):
-                raise AssertionError(f"engine train: step {i} {key} "
-                                     f"{h[key]} against plain {p[key]}")
+                raise AssertionError(f"{what}: step {i} {key} {h[key]} "
+                                     f"against plain {p[key]}")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = float(np.mean(step_s[1:]))
-    log(f"  train: step seconds {[round(float(s), 4) for s in step_s]} "
+    log(f"  {what}: step seconds {[round(float(s), 4) for s in step_s]} "
         f"(the first builds and warms up), steady {steady:.4f} s = "
         f"{tokens / steady:.1f} training tokens/s; max_memory_allocated "
         f"{peak / 2**30:.2f} GiB; final params vs the plain trainer's: "
         f"largest relative difference {rel:.3e} (max |d| / max |plain| a "
         f"leaf); launches {counts}")
-    want_bwd = TRAIN_STEPS * cfg.num_layers
-    if (counts.get("flash_prefill_bwd") != want_bwd
-            or counts.get("flash_prefill") != want_bwd
-            or counts.get("expert_ffn_bwd", 0) <= 0):
-        raise AssertionError(f"engine train: launches {counts}, expected "
-                             f"{want_bwd} flash_prefill(_bwd) (a launch an "
-                             f"attention layer and step) and expert_ffn_bwd")
     del params, m, batches
     _free(torch)
+    return counts
+
+
+def train_launches(m_cfg):
+    """The backward kernels' launches that TRAIN_STEPS steps of ``m_cfg``
+    make, and the forward kernels' that go with them: a launch a layer
+    and step for attention and the scan, and for the expert FFN's
+    gradient a launch a MoE layer and step."""
+    from repro_torch.models.model import Model
+    L = m_cfg.num_layers
+    if m_cfg.hybrid_period:
+        attn = L // m_cfg.hybrid_period
+        ssm = L - attn
+    else:
+        attn, ssm = (0, L) if m_cfg.family == "ssm" else (L, 0)
+    moe = Model(m_cfg, device="cpu")._num_moe_layers()
+    want = {"flash_prefill": attn, "flash_prefill_bwd": attn,
+            "ssm_scan": ssm, "ssm_scan_bwd": ssm, "expert_ffn_bwd": moe}
+    return {k: TRAIN_STEPS * v for k, v in want.items() if v}
+
+
+def check_train_launches(what, m_cfg, counts):
+    want = train_launches(m_cfg)
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def serve_train(torch, cfg, path, workdir, seed, profile, kept):
+    """The ``train`` and ``train_ssm`` paths (no engine):
+    ``train_against_plain`` of ``cfg`` (qwen2-moe-a2.7b through
+    flash_prefill, expert_ffn and their backward kernels; falcon-mamba-7b
+    through ssm_scan and ssm_scan_bwd), each kernel launched as
+    ``train_launches`` says.  Then the launcher (``python -m
+    repro_torch.launch.train``) trains the same model for 3 steps in a
+    child process.  ``train_ssm`` then holds the smoke
+    jamba-1.5-large-398b period (attention, seven Mamba and four
+    gather_psum MoE sublayers: all three backward kernels in one model)
+    the same way.  Returns (launch counts of ``cfg``'s kernel run, None,
+    None)."""
+    log(f"engine: path {path!r}: {cfg.name}, {cfg.num_layers} layers")
+    counts = train_against_plain(torch, cfg, seed, f"engine {path}")
+    check_train_launches(f"engine {path}", cfg, counts)
 
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
            cfg.name, "--layers", str(cfg.num_layers), "--steps", "3",
@@ -4584,8 +4773,14 @@ def serve_train(torch, cfg, path, workdir, seed, profile, kept):
     final = lines[-1] if lines else ""
     if (proc.returncode != 0 or not final.startswith("final loss:")
             or not math.isfinite(float(final.split(":")[1]))):
-        raise AssertionError(f"engine train: the launcher failed:\n"
+        raise AssertionError(f"engine {path}: the launcher failed:\n"
                              f"{proc.stderr[-3000:]}")
+    if path == "train_ssm":
+        from repro_torch.configs import get_smoke_config
+        hybrid = get_smoke_config(PATH_ARCH["hybrid"])
+        what = f"engine {path}: {hybrid.name}"
+        check_train_launches(what, hybrid, train_against_plain(
+            torch, hybrid, seed, what))
     used = [k for k, ps in KERNEL_PATH.items() if path in ps]
     return {k: counts[k] for k in used}, None, None
 
@@ -5224,7 +5419,8 @@ def serve_dryrun(torch, cfg, path, workdir, seed, profile, kept):
 SERVE = {"disagg": serve_disagg, "fleet": serve_fleet, "spec": serve_spec,
          "spec_megakernel": serve_spec, "overlap": serve_overlap,
          "http": serve_http_path, "vlm": serve_ring, "audio": serve_ring,
-         "train": serve_train, "examples": serve_examples,
+         "train": serve_train, "train_ssm": serve_train,
+         "examples": serve_examples,
          "dist": serve_dist, "dryrun": serve_dryrun}
 
 

@@ -17,6 +17,8 @@ PyTorch versions.
   positions and a sliding window (``csrc/flash_prefill.cu``).
 * ``ssm_scan`` — the Mamba-1 selective scan over a whole prompt, and the
   one-token state update of decode (``csrc/ssm_scan.cu``).
+* ``flash_prefill_bwd``, ``expert_ffn_bwd``, ``ssm_scan_bwd`` — the
+  gradients of three of them, for training (``csrc/*_bwd.cu``).
 
 ``ops`` dispatches by the tensors' device: CUDA tensors launch the
 kernel, CPU tensors run the plain version.  ``launches`` counts the

@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("paged_attention", "moe_fused", "router_topk",
            "decode_megastep", "expert_ffn", "flash_prefill", "ssm_scan",
-           "flash_prefill_bwd", "expert_ffn_bwd")
+           "flash_prefill_bwd", "expert_ffn_bwd", "ssm_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

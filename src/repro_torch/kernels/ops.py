@@ -5,11 +5,12 @@ plain PyTorch version (``repro.kernels.ops`` decides by the JAX backend
 instead, through ``_on_cpu``).  There is no fallback from one to the
 other: a launcher that cannot take its inputs raises.
 
-``flash_prefill`` and ``expert_ffn`` have backward kernels: under grad
-mode, with an input that requires grad, they go through their
-``torch.autograd.Function`` (a training forward); otherwise they launch
-the forward kernel directly, as serving does.  The other kernels have no
-backward, and their launchers raise on an input that requires grad.
+``flash_prefill``, ``expert_ffn`` and ``ssm_scan`` have backward
+kernels: under grad mode, with an input that requires grad, they go
+through their ``torch.autograd.Function`` (a training forward); otherwise
+they launch the forward kernel directly, as serving does.  The other
+kernels have no backward, and their launchers raise on an input that
+requires grad.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 from repro_torch.kernels.router_topk import (router_topk_cuda,
                                              router_topk_plain)
-from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
+from repro_torch.kernels.ssm_scan import (SSMScan, ssm_scan_cuda,
+                                          ssm_scan_plain)
 
 
 def needs_grad(*tensors) -> bool:
@@ -89,8 +91,13 @@ def ssm_scan(u, dt, A, B_ssm, C_ssm, h0=None, *, h_out=None,
     """Mamba-1 selective scan over u / dt (B, S, d), A (d, N), B / C (B,
     S, N), from ``h0`` (B, d, N) or zero.  Returns (y (B, S, d) f32,
     h_final (B, d, N) f32); with ``h_out`` (which may be ``h0``) h_final
-    is written there in its type, and y comes back in ``y_dtype``."""
-    fn = ssm_scan_plain if on_cpu(u) else ssm_scan_cuda
+    is written there in its type, and y comes back in ``y_dtype``.  Under
+    grad it starts from zero (``SSMScan`` refuses the in-place mode)."""
+    cpu = on_cpu(u)
+    if needs_grad(*(t for t in (u, dt, A, B_ssm, C_ssm, h0)
+                    if t is not None)):
+        return SSMScan.apply(u, dt, A, B_ssm, C_ssm, h0, h_out, y_dtype)
+    fn = ssm_scan_plain if cpu else ssm_scan_cuda
     return fn(u, dt, A, B_ssm, C_ssm, h0, h_out=h_out, y_dtype=y_dtype)
 
 

@@ -13,6 +13,19 @@ The decode step's in-place mode (``h_out``, ``y_dtype``) writes h_final
 into the slot's state tensor in its own type and returns y in the
 activation type, rounded to nearest: what the scan, a ``copy_`` into the
 state and a cast of y give, in one kernel.
+
+Its gradient (``csrc/ssm_scan_bwd.cu``, new in the port: ``repro``
+differentiates its Mamba mixer's ``lax.scan``, ``src/repro/models/
+mamba.py:90``, and has no backward kernel) runs the recurrence backwards:
+with g_t the gradient of h_t, ``g_t = dy_t C_t + exp(dt_{t+1} A)
+g_{t+1}`` (the last adds h_final's gradient), then ``dC_t = sum_d dy_t
+h_t``, ``dB_t = sum_d g_t dt_t u_t``, ``du_t = dt_t sum_n g_t B_t``,
+``ddt_t = u_t sum_n g_t B_t + sum_n A exp(dt_t A) g_t h_{t-1}`` and ``dA
+= sum_{b,t} dt_t exp(dt_t A) g_t h_{t-1}``.  :class:`SSMScan` is the
+``torch.autograd.Function`` that pairs the two kernels (the plain
+versions for CPU tensors), from a zero state: serving's in-place mode has
+no gradient.  The plain versions compute in f32, or in f64 for f64
+inputs (``gradcheck``).
 """
 from __future__ import annotations
 
@@ -21,9 +34,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, launches
+from repro_torch.kernels.flash_prefill import acc_dtype
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {"ssm_scan": ([_VP] * 8 + [_CI] * 8 + [_VP], _CI)}
+_BWD_PROTOTYPES = {
+    "ssm_scan_bwd": ([_VP] * 13 + [_CI] * 5 + [_VP], _CI),
+    "ssm_scan_bwd_scratch_floats": ([_CI] * 4, ctypes.c_longlong),
+}
 STATE_SIZES = (8, 16)       # the N the kernel is built for
 
 
@@ -35,18 +53,19 @@ def ssm_scan_plain(u, dt, A, B_ssm, C_ssm, h0=None, *, h_out=None,
     then what is returned; y comes back in ``y_dtype``."""
     Bsz, S, d = u.shape
     N = A.shape[1]
-    h = (torch.zeros((Bsz, d, N), dtype=torch.float32, device=u.device)
-         if h0 is None else h0.float())
-    A = A.float()
+    acc = acc_dtype(u.dtype)
+    h = (torch.zeros((Bsz, d, N), dtype=acc, device=u.device)
+         if h0 is None else h0.to(acc))
+    A = A.to(acc)
     ys = []
     for t in range(S):
-        dt_t, u_t = dt[:, t].float(), u[:, t].float()
+        dt_t, u_t = dt[:, t].to(acc), u[:, t].to(acc)
         dA = torch.exp(dt_t[..., None] * A[None])
-        dBu = (dt_t * u_t)[..., None] * B_ssm[:, t, None, :].float()
+        dBu = (dt_t * u_t)[..., None] * B_ssm[:, t, None, :].to(acc)
         h = dA * h + dBu
-        ys.append(torch.einsum("bdn,bn->bd", h, C_ssm[:, t].float()))
+        ys.append(torch.einsum("bdn,bn->bd", h, C_ssm[:, t].to(acc)))
     y = (torch.stack(ys, dim=1) if ys else
-         torch.zeros((Bsz, 0, d), dtype=torch.float32, device=u.device))
+         torch.zeros((Bsz, 0, d), dtype=acc, device=u.device))
     if h_out is not None:
         h = h_out.copy_(h)
     return y.to(y_dtype), h
@@ -60,7 +79,10 @@ def ssm_scan_cuda(u, dt, A, B_ssm, C_ssm, h0=None, *, h_out=None,
     and ``y_dtype`` sets y's type (both rounded to nearest, as a cast
     rounds).  Raises on any input the kernel does not take; never falls
     back."""
-    build.refuse_grad("ssm_scan_cuda", u, dt, A, B_ssm, C_ssm, h0)
+    build.refuse_grad("ssm_scan_cuda", u, dt, A, B_ssm, C_ssm, h0,
+                      hint="its output carries no gradient: ops.ssm_scan "
+                           "launches it through SSMScan, with its backward "
+                           "kernel")
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan_cuda needs CUDA tensors, got {u.device}")
     if u.dtype not in build.DTYPE_CODES:
@@ -100,3 +122,125 @@ def ssm_scan_cuda(u, dt, A, B_ssm, C_ssm, h0=None, *, h_out=None,
         raise RuntimeError(f"ssm_scan launch failed: cudaError {err}")
     launches["ssm_scan"] += 1
     return y, h
+
+
+def ssm_scan_bwd_plain(u, dt, A, B_ssm, C_ssm, dy, dh=None):
+    """The gradients (du, ddt, dA, dB, dC) of :func:`ssm_scan_plain` from a
+    zero state, for y's gradient ``dy`` (B, S, d) and h_final's ``dh`` (B,
+    d, N) or None (zero), written out: the states recomputed and kept,
+    then a loop backwards over time.  Each gradient in its input's
+    type."""
+    acc = acc_dtype(u.dtype)
+    uf, dtf, Bf, Cf, dyf = (t.to(acc) for t in (u, dt, B_ssm, C_ssm, dy))
+    Af = A.to(acc)
+    Bsz, S, d = u.shape
+    decay = torch.exp(dtf[..., None] * Af)          # exp(dt_t A), (B,S,d,N)
+    dtu = dtf * uf
+    hs = []
+    h = torch.zeros((Bsz, d, Af.shape[1]), dtype=acc, device=u.device)
+    for t in range(S):
+        h = decay[:, t] * h + dtu[:, t, :, None] * Bf[:, t, None, :]
+        hs.append(h)
+    g = torch.zeros_like(h) if dh is None else dh.to(acc)
+    du, ddt = torch.empty_like(uf), torch.empty_like(uf)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    for t in reversed(range(S)):
+        g = g + dyf[:, t, :, None] * Cf[:, t, None, :]          # g_t
+        h_prev = hs[t - 1] if t else torch.zeros_like(g)
+        dC[:, t] = torch.einsum("bdn,bd->bn", hs[t], dyf[:, t])
+        dB[:, t] = torch.einsum("bdn,bd->bn", g, dtu[:, t])
+        gb = torch.einsum("bdn,bn->bd", g, Bf[:, t])
+        gdh = g * decay[:, t] * h_prev
+        du[:, t] = dtf[:, t] * gb
+        ddt[:, t] = uf[:, t] * gb + torch.einsum("bdn,dn->bd", gdh, Af)
+        dA += torch.einsum("bdn,bd->dn", gdh, dtf[:, t])
+        g = g * decay[:, t]                                  # to step t-1
+    return (du.to(u.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            dB.to(B_ssm.dtype), dC.to(C_ssm.dtype))
+
+
+def ssm_scan_bwd_cuda(u, dt, A, B_ssm, C_ssm, dy, dh=None):
+    """Launch the backward kernels on PyTorch's current stream: the
+    gradients (du, ddt, dA, dB, dC) of the scan from a zero state, for
+    y's gradient ``dy`` (B, S, d) f32 and h_final's ``dh`` (B, d, N) f32
+    or None.  Raises on any input they do not take; never falls back."""
+    build.refuse_grad("ssm_scan_bwd_cuda", u, dt, A, B_ssm, C_ssm, dy, dh)
+    if u.device.type != "cuda":
+        raise ValueError(f"ssm_scan_bwd_cuda needs CUDA tensors, got "
+                         f"{u.device}")
+    if u.dtype not in build.DTYPE_CODES:
+        raise TypeError(f"ssm_scan_bwd: unsupported dtype {u.dtype}")
+    Bsz, S, d = u.shape
+    N = A.shape[1]
+    if N not in STATE_SIZES:
+        raise ValueError(f"ssm_scan_bwd: state size {N} not in "
+                         f"{STATE_SIZES}")
+    dev = u.device
+    build.check_arg("u", u, u.dtype, (Bsz, S, d), dev)
+    build.check_arg("dt", dt, u.dtype, (Bsz, S, d), dev)
+    build.check_arg("A", A, torch.float32, (d, N), dev)
+    build.check_arg("B_ssm", B_ssm, u.dtype, (Bsz, S, N), dev)
+    build.check_arg("C_ssm", C_ssm, u.dtype, (Bsz, S, N), dev)
+    build.check_arg("dy", dy, torch.float32, (Bsz, S, d), dev)
+    if dh is not None:
+        build.check_arg("dh", dh, torch.float32, (Bsz, d, N), dev)
+    lib = build.load("ssm_scan_bwd", _BWD_PROTOTYPES)
+    du, ddt, dA = torch.empty_like(u), torch.empty_like(dt), \
+        torch.empty_like(A)
+    dB, dC = torch.empty_like(B_ssm), torch.empty_like(C_ssm)
+    if u.numel() == 0:
+        return du, ddt, dA.zero_(), dB.zero_(), dC.zero_()
+    # the states at each time chunk's start, and the per-CTA and per-row
+    # partial sums of dB, dC and dA that a second pass adds in order
+    scratch = torch.empty(lib.ssm_scan_bwd_scratch_floats(Bsz, S, d, N),
+                          dtype=torch.float32, device=dev)
+    err = lib.ssm_scan_bwd(
+        u.data_ptr(), dt.data_ptr(), A.data_ptr(), B_ssm.data_ptr(),
+        C_ssm.data_ptr(), dy.data_ptr(),
+        None if dh is None else dh.data_ptr(), scratch.data_ptr(),
+        du.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), Bsz, S, d, N, build.DTYPE_CODES[u.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan_bwd launch failed: cudaError {err}")
+    launches["ssm_scan_bwd"] += 1
+    return du, ddt, dA, dB, dC
+
+
+class SSMScan(torch.autograd.Function):
+    """The selective scan from a zero state with its gradient: the forward
+    kernel (its plain version for CPU tensors), then the backward kernel
+    (likewise), which recomputes the states from the saved inputs.
+    Returns (y, h_final) as the forward does; h_final's gradient is used
+    where a caller uses h_final.  ``h0``, ``h_out`` and ``y_dtype``, the
+    decode step's in-place mode, have no gradient and raise."""
+
+    @staticmethod
+    def forward(ctx, u, dt, A, B_ssm, C_ssm, h0=None, h_out=None,
+                y_dtype=torch.float32):
+        if h0 is not None or h_out is not None or y_dtype != torch.float32:
+            raise RuntimeError(
+                "SSMScan: the in-place decode mode (h0, h_out, y_dtype) has "
+                "no gradient; call it under torch.no_grad() or on tensors "
+                "that need no gradient")
+        if u.device.type == "cpu":
+            y, h = ssm_scan_plain(u, dt, A, B_ssm, C_ssm,
+                                  y_dtype=acc_dtype(u.dtype))
+        else:
+            y, h = ssm_scan_cuda(u, dt, A, B_ssm, C_ssm)
+        ctx.save_for_backward(u, dt, A, B_ssm, C_ssm)
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        u, dt, A, B_ssm, C_ssm = ctx.saved_tensors
+        cpu = u.device.type == "cpu"
+        if dy is None:
+            dy = torch.zeros(u.shape, dtype=acc_dtype(u.dtype),
+                             device=u.device)
+        bwd = ssm_scan_bwd_plain if cpu else ssm_scan_bwd_cuda
+        grads = bwd(u, dt, A, B_ssm, C_ssm, dy.contiguous(),
+                    None if dh is None else dh.contiguous())
+        return (*grads, None, None, None)

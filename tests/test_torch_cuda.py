@@ -1174,6 +1174,115 @@ def test_train_steps_card_vs_cpu(card):
         assert torch.isfinite(g).all(), key
 
 
+# ssm_scan_bwd's cases: (B, S, d, N, with h_final's gradient); the smoke
+# widths, N 8, a d that is not a multiple of a CTA's 32 channels, one
+# step, and falcon-mamba-7b's (8192) and jamba-1.5-large-398b's (16384)
+# d_inner at the train path's 4 x 256 and at an S that is not a multiple
+# of the kernel's 32-step chunk
+SSM_BWD_CARD_CASES = dict(smoke=(2, 128, 512, 16, True),
+                          n8=(2, 100, 256, 8, True),
+                          ragged_d=(3, 70, 328, 16, True),
+                          one_step=(2, 1, 64, 16, False),
+                          d8192=(4, 256, 8192, 16, False),
+                          d8192_s200=(2, 200, 8192, 16, True),
+                          d16384=(4, 256, 16384, 16, False))
+
+
+def _ssm_bwd_inputs(card, dtype, B, S, d, N, with_dh, seed=7):
+    u, dt, A, Bs, Cs, _ = ssm_inputs(B, S, d, N, False, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    dy = _t(rng.normal(size=(B, S, d)).astype(np.float32)).to(card)
+    dh = (_t(rng.normal(size=(B, d, N)).astype(np.float32)).to(card)
+          if with_dh else None)
+    return ([_t(a).to(card, dtype) for a in (u, dt)] + [_t(A).to(card)]
+            + [_t(a).to(card, dtype) for a in (Bs, Cs)]), dy, dh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(SSM_BWD_CARD_CASES))
+def test_ssm_scan_bwd_cuda_vs_plain(card, case, dtype):
+    """ssm_scan_bwd_cuda against the written-out plain backward on the
+    card: each gradient within BWD_TOL of its scale, in its input's type
+    (dA f32), two calls bitwise equal."""
+    from repro_torch.kernels.ssm_scan import (ssm_scan_bwd_cuda,
+                                              ssm_scan_bwd_plain)
+    ins, dy, dh = _ssm_bwd_inputs(card, dtype, *SSM_BWD_CARD_CASES[case])
+    n0 = launches["ssm_scan_bwd"]
+    got = ssm_scan_bwd_cuda(*ins, dy, dh)
+    again = ssm_scan_bwd_cuda(*ins, dy, dh)
+    torch.cuda.synchronize()
+    assert launches["ssm_scan_bwd"] == n0 + 2
+    want = ssm_scan_bwd_plain(*ins, dy, dh)
+    for name, g, a, w, x in zip(("du", "ddt", "dA", "dB", "dC"), got, again,
+                                want, ins):
+        assert g.dtype == x.dtype and torch.equal(g, a), name   # bitwise
+        _scaled_close(g, w, BWD_TOL[dtype], f"{case} {name}")
+
+
+@pytest.mark.cuda
+def test_ssm_scan_bwd_cuda_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
+    ins, dy, _ = _ssm_bwd_inputs(card, torch.float32, 2, 8, 64, 16, False)
+    with pytest.raises(ValueError, match="state size"):
+        ssm_scan_bwd_cuda(*ins[:2], ins[2][:, :4].contiguous(),
+                          *(x[..., :4].contiguous() for x in ins[3:]), dy)
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        ssm_scan_bwd_cuda(*(x.half() if x.dim() == 3 else x for x in ins),
+                          dy)
+    with pytest.raises(TypeError, match="dy has dtype"):
+        ssm_scan_bwd_cuda(*ins, dy.bfloat16())
+    with pytest.raises(ValueError, match="must be contiguous"):
+        ssm_scan_bwd_cuda(*ins, dy.transpose(1, 2).contiguous()
+                          .transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-1.5-large-398b"])
+def test_train_steps_card_vs_cpu_ssm(card, arch):
+    """test_train_steps_card_vs_cpu for the Mamba and hybrid families: the
+    scan through SSMScan and ssm_scan_bwd (with flash_prefill_bwd and
+    expert_ffn_bwd on Jamba's period), a launch a Mamba layer and
+    backward pass; step 0's gradients within 1e-3 of each leaf's scale
+    and every logged number within 1e-3 relative of the CPU's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.data import DataConfig, lm_batches
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import as_leaves, train
+    cfg = get_smoke_config(arch)
+    p_cpu = Model(cfg, device="cpu").init(0)
+    dc = DataConfig(cfg.vocab_size, 32, 4)
+    kinds = ("ssm_scan_bwd", "flash_prefill_bwd", "expert_ffn_bwd")
+    out, grads = {}, {}
+    n0 = {k: launches[k] for k in kinds}
+    for dev in ("cpu", "cuda"):
+        m = Model(cfg, device=dev)
+        leaves = as_leaves(_to(p_cpu, dev))
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in next(lm_batches(dc)).items()}
+        keys, ts = zip(*flatten(leaves))
+        grads[dev] = dict(zip(keys, torch.autograd.grad(
+            m.loss(leaves, batch)[0], ts)))
+        out[dev] = train(m, lm_batches(dc), 2,
+                         OptimizerConfig(lr=1e-3, warmup_steps=1),
+                         log_every=1, params=_to(p_cpu, dev))
+    n = {k: launches[k] - n0[k] for k in kinds}
+    periods = cfg.num_layers // cfg.hybrid_period if cfg.hybrid_period else 0
+    n_ssm = (periods * (cfg.hybrid_period - 1) if periods
+             else cfg.num_layers)
+    assert n == {"ssm_scan_bwd": 3 * n_ssm, "flash_prefill_bwd": 3 * periods,
+                 "expert_ffn_bwd": 3 * m._num_moe_layers()}
+    for key, w in grads["cpu"].items():
+        _scaled_close(grads["cuda"][key], w, 1e-3, f"step 0 grad {key}")
+    for hg, hw in zip(out["cuda"][1], out["cpu"][1]):
+        for key in ("loss", "ce", "aux", "lr", "grad_norm"):
+            assert abs(hg[key] - hw[key]) <= 1e-3 * abs(hw[key]), key
+    for key, g in flatten(out["cuda"][0]):
+        assert torch.isfinite(g).all(), key
+
+
 @pytest.mark.cuda
 def test_moe_dist_world_of_one_nccl(card, tmp_path):
     """The distributed MoE layer through a real NCCL group of one rank, at

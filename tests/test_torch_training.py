@@ -47,7 +47,7 @@ from repro_torch.kernels.flash_prefill import (FlashPrefill,
 from repro_torch.kernels.moe_fused import moe_fused_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.router_topk import router_topk_cuda
-from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
 from repro_torch.launch import train as launch_train
 from repro_torch.models import layers as pt_layers
 from repro_torch.models import moe as pt_moe
@@ -419,8 +419,9 @@ def test_expert_ffn_function_gradcheck():
 
 
 def test_ops_route_through_functions_only_under_grad():
-    """ops.flash_prefill / ops.expert_ffn build a graph only where grad
-    mode is on and an input requires it; serving calls stay plain."""
+    """ops.flash_prefill / ops.expert_ffn / ops.ssm_scan build a graph
+    only where grad mode is on and an input requires it; serving calls
+    stay plain."""
     rng = np.random.default_rng(11)
     q, k, v = (_t(rng.normal(size=(1, 8, 2, 8)).astype(np.float32))
                for _ in range(3))
@@ -428,15 +429,26 @@ def test_ops_route_through_functions_only_under_grad():
     w1, w2 = (_t(rng.normal(size=(2, 8, 4)).astype(np.float32))
               for _ in range(2))
     w3 = _t(rng.normal(size=(2, 4, 8)).astype(np.float32))
+    u, dt = (_t(rng.normal(size=(2, 5, 6)).astype(np.float32) * 0.1)
+             for _ in range(2))
+    a = -_t(np.exp(rng.normal(size=(6, 8))).astype(np.float32))
+    bs, cs = (_t(rng.normal(size=(2, 5, 8)).astype(np.float32))
+              for _ in range(2))
     assert ops.flash_prefill(q, k, v).grad_fn is None
     assert ops.expert_ffn(x, w1, w2, w3).grad_fn is None
+    assert ops.ssm_scan(u, dt, a, bs, cs)[0].grad_fn is None
     q.requires_grad_()
     x.requires_grad_()
+    a.requires_grad_()
     with torch.no_grad():
         assert ops.flash_prefill(q, k, v).grad_fn is None
         assert ops.expert_ffn(x, w1, w2, w3).grad_fn is None
+        assert ops.ssm_scan(u, dt, a, bs, cs)[0].grad_fn is None
     assert "FlashPrefill" in type(ops.flash_prefill(q, k, v).grad_fn).__name__
     assert "ExpertFFN" in type(ops.expert_ffn(x, w1, w2, w3).grad_fn).__name__
+    y, h = ops.ssm_scan(u, dt, a, bs, cs)
+    assert "SSMScan" in type(y.grad_fn).__name__
+    assert "SSMScan" in type(h.grad_fn).__name__
 
 
 # -- the launchers without a backward ----------------------------------------------
@@ -458,14 +470,24 @@ def _grad_inputs():
     ("ssm_scan_cuda", lambda t: ssm_scan_cuda(t, t, t, t, t)),
     ("flash_prefill_cuda", lambda t: flash_prefill_cuda(t, t, t)),
     ("expert_ffn_cuda", lambda t: expert_ffn_cuda(t, t, t, t)),
+    ("ssm_scan_bwd_cuda", lambda t: ssm_scan_bwd_cuda(t, t, t, t, t, t)),
 ])
 def test_launchers_refuse_inputs_that_require_grad(name, call):
     """Each CUDA launcher checks grad first (before the device): an input
     that requires grad under grad mode raises, naming the kernel, instead
-    of returning an output with no autograd history."""
+    of returning an output with no autograd history.  The three forward
+    launchers with a backward kernel point at their Function instead; a
+    backward launcher has no backward of its own."""
     with pytest.raises(RuntimeError, match=name):
         call(_grad_inputs())
-    if name not in ("flash_prefill_cuda", "expert_ffn_cuda"):
+    if name in ("flash_prefill_cuda", "expert_ffn_cuda", "ssm_scan_cuda"):
+        fn = {"flash_prefill_cuda": "FlashPrefill",
+              "expert_ffn_cuda": "ExpertFFN",
+              "ssm_scan_cuda": "SSMScan"}[name]
+        with pytest.raises(RuntimeError, match=f"through {fn}, with its "
+                                               f"backward kernel"):
+            call(_grad_inputs())
+    else:
         with pytest.raises(RuntimeError, match="backward is not ported"):
             call(_grad_inputs())
     # under no_grad the check passes and the device check raises instead
