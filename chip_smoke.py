@@ -15,6 +15,7 @@
     python3 chip_smoke.py --paths train_ssm  # Mamba and hybrid training
     python3 chip_smoke.py --paths dist    # the distributed MoE layer
     python3 chip_smoke.py --paths dryrun  # the dry run held to the card
+    python3 chip_smoke.py --paths tp      # tensor-parallel serve steps
     python3 chip_smoke.py --paths mla_composed,mla_megakernel,mla_serial
     python3 chip_smoke.py --profile       # + where the device time goes
 
@@ -274,7 +275,28 @@ Phases, in order; any failure raises and the script exits non-zero:
              trace's temp bytes beside the card's peak above the
              arguments, and the trace's FLOPs and bytes over the card's
              time as rates against the data sheet
-             (``repro_torch/hardware.py``).  Each path's kernels' launch counts are read from
+             (``repro_torch/hardware.py``).  The ``tp`` path builds no
+             engine: the tensor-parallel serve steps
+             (``Model(tp=TensorParallel(...))``) on a world of one under
+             NCCL (the dist path's group and weights when it ran
+             first): qwen2-moe-a2.7b at full width, 2 layers, bf16, a
+             ring prefill of 4 x 2048 tokens and 8 decode steps, and
+             minicpm3-4b at full width, 2 layers (its latent ring
+             split over the window, so its decode writes
+             ``paged_attention``'s ``lse_out`` and merges), each bitwise
+             equal to the same model without tp, greedy tokens equal,
+             step times and launches printed; then the kernels at a
+             rank's shapes of the production mesh's 'model' = 16 (16
+             simulated ranks one after the other): ``flash_prefill``
+             at qwen's 1 head and deepseek-v3's 8 heads a rank,
+             ``ssm_scan`` at falcon-mamba-7b's 512 of 8192 channels, a
+             head-parallel ``paged_attention`` at qwen's 1 KV head over
+             a 2048-slot ring, and the context-parallel decode of
+             internlm2-20b's GQA (G 6) and deepseek-v3's latent (G 128)
+             over 16 slices of 128 slots, each slice's (o, lse) merged
+             on the card against one whole-ring call and the plain
+             version, each lse within 1e-3 of the plain one, a short
+             row's empty slices -inf with zeros.  Each path's kernels' launch counts are read from
              its faulted run (``disagg``: the synchronous switch's;
              ``fleet``: the whole fleet run), counted from 0 just before
              it.  Each engine build
@@ -283,8 +305,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. a ``{"kernels": [...]}`` line (each kernel's row at the qwen or
    falcon shapes, the backward kernels' at the train paths' in f32 with
    their bf16 row under ``bf16``, with its deepseek-v3 rows under ``mla``, the dense
-   family's under ``dense``, Jamba's under ``hybrid`` and the ring serve
-   step's under ``ring``; its launches
+   family's under ``dense``, Jamba's under ``hybrid``, the ring serve
+   step's under ``ring`` and the tp path's rank-shaped calls under
+   ``tp``; its launches
    summed over the paths and per path), then the ``{"ok": true, ...}``
    line.
 
@@ -344,7 +367,7 @@ KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
                                    "mla_megakernel", "mla_serial", "disagg",
                                    "fleet", "spec", "overlap", "dense",
                                    "hybrid", "vlm", "audio", "dist",
-                                   "dryrun"),
+                                   "dryrun", "tp"),
                "moe_fused": ("composed", "mla_composed", "disagg", "fleet",
                              "spec", "overlap", "hybrid", "dist"),
                "decode_megastep": ("megakernel", "mla_megakernel",
@@ -352,9 +375,9 @@ KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
                "router_topk": ("megakernel", "mla_megakernel",
                                "spec_megakernel"),
                "expert_ffn": ("serial", "mla_serial", "train", "dist",
-                              "dryrun"),
+                              "dryrun", "tp"),
                "flash_prefill": ("serial", "mla_serial", "hybrid", "vlm",
-                                 "audio", "train", "dist", "dryrun"),
+                                 "audio", "train", "dist", "dryrun", "tp"),
                "ssm_scan": ("ssm", "hybrid", "train_ssm"),
                "flash_prefill_bwd": ("train",),
                "expert_ffn_bwd": ("train",),
@@ -406,7 +429,8 @@ PATHS = {"composed": dict(moe_impl="fused", decode_impl="composed"),
          "http": dict(mode="collocated", overlap=True),
          "hybrid": dict(moe_impl="fused", decode_impl="composed"),
          "vlm": dict(), "audio": dict(), "train": dict(), "examples": dict(),
-         "dist": dict(), "dryrun": dict(), "train_ssm": dict()}
+         "dist": dict(), "dryrun": dict(), "tp": dict(),
+         "train_ssm": dict()}
 QWEN_ARCH = "qwen2-moe-a2.7b"
 DENSE_ARCHS = ("internlm2-20b", "minicpm3-4b")
 PATH_ARCH = {"ssm": "falcon-mamba-7b", "mla_composed": "deepseek-v3",
@@ -479,7 +503,8 @@ PATH_LAYERS = {"dense": DENSE_LAYERS, "ssm": SSM_LAYERS,
                "hybrid": HYBRID_LAYERS, "vlm": VLM_LAYERS,
                "audio": AUDIO_LAYERS, "train": TRAIN_LAYERS,
                "examples": TRAIN_LAYERS, "dist": TRAIN_LAYERS,
-               "dryrun": TRAIN_LAYERS, "train_ssm": TRAIN_SSM_LAYERS}
+               "dryrun": TRAIN_LAYERS, "tp": TRAIN_LAYERS,
+               "train_ssm": TRAIN_SSM_LAYERS}
 # the ring paths' workloads: rows, each row's text tokens (drawn from
 # the range), the rings' slots (max_seq); each row feeds 32 greedy tokens
 # through 32 decode steps
@@ -3360,6 +3385,11 @@ def phase_engine(torch, seed, layers, paths, profile=False):
                     by_path.setdefault(k, {})[path] = v
                 lap(f"path {path}")
         finally:
+            # what a path kept for a later path of its group
+            kept.pop("qwen_bf16", None)
+            if kept.pop("nccl", None) is not None:
+                import torch.distributed as dist
+                dist.destroy_process_group()
             shutil.rmtree(workdir, ignore_errors=True)
         lap(f"{arch} at {depth} layers: workdir removed")
     for path, (clean, fault) in rates.items():
@@ -5048,13 +5078,16 @@ def serve_dist(torch, cfg, path, workdir, seed, profile, kept):
                     sorted(ops.items())) or "none seen"))
             del want, got, model, local, block
             _free(torch)
-        # the dryrun path's model when it comes next (the same weights)
+        # the dryrun and tp paths' model when they come next (the same
+        # weights), and the tp path's process group
         kept["qwen_bf16"] = (cfg, params)
+        kept["nccl"] = mesh
         del params
         _free(torch)
     finally:
-        dist.destroy_process_group()
-        store.unlink(missing_ok=True)
+        if "nccl" not in kept:
+            dist.destroy_process_group()
+            store.unlink(missing_ok=True)
     used = [k for k, ps in KERNEL_PATH.items() if path in ps]
     if min(counts.get(k, 0) for k in used) <= 0:
         raise AssertionError(f"engine dist: launches {counts}")
@@ -5290,7 +5323,7 @@ def serve_dryrun(torch, cfg, path, workdir, seed, profile, kept):
     try:
         sheet = card_sheet()
         dev = torch.device("cuda", 0)
-        held = kept.pop("qwen_bf16", None)
+        held = kept.get("qwen_bf16")
         t0 = time.perf_counter()
         params = (held[1] if held is not None and held[0] == cfg else
                   Model(cfg, torch.bfloat16, device=dev).init(seed))
@@ -5404,8 +5437,8 @@ def serve_dryrun(torch, cfg, path, workdir, seed, profile, kept):
             f"trace {rec['trace_s']:.1f} s ({rec['elapsed_s']:.1f} s in "
             f"run_dryrun, {secs:.1f} s until its process was read; "
             f"{rec['ops']} ops); argument_bytes {want} as placed; roofline "
-            f"of the gather-at-entry model (its collectives and temp are "
-            f"the model's, no runtime's) compute {roof['compute_s'] * 1e3:.3f} ms | memory "
+            f"of the traced tensor-parallel step ({rec['placement'][:40]}"
+            f"...) compute {roof['compute_s'] * 1e3:.3f} ms | memory "
             f"{roof['memory_s'] * 1e3:.3f} ms | collective "
             f"{roof['collective_s'] * 1e3:.3f} ms -> {roof['dominant']}; "
             f"useful {rec['useful_flops_ratio']:.4f}; temp "
@@ -5415,13 +5448,388 @@ def serve_dryrun(torch, cfg, path, workdir, seed, profile, kept):
         raise AssertionError(f"engine dryrun: launches {counts}")
     return {k: counts[k] for k in used}, None, None
 
+# the tp path: the tensor-parallel serve steps (``Model(tp=...)``,
+# ``distributed/tensor_parallel.py``).  A world of one under NCCL (the
+# dist path's group and weights when it ran first): qwen2-moe-a2.7b at
+# full width, TRAIN_LAYERS deep, bf16, a ring prefill of TP_ROWS x
+# TP_SEQ tokens and TP_STEPS greedy decode steps, bitwise the same model
+# without tp; minicpm3-4b at full width, 2 layers, bf16 (MLA: its latent
+# ring is split over the window at any 'model' size, so even a world of
+# one decodes through paged_attention's lse_out and the merge), bitwise
+# likewise.  Then the kernels at the shapes a rank of the production
+# mesh's 'model' axis (TP_MODEL) gets, each simulated rank one after the
+# other on the one card, each held to its plain version
+TP_ROWS, TP_SEQ, TP_STEPS = 4, 2048, 8
+TP_MLA_ARCH, TP_MLA_SEQ = "minicpm3-4b", 512
+TP_MODEL = 16
+TP_RING = 2048
+TP_RING_LENS = (2048, 1500, 700, 100)     # the last row: 15 empty slices
+TP_LSE_ATOL = 1e-3
+# the kernels line's "tp" rows, filled by the tp path
+TP_RESULTS = {}
+
+
+def tp_run(torch, model, params, tokens, max_seq, fed=None):
+    """The ring prefill, then TP_STEPS decode steps, greedy
+    (``specs.greedy``: under tp ``TensorParallel.greedy``) or fed ``fed``.
+    Returns (each step's logits, the tokens fed, prefill s, decode s a
+    step)."""
+    from repro_torch.launch.specs import greedy
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = model.prefill(params, {"tokens": tokens}, max_seq=max_seq)
+    torch.cuda.synchronize()
+    pre = time.perf_counter() - t0
+    steps, toks, secs = [last], [], []
+    for i in range(TP_STEPS):
+        toks.append(greedy(model, last) if fed is None else fed[i])
+        t0 = time.perf_counter()
+        last, cache = model.decode_step(params, cache, toks[-1])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        steps.append(last)
+    return torch.stack(steps), torch.stack(toks), pre, secs
+
+
+def tp_world_of_one(torch, cfg, params, mesh, dev, tokens, max_seq, what):
+    """``cfg``'s model with ``tp`` (on ``tp_shard`` of ``params``) and
+    without, the same ``moe_dist`` in both: every step's logits bitwise
+    equal and the greedy tokens equal.  Returns the tp run's launch
+    counts."""
+    from repro_torch.distributed.collectives import make_moe_dist
+    from repro_torch.distributed.sharding import ShardingRules, tp_shard
+    from repro_torch.distributed.tensor_parallel import TensorParallel
+    from repro_torch.kernels import launches
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model
+    md = None
+    if cfg.moe is not None:
+        md = make_moe_dist(mesh, cfg.moe_impl)
+        md.place(tokens.shape[0])
+    rules = ShardingRules(mesh, cfg)
+    shards = dryrun._map2(lambda p, t, sp: tp_shard(p, t, sp, mesh), params,
+                          rules.params_specs(params))
+    model = Model(cfg, torch.bfloat16, device=dev, moe_dist=md,
+                  tp=TensorParallel(mesh, rules))
+    local = Model(cfg, torch.bfloat16, device=dev, moe_dist=md)
+    for m, p in ((local, params), (model, shards)):   # warm: NCCL, cuBLAS
+        tp_run(torch, m, p, tokens, max_seq)
+    before = dict(launches)
+    got = tp_run(torch, model, shards, tokens, max_seq)
+    counts = {k: v - before.get(k, 0) for k, v in launches.items()
+              if v != before.get(k, 0)}
+    want = tp_run(torch, local, params, tokens, max_seq)
+    if not bool(torch.isfinite(got[0].float()).all()):
+        raise AssertionError(f"engine tp {what}: logits not finite")
+    bitwise = bool(torch.equal(got[0], want[0]))
+    same_tokens = bool(torch.equal(got[1], want[1]))
+    err = float((got[0].float() - want[0].float()).abs().max())
+    log(f"  {what}: with tp prefill {got[2]:.4f} s, decode steps "
+        + " ".join(f"{s * 1e3:.2f}" for s in got[3]) + " ms; without tp "
+        f"prefill {want[2]:.4f} s, decode steps "
+        + " ".join(f"{s * 1e3:.2f}" for s in want[3]) + f" ms; logits "
+        f"{'bitwise equal' if bitwise else f'differ by {err:.3e}'}, greedy "
+        f"tokens {'equal' if same_tokens else 'differ'}; launches {counts}")
+    if not (bitwise and same_tokens):
+        raise AssertionError(f"engine tp {what}: the tp step is not the "
+                             f"local step (max_abs_err {err})")
+    del shards, model, local, got, want
+    return counts
+
+
+def tp_held(name, got, want, dtype_name, tol):
+    """``got`` within ``tol`` of ``want`` (allclose); returns the error."""
+    atol, rtol = tol[dtype_name]
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if not bool(g.isfinite().all()) or bool(
+            (d > atol + rtol * w.abs()).any()):
+        raise AssertionError(f"engine tp {name}: max_abs_err "
+                             f"{float(d.max())} (atol {atol}, rtol {rtol})")
+    return float(d.max())
+
+
+def tp_flash(torch, gen, *, H, Dq, Dv, what):
+    """One rank's heads (``H``, K and V heads alike) of a causal prefill of
+    TP_ROWS x TP_SEQ, each of TP_MODEL simulated ranks' own seeded
+    inputs: the kernel against the plain version.  Returns the row."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
+                                                   flash_prefill_plain)
+    errs = []
+    for r in range(TP_MODEL):
+        q, k = (torch.randn((TP_ROWS, TP_SEQ, H, Dq), generator=gen,
+                            device="cuda", dtype=torch.bfloat16)
+                for _ in range(2))
+        v = torch.randn((TP_ROWS, TP_SEQ, H, Dv), generator=gen,
+                        device="cuda", dtype=torch.bfloat16)
+        errs.append(tp_held(f"flash_prefill {what} rank {r}",
+                            flash_prefill_cuda(q, k, v),
+                            flash_prefill_plain(q, k, v), "bfloat16",
+                            FLASH_TOL))
+    row = _row(errs, time_ms(torch, lambda: flash_prefill_cuda(q, k, v)),
+               time_ms(torch, lambda: flash_prefill_plain(q, k, v)),
+               flash_bound_ms(TP_SEQ, H, H, Dq, 0, 2, "bfloat16", Dv,
+                              B=TP_ROWS),
+               f"{what}: B {TP_ROWS}, S {TP_SEQ}, H = Hkv = {H}, Dq {Dq}, "
+               f"Dv {Dv}, bf16, causal",
+               library_ms=time_ms(torch, lambda: sdpa(torch, q, k, v)))
+    _log_row(f"flash_prefill ({TP_MODEL} ranks)", row)
+    return row
+
+
+def sdpa(torch, q, k, v):
+    """PyTorch's attention call over (B, S, H, D) operands: the library
+    yardstick (timed, used nowhere in the port)."""
+    f = torch.nn.functional.scaled_dot_product_attention
+    return f(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+             is_causal=True)
+
+
+def tp_ssm(torch, gen):
+    """falcon-mamba-7b's scan over TP_ROWS x TP_SEQ at d_inner / TP_MODEL
+    channels a rank: each simulated rank's channels of one seeded input
+    through the kernel, against the same channels of the plain version
+    over all of them (the scan is independent per channel)."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
+    d, N = FALCON["d_inner"], FALCON["N"]
+    n = d // TP_MODEL
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale)
+
+    u = randn(TP_ROWS, TP_SEQ, d).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(randn(TP_ROWS, TP_SEQ, d) - 4.6
+                                      ).to(torch.bfloat16)
+    A = -torch.exp(randn(d, N, scale=0.5))
+    Bm, Cm = (randn(TP_ROWS, TP_SEQ, N).to(torch.bfloat16)
+              for _ in range(2))
+    want_y, want_h = ssm_scan_plain(u, dt, A, Bm, Cm)
+    errs = []
+    for r in range(TP_MODEL):
+        sl = slice(r * n, (r + 1) * n)
+        args = (u[..., sl].contiguous(), dt[..., sl].contiguous(),
+                A[sl].contiguous(), Bm, Cm)
+        y, h = ssm_scan_cuda(*args)
+        errs.append(max(tp_held(f"ssm_scan rank {r} y", y, want_y[..., sl],
+                                "bfloat16", SSM_TOL),
+                        tp_held(f"ssm_scan rank {r} h", h, want_h[:, sl],
+                                "bfloat16", SSM_TOL)))
+    row = _row(errs, time_ms(torch, lambda: ssm_scan_cuda(*args)),
+               time_ms(torch, lambda: ssm_scan_plain(*args)),
+               ssm_bound_ms(args + (None,)),
+               f"falcon-mamba-7b: B {TP_ROWS}, S {TP_SEQ}, d {n} of {d}, "
+               f"N {N}, bf16")
+    _log_row(f"ssm_scan ({TP_MODEL} ranks)", row)
+    return row
+
+
+def tp_ring(torch, gen, *, H, Hkv, Dh, same=False):
+    """A TP_ROWS-row ring of TP_RING slots (rows TP_RING_LENS long), K and
+    V of Hkv heads (``same``: one latent pool as both) and a query of H
+    heads, bf16; (q, K, V, identity table, lens)."""
+    q = torch.randn((TP_ROWS, H, Dh), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k = torch.randn((TP_ROWS, TP_RING, Hkv, Dh), generator=gen,
+                    device="cuda", dtype=torch.bfloat16)
+    v = k if same else torch.randn(k.shape, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16)
+    table = torch.arange(TP_ROWS, dtype=torch.int32, device="cuda")[:, None]
+    lens = torch.tensor(TP_RING_LENS, dtype=torch.int32, device="cuda")
+    return q, k, v, table, lens
+
+
+def tp_head_parallel(torch, gen):
+    """qwen2-moe-a2.7b's decode at 1 head a rank: each simulated rank's
+    query head against its KV head of a TP_RING-slot ring, the kernel
+    against the plain version."""
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_plain)
+    q, k, v, table, lens = tp_ring(torch, gen, H=16, Hkv=16, Dh=128)
+    errs = []
+    for r in range(TP_MODEL):
+        args = (q[:, r:r + 1].contiguous(), k[:, :, r:r + 1].contiguous(),
+                v[:, :, r:r + 1].contiguous(), table, lens)
+        errs.append(tp_held(f"head-parallel paged_attention rank {r}",
+                            paged_attention_cuda(*args),
+                            paged_attention_plain(*args), "bfloat16", TOL))
+    row = _row(errs, time_ms(torch, lambda: paged_attention_cuda(*args)),
+               time_ms(torch, lambda: paged_attention_plain(*args)),
+               paged_bound_ms(list(args), sum(TP_RING_LENS), "bfloat16"),
+               f"qwen2-moe-a2.7b head-parallel: B {TP_ROWS}, 1 head of 16, "
+               f"Dh 128, a {TP_RING}-slot ring")
+    _log_row(f"paged_attention ({TP_MODEL} ranks)", row)
+    return row
+
+
+def lse_bound_ms(q, k, same, n_valid):
+    """A slice call's least time: q, the valid ring rows of K and V (one
+    pool where ``same``) read once, the f32 output and lse written once;
+    4 FLOPs a (head, valid row, element)."""
+    B, H, Dh = q.shape
+    Hkv = k.shape[2]
+    nbytes = ((1 if same else 2) * n_valid * Hkv * Dh * 2 + q.numel() * 2
+              + B * H * Dh * 4 + B * H * 4)
+    flops = 4 * n_valid * H * Dh
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def tp_context_parallel(torch, gen, *, H, Hkv, Dh, same, what):
+    """A TP_RING-slot ring cut into TP_MODEL slices, one a simulated rank:
+    each slice's (o, lse) from the kernel with ``lse_out``, merged on the
+    card (``fold_partials``), against one whole-ring call and the plain
+    version (TOL); each slice's lse within TP_LSE_ATOL of the plain
+    version's; the short row's empty slices -inf with zeros, no NaN."""
+    from repro_torch.distributed.tensor_parallel import fold_partials
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_plain)
+    q, k, v, table, lens = tp_ring(torch, gen, H=H, Hkv=Hkv, Dh=Dh,
+                                   same=same)
+    n = TP_RING // TP_MODEL
+
+    def slices(fn):
+        os_, ls = [], []
+        for r in range(TP_MODEL):
+            ks = k[:, r * n:(r + 1) * n].contiguous()
+            vs = ks if same else v[:, r * n:(r + 1) * n].contiguous()
+            lse = torch.empty((TP_ROWS, H), dtype=torch.float32,
+                              device="cuda")
+            sl = (lens - r * n).clamp(0, n).to(torch.int32)
+            os_.append(fn(q, ks, vs, table, sl, None, lse_out=lse))
+            ls.append(lse)
+        return torch.stack(os_), torch.stack(ls), (ks, vs, sl)
+
+    got_o, got_l, last = slices(paged_attention_cuda)
+    want_o, want_l, _ = slices(paged_attention_plain)
+    empty = want_l == -math.inf
+    if not (bool(empty.any()) and bool((got_l[empty] == -math.inf).all())
+            and bool((got_o[empty] == 0).all())
+            and not bool(got_o.isnan().any())):
+        raise AssertionError(f"engine tp {what}: an empty slice did not "
+                             f"give lse -inf and zeros")
+    lse_err = float((got_l[~empty] - want_l[~empty]).abs().max())
+    if lse_err > TP_LSE_ATOL:
+        raise AssertionError(f"engine tp {what}: a slice's lse is "
+                             f"{lse_err} from the plain version's")
+    merged = fold_partials(got_o, got_l)
+    whole = paged_attention_cuda(q, k, v, table, lens)
+    plain = paged_attention_plain(q, k, v, table, lens)
+    errs = [tp_held(f"{what} merge vs one whole-ring call", merged, whole,
+                    "bfloat16", TOL),
+            tp_held(f"{what} merge vs the plain version", merged, plain,
+                    "bfloat16", TOL)]
+    ks, vs, sl = last
+    args = (q, ks, vs, table, sl)
+    lse = torch.empty((TP_ROWS, H), dtype=torch.float32, device="cuda")
+    row = _row(errs, time_ms(torch, lambda: paged_attention_cuda(
+                   *args, None, lse_out=lse)),
+               time_ms(torch, lambda: paged_attention_plain(
+                   *args, None, lse_out=lse)),
+               lse_bound_ms(q, ks, same, int(sl.sum())),
+               f"{what}: one rank's slice with lse_out, B {TP_ROWS}, H {H} "
+               f"over Hkv {Hkv} (G {H // Hkv}), Dh {Dh}, {n} of {TP_RING} "
+               f"slots, bf16")
+    row.update(lse_max_abs_err=lse_err, empty_slices=int(empty.sum()))
+    _log_row(f"paged_attention lse_out ({TP_MODEL} slices)", row)
+    log(f"    each slice's lse within {lse_err:.3e} of the plain version's; "
+        f"{int(empty.sum())} empty (row, head) slices gave -inf and zeros")
+    return row
+
+
+def serve_tp(torch, cfg, path, workdir, seed, profile, kept):
+    """The ``tp`` path (no engine; the note above TP_ROWS).  Returns the
+    world-of-one runs' launch counts."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.paged_attention import LSE
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    group = kept.pop("nccl", None)
+    store = None
+    if group is None:
+        workdir.mkdir(parents=True, exist_ok=True)
+        store = workdir / "nccl_store_tp"
+        store.unlink(missing_ok=True)
+        dist.init_process_group("nccl", rank=0, world_size=1,
+                                store=dist.FileStore(str(store), 1),
+                                device_id=dev)
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    else:
+        mesh = group
+    try:
+        held = kept.pop("qwen_bf16", None)
+        t0 = time.perf_counter()
+        params = (held[1] if held is not None and held[0] == cfg else
+                  Model(cfg, torch.bfloat16, device=dev).init(seed))
+        torch.cuda.synchronize()
+        log(f"engine: path {path!r}: the tensor-parallel serve steps on a "
+            f"world of one under NCCL ({'the dist path' if group else 'its'}"
+            f" process group), {cfg.name} at full width, {cfg.num_layers} "
+            f"layers, bf16 (weights "
+            + ("of the dist path" if held is not None else
+               f"from seed {seed} in {time.perf_counter() - t0:.1f} s")
+            + f"): {TP_ROWS} x {TP_SEQ} tokens, then {TP_STEPS} decode "
+            f"steps, with tp and without")
+        tokens = torch.from_numpy(np.random.default_rng(seed + 41).integers(
+            0, cfg.vocab_size, (TP_ROWS, TP_SEQ))).to(dev)
+        counts = tp_world_of_one(torch, cfg, params, mesh, dev, tokens,
+                                 TP_SEQ + TP_STEPS, cfg.name)
+        del params
+        _free(torch)
+        mla = dataclasses.replace(get_config(TP_MLA_ARCH), num_layers=2)
+        p = Model(mla, torch.bfloat16, device=dev).init(seed)
+        tokens = torch.from_numpy(np.random.default_rng(seed + 42).integers(
+            0, mla.vocab_size, (TP_ROWS, TP_MLA_SEQ))).to(dev)
+        more = tp_world_of_one(torch, mla, p, mesh, dev, tokens,
+                               TP_MLA_SEQ + TP_STEPS, mla.name)
+        if more.get(LSE, 0) <= 0:
+            raise AssertionError(f"engine tp {mla.name}: no lse_out launch")
+        for k, v in more.items():
+            counts[k] = counts.get(k, 0) + v
+        del p
+        _free(torch)
+    finally:
+        dist.destroy_process_group()
+        if store is not None:
+            store.unlink(missing_ok=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 43)
+    log(f"  the kernels at a rank's shapes of the production mesh's "
+        f"'model' = {TP_MODEL}, at full width: {TP_MODEL} simulated ranks "
+        f"one after the other on this one card (their launches are "
+        f"checks, not counted)")
+    before = dict(launches)
+    TP_RESULTS["flash_prefill"] = {
+        "qwen": tp_flash(torch, gen, H=1, Dq=128, Dv=128,
+                         what="qwen2-moe-a2.7b"),
+        "deepseek": tp_flash(torch, gen, H=8, Dq=192, Dv=128,
+                             what="deepseek-v3")}
+    TP_RESULTS["ssm_scan"] = tp_ssm(torch, gen)
+    TP_RESULTS["paged_attention"] = {
+        "head_parallel": tp_head_parallel(torch, gen),
+        "lse_gqa": tp_context_parallel(torch, gen, H=48, Hkv=8, Dh=128,
+                                       same=False, what="internlm2-20b"),
+        "lse_latent": tp_context_parallel(torch, gen, H=128, Hkv=1,
+                                          Dh=576, same=True,
+                                          what="deepseek-v3 latent")}
+    for k in list(launches):
+        launches[k] = before.get(k, 0)
+    TP_RESULTS["paged_attention"]["lse_launches"] = counts.get(LSE, 0)
+    used = [k for k, ps in KERNEL_PATH.items() if path in ps]
+    if min(counts.get(k, 0) for k in used) <= 0:
+        raise AssertionError(f"engine tp: launches {counts}")
+    return {k: counts[k] for k in used}, None, None
+
 
 SERVE = {"disagg": serve_disagg, "fleet": serve_fleet, "spec": serve_spec,
          "spec_megakernel": serve_spec, "overlap": serve_overlap,
          "http": serve_http_path, "vlm": serve_ring, "audio": serve_ring,
          "train": serve_train, "train_ssm": serve_train,
          "examples": serve_examples,
-         "dist": serve_dist, "dryrun": serve_dryrun}
+         "dist": serve_dist, "dryrun": serve_dryrun, "tp": serve_tp}
 
 
 # -- main ---------------------------------------------------------------------------
@@ -5494,7 +5902,8 @@ def main() -> int:
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
             library_ms=r.get("library_ms"), shape=r.get("shape"),
             mla=r.get("mla"), dense=r.get("dense"),
-            hybrid=r.get("hybrid"), ring=r.get("ring"), bf16=r.get("bf16")))
+            hybrid=r.get("hybrid"), ring=r.get("ring"), bf16=r.get("bf16"),
+            tp=TP_RESULTS.get(name)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,7 +93,7 @@ def build_stamped(split_len: int):
                              n_stamps=N_STAMPS,
                              subdir=f"latent_split{split_len}")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.paged_attention.argtypes = [vp] * 8 + [ci] * 7 + [vp, vp]
+    lib.paged_attention.argtypes = [vp] * 8 + [ci] * 7 + [vp, vp, vp]
     lib.paged_attention_scratch_bytes.argtypes = [ci] * 5
     lib.paged_attention_scratch_bytes.restype = ctypes.c_longlong
     return lib
@@ -131,7 +131,7 @@ def main() -> int:
                 q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                 tables.data_ptr(), seq.data_ptr(), None, out.data_ptr(),
                 scratch.data_ptr(), B, W["H"], 1, W["Dh"], bs, max_blk, 1,
-                torch.cuda.current_stream().cuda_stream, None)
+                torch.cuda.current_stream().cuda_stream, None, None)
             if err:
                 raise RuntimeError(f"launch failed: cudaError {err}")
         ms = cs.time_ms(torch, launch)

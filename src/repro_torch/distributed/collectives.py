@@ -70,15 +70,18 @@ _scatter = getattr(dist, "reduce_scatter_single", None) or \
 # -- collectives --------------------------------------------------------------------
 
 # the dry run's tally (``launch.dryrun``): None, or a callable taking (op,
-# per-rank bytes, group) at each collective this module issues, the bytes
+# per-rank bytes, group, shape) at each collective this module issues, the
+# bytes and the shape
 # as the JAX package's HLO parse counts them (an all-gather's and a
-# reduce-scatter's result, an all-reduce's and an all-to-all's operand)
+# reduce-scatter's result, an all-reduce's, an all-to-all's and a
+# broadcast's operand)
 _recorder = None
 
 
 @contextlib.contextmanager
 def recording(fn):
-    """Calls ``fn(op, nbytes, group)`` at each collective in the block."""
+    """Calls ``fn(op, nbytes, group, shape)`` at each collective in the
+    block."""
     global _recorder
     prev, _recorder = _recorder, fn
     try:
@@ -89,7 +92,7 @@ def recording(fn):
 
 def _note(op, t, group):
     if _recorder is not None:
-        _recorder(op, t.numel() * t.element_size(), group)
+        _recorder(op, t.numel() * t.element_size(), group, tuple(t.shape))
 
 
 def _all_gather(x, group):
@@ -121,6 +124,14 @@ def _all_reduce(x, group):
     _note("all-reduce", out, group)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
+
+
+def broadcast_(x, group, src: int):
+    """``x`` of ``group``'s rank ``src`` written into ``x`` on every rank
+    of the group (in place; no gradient)."""
+    _note("broadcast", x, group)
+    dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
+    return x
 
 
 def _all_to_all(x, group):

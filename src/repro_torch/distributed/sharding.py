@@ -23,7 +23,10 @@ Baseline policy, as in the JAX package:
 Every rule replicates a dimension that does not divide its axis.
 :func:`local_shard` cuts a rank's block of a leaf; the distributed MoE
 path (``collectives.MoEDist``) cuts the expert bank and the batch with
-it and keeps every other leaf whole on every rank.
+it and keeps every other leaf whole on every rank.  :func:`tp_shard` is
+the block the tensor-parallel serve steps
+(``distributed.tensor_parallel``) hold: ``local_shard``'s, except that
+Mamba's ``in_proj`` keeps the x and z columns of the rank's channels.
 """
 from __future__ import annotations
 
@@ -292,3 +295,21 @@ def local_shard(leaf, spec: Spec, mesh):
         step = length // n
         out = out.narrow(dim, index * step, step)
     return out.clone(memory_format=torch.contiguous_format)
+
+
+def tp_shard(path, leaf, spec: Spec, mesh):
+    """This rank's block of the parameter at ``path`` (its keys) for the
+    tensor-parallel runtime: :func:`local_shard`'s, except Mamba's
+    ``in_proj`` (..., D, 2 d_inner) split over 'model' on its last
+    dimension.  There ``local_shard`` gives ranks below m/2 x-channels
+    only and the others z-channels only, while the runtime needs x and z
+    of the same channels: the rank stores ``[x_r | z_r]``, columns r
+    d_inner/m .. (r + 1) d_inner/m of each half.  The same bytes a rank,
+    so the argument bytes stay the placement's."""
+    if (path[-1] == "in_proj" and len(spec) == leaf.dim()
+            and spec[-1] is not None):
+        half = leaf.shape[-1] // 2
+        x, z = leaf.narrow(-1, 0, half), leaf.narrow(-1, half, half)
+        return torch.cat([local_shard(x, spec, mesh),
+                          local_shard(z, spec, mesh)], dim=-1)
+    return local_shard(leaf, spec, mesh)

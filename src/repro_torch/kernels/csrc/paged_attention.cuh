@@ -108,6 +108,14 @@
 // Where K and V are one pool each row is loaded once and serves as both.
 // paged::launch picks the kernel from the type, the pools and the shapes,
 // never from a failure.
+//
+// lse (optional, f32 (B, H)): the natural-log log-sum-exp of each row's
+// scaled scores over its valid positions, m + log(l) from the same (m, l)
+// that normalise the row; with it, out is f32 (B, H, Dh) instead of T, so
+// that partials of one row over disjoint position ranges (a context-
+// parallel decode's ranks) merge exactly by their lse.  A row with no
+// valid position gives lse = -inf and out = 0.  Without it (null) every
+// kernel computes and stores what it did before, bit for bit.
 #pragma once
 #include <type_traits>
 
@@ -126,6 +134,14 @@ constexpr int kMaxDh = 256;
 constexpr int kMaxWideDh = 768;   // wide_kernel: 3 chunks a lane
 constexpr int kMergeThreads = 128;
 constexpr float kNegInf = -1e30f;
+
+// One output element: in T, or in f32 where the call asked for the lse.
+template <typename T>
+__device__ __forceinline__ void store_out(T* out, const float* lse,
+                                          long long i, float v) {
+  if (lse != nullptr) reinterpret_cast<float*>(out)[i] = v;
+  else out[i] = from_float<T>(v);
+}
 
 // A split's length: a constant of the head width.
 inline int split_len(int Dh) {
@@ -221,8 +237,9 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const int* __restrict__ tables,
     const int* __restrict__ seq_lens, const int* __restrict__ start_lens,
-    T* __restrict__ out, float* __restrict__ part, int B, int H, int Hkv,
-    int Dh, int bs, int max_blk, int n_hg, float scale, bool vec) {
+    T* __restrict__ out, float* __restrict__ part, float* __restrict__ lse,
+    int B, int H, int Hkv, int Dh, int bs, int max_blk, int n_hg,
+    float scale, bool vec) {
   constexpr int PW = 32 / LPP;                      // positions per warp load
   constexpr int kSteps = kSplitLen / (kWarps * PW);  // positions per thread
   static_assert(kSteps * kWarps * PW == kSplitLen, "split length");
@@ -252,7 +269,8 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
   if (lo >= hi) {   // no valid position: an empty partial, no K/V load
     if (ns == 1) {
       for (int i = tid; i < heads * Dh; i += kThreads)
-        out[bh0 * Dh + i] = from_float<T>(0.f);
+        store_out(out, lse, bh0 * Dh + i, 0.f);
+      if (lse != nullptr && tid < heads) lse[bh0 + tid] = -INFINITY;
     } else if (tid < heads) {
       const Part pa{part, (long long)B * H, ns, Dh};
       *pa.m(bh0 + tid, split) = kNegInf;
@@ -381,7 +399,8 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
     }
     const long long row = bh0 + g;
     if (ns == 1) {
-      out[row * Dh + d] = from_float<T>(a / l);
+      store_out(out, lse, row * Dh + d, a / l);
+      if (lse != nullptr && d == 0) lse[row] = m + logf(l);
     } else {
       const Part pa{part, (long long)B * H, ns, Dh};
       pa.acc(row, split)[d] = a;
@@ -394,8 +413,8 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
 // / sum l_s e^(m_s - M), or exactly 0 for a row with no valid position.
 template <typename T>
 __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
-    const float* __restrict__ part, T* __restrict__ out, int BH, int Dh,
-    int ns) {
+    const float* __restrict__ part, T* __restrict__ out,
+    float* __restrict__ lse, int BH, int Dh, int ns) {
   asm volatile("griddepcontrol.wait;" ::: "memory");  // the split grid
   const long long row = blockIdx.x;
   const Part pa{const_cast<float*>(part), BH, ns, Dh};
@@ -414,7 +433,8 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
         a += acc[(long long)s * Dh + d] * c;
       }
     }
-    out[row * Dh + d] = from_float<T>(L > 0.f ? a / L : 0.f);
+    store_out(out, lse, row * Dh + d, L > 0.f ? a / L : 0.f);
+    if (lse != nullptr && d == 0) lse[row] = L > 0.f ? M + logf(L) : -INFINITY;
   }
 }
 
@@ -428,8 +448,8 @@ __global__ void __launch_bounds__(kThreads) wide_kernel(
     const T* __restrict__ q, const T* k_pool, const T* v_pool,
     const int* __restrict__ tables, const int* __restrict__ seq_lens,
     const int* __restrict__ start_lens, T* __restrict__ out,
-    float* __restrict__ part, int B, int H, int Hkv, int Dh, int bs,
-    int max_blk, int n_hg, float scale, bool vec) {
+    float* __restrict__ part, float* __restrict__ lse, int B, int H, int Hkv,
+    int Dh, int bs, int max_blk, int n_hg, float scale, bool vec) {
   constexpr int GT = kMaxGroup;
   constexpr int kDp = NC * 32 * kVec;                // q_s row, padded
   constexpr int kSteps = kWideSplitLen / kWarps;         // positions per warp
@@ -461,7 +481,8 @@ __global__ void __launch_bounds__(kThreads) wide_kernel(
   if (lo >= hi) {   // no valid position: an empty partial, no K/V load
     if (ns == 1) {
       for (int i = tid; i < heads * Dh; i += kThreads)
-        out[bh0 * Dh + i] = from_float<T>(0.f);
+        store_out(out, lse, bh0 * Dh + i, 0.f);
+      if (lse != nullptr && tid < heads) lse[bh0 + tid] = -INFINITY;
     } else if (tid < heads) {
       const Part pa{part, (long long)B * H, ns, Dh};
       *pa.m(bh0 + tid, split) = kNegInf;
@@ -619,7 +640,8 @@ __global__ void __launch_bounds__(kThreads) wide_kernel(
     }
     const long long row = bh0 + g;
     if (ns == 1) {
-      out[row * Dh + d] = from_float<T>(a / ll);
+      store_out(out, lse, row * Dh + d, a / ll);
+      if (lse != nullptr && d == 0) lse[row] = mm + logf(ll);
     } else {
       const Part pa{part, (long long)B * H, ns, Dh};
       pa.acc(row, split)[d] = a;
@@ -635,9 +657,9 @@ inline size_t wide_smem_bytes(int Dh, int nc) {
 template <typename T, int NC, bool SAME>
 cudaError_t launch_wide_nc(const T* q, const T* k_pool, const T* v_pool,
                            const int* tables, const int* seq_lens,
-                           const int* start_lens, T* out, float* part, int B,
-                           int H, int Hkv, int Dh, int bs, int max_blk,
-                           int n_hg, dim3 grid, bool vec,
+                           const int* start_lens, T* out, float* part,
+                           float* lse, int B, int H, int Hkv, int Dh, int bs,
+                           int max_blk, int n_hg, dim3 grid, bool vec,
                            cudaStream_t stream) {
   const size_t smem = wide_smem_bytes(Dh, NC);
   // always set: the static m_w / l_w count toward the default 48 KB
@@ -646,21 +668,22 @@ cudaError_t launch_wide_nc(const T* q, const T* k_pool, const T* v_pool,
       (int)smem);
   if (err != cudaSuccess) return err;
   wide_kernel<T, NC, SAME><<<grid, kThreads, smem, stream>>>(
-      q, k_pool, v_pool, tables, seq_lens, start_lens, out, part, B, H, Hkv,
-      Dh, bs, max_blk, n_hg, 1.0f / sqrtf((float)Dh), vec);
+      q, k_pool, v_pool, tables, seq_lens, start_lens, out, part, lse, B, H,
+      Hkv, Dh, bs, max_blk, n_hg, 1.0f / sqrtf((float)Dh), vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_wide(const T* q, const T* k_pool, const T* v_pool,
                         const int* tables, const int* seq_lens,
-                        const int* start_lens, T* out, float* part, int B,
-                        int H, int Hkv, int Dh, int bs, int max_blk,
-                        int n_hg, dim3 grid, bool vec, cudaStream_t stream) {
+                        const int* start_lens, T* out, float* part,
+                        float* lse, int B, int H, int Hkv, int Dh, int bs,
+                        int max_blk, int n_hg, dim3 grid, bool vec,
+                        cudaStream_t stream) {
   const bool same = k_pool == v_pool;
 #define PAGED_WIDE(NC, SAME)                                                  \
   launch_wide_nc<T, NC, SAME>(q, k_pool, v_pool, tables, seq_lens,            \
-                              start_lens, out, part, B, H, Hkv, Dh, bs,       \
+                              start_lens, out, part, lse, B, H, Hkv, Dh, bs,  \
                               max_blk, n_hg, grid, vec, stream)
   if (Dh <= 2 * 32 * kVec) return same ? PAGED_WIDE(2, true)
                                        : PAGED_WIDE(2, false);
@@ -700,8 +723,8 @@ __global__ void __launch_bounds__(kLatThreads, 1) latent_kernel(
     const __nv_bfloat16* __restrict__ pool,
     const int* __restrict__ tables, const int* __restrict__ seq_lens,
     const int* __restrict__ start_lens, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ part, int B, int H, int Hkv, int bs, int max_blk,
-    int n_hg, float scale) {
+    float* __restrict__ part, float* __restrict__ lse, int B, int H, int Hkv,
+    int bs, int max_blk, int n_hg, float scale) {
   using bf16 = __nv_bfloat16;
   constexpr int kCh = DH / 8;              // 16-byte chunks a row
   constexpr int kKHalf = DH / 32;          // k-steps of a warp's half of DH
@@ -745,7 +768,8 @@ __global__ void __launch_bounds__(kLatThreads, 1) latent_kernel(
   if (lo >= hi) {   // no valid position: an empty partial, no load
     if (ns == 1) {
       for (int i = tid; i < kLatHeads * DH; i += kLatThreads)
-        out[bh0 * DH + i] = __float2bfloat16(0.f);
+        store_out(out, lse, bh0 * DH + i, 0.f);
+      if (lse != nullptr && tid < kLatHeads) lse[bh0 + tid] = -INFINITY;
     } else if (tid < kLatHeads) {
       const Part pa{part, (long long)B * H, ns, DH};
       *pa.m(bh0 + tid, split) = kNegInf;
@@ -947,6 +971,7 @@ __global__ void __launch_bounds__(kLatThreads, 1) latent_kernel(
   const Part pa{part, (long long)B * H, ns, DH};
   if ((lane & 3) == 0) {
     l_s[srow] = l_run;
+    if (ns == 1 && lse != nullptr) lse[bh0 + srow] = m_run + logf(l_run);
     if (ns > 1) {
       *pa.m(bh0 + srow, split) = m_run;
       *pa.l(bh0 + srow, split) = l_run;
@@ -965,7 +990,17 @@ __global__ void __launch_bounds__(kLatThreads, 1) latent_kernel(
           make_float2(o[mi][n][2], o[mi][n][3]);
     }
   __syncthreads();
-  if (ns == 1) {
+  if (ns == 1 && lse != nullptr) {   // f32 rows, 16-byte stores
+    float* o32 = reinterpret_cast<float*>(out);
+    for (int c = tid; c < kLatHeads * DH / 4; c += kLatThreads) {
+      const int row = c / (DH / 4), c4 = c - row * (DH / 4);
+      const float l = l_s[row];
+      const float4 u = *reinterpret_cast<const float4*>(o_s + row * kORow +
+                                                        c4 * 4);
+      *reinterpret_cast<float4*>(o32 + (bh0 + row) * DH + c4 * 4) =
+          make_float4(u.x / l, u.y / l, u.z / l, u.w / l);
+    }
+  } else if (ns == 1) {
     for (int c = tid; c < kLatHeads * kCh; c += kLatThreads) {
       const int row = c / kCh, ci = c - row * kCh;
       const float l = l_s[row];
@@ -990,15 +1025,16 @@ template <int DH>
 cudaError_t launch_latent(const __nv_bfloat16* q, const __nv_bfloat16* pool,
                           const int* tables, const int* seq_lens,
                           const int* start_lens, __nv_bfloat16* out,
-                          float* part, int B, int H, int Hkv, int bs,
-                          int max_blk, dim3 grid, cudaStream_t stream) {
+                          float* part, float* lse, int B, int H, int Hkv,
+                          int bs, int max_blk, dim3 grid,
+                          cudaStream_t stream) {
   constexpr size_t smem = latent_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
       latent_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   latent_kernel<DH><<<grid, kLatThreads, smem, stream>>>(
-      q, pool, tables, seq_lens, start_lens, out, part, B, H, Hkv, bs,
+      q, pool, tables, seq_lens, start_lens, out, part, lse, B, H, Hkv, bs,
       max_blk, H / Hkv / kLatHeads, 1.0f / sqrtf((float)DH));
   return cudaGetLastError();
 }
@@ -1006,15 +1042,15 @@ cudaError_t launch_latent(const __nv_bfloat16* q, const __nv_bfloat16* pool,
 template <typename T, int GT>
 cudaError_t launch_gt(const T* q, const T* k_pool, const T* v_pool,
                       const int* tables, const int* seq_lens,
-                      const int* start_lens, T* out, float* part, int B,
-                      int H, int Hkv, int Dh, int bs, int max_blk, int n_hg,
-                      dim3 grid, bool vec, cudaStream_t stream) {
+                      const int* start_lens, T* out, float* part, float* lse,
+                      int B, int H, int Hkv, int Dh, int bs, int max_blk,
+                      int n_hg, dim3 grid, bool vec, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)Dh);
   const int lanes = (Dh + kVec - 1) / kVec;
 #define PAGED_SPLIT(LPP)                                                     \
   split_kernel<T, GT, LPP><<<grid, kThreads, 0, stream>>>(                   \
-      q, k_pool, v_pool, tables, seq_lens, start_lens, out, part, B, H, Hkv, \
-      Dh, bs, max_blk, n_hg, scale, vec)
+      q, k_pool, v_pool, tables, seq_lens, start_lens, out, part, lse, B, H, \
+      Hkv, Dh, bs, max_blk, n_hg, scale, vec)
   if (lanes <= 8) PAGED_SPLIT(8);
   else if (lanes <= 16) PAGED_SPLIT(16);
   else PAGED_SPLIT(32);
@@ -1023,15 +1059,17 @@ cudaError_t launch_gt(const T* q, const T* k_pool, const T* v_pool,
 }
 
 // Enqueue the split kernel and, with more than one split, the merge: out
-// (B, H, Dh) in T.  start_lens may be null; part holds scratch_bytes.
-// took_latent, where not null, is set to 1 when the launch runs
-// latent_kernel and to 0 otherwise (the wrapper counts it).
+// (B, H, Dh) in T, or in f32 with lse.  start_lens may be null; part holds
+// scratch_bytes.  took_latent, where not null, is set to 1 when the launch
+// runs latent_kernel and to 0 otherwise (the wrapper counts it).  lse,
+// where not null, takes each (row, head)'s log-sum-exp (the note at the
+// top).
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const int* tables, const int* seq_lens,
                    const int* start_lens, void* out, void* part, int B, int H,
                    int Hkv, int Dh, int bs, int max_blk, cudaStream_t stream,
-                   int* took_latent = nullptr) {
+                   int* took_latent = nullptr, float* lse = nullptr) {
   if (Dh < 1 || Dh > kMaxWideDh || Hkv < 1 || H % Hkv)
     return cudaErrorInvalidValue;
   const int ns = n_splits(bs, max_blk, Dh);
@@ -1067,22 +1105,23 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     if (latent)
       err = launch_latent<kLatDh>(qt, kt, tables, seq_lens, start_lens, ot,
-                                  pt, B, H, Hkv, bs, max_blk, grid, stream);
+                                  pt, lse, B, H, Hkv, bs, max_blk, grid,
+                                  stream);
   }
   if (!latent)
     err = wide      ? launch_wide<T>(qt, kt, vt, tables, seq_lens,
-                                     start_lens, ot, pt, B, H, Hkv, Dh, bs,
-                                     max_blk, n_hg, grid, vec, stream)
+                                     start_lens, ot, pt, lse, B, H, Hkv, Dh,
+                                     bs, max_blk, n_hg, grid, vec, stream)
           : gt == 1 ? launch_gt<T, 1>(qt, kt, vt, tables, seq_lens,
-                                      start_lens, ot, pt, B, H, Hkv, Dh, bs,
-                                      max_blk, n_hg, grid, vec, stream)
+                                      start_lens, ot, pt, lse, B, H, Hkv, Dh,
+                                      bs, max_blk, n_hg, grid, vec, stream)
           : gt == 2 ? launch_gt<T, 2>(qt, kt, vt, tables, seq_lens,
-                                      start_lens, ot, pt, B, H, Hkv, Dh, bs,
-                                      max_blk, n_hg, grid, vec, stream)
+                                      start_lens, ot, pt, lse, B, H, Hkv, Dh,
+                                      bs, max_blk, n_hg, grid, vec, stream)
                     : launch_gt<T, kMaxGroup>(qt, kt, vt, tables, seq_lens,
-                                              start_lens, ot, pt, B, H, Hkv,
-                                              Dh, bs, max_blk, n_hg, grid,
-                                              vec, stream);
+                                              start_lens, ot, pt, lse, B, H,
+                                              Hkv, Dh, bs, max_blk, n_hg,
+                                              grid, vec, stream);
   if (err != cudaSuccess || ns == 1) return err;
   // a programmatic dependent launch: the merge is launched while the split
   // grid drains, and waits for it inside
@@ -1096,7 +1135,8 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   const float* cpt = pt;
-  return cudaLaunchKernelEx(&cfg, merge_kernel<T>, cpt, ot, B * H, Dh, ns);
+  return cudaLaunchKernelEx(&cfg, merge_kernel<T>, cpt, ot, lse, B * H, Dh,
+                            ns);
 }
 
 }  // namespace paged

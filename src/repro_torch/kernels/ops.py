@@ -28,8 +28,8 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 from repro_torch.kernels.router_topk import (router_topk_cuda,
                                              router_topk_plain)
-from repro_torch.kernels.ssm_scan import (SSMScan, ssm_scan_cuda,
-                                          ssm_scan_plain)
+from repro_torch.kernels.ssm_scan import SSMScan
+from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_scan_op
 
 
 def needs_grad(*tensors) -> bool:
@@ -47,12 +47,16 @@ def on_cpu(t: torch.Tensor) -> bool:
 
 
 def paged_attention(q, k_pool, v_pool, block_table, seq_lens,
-                    start_lens=None):
+                    start_lens=None, lse_out=None):
     """Decode attention over a paged pool (GQA, or MLA's latent pool with
     K = V).  ``start_lens`` (optional, (B,)) is the first valid position
-    per row — the sliding-window lower bound; None attends from 0."""
+    per row — the sliding-window lower bound; None attends from 0.
+    ``lse_out`` (optional, (B, H) f32) takes each row's log-sum-exp of
+    its scaled scores (-inf for a row with no valid position), and the
+    output comes back in f32."""
     fn = paged_attention_plain if on_cpu(q) else paged_attention_cuda
-    return fn(q, k_pool, v_pool, block_table, seq_lens, start_lens)
+    return fn(q, k_pool, v_pool, block_table, seq_lens, start_lens,
+              lse_out=lse_out)
 
 
 def moe_dispatch_ffn_combine(x, gate_w, up_w, down_w, weights, phys, alive,
@@ -92,13 +96,14 @@ def ssm_scan(u, dt, A, B_ssm, C_ssm, h0=None, *, h_out=None,
     S, N), from ``h0`` (B, d, N) or zero.  Returns (y (B, S, d) f32,
     h_final (B, d, N) f32); with ``h_out`` (which may be ``h0``) h_final
     is written there in its type, and y comes back in ``y_dtype``.  Under
-    grad it starts from zero (``SSMScan`` refuses the in-place mode)."""
-    cpu = on_cpu(u)
+    grad it starts from zero (``SSMScan`` refuses the in-place mode).  One
+    traced op (``repro_torch::ssm_scan``), whatever the length."""
+    on_cpu(u)
     if needs_grad(*(t for t in (u, dt, A, B_ssm, C_ssm, h0)
                     if t is not None)):
         return SSMScan.apply(u, dt, A, B_ssm, C_ssm, h0, h_out, y_dtype)
-    fn = ssm_scan_plain if cpu else ssm_scan_cuda
-    return fn(u, dt, A, B_ssm, C_ssm, h0, h_out=h_out, y_dtype=y_dtype)
+    return _ssm_scan_op(u, dt, A, B_ssm, C_ssm, h0, h_out=h_out,
+                        y_dtype=y_dtype)
 
 
 def router_topk(logits, expert_mask, k: int):

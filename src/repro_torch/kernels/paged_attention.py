@@ -11,6 +11,14 @@ tensor) takes the tensor-core latent kernel in bf16 (64 query heads a
 CTA against one staged latent tile), the wide FMA kernel in f32 or with
 two pools.  ``kernels.ops.paged_attention`` picks between plain and CUDA
 by the device the tensors lie on.
+
+With ``lse_out`` (f32 (B, H)) both also give each row's natural-log
+log-sum-exp of its scaled scores over its valid positions (-inf where
+it has none), and return the output in f32: normalised within the call,
+so that calls over disjoint position ranges of one row (a context-
+parallel decode's ranks) merge exactly by their lse
+(``distributed.tensor_parallel.merge_partials``).  Without it the
+result is what it was, bit for bit.
 """
 from __future__ import annotations
 
@@ -27,6 +35,9 @@ LATENT_HEADS = 64          # query heads a CTA of it holds
 # the launch count of calls (standalone or the megastep's attention stage)
 # whose attention ran the tensor-core latent kernel
 LATENT = "paged_attention.latent_kernel"
+# the launch count of calls that wrote ``lse_out`` (the context-parallel
+# decode's partials), beside the op's own count
+LSE = "paged_attention.lse_out"
 
 
 def takes_latent_kernel(q, k_pool, v_pool) -> bool:
@@ -46,9 +57,10 @@ def takes_latent_kernel(q, k_pool, v_pool) -> bool:
 
 
 def paged_attention_plain(q, k_pool, v_pool, block_table, seq_lens,
-                          start_lens=None):
+                          start_lens=None, lse_out=None):
     """q: (B, H, Dh); pools: (nb, bs, Hkv, Dh); block_table (B, max_blk);
-    seq_lens / start_lens (B,).  Returns (B, H, Dh) in q's type."""
+    seq_lens / start_lens (B,).  Returns (B, H, Dh) in q's type, or in f32
+    with ``lse_out`` (B, H) f32, which takes each row's log-sum-exp."""
     B, H, Dh = q.shape
     _, bs, Hkv, _ = k_pool.shape
     max_blk = block_table.shape[1]
@@ -68,22 +80,28 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, seq_lens,
     # a row with no valid position would average garbage: zero it
     p = p.masked_fill(~valid[:, None, None, :], 0.0)
     o = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
-    return o.reshape(B, H, Dh).to(q.dtype)
+    if lse_out is None:
+        return o.reshape(B, H, Dh).to(q.dtype)
+    lse = torch.logsumexp(s, dim=-1).reshape(B, H)
+    lse_out.copy_(lse.masked_fill(~valid.any(dim=-1)[:, None], -math.inf))
+    return o.reshape(B, H, Dh)
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
-    "paged_attention": ([_VP] * 8 + [_CI] * 7 + [_VP,
-                                                 ctypes.POINTER(_CI)], _CI),
+    "paged_attention": ([_VP] * 8 + [_CI] * 7 + [_VP, ctypes.POINTER(_CI),
+                                                 _VP], _CI),
     "paged_attention_scratch_bytes": ([_CI] * 5, ctypes.c_longlong),
 }
 
 
 def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens,
-                         start_lens=None):
+                         start_lens=None, lse_out=None):
     """Launch the CUDA kernels (split, then merge where a row spans more
-    than one split) on PyTorch's current stream.  Raises on any input the
-    kernels do not take; never falls back."""
+    than one split) on PyTorch's current stream; with ``lse_out`` (B, H)
+    f32 the kernels write each row's log-sum-exp there and the output
+    in f32.  Raises on any input the kernels do not take; never falls
+    back."""
     build.refuse_grad("paged_attention_cuda", q, k_pool, v_pool)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_cuda needs CUDA tensors, got "
@@ -105,8 +123,11 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens,
     build.check_arg("seq_lens", seq_lens, torch.int32, (B,), dev)
     if start_lens is not None:
         build.check_arg("start_lens", start_lens, torch.int32, (B,), dev)
+    if lse_out is not None:
+        build.check_arg("lse_out", lse_out, torch.float32, (B, H), dev)
     lib = build.load("paged_attention", _PROTOTYPES)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=q.dtype if lse_out is None
+                           else torch.float32)
     if B == 0:
         return out
     nbytes = lib.paged_attention_scratch_bytes(B, H, Dh, bs, max_blk)
@@ -119,11 +140,14 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens,
         None if start_lens is None else start_lens.data_ptr(),
         out.data_ptr(), None if scratch is None else scratch.data_ptr(),
         B, H, Hkv, Dh, bs, max_blk, build.DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(took_latent))
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(took_latent),
+        None if lse_out is None else lse_out.data_ptr())
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {err}")
     launches["paged_attention"] += 1
     count_latent(took_latent)
+    if lse_out is not None:
+        launches[LSE] += 1
     return out
 
 

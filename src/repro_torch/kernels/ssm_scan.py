@@ -26,12 +26,24 @@ h_t``, ``dB_t = sum_d g_t dt_t u_t``, ``du_t = dt_t sum_n g_t B_t``,
 versions for CPU tensors), from a zero state: serving's in-place mode has
 no gradient.  The plain versions compute in f32, or in f64 for f64
 inputs (``gradcheck``).
+
+Both directions are ``torch.library`` custom ops, ``repro_torch::ssm_scan``
+and ``repro_torch::ssm_scan_bwd``, each one traced operation with a fake
+implementation (shapes and types only), so that a trace under
+``FakeTensorMode`` (the dry run) never runs the plain versions' loops over
+time.  Their FLOPs are registered with ``torch.utils.flop_counter``: the
+formulas count what the plain loops' products count (:func:`scan_flops`,
+:func:`scan_bwd_flops`).  The ops dispatch as the functions did (the
+plain version for CPU tensors, the kernel for CUDA ones), so eager
+results are unchanged.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, launches
 from repro_torch.kernels.flash_prefill import acc_dtype
@@ -208,6 +220,78 @@ def ssm_scan_bwd_cuda(u, dt, A, B_ssm, C_ssm, dy, dh=None):
     return du, ddt, dA, dB, dC
 
 
+def scan_flops(u_shape, A_shape) -> int:
+    """The FLOPs ``torch.utils.flop_counter`` counts in the plain scan: one
+    (B, d, N) x (B, N) product a step, 2 B d N each."""
+    Bsz, S, d = u_shape
+    return 2 * Bsz * S * d * A_shape[1]
+
+
+def scan_bwd_flops(u_shape, A_shape) -> int:
+    """The same for the plain backward: five such products a step (dC, dB,
+    the g . B sum, ddt's and dA's sums over the state)."""
+    return 5 * scan_flops(u_shape, A_shape)
+
+
+# the scan and its gradient as custom ops (the module's docstring)
+
+@torch.library.custom_op("repro_torch::ssm_scan", mutates_args=("h_out",))
+def ssm_scan_op(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B_ssm: torch.Tensor, C_ssm: torch.Tensor,
+                h0: Optional[torch.Tensor], h_out: Optional[torch.Tensor],
+                y_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, h_final) of the plain version (CPU) or the kernel (CUDA); with
+    ``h_out`` the final state is written there and the second output is
+    empty (an op's output may not alias its input)."""
+    fn = ssm_scan_plain if u.device.type == "cpu" else ssm_scan_cuda
+    y, h = fn(u, dt, A, B_ssm, C_ssm, h0, h_out=h_out, y_dtype=y_dtype)
+    return y, (h.new_empty(0) if h_out is not None else h)
+
+
+@ssm_scan_op.register_fake
+def _scan_fake(u, dt, A, B_ssm, C_ssm, h0, h_out, y_dtype):
+    Bsz, S, d = u.shape
+    y = u.new_empty((Bsz, S, d), dtype=y_dtype)
+    if h_out is not None:
+        return y, u.new_empty(0, dtype=h_out.dtype)
+    return y, u.new_empty((Bsz, d, A.shape[1]), dtype=acc_dtype(u.dtype))
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_bwd", mutates_args=())
+def ssm_scan_bwd_op(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B_ssm: torch.Tensor, C_ssm: torch.Tensor,
+                    dy: torch.Tensor, dh: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor, torch.Tensor]:
+    """(du, ddt, dA, dB, dC) of the plain backward (CPU) or the kernel."""
+    fn = ssm_scan_bwd_plain if u.device.type == "cpu" else ssm_scan_bwd_cuda
+    return tuple(fn(u, dt, A, B_ssm, C_ssm, dy, dh))
+
+
+@ssm_scan_bwd_op.register_fake
+def _scan_bwd_fake(u, dt, A, B_ssm, C_ssm, dy, dh):
+    return tuple(torch.empty_like(t) for t in (u, dt, A, B_ssm, C_ssm))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan)
+def _scan_flop_formula(u_shape, dt_shape, A_shape, *args, **kwargs) -> int:
+    return scan_flops(u_shape, A_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan_bwd)
+def _scan_bwd_flop_formula(u_shape, dt_shape, A_shape, *args,
+                           **kwargs) -> int:
+    return scan_bwd_flops(u_shape, A_shape)
+
+
+def ssm_scan(u, dt, A, B_ssm, C_ssm, h0=None, *, h_out=None,
+             y_dtype=torch.float32):
+    """The scan as one traced op: (y, h_final), h_final ``h_out`` itself
+    where given."""
+    y, h = ssm_scan_op(u, dt, A, B_ssm, C_ssm, h0, h_out, y_dtype)
+    return y, (h_out if h_out is not None else h)
+
+
 class SSMScan(torch.autograd.Function):
     """The selective scan from a zero state with its gradient: the forward
     kernel (its plain version for CPU tensors), then the backward kernel
@@ -224,11 +308,8 @@ class SSMScan(torch.autograd.Function):
                 "SSMScan: the in-place decode mode (h0, h_out, y_dtype) has "
                 "no gradient; call it under torch.no_grad() or on tensors "
                 "that need no gradient")
-        if u.device.type == "cpu":
-            y, h = ssm_scan_plain(u, dt, A, B_ssm, C_ssm,
-                                  y_dtype=acc_dtype(u.dtype))
-        else:
-            y, h = ssm_scan_cuda(u, dt, A, B_ssm, C_ssm)
+        y, h = ssm_scan(u, dt, A, B_ssm, C_ssm,
+                        y_dtype=acc_dtype(u.dtype))
         ctx.save_for_backward(u, dt, A, B_ssm, C_ssm)
         ctx.set_materialize_grads(False)
         return y, h
@@ -236,11 +317,9 @@ class SSMScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh):
         u, dt, A, B_ssm, C_ssm = ctx.saved_tensors
-        cpu = u.device.type == "cpu"
         if dy is None:
             dy = torch.zeros(u.shape, dtype=acc_dtype(u.dtype),
                              device=u.device)
-        bwd = ssm_scan_bwd_plain if cpu else ssm_scan_bwd_cuda
-        grads = bwd(u, dt, A, B_ssm, C_ssm, dy.contiguous(),
-                    None if dh is None else dh.contiguous())
+        grads = ssm_scan_bwd_op(u, dt, A, B_ssm, C_ssm, dy.contiguous(),
+                                None if dh is None else dh.contiguous())
         return (*grads, None, None, None)

@@ -11,20 +11,32 @@ under ``FakeTensorMode`` on tensors of rank 0's shapes, which hold no
 storage.  Nothing is allocated, whatever the model's size.  It is a
 trace by design, as ``repro``'s dry run is, and no device runs.
 
-What a rank runs is a gather-at-entry model of a step, which no runtime
-of the port executes.  Each argument is stored as ``ShardingRules``
-places it (``local_shard`` of it), so ``argument_bytes`` is the JAX
-package's per-device argument size.  The port has no tensor parallelism
-outside the experts, so the model's step all-gathers every split leaf
-whole at its entry, except the expert bank (the distributed MoE layer,
-``MoEDist`` or ``MoEDistA2A``, takes its block) and the batch rows (the
-rank's share); a decode step's cache leaves gather their 'model' split
-and are cut back after it.  A train step all-reduces the whole leaves'
-gradients over the DP axes and updates its own shards.  Every rank of a
-'model' group repeats the same non-expert compute.  The collectives,
-wire bytes and temp bytes are this model's: neither the JAX package's
-GSPMD step's nor those of the port's distributed path, which cuts only
-the expert bank and keeps the rest whole on every rank.
+Each argument is stored as ``ShardingRules`` places it, so
+``argument_bytes`` is the JAX package's per-device argument size.  What a
+rank runs depends on the kind:
+
+* prefill and decode: the port's tensor-parallel step
+  (``Model(tp=TensorParallel(mesh, rules))``,
+  ``distributed/tensor_parallel.py``), the counterpart of what GSPMD does
+  to the JAX package's placed step: the rank computes on its shards
+  (``sharding.tp_shard``: ``local_shard``'s blocks, Mamba's ``in_proj``
+  holding x and z of its channels, the same bytes), every collective
+  explicit, no split leaf and no cache slice gathered at the entry; the
+  prefill builds the rank's cache slice itself; under FSDP one layer's
+  leaves are regathered to the TP layout inside the layer loop.  With
+  ``force_attn_tp`` the attention leaves are stored split where their
+  last dimension divides; where the heads do not divide 'model' those
+  leaves alone are gathered at the entry (the JAX package's GSPMD pads
+  the heads instead), and the record says so.
+* train: a gather-at-entry model of a step, which no runtime of the port
+  executes: every split leaf but the expert bank and the batch rows
+  all-gathered whole at the entry, the whole leaves' gradients
+  all-reduced over the DP axes and cut back to the rank's shards.  Every
+  rank of a 'model' group repeats the same non-expert compute; its
+  collectives, wire and temp bytes are that model's.
+
+The expert bank goes through the distributed MoE layer (``MoEDist`` or
+``MoEDistA2A``) in both.  The record's ``placement`` says which.
 
 From the trace (:func:`trace`):
 
@@ -36,7 +48,10 @@ From the trace (:func:`trace`):
   ops and uninitialised allocations aside).  An upper bound with no
   fusion, where XLA's count is after fusion; and it is the plain
   versions' traffic (a CPU tensor takes a kernel's plain version), so an
-  attention over S keys counts its (S x S) probabilities;
+  attention over S keys counts its (S x S) probabilities; the selective
+  scan and its gradient are one traced op each (``repro_torch::ssm_scan``,
+  ``ssm_scan_bwd``), their bytes their inputs and outputs and their FLOPs
+  by the formula of the plain loops' products (``kernels/ssm_scan.py``);
 * each collective at the four wrappers of ``distributed.collectives``,
   its per-rank bytes and group, through the JAX package's ring wire
   model (:func:`wire_bytes`), over NVLink when the group lies within one
@@ -79,26 +94,40 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ALL_ARCHS, INPUT_SHAPES, get_config
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import ShardingRules, local_shard
+from repro_torch.distributed.sharding import (ShardingRules, local_shard,
+                                              tp_shard)
+from repro_torch.distributed.tensor_parallel import TensorParallel
 from repro_torch.hardware import NODE_RANKS, card_sheet
 from repro_torch.launch.mesh import axis_sizes, dp_axes, make_mesh
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import make_step, step_arg_specs
-from repro_torch.models.model import MetaFactories, Model
+from repro_torch.models.model import Model
 from repro_torch.models.moe import MoERuntime, physical_experts
 from repro_torch.training.optimizer import AdamWState
 
 PROCESS_GROUP = "fake (torch.testing._internal.distributed.fake_pg)"
-PLACEMENT = ("a gather-at-entry model of a rank's step, which no runtime "
-             "of the port executes: ShardingRules' shards stored; every "
-             "split leaf but the expert bank and the batch rows all-"
-             "gathered whole at the step's entry; a train step's "
-             "gradients all-reduced over DP and cut back.  Its "
-             "collectives, wire and temp bytes are this model's, not the "
-             "JAX package's GSPMD step's, nor the port's distributed "
-             "path's (the expert bank cut, the rest whole on each rank)")
+PLACEMENT = {
+    "train": ("a gather-at-entry model of a rank's step, which no runtime "
+              "of the port executes: ShardingRules' shards stored; every "
+              "split leaf but the expert bank and the batch rows all-"
+              "gathered whole at the step's entry; a train step's "
+              "gradients all-reduced over DP and cut back.  Its "
+              "collectives, wire and temp bytes are this model's, not the "
+              "JAX package's GSPMD step's"),
+    "serve": ("the port's tensor-parallel step on ShardingRules' shards "
+              "(Model(tp=TensorParallel)): each collective explicit, no "
+              "split leaf or cache slice gathered at the step's entry; "
+              "under FSDP one layer's leaves regathered to the TP layout "
+              "inside the layer loop; the expert bank through the "
+              "distributed MoE layer")}
+FORCED = ("; --force-attn-tp: the attention leaves stored split where "
+          "their last dimension divides, and where the heads do not divide "
+          "'model' those leaves alone gathered at the step's entry (the JAX "
+          "package's GSPMD pads the heads instead)")
 TRACE = ("FakeTensorMode on the CPU: the kernels' plain versions, no "
-         "device; bytes an upper bound with no fusion")
+         "device; bytes an upper bound with no fusion; the selective scan "
+         "and its gradient one op each, their bytes their inputs and "
+         "outputs, their FLOPs the plain loops' by formula")
 
 
 # -- the wire model -------------------------------------------------------------------
@@ -115,6 +144,8 @@ def wire_bytes(op: str, size: float, n: int) -> float:
       reduce-scatter   S (n-1)
       all-to-all       S (n-1)/n
       collective-permute  S
+      broadcast        S (the port's FSDP regather; no HLO op of the
+                       JAX package's list)
     """
     if n <= 1:
         n = 2
@@ -319,8 +350,10 @@ def trace(step, specs, *, sheet=None, log: bool = False) -> Dict:
     under ``FakeTensorMode``, and count.  Returns ``flops``, ``bytes``,
     ``ops``, ``argument_bytes``, ``output_bytes``, ``temp_bytes``,
     ``collectives`` ({op: {count, bytes, wire, seconds, links}}),
-    ``wire`` and ``collective_s`` (over ``sheet``'s links), ``seconds``
-    (the trace's own) and, with ``log``, ``log`` (a line per aten op)."""
+    ``collective_log`` (each collective in order: op, per-rank bytes,
+    group size, the shape those bytes are), ``wire`` and ``collective_s`` (over ``sheet``'s links),
+    ``seconds`` (the trace's own) and, with ``log``, ``log`` (a line per
+    aten op)."""
     import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
     sheet = sheet or card_sheet()
@@ -337,9 +370,11 @@ def trace(step, specs, *, sheet=None, log: bool = False) -> Dict:
     tally = _Tally(set(keep), log)
     stats: Dict[str, Dict] = {}
     links: Dict = {}
+    order = []
 
-    def note(op, size, group):
+    def note(op, size, group, shape):
         n = dist.get_world_size(group)
+        order.append((op, size, n, shape))
         link, rate = _link(group, sheet, links)
         wire = wire_bytes(op, size, n)
         s = stats.setdefault(op, {"count": 0, "bytes": 0.0, "wire": 0.0,
@@ -362,6 +397,7 @@ def trace(step, specs, *, sheet=None, log: bool = False) -> Dict:
            "argument_bytes": int(sum(keep.values())),
            "output_bytes": int(sum(outs.values())),
            "temp_bytes": int(tally.peak), "collectives": stats,
+           "collective_log": order,
            "wire": sum(s["wire"] for s in stats.values()),
            "collective_s": sum(s["seconds"] for s in stats.values()),
            "seconds": seconds}
@@ -410,37 +446,31 @@ def arg_placements(rules: ShardingRules, kind: str, args, B: int):
 
 class _RankStep:
     """The step of ``kind`` as rank 0 runs it on its shards (the module's
-    docstring): whole leaves gathered at the entry, a decode cache's and
-    a prefill cache's 'model' split cut back at the exit."""
+    docstring): a train step's whole leaves gathered at the entry and its
+    gradients cut back; a serve step the tensor-parallel model's
+    (:meth:`serve`)."""
 
-    def __init__(self, model: Model, kind: str, mesh, placed,
-                 cache_spec=None):
+    def __init__(self, model: Model, kind: str, mesh, placed):
         self.model, self.kind, self.mesh = model, kind, mesh
-        self.placed, self.cache_spec = placed, cache_spec
+        self.placed = placed
         self.groups = {a: mesh.get_group(a) for a in mesh.mesh_dim_names}
         self.dp = dp_axes(mesh)
         self.dp_size = math.prod(axis_sizes(mesh)[a] for a in self.dp)
 
-    def _whole(self, x, spec, only_model=False):
+    def _whole(self, x, spec):
         """``x`` all-gathered along each split dimension of ``spec`` (the
-        first axis of a pair major); with ``only_model`` along the
-        'model' splits alone."""
+        first axis of a pair major)."""
         for dim, entry in enumerate(spec):
             if entry is None:
                 continue
             axes = (entry,) if isinstance(entry, str) else tuple(entry)
-            if only_model and "model" not in axes:
-                continue
             y = x.movedim(dim, 0)
             for a in reversed(axes):
                 y = C.all_gather(y, self.groups[a])
             x = y.movedim(0, dim).contiguous()
         return x
 
-    def _cut(self, x, spec, only_model=False):
-        if only_model:
-            spec = tuple(e if e is not None and "model" in (
-                (e,) if isinstance(e, str) else e) else None for e in spec)
+    def _cut(self, x, spec):
         return local_shard(x, spec, self.mesh)
 
     def gather(self, params):
@@ -463,20 +493,52 @@ class _RankStep:
         if self.kind == "train":
             return make_step(self.model, "train", gather=self.gather,
                              reduce_grads=self.reduce_grads)
-        inner = make_step(self.model, self.kind)
-        cut = lambda p, x, sp: self._cut(x, sp, only_model=True)  # noqa
+        return self.serve()
+
+    def serve(self):
+        """The tensor-parallel serve step on the rank's arguments as
+        stored: ``Model(tp=...)`` of the true placement (``ShardingRules``
+        of the mesh without ``force_attn_tp``); the leaves that a forced
+        placement split where that one keeps them whole are gathered at
+        the entry (:attr:`gathered` names them), and no other."""
+        cfg, mesh = self.model.cfg, self.mesh
+        tp = TensorParallel(mesh, ShardingRules(mesh, cfg))
+        model = Model(cfg, self.model.dtype, device="cpu",
+                      moe_dist=self.model.moe_dist, tp=tp)
+        inner = make_step(model, self.kind)
+        self.gathered = [p for p, s, w in _pairs(self.placed[0], tp.placed)
+                         if tuple(s) != tuple(w)]
+
+        def entry(params):
+            if not self.gathered:
+                return params
+            return _map2(lambda p, x, sp: x if p not in self.gathered else
+                         tp.reshard(x, sp, _at(tp.placed, p)), params,
+                         self.placed[0])
+
         if self.kind == "prefill":
             def prefill_step(params, batch, runtime):
-                tok, cache = inner(self.gather(params), batch, runtime)
-                return tok, _map2(cut, cache, self.cache_spec)
+                return inner(entry(params), batch, runtime)
             return prefill_step
 
         def serve_step(params, cache, tokens, runtime):
-            whole = _map2(lambda p, x, sp: self._whole(x, sp, True), cache,
-                          self.placed[1])
-            tok, whole = inner(self.gather(params), whole, tokens, runtime)
-            return tok, _map2(cut, whole, self.placed[1])
+            return inner(entry(params), cache, tokens, runtime)
         return serve_step
+
+
+def _pairs(a, b, path=()):
+    """(path, a's leaf, b's leaf) of two spec trees of one structure."""
+    if isinstance(a, dict):
+        for k in a:
+            yield from _pairs(a[k], b[k], path + (str(k),))
+    else:
+        yield path, a, b
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def rank_step(cfg, shape, mesh, moe_impl: str, *, force_attn_tp=False,
@@ -491,8 +553,8 @@ def rank_step(cfg, shape, mesh, moe_impl: str, *, force_attn_tp=False,
     rules = ShardingRules(mesh, cfg)
     if force_attn_tp:
         # attention leaves stored split where their last dimension divides
-        # (gathered whole at the entry: the port has no head-parallel
-        # attention)
+        # (a serve step gathers at its entry those whose heads do not
+        # divide 'model'; a train step gathers every leaf)
         rules.attn_tp = rules.kv_tp = True
     B = shape.global_batch
     if md is not None:
@@ -507,14 +569,20 @@ def rank_step(cfg, shape, mesh, moe_impl: str, *, force_attn_tp=False,
                     raise ValueError(f"{path}: ShardingRules places it "
                                      f"{got}, the MoE layer takes "
                                      f"{want[path[-1]]}")
-    cache_spec = None
-    if shape.kind == "prefill":
-        with MetaFactories():
-            cache = model.init_cache(B, shape.seq_len, device="cpu")
-        cache_spec = rules.cache_specs(cache, B)
-    local = _map2(lambda p, t, sp: local_shard(t, sp, mesh), specs, placed)
-    step = _RankStep(model, shape.kind, mesh, placed, cache_spec).step()
-    return trace(step, local, sheet=sheet, log=log)
+    # a serve step's rank holds the TP runtime's blocks (tp_shard: the same
+    # bytes); the train step's gather-at-entry model local_shard's
+    cut = (tp_shard if shape.kind != "train" else
+           lambda p, t, sp, m: local_shard(t, sp, m))
+    local = _map2(lambda p, t, sp: cut(p, t, sp, mesh), specs, placed)
+    rank = _RankStep(model, shape.kind, mesh, placed)
+    rec = trace(rank.step(), local, sheet=sheet, log=log)
+    gathered = getattr(rank, "gathered", [])
+    rec["placement"] = (PLACEMENT["train" if shape.kind == "train" else
+                                  "serve"]
+                        + (FORCED + ": " + ", ".join(
+                            "/".join(p) for p in gathered)
+                           if gathered else ""))
+    return rec
 
 
 def extrapolated_cost(cfg, shape, mesh, moe_impl: str, **kw):
@@ -651,7 +719,7 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
         "node_ranks": NODE_RANKS,
         "process_group": group_kind,
         "trace": TRACE,
-        "placement": PLACEMENT,
+        "placement": full["placement"],
         "remat": ("the config's flag set as the JAX package sets it; the "
                   "port keeps every activation for the backward"),
         "force_attn_tp": force_attn_tp,
@@ -668,8 +736,11 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"{n_chips}; {TRACE}), not a timing: mesh "
               f"{rec['lower_s']:.1f}s  trace {rec['trace_s']:.1f}s "
               f"({rec['ops']} ops)")
-        print("  placement: a gather-at-entry model, not a runtime of the "
-              "port; collectives, wire and temp are this model's")
+        print("  placement: " + ("a gather-at-entry model, not a runtime "
+                                 "of the port; collectives, wire and temp "
+                                 "are this model's" if shape.kind == "train"
+                                 else "the port's tensor-parallel step on "
+                                 "ShardingRules' shards"))
         print(f"  memory/device: args "
               f"{mem['argument_bytes'] / gb:.2f} GiB"
               f"  temp {mem['temp_bytes'] / gb:.2f} GiB"

@@ -69,7 +69,7 @@ def make_step(model: Model, kind: str,
     (``(params, opt_state, batch) -> (params, opt_state, metrics)``, the
     port's AdamW state; ``train_hooks`` go to ``make_train_step``),
     ``prefill`` the ring prefill and ``decode`` one ring decode step, each
-    followed by the greedy next token."""
+    followed by the greedy next token (:func:`greedy`)."""
     if kind == "train":
         from repro_torch.training.train_loop import make_train_step
         return make_train_step(model, opt_cfg or OptimizerConfig(),
@@ -77,14 +77,24 @@ def make_step(model: Model, kind: str,
     if kind == "prefill":
         def prefill_step(params, batch, runtime):
             last, cache = model.prefill(params, batch, runtime)
-            return last.argmax(dim=-1).to(torch.int32), cache
+            return greedy(model, last), cache
         return prefill_step
     if kind == "decode":
         def serve_step(params, cache, tokens, runtime):
             logits, cache = model.decode_step(params, cache, tokens, runtime)
-            return logits.argmax(dim=-1).to(torch.int32), cache
+            return greedy(model, logits), cache
         return serve_step
     raise ValueError(kind)
+
+
+def greedy(model: Model, logits) -> torch.Tensor:
+    """The greedy token of each row, ``argmax`` over the padded vocabulary
+    (the JAX package's ``jnp.argmax(last, -1)``), int32; under tensor
+    parallelism the logits are the rank's columns and
+    ``TensorParallel.greedy`` picks the same token."""
+    if model.tp is not None:
+        return model.tp.greedy(logits)
+    return logits.argmax(dim=-1).to(torch.int32)
 
 
 def step_arg_specs(model: Model, cfg: ModelConfig, shape: InputShape,

@@ -27,6 +27,16 @@ position ``p`` lives in slot ``p % W``.  Decode attends through
 ``ops.paged_attention`` with the ring viewed as a pool of B blocks of W
 rows (:func:`ring_page`), as cross-attention decode does over the
 encoder's K/V.
+
+With ``tp`` (``distributed.tensor_parallel.TensorParallel``) the
+functions run on a rank's shards (``sharding.tp_shard``): head counts come
+from the weights' shapes, the output projection is row-parallel (its
+partials all-reduced over 'model' where the heads are split), and a ring
+decode whose cache is split over its window (KV heads that do not divide
+'model'; MLA's latent ring; the audio's cross K/V over frames) attends
+every head's query over the rank's slots and merges the ranks' partials
+by their log-sum-exp.  The new token's slot belongs to one rank, which
+alone writes it.
 """
 from __future__ import annotations
 
@@ -134,15 +144,18 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
 
 def gqa_forward(p, cfg: ModelConfig, x, positions, *, causal=True,
                 kv_input=None, kv_positions=None, window=0, use_rope=True,
-                return_kv=False):
+                return_kv=False, tp=None):
     """Full-sequence GQA.  x: (B, S, D); positions (S,) int32.
     ``kv_input`` (B, F, D), with its ``kv_positions`` (F,), overrides the
     K/V source (cross-attention, which also passes ``use_rope=False``).
     With ``return_kv`` also returns the K (rope applied) and V, (B, S or
-    F, Hkv, Dh)."""
+    F, Hkv, Dh).  With ``tp``: the rank's query heads (all where they do
+    not divide 'model') against the KV heads they read, ``wo``
+    row-parallel; the K and V returned are the rank's KV heads (all where
+    they do not divide)."""
     B, S, _ = x.shape
     Dh = cfg.resolved_head_dim()
-    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    H, Hkv = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
     src = x if kv_input is None else kv_input
     kv_pos = positions if kv_positions is None else kv_positions
     q = (x @ p["wq"]).reshape(B, S, H, Dh)
@@ -153,19 +166,38 @@ def gqa_forward(p, cfg: ModelConfig, x, positions, *, causal=True,
         sin_k, cos_k = rope_sincos(kv_pos, Dh, cfg.rope_theta)
         q = apply_rope(q, sin_q[None, :, None, :], cos_q[None, :, None, :])
         k = apply_rope(k, sin_k[None, :, None, :], cos_k[None, :, None, :])
-    out = flash_attention(q, k, v, positions, kv_pos, causal=causal,
+    ka, va = k, v
+    if tp is not None and tp.attn_tp and not tp.kv_tp:
+        ka, va = _kv_of_heads(k, v, cfg.num_heads // cfg.num_kv_heads,
+                              tp.q_heads(cfg.num_heads).start, H)
+    out = flash_attention(q, ka, va, positions, kv_pos, causal=causal,
                           window=window)
     y = out.reshape(B, S, H * Dh) @ p["wo"]
+    if tp is not None and tp.attn_tp:
+        y = tp.all_reduce(y)
     if return_kv:
         return y, (k, v)
     return y
 
 
-def gqa_forward_with_kv(p, cfg: ModelConfig, x, positions):
+def _kv_of_heads(k, v, G: int, h0: int, n: int):
+    """The K/V heads that query heads h0 .. h0 + n - 1 read (G query heads
+    a KV head), (B, S, Hkv, Dh) -> a contiguous slice of KV heads where
+    those queries group evenly over it, else one KV head a query head."""
+    lo, hi = h0 // G, (h0 + n - 1) // G + 1
+    per = n // (hi - lo)
+    if per * (hi - lo) == n and all((h0 + i) // G - lo == i // per
+                                    for i in range(n)):
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = torch.tensor([(h0 + i) // G for i in range(n)], device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def gqa_forward_with_kv(p, cfg: ModelConfig, x, positions, tp=None):
     """Prefill variant: returns (y, (k, v)) with rope already applied to
     k, ready to be written into pool blocks."""
     return gqa_forward(p, cfg, x, positions, causal=True,
-                       window=cfg.sliding_window, return_kv=True)
+                       window=cfg.sliding_window, return_kv=True, tp=tp)
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -209,31 +241,100 @@ def _write_ring(ring, pos, row) -> None:
         row.to(ring.dtype)
 
 
-def gqa_decode(p, cfg: ModelConfig, x, cache, pos):
+def _write_ring_slice(ring, pos, row, tp) -> None:
+    """:func:`_write_ring` where ``ring`` (B, W/m, ...) is this rank's
+    slice of a ring of W slots split over 'model': each row's slot pos %
+    W is written by the rank that holds it; the others write back what
+    their slot already held (no host sync, no branch on data)."""
+    B, Wl = ring.shape[:2]
+    slot = (pos % (Wl * tp.size)).long() - tp.rank * Wl
+    mine = (slot >= 0) & (slot < Wl)
+    rows = torch.arange(B, device=pos.device)
+    slot = slot.clamp(0, Wl - 1)
+    mask = mine.reshape((B,) + (1,) * (row.dim() - 1))
+    ring[rows, slot] = torch.where(mask, row.to(ring.dtype),
+                                   ring[rows, slot])
+
+
+def _slice_lens(pos, Wl: int, tp):
+    """The valid slots of each row in this rank's slice of a split ring:
+    clamp(min(pos + 1, W) - r W/m, 0, W/m), as int32."""
+    n = torch.clamp_max(pos + 1, Wl * tp.size) - tp.rank * Wl
+    return n.clamp(0, Wl).to(torch.int32)
+
+
+def _context_parallel(q, k_ring, v_ring, seq_lens, tp):
+    """Every head's query (B, H, Dh) over this rank's slots, each row's
+    first ``seq_lens`` of them, merged with the other ranks' by their
+    log-sum-exp: the attention over the whole ring, (B, H, Dh) f32."""
+    B, H = q.shape[:2]
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    o = ops.paged_attention(q, k_ring, v_ring, _row_blocks(B, q.device),
+                            seq_lens, lse_out=lse)
+    return tp.merge(o, lse)
+
+
+def _all_heads(q, tp):
+    """The query of every head: the ranks' heads gathered where the heads
+    are split over 'model'."""
+    return tp.gather(q, dim=1) if tp.attn_tp else q
+
+
+def _own_heads(o, H: int, tp):
+    """This rank's heads of (B, H, ...) (all where they do not divide)."""
+    return o[:, tp.q_heads(H)]
+
+
+def _out_proj(o, wo, x, tp):
+    """(B, heads, Dv) -> (B, D) through ``wo``: row-parallel under ``tp``
+    with the heads split."""
+    y = o.reshape(o.shape[0], -1).to(x.dtype) @ wo
+    if tp is not None and tp.attn_tp:
+        y = tp.all_reduce(y)
+    return y
+
+
+def gqa_decode(p, cfg: ModelConfig, x, cache, pos, tp=None):
     """One-token decode against one layer's ring.  x: (B, D); pos (B,)
     int32, the position of x.  Writes the new K/V into slot pos % W of
     ``cache`` {"k", "v"} (B, W, Hkv, Dh) in place and attends over the
-    valid slots through ``ops.paged_attention``.  Returns (B, D)."""
+    valid slots through ``ops.paged_attention``.  Returns (B, D).  With
+    ``tp``: head-parallel where KV heads divide 'model', else over this
+    rank's W/m slots (context-parallel), merged."""
     B, _ = x.shape
     q, k, v = _gqa_qkv(p, cfg, x, pos)
-    _write_ring(cache["k"], pos, k)
-    _write_ring(cache["v"], pos, v)
-    tables, seq_lens = ring_page(pos, cache["k"].shape[1])
-    out = ops.paged_attention(q, cache["k"], cache["v"], tables, seq_lens)
-    return out.reshape(B, -1).to(x.dtype) @ p["wo"]
+    if tp is None or tp.kv_tp:
+        _write_ring(cache["k"], pos, k)
+        _write_ring(cache["v"], pos, v)
+        tables, seq_lens = ring_page(pos, cache["k"].shape[1])
+        out = ops.paged_attention(q, cache["k"], cache["v"], tables,
+                                  seq_lens)
+        return _out_proj(out, p["wo"], x, tp)
+    _write_ring_slice(cache["k"], pos, k, tp)
+    _write_ring_slice(cache["v"], pos, v, tp)
+    seq_lens = _slice_lens(pos, cache["k"].shape[1], tp)
+    o = _context_parallel(_all_heads(q, tp), cache["k"], cache["v"],
+                          seq_lens, tp)
+    return _out_proj(_own_heads(o, cfg.num_heads, tp), p["wo"], x, tp)
 
 
-def gqa_cross_decode(p, cfg: ModelConfig, x, ck, cv):
+def gqa_cross_decode(p, cfg: ModelConfig, x, ck, cv, tp=None):
     """Cross-attention decode against the encoder's precomputed K/V, (B,
     F, Hkv, Dh), viewed as a pool of one block of F rows a row, every
     frame valid (``repro``'s model passes ``kv_valid`` all true); no
-    rope.  x: (B, D) -> (B, D)."""
+    rope.  x: (B, D) -> (B, D).  With ``tp`` as :func:`gqa_decode`, the
+    frames split where the KV heads are not."""
     B, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, cfg.num_heads, cfg.resolved_head_dim())
+    Dh = cfg.resolved_head_dim()
+    q = (x @ p["wq"]).reshape(B, -1, Dh)
     seq_lens = torch.full((B,), ck.shape[1], dtype=torch.int32,
                           device=x.device)
-    out = ops.paged_attention(q, ck, cv, _row_blocks(B, x.device), seq_lens)
-    return out.reshape(B, -1).to(x.dtype) @ p["wo"]
+    if tp is None or tp.kv_tp:
+        out = ops.paged_attention(q, ck, cv, _row_blocks(B, x.device),
+                                  seq_lens)
+        return _out_proj(out, p["wo"], x, tp)
+    o = _context_parallel(_all_heads(q, tp), ck, cv, seq_lens, tp)
+    return _out_proj(_own_heads(o, cfg.num_heads, tp), p["wo"], x, tp)
 
 
 def gqa_paged_pools(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -258,10 +359,11 @@ def gqa_decode_qkv(p, cfg: ModelConfig, x, page):
 
 
 def _gqa_qkv(p, cfg: ModelConfig, x, pos):
-    """One token's q (B, H, Dh), k and v (B, Hkv, Dh), rope at ``pos``."""
+    """One token's q (B, H, Dh), k and v (B, Hkv, Dh), rope at ``pos``
+    (the heads of the weights: a rank's under tensor parallelism)."""
     B, _ = x.shape
     Dh = cfg.resolved_head_dim()
-    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    H, Hkv = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
     q = (x @ p["wq"]).reshape(B, H, Dh)
     k = (x @ p["wk"]).reshape(B, Hkv, Dh)
     v = (x @ p["wv"]).reshape(B, Hkv, Dh)
@@ -323,13 +425,19 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
     }
 
 
-def _mla_qkr(p, cfg: ModelConfig, x, positions):
+def _mla_qkr(p, cfg: ModelConfig, x, positions, tp=None):
     """The shared query / latent / rope-key projections.  x: (B, S, D) or
-    (B, D); positions broadcast against x's leading axes."""
+    (B, D); positions broadcast against x's leading axes.  The heads are
+    the weights' (a rank's with ``tp``: ``wdq``'s columns are split, and
+    ``q_norm`` whole, so the query latent is gathered before the norm;
+    ``wdkv`` and ``wkr`` are whole, so every rank forms the latent)."""
     m = cfg.mla
-    H = cfg.num_heads
+    H = p["wuk"].shape[-3]
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
-    q_lat = rms_norm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
+    q_lat = x @ p["wdq"]
+    if tp is not None and tp.attn_tp:
+        q_lat = tp.gather(q_lat, dim=-1)
+    q_lat = rms_norm(q_lat, p["q_norm"], cfg.norm_eps)
     q_all = (q_lat @ p["wuq"]).reshape(*x.shape[:-1], H, dn + dr)
     q_nope, q_rope = q_all[..., :dn], q_all[..., dn:]
     c_kv = rms_norm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)
@@ -339,16 +447,19 @@ def _mla_qkr(p, cfg: ModelConfig, x, positions):
 
 
 def mla_forward(p, cfg: ModelConfig, x, positions, *, causal=True,
-                window=0, return_cache=False):
+                window=0, return_cache=False, tp=None):
     """Full-sequence MLA: the latent expanded to per-head K and V, then
     flash attention (on the card one ``flash_prefill`` launch with QK
     width dn + dr and V width dv).  With ``return_cache`` also returns
-    the latent ``c_kv`` (B, S, R) and the roped ``k_rope`` (B, S, dr)."""
+    the latent ``c_kv`` (B, S, R) and the roped ``k_rope`` (B, S, dr).
+    With ``tp`` the rank's heads (``wuq``, ``wuk``, ``wuv`` head-split),
+    ``wo`` row-parallel; the latent whole on every rank."""
     B, S, _ = x.shape
     m = cfg.mla
-    H = cfg.num_heads
+    H = p["wuk"].shape[-3]
     dr, dv = m.qk_rope_head_dim, m.v_head_dim
-    q_nope, q_rope, c_kv, k_rope, sin, cos = _mla_qkr(p, cfg, x, positions)
+    q_nope, q_rope, c_kv, k_rope, sin, cos = _mla_qkr(p, cfg, x, positions,
+                                                      tp)
     q_rope = apply_rope(q_rope, sin[None, :, None, :], cos[None, :, None, :])
     k_rope = apply_rope(k_rope, sin[None], cos[None])
     k_nope = torch.einsum("bsr,hdr->bshd", c_kv, p["wuk"])
@@ -359,15 +470,17 @@ def mla_forward(p, cfg: ModelConfig, x, positions, *, causal=True,
     out = flash_attention(q, k, v, positions, positions, causal=causal,
                           window=window)
     y = out.reshape(B, S, H * dv) @ p["wo"]
+    if tp is not None and tp.attn_tp:
+        y = tp.all_reduce(y)
     if return_cache:
         return y, (c_kv, k_rope)
     return y
 
 
-def mla_forward_with_cache(p, cfg: ModelConfig, x, positions):
+def mla_forward_with_cache(p, cfg: ModelConfig, x, positions, tp=None):
     """Prefill variant: returns (y, (c_kv, k_rope)) for the latent pool."""
     return mla_forward(p, cfg, x, positions, causal=True,
-                       window=cfg.sliding_window, return_cache=True)
+                       window=cfg.sliding_window, return_cache=True, tp=tp)
 
 
 def mla_paged_pools(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -389,12 +502,13 @@ def mla_decode_q_token(p, cfg: ModelConfig, x, page):
     return _mla_q_token(p, cfg, x, page["seq_lens"] - 1)
 
 
-def _mla_q_token(p, cfg: ModelConfig, x, pos):
-    """:func:`mla_decode_q_token` at the positions ``pos`` (B,)."""
+def _mla_q_token(p, cfg: ModelConfig, x, pos, tp=None):
+    """:func:`mla_decode_q_token` at the positions ``pos`` (B,); with
+    ``tp`` the rank's heads' queries."""
     m = cfg.mla
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
     R = m.kv_lora_rank
-    q_nope, q_rope, c_kv, k_rope, sin, cos = _mla_qkr(p, cfg, x, pos)
+    q_nope, q_rope, c_kv, k_rope, sin, cos = _mla_qkr(p, cfg, x, pos, tp)
     q_rope = apply_rope(q_rope, sin[:, None, :], cos[:, None, :])
     k_rope = apply_rope(k_rope, sin, cos)
     q_lat = torch.einsum("bhd,hdr->bhr", q_nope, p["wuk"])
@@ -451,18 +565,28 @@ def mla_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return mla_paged_pools(cfg, batch, W, dtype, device, lead)
 
 
-def mla_decode(p, cfg: ModelConfig, x, cache, pos):
+def mla_decode(p, cfg: ModelConfig, x, cache, pos, tp=None):
     """Absorbed-matmul MLA decode against one layer's latent ring,
     written in place at slot pos % W: the ring viewed as a pool, one
     ``ops.paged_attention`` launch with K = V = the ring, as
-    :func:`mla_decode_paged`.  x: (B, D); pos (B,).  Returns (B, D)."""
+    :func:`mla_decode_paged`.  x: (B, D); pos (B,).  Returns (B, D).
+    With ``tp`` the ring is split over its window: every head's absorbed
+    query over this rank's slots, merged, then the rank's heads through
+    ``wuv`` and row-parallel ``wo``."""
     B, _ = x.shape
     R = cfg.mla.kv_lora_rank
-    q_eff, token = _mla_q_token(p, cfg, x, pos)
+    q_eff, token = _mla_q_token(p, cfg, x, pos, tp)
     ring = cache["ckr"]
-    _write_ring(ring[:, :, 0], pos, token)
-    tables, seq_lens = ring_page(pos, ring.shape[1])
-    out = ops.paged_attention(q_eff.to(ring.dtype), ring, ring, tables,
-                              seq_lens)
-    o = torch.einsum("bhr,hrv->bhv", out[..., :R].to(x.dtype), p["wuv"])
-    return o.reshape(B, -1) @ p["wo"]
+    if tp is None:
+        _write_ring(ring[:, :, 0], pos, token)
+        tables, seq_lens = ring_page(pos, ring.shape[1])
+        out = ops.paged_attention(q_eff.to(ring.dtype), ring, ring, tables,
+                                  seq_lens)
+        o = torch.einsum("bhr,hrv->bhv", out[..., :R].to(x.dtype), p["wuv"])
+        return o.reshape(B, -1) @ p["wo"]
+    _write_ring_slice(ring[:, :, 0], pos, token, tp)
+    o = _context_parallel(_all_heads(q_eff, tp).to(ring.dtype), ring, ring,
+                          _slice_lens(pos, ring.shape[1], tp), tp)
+    o = _own_heads(o, cfg.num_heads, tp)[..., :R]
+    o = torch.einsum("bhr,hrv->bhv", o.to(x.dtype), p["wuv"])
+    return _out_proj(o, p["wo"], x, tp)

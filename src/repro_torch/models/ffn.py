@@ -1,5 +1,7 @@
 """Dense feed-forward: the SwiGLU the shared experts run (and squared
-ReLU, for parity with ``repro.models.ffn``)."""
+ReLU, for parity with ``repro.models.ffn``).  Under tensor parallelism
+(``tp``) ``w_gate`` and ``w_up`` hold the rank's columns and ``w_down``
+its rows: Megatron's FFN, the partial sums all-reduced over 'model'."""
 from __future__ import annotations
 
 from typing import Dict, Sequence
@@ -27,9 +29,13 @@ def ffn_init(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
     raise ValueError(activation)
 
 
-def ffn_apply(p, x: torch.Tensor, activation: str) -> torch.Tensor:
+def ffn_apply(p, x: torch.Tensor, activation: str, tp=None) -> torch.Tensor:
+    """``tp``: the width is split over 'model' (``TensorParallel``), and
+    the row-parallel ``w_down``'s partials are all-reduced."""
     if activation == "swiglu":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    if activation == "relu2":
-        return torch.square(F.relu(x @ p["w_up"])) @ p["w_down"]
-    raise ValueError(activation)
+        y = (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    elif activation == "relu2":
+        y = torch.square(F.relu(x @ p["w_up"])) @ p["w_down"]
+    else:
+        raise ValueError(activation)
+    return y if tp is None else tp.all_reduce(y)

@@ -87,6 +87,16 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int,
     return normal_init(gen, (vocab, dim), 0.02, dtype)
 
 
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, tp=None
+                 ) -> torch.Tensor:
+    """The embedding rows of ``tokens``; with ``tp``
+    (``TensorParallel``) ``table`` is the rank's rows of the vocabulary,
+    looked up and summed over 'model' (vocab-parallel)."""
+    if tp is None:
+        return table[tokens.long()]
+    return tp.embed(table, tokens)
+
+
 def take_layer(stacked, i: int):
     """Views of layer ``i`` of a stacked ``(L, ...)`` parameter dict."""
     if isinstance(stacked, dict):

@@ -15,6 +15,14 @@ d_inner, N)}`` (``repro``'s ``MambaState`` fields, by name);
 ``ssm`` state into it directly.
 ``A = -exp(A_log)`` is the caller's to keep (``Model`` computes it once per
 weight load); without it both functions compute it from ``A_log``.
+
+Under tensor parallelism (``tp``) the block is channel-parallel over
+d_inner: ``in_proj`` holds the x and z columns of the rank's channels
+(``sharding.tp_shard``), the conv, ``dt_proj``, A and the skip are the
+rank's channels, ``x_proj`` is row-parallel (its (dt, B, C) outputs
+all-reduced over 'model') and so is ``out_proj``; the conv and ssm
+states hold the rank's channels, as ``ShardingRules.cache_specs``
+places them.  d_inner is read from ``in_proj``'s width.
 """
 from __future__ import annotations
 
@@ -80,10 +88,12 @@ def ssm_A(A_log):
     return -torch.exp(A_log.float())
 
 
-def _ssm_coeffs(p, cfg: ModelConfig, u):
+def _ssm_coeffs(p, cfg: ModelConfig, u, tp=None):
     """Shared input-dependent SSM coefficients.  u: (..., d_inner)."""
     _, N, _, dt_rank = mamba_dims(cfg)
     proj = u @ p["x_proj"]
+    if tp is not None:
+        proj = tp.all_reduce(proj)
     dt_raw = proj[..., :dt_rank]
     B_ssm = proj[..., dt_rank:dt_rank + N].contiguous()
     C_ssm = proj[..., dt_rank + N:].contiguous()
@@ -92,11 +102,12 @@ def _ssm_coeffs(p, cfg: ModelConfig, u):
 
 
 def mamba_forward(p, cfg: ModelConfig, x, *, return_state: bool = False,
-                  A=None):
+                  A=None, tp=None):
     """Full-sequence mamba.  x: (B, S, D) -> (B, S, D) [, MambaState].
     ``A``: :func:`ssm_A` of ``p["A_log"]``, computed here when None."""
     B, S, D = x.shape
-    d_inner, N, d_conv, _ = mamba_dims(cfg)
+    _, N, d_conv, _ = mamba_dims(cfg)
+    d_inner = p["in_proj"].shape[-1] // 2
 
     xz = x @ p["in_proj"]
     raw, z = xz.split(d_inner, dim=-1)                      # (B, S, d_inner)
@@ -107,12 +118,14 @@ def mamba_forward(p, cfg: ModelConfig, x, *, return_state: bool = False,
                for i in range(d_conv)) + p["conv_b"]
     u = F.silu(conv)
 
-    dt, B_ssm, C_ssm = _ssm_coeffs(p, cfg, u)
+    dt, B_ssm, C_ssm = _ssm_coeffs(p, cfg, u, tp)
     A = ssm_A(p["A_log"]) if A is None else A
     ys, h_final = ops.ssm_scan(u, dt, A, B_ssm, C_ssm)
     y = ys.to(u.dtype) + u * p["D_skip"]
     y = y * F.silu(z)
     out = y @ p["out_proj"]
+    if tp is not None:
+        out = tp.all_reduce(out)
     if return_state:
         # conv state = last d_conv raw (pre-conv) inputs
         if S >= d_conv:
@@ -125,11 +138,11 @@ def mamba_forward(p, cfg: ModelConfig, x, *, return_state: bool = False,
 
 
 def mamba_decode(p, cfg: ModelConfig, x, state: Dict[str, torch.Tensor],
-                 A=None):
+                 A=None, tp=None):
     """Single-token decode.  x: (B, D) -> (B, D); ``state``'s ``conv`` and
     ``ssm`` leaves are updated in place (the scan writes ``ssm`` in its own
     type and returns y in x's).  ``A`` as in :func:`mamba_forward`."""
-    d_inner, _, _, _ = mamba_dims(cfg)
+    d_inner = p["in_proj"].shape[-1] // 2
     xz = x @ p["in_proj"]
     u_raw, z = xz.split(d_inner, dim=-1)                    # (B, d_inner)
 
@@ -139,11 +152,12 @@ def mamba_decode(p, cfg: ModelConfig, x, state: Dict[str, torch.Tensor],
     conv = (conv_buf.float() * p["conv_w"].float()).sum(dim=1) + p["conv_b"]
     u = F.silu(conv).to(x.dtype)
 
-    dt, B_ssm, C_ssm = _ssm_coeffs(p, cfg, u)
+    dt, B_ssm, C_ssm = _ssm_coeffs(p, cfg, u, tp)
     A = ssm_A(p["A_log"]) if A is None else A
     y, _ = ops.ssm_scan(u[:, None], dt[:, None], A, B_ssm[:, None],
                         C_ssm[:, None], h0=state["ssm"], h_out=state["ssm"],
                         y_dtype=x.dtype)
     y = (y[:, 0] + u * p["D_skip"]) * F.silu(z)
     state["conv"].copy_(conv_buf)
-    return y @ p["out_proj"]
+    out = y @ p["out_proj"]
+    return out if tp is None else tp.all_reduce(out)

@@ -58,6 +58,20 @@ layer runs over a mesh of processes: this rank's share of the batch
 against its block of the expert bank, the capacity reckoned from the
 global token count, and the megastep off.
 
+With ``tp`` (``repro_torch.distributed.tensor_parallel.TensorParallel``)
+the serve steps (:meth:`Model.prefill`, :meth:`Model.init_cache`,
+:meth:`Model.decode_step`) run on this rank's shards
+(``sharding.tp_shard``) as GSPMD partitions ``repro``'s placed step:
+vocab-parallel embedding and head (the logits are the rank's columns of
+the padded vocabulary), head-parallel attention where heads divide
+'model' and a context-parallel ring decode where KV heads do not,
+Megatron FFNs, channel-parallel Mamba; the caches are the rank's slices
+(``ShardingRules.cache_specs``), built by the prefill itself.  The MoE
+layers run through ``moe_dist``, which TP requires for MoE families.
+Under FSDP one layer's leaves are regathered at a time
+(``TensorParallel.stream_layer``).  The paged engine's steps and the loss take
+no ``tp``.
+
 :meth:`Model.loss` is ``repro``'s training loss: the full-sequence
 forward under grad (on the card through ``flash_prefill``, ``expert_ffn``
 and their backward kernels), next-token cross entropy, and the MoE
@@ -80,8 +94,8 @@ from repro_torch.models import ffn as Fn
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MoE
 from repro_torch.models.layers import (cross_entropy_loss, embed_init,
-                                       padded_vocab_size, rms_norm,
-                                       take_layer)
+                                       embed_lookup, padded_vocab_size,
+                                       rms_norm, take_layer)
 
 
 
@@ -99,14 +113,17 @@ class MetaFactories(TorchFunctionMode):
 
 class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
-                 device=None, moe_dist=None):
+                 device=None, moe_dist=None, tp=None):
         """moe_dist: the distributed MoE layer
         (``repro_torch.distributed.collectives.MoEDist`` or ``MoEDistA2A``)
         that runs every MoE layer over this rank's share of the batch and
-        its block of the expert bank; None: a single rank."""
+        its block of the expert bank; None: a single rank.  tp: a
+        ``TensorParallel`` of the same mesh, for the serve steps on this
+        rank's shards; None: every leaf whole."""
         cfg.validate()
         self.cfg = cfg
         self.moe_dist = moe_dist
+        self.tp = tp
         self.dtype = dtype
         self.device = resolve_device(device)
         self.vpad = padded_vocab_size(cfg)
@@ -119,6 +136,11 @@ class Model:
         self._ssm_A: Dict[str, Any] = {}
         # per MLA group: ((its wuv, wo), their versions, w_post)
         self._w_post: Dict[str, Any] = {}
+        if tp is not None:
+            if cfg.moe is not None and moe_dist is None:
+                raise ValueError("Model(tp=...): a MoE family's expert bank "
+                                 "is split over 'model'; pass moe_dist")
+            tp.bind(self.param_specs())
 
     # -- structure -----------------------------------------------------------
 
@@ -270,6 +292,44 @@ class Model:
             hit = self._w_post[name] = (key, versions, post)
         return hit[2]
 
+    # -- tensor parallelism ------------------------------------------------------
+
+    def _layer(self, params, name: str, i: int):
+        """Layer ``i`` of group ``name``: views of the stacked leaves, or
+        under FSDP the layer's leaves regathered to the TP layout."""
+        p = take_layer(params[name], i)
+        return p if self.tp is None else self.tp.stream_layer(p, (name,), i)
+
+    def _leaf(self, params, key: str):
+        """A top-level leaf (``embed``, ``lm_head``), regathered under
+        FSDP."""
+        t = params[key]
+        return t if self.tp is None else self.tp.stream_layer(t, (key,))
+
+    def _split_tp(self, n: int):
+        """``tp`` where a width of ``n`` is split over 'model' (the rules
+        replicate a width that does not divide), else None."""
+        tp = self.tp
+        return tp if tp is not None and tp.splits(n) else None
+
+    def _no_tp(self, what: str):
+        if self.tp is not None:
+            raise NotImplementedError(
+                f"Model.{what}: the tensor-parallel runtime covers the ring "
+                f"serve steps (prefill, init_cache, decode_step) only")
+
+    def _ring_slice(self, ring_tree, W: int):
+        """A prefill's whole rings (B, W, ...) -> this rank's slots of a
+        ring split over its window (``ShardingRules.cache_specs``)."""
+        tp = self.tp
+        if not tp.window_split(W):
+            raise NotImplementedError(
+                f"tensor parallelism over {tp.size} ranks: a ring of {W} "
+                f"slots does not split over 'model', and ShardingRules "
+                f"would keep it whole on every rank")
+        sl = tp.block(W)
+        return {k: v[:, sl].contiguous() for k, v in ring_tree.items()}
+
     # -- moe application -------------------------------------------------------
 
     def _moe(self, p, x, runtime, cap, aux=None):
@@ -289,7 +349,9 @@ class Model:
             y, layer_aux = MoE.moe_apply_local(p, self.cfg, x, runtime,
                                                cap=cap, with_aux=True)
             aux.append(layer_aux)
-        return y + MoE.shared_expert_apply(p, self.cfg, x)
+        moe = self.cfg.moe
+        tp = self._split_tp(moe.num_shared_experts * moe.expert_d_ff)
+        return y + MoE.shared_expert_apply(p, self.cfg, x, tp)
 
     def _cap(self, n_tokens: int) -> int:
         """The per-expert capacity for ``n_tokens`` tokens of this rank
@@ -322,11 +384,12 @@ class Model:
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if mixer == "mamba":
             out, state = M.mamba_forward(p["mixer"], cfg, h,
-                                         return_state=True, A=ssm_A)
+                                         return_state=True, A=ssm_A,
+                                         tp=self._mamba_tp())
             entry = state._asdict()
         elif not causal:            # the audio encoder's (GQA) blocks
             out = A.gqa_forward(p["mixer"], cfg, h, positions, causal=False,
-                                window=cfg.sliding_window)
+                                window=cfg.sliding_window, tp=self.tp)
             entry = None
         elif cfg.attention_type == "mla":
             out, entry = self._mla_fwd_cache(p["mixer"], h, positions,
@@ -339,8 +402,21 @@ class Model:
             hc = rms_norm(x, p["ln_cross"], cfg.norm_eps)
             x = x + A.gqa_forward(p["cross"], cfg, hc, positions,
                                   causal=False, kv_input=enc_out,
-                                  kv_positions=enc_positions, use_rope=False)
+                                  kv_positions=enc_positions, use_rope=False,
+                                  tp=self.tp)
         return self._ffn(p, x, ffn_kind, runtime, cap, aux), entry
+
+    def _mamba_tp(self):
+        """``tp`` where the Mamba channels are split over 'model'."""
+        mb = self.cfg.mamba
+        return None if mb is None else self._split_tp(
+            mb.expand * self.cfg.d_model)
+
+    def _ffn_width(self, ffn_kind) -> int:
+        cfg = self.cfg
+        if ffn_kind == "dense_first":
+            return cfg.moe.dense_d_ff or cfg.d_ff
+        return cfg.d_ff
 
     def _ffn(self, p, x, ffn_kind, runtime, cap, aux=None):
         """A block's FFN half, its residual included: x (..., D).
@@ -352,25 +428,34 @@ class Model:
             y = self._moe(p["moe"], h2.reshape(-1, h2.shape[-1]), runtime,
                           cap, aux)
             return x + y.reshape(x.shape)
-        return x + Fn.ffn_apply(p["ffn"], h2, self.cfg.activation)
+        return x + Fn.ffn_apply(p["ffn"], h2, self.cfg.activation,
+                                self._split_tp(self._ffn_width(ffn_kind)))
 
     def _gqa_fwd_cache(self, p, h, positions, max_seq=0):
-        out, (k, v) = A.gqa_forward_with_kv(p, self.cfg, h, positions)
+        """Under ``tp`` the ring holds the rank's KV heads, or where they
+        do not divide 'model' its slots of the window."""
+        out, (k, v) = A.gqa_forward_with_kv(p, self.cfg, h, positions,
+                                            tp=self.tp)
         entry = {"k": k, "v": v}
         if max_seq:
             entry = _ring_from_full(entry, positions, self.cfg.sliding_window,
                                     max_seq)
+            if self.tp is not None and not self.tp.kv_tp:
+                entry = self._ring_slice(entry, entry["k"].shape[1])
         return out, entry
 
     def _mla_fwd_cache(self, p, h, positions, max_seq=0):
         """The fused latent rows (B, S, 1, R + dr), the pool's layout, or
-        with ``max_seq`` their ring."""
+        with ``max_seq`` their ring (under ``tp`` the rank's slots of
+        it)."""
         out, (c_kv, k_rope) = A.mla_forward_with_cache(p, self.cfg, h,
-                                                       positions)
+                                                       positions, tp=self.tp)
         entry = {"ckr": torch.cat([c_kv, k_rope], dim=-1)[:, :, None]}
         if max_seq:
             entry = _ring_from_full(entry, positions, self.cfg.sliding_window,
                                     max_seq)
+            if self.tp is not None:
+                entry = self._ring_slice(entry, entry["ckr"].shape[1])
         return out, entry
 
     def _trunk(self, params, x, positions, runtime, *, max_seq=0,
@@ -394,7 +479,7 @@ class Model:
                 rates = self._period_rates(params, name)
                 for i in range(n):
                     x, entry = self._period_fwd(
-                        take_layer(params[name], i), x, positions, runtime,
+                        self._layer(params, name, i), x, positions, runtime,
                         cap, {sub: a[i] for sub, a in rates.items()},
                         max_seq, aux)
                     entries.append(entry)
@@ -403,7 +488,7 @@ class Model:
                          else None)
                 for i in range(n):
                     x, entry = self._block_fwd(
-                        take_layer(params[name], i), x, positions,
+                        self._layer(params, name, i), x, positions,
                         mixer=mixer, ffn_kind=ffn_kind, runtime=runtime,
                         cap=cap, ssm_A=None if rates is None else rates[i],
                         enc_out=enc_out if cross else None,
@@ -440,26 +525,41 @@ class Model:
         x = frames
         for i in range(cfg.encoder_layers):
             x, _ = self._block_fwd(
-                take_layer(params["enc_layers"], i), x, positions,
+                self._layer(params, "enc_layers", i), x, positions,
                 mixer="attn", ffn_kind="dense", runtime=runtime, cap=0,
                 causal=False)
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     def _cross_kv(self, params, enc_out):
         """Each decoder layer's cross-attention K and V of the encoder's
-        output (B, F, D): {"k", "v"} of (L, B, F, Hkv, Dh), no rope."""
+        output (B, F, D): {"k", "v"} of (L, B, F, Hkv, Dh), no rope.
+        Under ``tp`` the rank's KV heads, or where they do not divide
+        'model' all of them over the rank's F/m frames."""
         cfg = self.cfg
         B, F, _ = enc_out.shape
-        shape = (B, F, cfg.num_kv_heads, cfg.resolved_head_dim())
+        Dh = cfg.resolved_head_dim()
         cross = params["layers"]["cross"]
-        return {key: torch.stack([(enc_out @ w).reshape(shape)
-                                  for w in cross[f"w{key}"]])
-                for key in ("k", "v")}
+        if self.tp is None:
+            shape = (B, F, cfg.num_kv_heads, Dh)
+            return {key: torch.stack([(enc_out @ w).reshape(shape)
+                                      for w in cross[f"w{key}"]])
+                    for key in ("k", "v")}
+        tp, out = self.tp, {"k": [], "v": []}
+        for i in range(cfg.num_layers):
+            w = tp.stream_layer(take_layer(cross, i), ("layers", "cross"), i)
+            kv = {key: (enc_out @ w[f"w{key}"]).reshape(B, F, -1, Dh)
+                  for key in ("k", "v")}
+            if not tp.kv_tp:
+                kv = self._ring_slice(kv, F)
+            for key in out:
+                out[key].append(kv[key])
+        return {key: torch.stack(v) for key, v in out.items()}
 
     def _embed_inputs(self, params, batch):
         """The embedded inputs (B, S, D) and their positions: a vlm row
         is its ``patches`` (B, num_patches, D) then its tokens."""
-        x = params["embed"][batch["tokens"].long()]
+        x = embed_lookup(self._leaf(params, "embed"), batch["tokens"],
+                         self.tp)
         if self.cfg.family == "vlm":
             x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
@@ -493,12 +593,13 @@ class Model:
         if cfg.family == "audio":
             caches["layers"] = {"self": caches["layers"],
                                 "cross": self._cross_kv(params, enc_out)}
+        logits = x @ self._leaf(params, "lm_head")
         if not with_aux:
-            return x @ params["lm_head"], caches
+            return logits, caches
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer_aux in aux:
             total = total + layer_aux
-        return x @ params["lm_head"], caches, total
+        return logits, caches, total
 
     # -- training ------------------------------------------------------------
 
@@ -509,6 +610,7 @@ class Model:
         with ``aux`` the MoE layers' summed load-balance loss.  Returns
         ``(total, {"ce": ce, "aux": aux})``, 0-d f32 tensors."""
         cfg = self.cfg
+        self._no_tp("loss")
         logits, _, aux = self.logits_full(params, batch, runtime,
                                           with_aux=True)
         if cfg.family == "vlm":
@@ -586,6 +688,7 @@ class Model:
         batch slot.  As in the JAX package, a Mamba prompt padded to its
         bucket runs its padding tokens through the recurrence too: the
         state is the one after the bucket, not after the prompt."""
+        self._no_tp("prefill_paged")
         logits, caches = self.logits_full(params, batch, runtime)
         return self._last(logits, batch), caches
 
@@ -600,6 +703,7 @@ class Model:
         batch axis, (L, batch, ...), and a hybrid group both: ``{"attn":
         its pools, "ssm": (L, n_mamba, batch, ...) state}``.  Callers tell
         pool leaves from per-slot state by varying ``batch``."""
+        self._no_tp("init_paged_cache")
         dtype = dtype or self.dtype
         device = self.device if device is None else device
         caches = {}
@@ -645,6 +749,7 @@ class Model:
         package), are updated in place.  Returns ``(logits, cache)``.
         """
         cfg = self.cfg
+        self._no_tp("decode_step_paged")
         runtime = runtime if runtime is not None else self.default_runtime()
         x = params["embed"][token.long()]                # (B, D)
         cap = self._cap(x.shape[0])
@@ -763,10 +868,15 @@ class Model:
         the (L, batch, ...) Mamba states, a hybrid group's ``{"attn":
         rings, "ssm": (L, n_mamba, batch, ...) states}``, the audio
         decoder's ``{"self": rings, "cross": {"k", "v"}: (L, batch,
-        encoder_seq, Hkv, Dh)}``; and ``pos`` (batch,) int32 zeros."""
+        encoder_seq, Hkv, Dh)}``; and ``pos`` (batch,) int32 zeros.  Under
+        ``tp`` each leaf is this rank's slice of it (``batch`` the rank's
+        rows), split over 'model' as ``ShardingRules.cache_specs`` places
+        it."""
         cfg = self.cfg
         dtype = dtype or self.dtype
         device = self.device if device is None else device
+        if self.tp is not None:
+            return self._tp_init_cache(batch, max_seq, dtype, device)
         init = (A.mla_init_cache if cfg.attention_type == "mla"
                 else A.gqa_init_cache)
         caches: Dict[str, Any] = {}
@@ -795,6 +905,33 @@ class Model:
         caches["pos"] = torch.zeros(batch, dtype=torch.int32, device=device)
         return caches
 
+    def _tp_init_cache(self, batch, max_seq, dtype, device):
+        """:meth:`init_cache`'s leaves cut to this rank's slices: the
+        whole shapes built on ``meta``, each leaf's 'model' dimension
+        (``ShardingRules.cache_specs``) divided, allocated as zeros."""
+        tp = self.tp
+        W = min(self.cfg.sliding_window or max_seq, max_seq)
+        has_ring = any(mixer in ("attn", "hybrid")
+                       for _, _, mixer, _, _ in self.layer_groups())
+        if has_ring and not (tp.kv_tp and self.cfg.attention_type != "mla"):
+            self._ring_slice({}, W)       # refuses a ring that cannot split
+        if self.cfg.family == "audio" and not tp.kv_tp:
+            self._ring_slice({}, self.cfg.encoder_seq)
+        with MetaFactories():
+            whole = Model(self.cfg, dtype, device="cpu").init_cache(
+                batch, max_seq, dtype, device="cpu")
+        specs = tp.rules.cache_specs(whole, batch)
+
+        def local(t, spec):
+            if isinstance(t, dict):
+                return {k: local(v, spec[k]) for k, v in t.items()}
+            shape = list(t.shape)
+            for dim, entry in enumerate(spec):
+                if entry == tp.axis:
+                    shape[dim] //= tp.size
+            return torch.zeros(shape, dtype=t.dtype, device=device)
+        return local(whole, specs)
+
     @torch.no_grad()
     def decode_step(self, params, cache, token, runtime=None):
         """One decode step against the ring cache: token (B,) int at each
@@ -804,7 +941,7 @@ class Model:
         cfg = self.cfg
         runtime = runtime if runtime is not None else self.default_runtime()
         pos = cache["pos"]
-        x = params["embed"][token.long()]                # (B, D)
+        x = embed_lookup(self._leaf(params, "embed"), token, self.tp)
         cap = self._cap(x.shape[0])
         block = functools.partial(self._block_decode, pos=pos,
                                   runtime=runtime, cap=cap)
@@ -815,18 +952,18 @@ class Model:
                 rates = self._period_rates(params, name)
                 for i in range(n):
                     x = self._period_decode(
-                        take_layer(params[name], i), x,
+                        self._layer(params, name, i), x,
                         take_layer(cache[name], i), rates, i, block)
                 continue
             rates = self.ssm_rates(params, name) if mixer == "mamba" else None
             for i in range(n):
-                x = block(take_layer(params[name], i), x,
+                x = block(self._layer(params, name, i), x,
                           take_layer(cache[name], i), mixer=mixer,
                           ffn_kind=ffn_kind, cross=cross,
                           ssm_A=None if rates is None else rates[i])
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         cache["pos"] = pos + 1
-        return x @ params["lm_head"], cache
+        return x @ self._leaf(params, "lm_head"), cache
 
     def _block_decode(self, p, x, csl, *, pos, runtime, cap, mixer,
                       ffn_kind, cross=False, ssm_A=None):
@@ -837,15 +974,17 @@ class Model:
         self_csl = csl["self"] if cross else csl
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if mixer == "mamba":
-            x = x + M.mamba_decode(p["mixer"], cfg, h, self_csl, A=ssm_A)
+            x = x + M.mamba_decode(p["mixer"], cfg, h, self_csl, A=ssm_A,
+                                   tp=self._mamba_tp())
         else:
             decode = (A.mla_decode if cfg.attention_type == "mla"
                       else A.gqa_decode)
-            x = x + decode(p["mixer"], cfg, h, self_csl, pos)
+            x = x + decode(p["mixer"], cfg, h, self_csl, pos, tp=self.tp)
         if cross:
             hc = rms_norm(x, p["ln_cross"], cfg.norm_eps)
             x = x + A.gqa_cross_decode(p["cross"], cfg, hc,
-                                       csl["cross"]["k"], csl["cross"]["v"])
+                                       csl["cross"]["k"], csl["cross"]["v"],
+                                       tp=self.tp)
         return self._ffn(p, x, ffn_kind, runtime, cap)
 
 

@@ -206,8 +206,10 @@ def moe_apply_local(p, cfg: ModelConfig, x_flat, runtime: MoERuntime, *,
     return (y, aux) if with_aux else y
 
 
-def shared_expert_apply(p, cfg: ModelConfig, x):
+def shared_expert_apply(p, cfg: ModelConfig, x, tp=None):
+    """The shared experts' SwiGLU over x; ``tp``: their width split over
+    'model' (``ffn.ffn_apply``)."""
     if cfg.moe and cfg.moe.num_shared_experts and "shared" in p:
         from repro_torch.models.ffn import ffn_apply
-        return ffn_apply(p["shared"], x, "swiglu")
+        return ffn_apply(p["shared"], x, "swiglu", tp)
     return 0.0

@@ -243,3 +243,32 @@ def ssm_inputs(B, S, d, N, with_h0, seed=0):
     h0 = ((rng.normal(size=(B, d, N)) * 0.5).astype(np.float32)
           if with_h0 else None)
     return u, dt, A, Bs, Cs, h0
+
+
+# -- lse_out: a ring cut into slices (tests/test_torch_tp.py, test_torch_cuda.py)
+
+def lse_ring(seed, B_, H, Hkv, Dh, W, lens):
+    """A ring of W slots a row (B_ rows, ``lens`` valid each) as K and V
+    (B_, W, Hkv, Dh) and a query (B_, H, Dh), f32 CPU tensors."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(B_, H, Dh)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(B_, W, Hkv, Dh)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(B_, W, Hkv, Dh)).astype(np.float32))
+    return q, k, v, torch.tensor(lens, dtype=torch.int32)
+
+
+def lse_slices(fn, q, k, v, lens, n):
+    """``fn`` (a paged attention: plain or CUDA) once a slice of n of the
+    ring, with ``lse_out``: the slices' (o, lse) stacked."""
+    B_, W = k.shape[:2]
+    step = W // n
+    blocks = torch.arange(B_, dtype=torch.int32, device=q.device)[:, None]
+    os_, ls = [], []
+    for j in range(n):
+        sl = slice(j * step, (j + 1) * step)
+        sl_lens = (lens - j * step).clamp(0, step).to(torch.int32)
+        lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+        os_.append(fn(q, k[:, sl].contiguous(), v[:, sl].contiguous(),
+                      blocks, sl_lens, None, lse_out=lse))
+        ls.append(lse)
+    return torch.stack(os_), torch.stack(ls)

@@ -3,10 +3,13 @@
 Marked ``cuda``: without a GPU every test skips.  On the card (no JAX
 there) run ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.distributed.tensor_parallel import fold_partials
 from repro_torch.kernels import launches
 from repro_torch.kernels.decode_megastep import (decode_megastep_cuda,
                                                  decode_megastep_plain)
@@ -27,7 +30,8 @@ from test_torch_cases import (DEPLOY, EXPERT_FFN_GRID, FLASH_CASES,
                               FLASH_DV_CASES, MEGASTEP_CASES,
                               MOE_FUSED_GRID, PAGED_CASES,
                               ROUTER_CASES, SSM_CASES, expert_ffn_inputs,
-                              flash_inputs, megastep_inputs, moe_inputs,
+                              flash_inputs, lse_ring, lse_slices,
+                              megastep_inputs, moe_inputs,
                               paged_inputs, router_inputs, ssm_inputs,
                               t as _t)
 
@@ -1363,3 +1367,56 @@ def test_moe_dist_world_of_one_nccl(card, tmp_path):
                             w.float().cpu().numpy(), rtol=3e-2, atol=3e-2)
     finally:
         dist.destroy_process_group()
+
+
+# -- paged_attention with lse_out (the context-parallel decode's partials) ---------
+
+LSE_CASES = {
+    # id: (H, Hkv, Dh, W, n slices, dtype).  internlm2-20b's GQA and
+    # deepseek-v3's latent layout at a rank's slice of 128 slots: two
+    # 64-position splits merged (merge_kernel), one latent split
+    # (latent_kernel writes it); slices of one split (split_kernel, the
+    # wide kernel) and of two 256-position ones (latent and wide partials,
+    # merged)
+    "gqa_g6": (48, 8, 128, 2048, 16, torch.bfloat16),
+    "gqa_g6_f32": (48, 8, 128, 2048, 16, torch.float32),
+    "latent_g128": (128, 1, 576, 2048, 16, torch.bfloat16),
+    "latent_g128_two_splits": (128, 1, 576, 2048, 4, torch.bfloat16),
+    "wide_f32": (16, 1, 576, 512, 4, torch.float32),
+    "wide_f32_two_splits": (16, 1, 576, 2048, 4, torch.float32),
+    "one_split_gqa": (8, 2, 64, 256, 4, torch.bfloat16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LSE_CASES)
+def test_lse_out_cuda_vs_plain(card, case):
+    """The kernels' ``lse_out`` and f32 output against the plain version's,
+    each slice of a ring (a short row leaves slices empty), and the fold
+    against one whole-ring call; without ``lse_out`` the output is the
+    call's own type."""
+    H, Hkv, Dh, W, n, dtype = LSE_CASES[case]
+    q, k, v, lens = lse_ring(5, 3, H, Hkv, Dh, W, [W, W // 3, 1])
+    q, k, v = (t.to(card, dtype) for t in (q, k, v))
+    if Hkv == 1:
+        v = k
+    lens = lens.to(card)
+    got_o, got_l = lse_slices(paged_attention_cuda, q, k, v, lens, n)
+    want_o, want_l = lse_slices(paged_attention_plain, q, k, v, lens, n)
+    torch.cuda.synchronize()
+    assert got_o.dtype == torch.float32 and not torch.isnan(got_o).any()
+    empty = want_l == -math.inf
+    assert bool(empty.any()) and bool((got_l[empty] == -math.inf).all())
+    assert bool((got_o[empty] == 0).all())
+    np.testing.assert_allclose(got_l[~empty].cpu().numpy(),
+                               want_l[~empty].cpu().numpy(), rtol=1e-3,
+                               atol=1e-3)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got_o.cpu().numpy(), want_o.cpu().numpy(),
+                               rtol=tol, atol=tol)
+    blocks = torch.arange(3, dtype=torch.int32, device=card)[:, None]
+    whole = paged_attention_cuda(q, k, v, blocks, lens)
+    assert whole.dtype == dtype
+    np.testing.assert_allclose(fold_partials(got_o, got_l).cpu().numpy(),
+                               whole.float().cpu().numpy(), rtol=tol,
+                               atol=tol)

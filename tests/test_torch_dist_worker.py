@@ -18,6 +18,16 @@ the job's batch (``MoEDist.place``) and its block of the expert bank
 * ``ring``: ``Model.prefill`` and greedy ``decode_step``s;
 * ``grad``: the gradient of ``Model.loss / world`` of every leaf (the
   ranks' losses then sum to the global loss), or what it raised.
+
+A ``tp`` job (``tests/test_torch_tp.py``) runs the job's smoke ``arch``
+with ``Model(tp=TensorParallel(mesh, rules))`` on this rank's
+``tp_shard`` of the weights in the job's checkpoint (``rules.fsdp`` set
+as the job says), the MoE layers through ``gather_psum``: the ring
+prefill of its rows of the job's batch, then a decode step for each of
+the job's ``feed`` tokens; it returns each step's logits (the rank's
+vocabulary columns) and greedy tokens (``TensorParallel.greedy``).  A
+``merge`` job folds the ranks' attention partials of a ring's quarters
+(``merge_partials``).
 """
 import dataclasses
 import datetime
@@ -51,9 +61,91 @@ def job_model(job, meshes):
     return Model(cfg, device="cpu", moe_dist=md), md, params, mesh
 
 
+def tp_run(job, meshes):
+    """The ``tp`` job (the module's docstring)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.collectives import make_moe_dist
+    from repro_torch.distributed.sharding import (ShardingRules, batch_axes,
+                                                  tp_shard)
+    from repro_torch.distributed.tensor_parallel import TensorParallel
+    from repro_torch.launch.mesh import axis_sizes, dp_axes, make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.training import checkpoint as ckpt
+    cfg = get_smoke_config(job["arch"])
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe_impl="gather_psum",
+                                  moe=dataclasses.replace(cfg.moe,
+                                                          **job["moe"]))
+    key = (tuple(job["mesh"]), tuple(job["axes"]))
+    if key not in meshes:
+        meshes[key] = make_mesh(*key, device="cpu")
+    mesh = meshes[key]
+    rules = ShardingRules(mesh, cfg)
+    rules.fsdp = job["fsdp"]
+    whole = ckpt.load_params(job["ckpt"], dtype=torch.float32, device="cpu")
+
+    def shard(tree, specs, path=()):
+        if isinstance(tree, dict):
+            return {k: shard(v, specs[k], path + (k,))
+                    for k, v in tree.items()}
+        return tp_shard(path, tree, specs, mesh)
+    params = shard(whole, rules.params_specs(whole))
+    md = None
+    B = job["batch"]["tokens"].shape[0]
+    if cfg.moe is not None:
+        md = make_moe_dist(mesh, "gather_psum", dp_axes=dp_axes(mesh))
+        md.place(B)
+    sizes, n, index = axis_sizes(mesh), 1, 0
+    for a in batch_axes(mesh, B):
+        n, index = n * sizes[a], index * sizes[a] + mesh.get_local_rank(a)
+    rows = slice(index * (B // n), (index + 1) * (B // n))
+    tp = TensorParallel(mesh, rules)
+    model = Model(cfg, device="cpu", moe_dist=md, tp=tp)
+    batch = {k: torch.from_numpy(v)[rows] for k, v in job["batch"].items()}
+    last, cache = model.prefill(params, batch, max_seq=job["max_seq"])
+    logits, tokens = [last.numpy()], [tp.greedy(last).numpy()]
+    for fed in job["feed"]:
+        last, cache = model.decode_step(params, cache,
+                                        torch.from_numpy(fed)[rows])
+        logits.append(last.numpy())
+        tokens.append(tp.greedy(last).numpy())
+    return {"rows": (rows.start, rows.stop), "logits": logits,
+            "tokens": tokens, "coords": {a: mesh.get_local_rank(a)
+                                         for a in mesh.mesh_dim_names},
+            "cache": {k: tuple(t.shape) for k, t in ckpt.flatten(cache)}}
+
+
+def merge_run(job, meshes):
+    """The ``merge`` job: this rank's quarter of the job's ring through the
+    plain ``paged_attention`` with ``lse_out``, then ``merge_partials``
+    over 'model' of a 1 x 4 mesh."""
+    from repro_torch.distributed.tensor_parallel import merge_partials
+    from repro_torch.kernels.paged_attention import paged_attention_plain
+    from repro_torch.launch.mesh import make_mesh
+    key = ((1, 4), ("data", "model"))
+    if key not in meshes:
+        meshes[key] = make_mesh(*key, device="cpu")
+    mesh = meshes[key]
+    r = mesh.get_local_rank("model")
+    q, k, v, lens = (torch.from_numpy(job[n]) for n in ("q", "k", "v",
+                                                        "lens"))
+    step = k.shape[1] // 4
+    sl = slice(r * step, (r + 1) * step)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32)
+    o = paged_attention_plain(
+        q, k[:, sl].contiguous(), v[:, sl].contiguous(),
+        torch.arange(q.shape[0], dtype=torch.int32)[:, None],
+        (lens - r * step).clamp(0, step).to(torch.int32), lse_out=lse)
+    return {"o": merge_partials(o, lse, mesh.get_group("model")).numpy()}
+
+
 def run(job, meshes):
     from repro_torch.training.checkpoint import flatten
     from repro_torch.training.train_loop import as_leaves
+    if job["kind"] == "tp":
+        return tp_run(job, meshes)
+    if job["kind"] == "merge":
+        return merge_run(job, meshes)
     model, md, params, mesh = job_model(job, meshes)
     tokens = torch.from_numpy(job["tokens"])
     rows = md.place(tokens.shape[0])

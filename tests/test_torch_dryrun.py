@@ -18,9 +18,14 @@ against the JAX package's, on the CPU.
   a fake 16 x 16 group (2 x 2 for the MoE smoke configs, whose 6 experts
   do not split 16 ways) has the ``argument_bytes`` that ``repro``'s
   ``PartitionSpec``s give (``build_in_shardings`` on a stub mesh, as
-  ``tests/test_torch_sharding.py`` gets them); for a dense arch rank
-  FLOPs x data size equal the unsharded trace's; the full-depth trace
-  equals the 2- and 4-unit extrapolation on a homogeneous stack.
+  ``tests/test_torch_sharding.py`` gets them), and no split parameter
+  leaf is all-gathered by a serve step (the tensor-parallel step; the
+  train step's gather-at-entry model gathers them); for a dense arch a
+  train rank's FLOPs x data size equal the unsharded trace's, and a
+  serve rank's FLOPs are the model share that the shapes give; the
+  full-depth trace equals the 2- and 4-unit extrapolation on a
+  homogeneous stack; the selective scan is one traced op whose FLOPs
+  equal the plain loop's.
 * One full-width ``kimi-k2-1t-a32b`` ``decode_32k`` dry run in a child
   process: its record has ``repro``'s keys, within its time, and its
   resident memory grows by under 1 GB.
@@ -327,22 +332,88 @@ def test_rank_argument_bytes_equal_repros_placement(arch, kind, smoke_ranks,
     assert rec["argument_bytes"] == want
     assert rec["flops"] > 0 and rec["wire"] > 0
     ops = set(rec["collectives"])
-    # the whole leaves gathered at the entry; the MoE layer's dispatch
-    # and combine on top
-    assert "all-gather" in ops
+    # a train step gathers the whole leaves at its entry; a serve step
+    # all-gathers activations (the greedy token's candidates, a split
+    # ring's partials); the MoE layer's dispatch and combine on top
+    assert "all-gather" in ops and "all-reduce" in ops
     if arch != "internlm2-20b":
-        assert {"all-reduce", "reduce-scatter"} <= ops
+        assert "reduce-scatter" in ops
+    # no split parameter leaf (nor a layer of one) all-gathered whole by a
+    # serve step, as the collectives' log records the gathers' results;
+    # the train step's gather-at-entry model does gather them
+    leaves = _split_leaf_shapes(arch, SMOKE_MESHES[arch])
+    gathered = {tuple(sorted(shape)) for op, _, _, shape in
+                rec["collective_log"] if op == "all-gather"}
     if kind == "train":
-        assert "all-reduce" in ops      # the gradients over DP
+        assert gathered & leaves
+    else:
+        assert not gathered & leaves, sorted(gathered & leaves)
+        assert "the port's tensor-parallel step" in rec["placement"]
 
 
-@pytest.mark.parametrize("kind", SMOKE_SHAPES)
+def _split_leaf_shapes(arch, mesh_shape):
+    """The shape (its dimensions sorted: a gather moves the gathered one
+    first) of each parameter leaf that ShardingRules splits, and of one
+    layer of each stacked one (a layer group's leaf, (L, ...))."""
+    from repro_torch.distributed.sharding import ShardingRules
+    cfg = get_smoke_config(arch)
+    tree = Model(cfg, torch.bfloat16, device="cpu").param_specs()
+    rules = ShardingRules(MeshLayout(mesh_shape, ("data", "model")), cfg)
+    out = set()
+    for path, leaf in dryrun._flat(tree):
+        if any(e is not None for e in rules.param_spec(path, leaf)):
+            out.add(tuple(sorted(leaf.shape)))
+            if len(path) > 1:
+                out.add(tuple(sorted(leaf.shape[1:])))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["train"])
 def test_dense_rank_flops_are_the_data_share(kind, smoke_ranks):
-    """No tensor parallelism: a dense rank runs its batch share's whole
-    compute, so its FLOPs x the data axis equal the unsharded step's."""
+    """The train step's gather-at-entry model: a dense rank runs its batch
+    share's whole compute, so its FLOPs x the data axis equal the
+    unsharded step's.  (The serve steps are tensor-parallel:
+    test_tp_rank_flops_are_the_model_share.)"""
     rec = smoke_ranks["internlm2-20b", kind]
     want = smoke_ranks["unsharded", kind]["flops"]
     assert rec["flops"] * SMOKE_MESHES["internlm2-20b"][0] == want
+
+
+def _internlm_serve_flops(kind, model):
+    """A serve rank's FLOPs of the smoke internlm2-20b on a mesh of 16 data
+    x ``model``, from the shapes: the products split over 'model' (the
+    FFN width, the vocabulary) at 1/model, the replicated ones (its 4
+    heads do not divide 16: every projection and the attention) whole;
+    the decode's attention over the rank's W/model ring slots.  2 FLOPs a
+    multiply-add, as the tally counts."""
+    cfg = get_smoke_config("internlm2-20b")
+    shape = SMOKE_SHAPES[kind]
+    D, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    Dh, F = cfg.resolved_head_dim(), cfg.d_ff
+    V = 2048                                   # the padded vocabulary
+    rows = shape.global_batch // 16            # the rank's batch share
+    S = shape.seq_len if kind == "prefill" else 1
+    T = rows * S
+    proj = 2 * T * D * (H * Dh) * 2 + 2 * T * D * (Hkv * Dh) * 2  # q o k v
+    if kind == "prefill":
+        keys = S                               # one causal chunk: S x S
+    else:
+        keys = shape.seq_len // model          # the rank's ring slots
+    attn = 2 * 2 * rows * S * H * keys * Dh    # q k^T and p v
+    ffn = 3 * 2 * T * D * (F // model)
+    head = 2 * T * D * (V // model)
+    return cfg.num_layers * (proj + attn + ffn) + head
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_tp_rank_flops_are_the_model_share(kind, smoke_ranks):
+    """The serve steps are tensor-parallel: a dense rank's FLOPs are its
+    share of the split products plus the replicated ones whole, as the
+    shapes give them."""
+    rec = smoke_ranks["internlm2-20b", kind]
+    model = SMOKE_MESHES["internlm2-20b"][1]
+    assert rec["flops"] == _internlm_serve_flops(kind, model)
+    assert rec["flops"] * 16 < smoke_ranks["unsharded", kind]["flops"]
 
 
 def test_full_depth_equals_the_extrapolation():
@@ -357,6 +428,47 @@ def test_full_depth_equals_the_extrapolation():
     for key in ("flops", "bytes", "wire"):
         assert ext[key] == pytest.approx(full[key], rel=1e-12), key
         assert ext["per_unit"][key] > 0
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_ssm_scan_traces_as_one_op_with_the_loops_flops(kind):
+    """The selective scan (and under grad its gradient) is one traced op:
+    the trace of a smoke falcon-mamba-7b step counts the FLOPs that
+    ``FlopCounterMode`` counts with the plain loops run in its place, and
+    its op log holds the op, not the loop."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import ssm_scan as S
+    cfg = get_smoke_config("falcon-mamba-7b")
+    shape = InputShape("t", 16, 2, kind)
+    model = Model(cfg, torch.bfloat16, device="cpu")
+    args = specs.step_arg_specs(model, cfg, shape)
+    step = specs.make_step(model, kind)
+    rec = dryrun.trace(step, args, log=True)
+    ops = "\n".join(rec["log"])
+    assert "repro_torch.ssm_scan.default" in ops
+    assert ("repro_torch.ssm_scan_bwd.default" in ops) == (kind == "train")
+
+    def loop(u, dt, A, B_ssm, C_ssm, h0, h_out, y_dtype):
+        y, h = S.ssm_scan_plain(u, dt, A, B_ssm, C_ssm, h0, h_out=h_out,
+                                y_dtype=y_dtype)
+        return y, (h.new_empty(0) if h_out is not None else h)
+
+    def loop_bwd(*a):
+        return S.ssm_scan_bwd_plain(*a)
+
+    mode = FakeTensorMode()
+    with mode:
+        fake = dryrun._map2(lambda p, t, s: torch.empty(
+            tuple(t.shape), dtype=t.dtype), args, args)
+    saved = S.ssm_scan_op, S.ssm_scan_bwd_op
+    S.ssm_scan_op, S.ssm_scan_bwd_op = loop, loop_bwd
+    try:
+        with mode, FlopCounterMode(display=False) as counter:
+            step(*fake)
+    finally:
+        S.ssm_scan_op, S.ssm_scan_bwd_op = saved
+    assert rec["flops"] == counter.get_total_flops() > 0
 
 
 # -- the command line ----------------------------------------------------------------------

@@ -42,6 +42,7 @@ def test_the_file_list_covers_the_port():
     paths = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"src/repro_torch/distributed/collectives.py",
             "src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/distributed/tensor_parallel.py",
             "src/repro_torch/launch/mesh.py",
             "src/repro_torch/launch/specs.py",
             "src/repro_torch/launch/dryrun.py",
