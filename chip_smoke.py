@@ -293,10 +293,15 @@ Phases, in order; any failure raises and the script exits non-zero:
              head-parallel ``paged_attention`` at qwen's 1 KV head over
              a 2048-slot ring, and the context-parallel decode of
              internlm2-20b's GQA (G 6) and deepseek-v3's latent (G 128)
-             over 16 slices of 128 slots, each slice's (o, lse) merged
-             on the card against one whole-ring call and the plain
-             version, each lse within 1e-3 of the plain one, a short
-             row's empty slices -inf with zeros.  Each path's kernels' launch counts are read from
+             over 16 slices of 128 slots: each slice's f32 o within
+             1e-5 (4e-3 for the latent kernel, which rounds P to bf16)
+             of the plain version in f32 and its lse within 1e-3, the
+             slices merged on the card within the same limit of the
+             plain whole-ring call and of the kernel's (a merge
+             dropping a rank's slice or ignoring the lse shown to miss
+             by more), a short
+             row's empty slices -inf with zeros; timed at a slice whose
+             every row is full.  Each path's kernels' launch counts are read from
              its faulted run (``disagg``: the synchronous switch's;
              ``fleet``: the whole fleet run), counted from 0 just before
              it.  Each engine build
@@ -5465,6 +5470,18 @@ TP_MODEL = 16
 TP_RING = 2048
 TP_RING_LENS = (2048, 1500, 700, 100)     # the last row: 15 empty slices
 TP_LSE_ATOL = 1e-3
+# with lse_out the kernel's o is f32: each slice's o, and the merge of the
+# 16 slices, held to the plain version run on f32 copies of the inputs
+# (the probabilities in f32: the exact result), within TP_MERGE_ATOL by
+# the kernel's precision of the probabilities: f32 (every kernel but the
+# latent one; 4.2e-07 at most on an H100) or bf16 (the latent kernel
+# rounds them before P V; 1.5e-03 at most where |o| reaches 1.45).  A
+# merge that drops one rank's slice or weighs the slices alike misses by
+# more, which the path checks on its own inputs
+TP_MERGE_ATOL = {"f32": 1e-5, "bf16": 4e-3}
+# a head-parallel rank's call is an ordinary bf16 one: one rounding of o
+# apart from the plain version's
+TP_HEAD_TOL = {"bfloat16": (1e-3, 1e-2)}
 # the kernels line's "tp" rows, filled by the tp path
 TP_RESULTS = {}
 
@@ -5651,13 +5668,16 @@ def tp_head_parallel(torch, gen):
                 v[:, :, r:r + 1].contiguous(), table, lens)
         errs.append(tp_held(f"head-parallel paged_attention rank {r}",
                             paged_attention_cuda(*args),
-                            paged_attention_plain(*args), "bfloat16", TOL))
+                            paged_attention_plain(*args), "bfloat16",
+                            TP_HEAD_TOL))
     row = _row(errs, time_ms(torch, lambda: paged_attention_cuda(*args)),
                time_ms(torch, lambda: paged_attention_plain(*args)),
                paged_bound_ms(list(args), sum(TP_RING_LENS), "bfloat16"),
                f"qwen2-moe-a2.7b head-parallel: B {TP_ROWS}, 1 head of 16, "
                f"Dh 128, a {TP_RING}-slot ring")
     _log_row(f"paged_attention ({TP_MODEL} ranks)", row)
+    log(f"    each rank's o within {row['max_abs_err']:.3e} of the plain "
+        f"version's (atol, rtol {TP_HEAD_TOL['bfloat16']})")
     return row
 
 
@@ -5674,65 +5694,120 @@ def lse_bound_ms(q, k, same, n_valid):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
+def tp_wrong_merges(fold_partials, os_, ls, want):
+    """The errors against ``want`` of two faulty merges that the merge check
+    must refuse: one that drops a middle rank's slice (the short rows,
+    empty there, keep their keys), and one that ignores the lse and weighs
+    every non-empty slice alike."""
+    mid = os_.shape[0] // 2
+    keep = [j for j in range(os_.shape[0]) if j != mid]
+    drop = fold_partials(os_[keep], ls[keep])
+    alike = fold_partials(os_, ls.masked_fill(ls.isfinite(), 0.0))
+    return (float((drop - want).abs().max()),
+            float((alike - want).abs().max()))
+
+
 def tp_context_parallel(torch, gen, *, H, Hkv, Dh, same, what):
     """A TP_RING-slot ring cut into TP_MODEL slices, one a simulated rank:
-    each slice's (o, lse) from the kernel with ``lse_out``, merged on the
-    card (``fold_partials``), against one whole-ring call and the plain
-    version (TOL); each slice's lse within TP_LSE_ATOL of the plain
-    version's; the short row's empty slices -inf with zeros, no NaN."""
+    each slice's (o, lse) from the kernel with ``lse_out``, o (f32) within
+    TP_MERGE_ATOL (the note above it) of the plain version's in f32 and
+    lse within TP_LSE_ATOL, the short row's empty slices -inf with zeros
+    and no NaN; the slices merged on the card (``fold_partials``) within
+    TP_MERGE_ATOL of the plain whole-ring call and of the kernel's, both
+    with ``lse_out``; two faulty merges (:func:`tp_wrong_merges`) outside
+    it.  Timed: one slice whose every
+    row is full (TP_RING / TP_MODEL valid slots)."""
     from repro_torch.distributed.tensor_parallel import fold_partials
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
-                                                     paged_attention_plain)
+                                                     paged_attention_plain,
+                                                     takes_latent_kernel)
     q, k, v, table, lens = tp_ring(torch, gen, H=H, Hkv=Hkv, Dh=Dh,
                                    same=same)
     n = TP_RING // TP_MODEL
+    p_type = "bf16" if takes_latent_kernel(q, k, v) else "f32"
+    limit = TP_MERGE_ATOL[p_type]
+
+    def ref(qq, kk, vv, *rest, lse_out):
+        return paged_attention_plain(qq.float(), kk.float(), vv.float(),
+                                     *rest, lse_out=lse_out)
+
+    def with_lse(fn, kk, vv, sl):
+        lse = torch.empty((TP_ROWS, H), dtype=torch.float32, device="cuda")
+        return fn(q, kk, vv, table, sl, None, lse_out=lse), lse
+
+    def piece(t, r):
+        return t[:, r * n:(r + 1) * n].contiguous()
 
     def slices(fn):
         os_, ls = [], []
         for r in range(TP_MODEL):
-            ks = k[:, r * n:(r + 1) * n].contiguous()
-            vs = ks if same else v[:, r * n:(r + 1) * n].contiguous()
-            lse = torch.empty((TP_ROWS, H), dtype=torch.float32,
-                              device="cuda")
-            sl = (lens - r * n).clamp(0, n).to(torch.int32)
-            os_.append(fn(q, ks, vs, table, sl, None, lse_out=lse))
+            ks = piece(k, r)
+            o, lse = with_lse(fn, ks, ks if same else piece(v, r),
+                              (lens - r * n).clamp(0, n).to(torch.int32))
+            os_.append(o)
             ls.append(lse)
-        return torch.stack(os_), torch.stack(ls), (ks, vs, sl)
+        return torch.stack(os_), torch.stack(ls)
 
-    got_o, got_l, last = slices(paged_attention_cuda)
-    want_o, want_l, _ = slices(paged_attention_plain)
+    got_o, got_l = slices(paged_attention_cuda)
+    want_o, want_l = slices(ref)
     empty = want_l == -math.inf
-    if not (bool(empty.any()) and bool((got_l[empty] == -math.inf).all())
-            and bool((got_o[empty] == 0).all())
-            and not bool(got_o.isnan().any())):
+    empty_ok = (bool(empty.any())
+                and bool((got_l[empty] == -math.inf).all())
+                and bool((got_o[empty] == 0).all())
+                and not bool(got_o.isnan().any()))
+    lse_err = float((got_l[~empty] - want_l[~empty]).abs().max())
+    slice_err = float((got_o - want_o).abs().max())
+    merged = fold_partials(got_o, got_l)
+    whole = with_lse(paged_attention_cuda, k, v, lens)[0]
+    plain = with_lse(ref, k, v, lens)[0]
+    merge_err = float((merged - plain).abs().max())
+    whole_err = float((merged - whole).abs().max())
+    wrong = tp_wrong_merges(fold_partials, got_o, got_l, plain)
+    # timed: a slice whose every row holds n valid slots, as a rank's
+    # slice of a steady-state ring does
+    ks = piece(k, 0)
+    vs = ks if same else piece(v, 0)
+    full = torch.full((TP_ROWS,), n, dtype=torch.int32, device="cuda")
+    args = (q, ks, vs, table, full, None)
+    lse = torch.empty((TP_ROWS, H), dtype=torch.float32, device="cuda")
+    full_err = float((paged_attention_cuda(*args, lse_out=lse)
+                      - ref(*args, lse_out=lse)).abs().max())
+    log(f"    {what}: against the plain version in f32 (the kernel's P "
+        f"in {p_type}): each slice's o within {slice_err:.3e} and its lse "
+        f"within {lse_err:.3e}; the merge within {merge_err:.3e} of the "
+        f"plain whole-ring call and {whole_err:.3e} of the kernel's; a "
+        f"full slice within {full_err:.3e} (limits {limit:g}, lse "
+        f"{TP_LSE_ATOL:g}); a merge dropping a middle rank's slice misses "
+        f"by {wrong[0]:.3e}, one weighing the slices alike by "
+        f"{wrong[1]:.3e}; {int(empty.sum())} empty (row, head) slices "
+        f"{'gave' if empty_ok else 'did NOT give'} -inf and zeros")
+    if not empty_ok:
         raise AssertionError(f"engine tp {what}: an empty slice did not "
                              f"give lse -inf and zeros")
-    lse_err = float((got_l[~empty] - want_l[~empty]).abs().max())
     if lse_err > TP_LSE_ATOL:
         raise AssertionError(f"engine tp {what}: a slice's lse is "
                              f"{lse_err} from the plain version's")
-    merged = fold_partials(got_o, got_l)
-    whole = paged_attention_cuda(q, k, v, table, lens)
-    plain = paged_attention_plain(q, k, v, table, lens)
-    errs = [tp_held(f"{what} merge vs one whole-ring call", merged, whole,
-                    "bfloat16", TOL),
-            tp_held(f"{what} merge vs the plain version", merged, plain,
-                    "bfloat16", TOL)]
-    ks, vs, sl = last
-    args = (q, ks, vs, table, sl)
-    lse = torch.empty((TP_ROWS, H), dtype=torch.float32, device="cuda")
-    row = _row(errs, time_ms(torch, lambda: paged_attention_cuda(
-                   *args, None, lse_out=lse)),
+    if not all(e <= limit for e in (slice_err, merge_err, whole_err,
+                                    full_err)):
+        raise AssertionError(
+            f"engine tp {what}: slice o {slice_err}, merge vs plain "
+            f"{merge_err}, vs the whole-ring call {whole_err}, full slice "
+            f"{full_err} (limit {limit})")
+    if not min(wrong) > limit:
+        raise AssertionError(f"engine tp {what}: a faulty merge misses by "
+                             f"only {min(wrong)}: the check cannot tell it")
+    row = _row([slice_err, merge_err, whole_err, full_err],
+               time_ms(torch, lambda: paged_attention_cuda(
+                   *args, lse_out=lse)),
                time_ms(torch, lambda: paged_attention_plain(
-                   *args, None, lse_out=lse)),
-               lse_bound_ms(q, ks, same, int(sl.sum())),
-               f"{what}: one rank's slice with lse_out, B {TP_ROWS}, H {H} "
-               f"over Hkv {Hkv} (G {H // Hkv}), Dh {Dh}, {n} of {TP_RING} "
-               f"slots, bf16")
-    row.update(lse_max_abs_err=lse_err, empty_slices=int(empty.sum()))
+                   *args, lse_out=lse)),
+               lse_bound_ms(q, ks, same, TP_ROWS * n),
+               f"{what}: one rank's full slice with lse_out, B {TP_ROWS}, "
+               f"H {H} over Hkv {Hkv} (G {H // Hkv}), Dh {Dh}, {n} of "
+               f"{TP_RING} slots a row, bf16")
+    row.update(lse_max_abs_err=lse_err, empty_slices=int(empty.sum()),
+               wrong_merge_errs=list(wrong))
     _log_row(f"paged_attention lse_out ({TP_MODEL} slices)", row)
-    log(f"    each slice's lse within {lse_err:.3e} of the plain version's; "
-        f"{int(empty.sum())} empty (row, head) slices gave -inf and zeros")
     return row
 
 

@@ -35,7 +35,6 @@ entropy and AdamW on the shards, which are not written.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional
 
 import torch
@@ -56,28 +55,24 @@ def merge_partials(o, lse, group):
     a rank of ``group`` -> the attention over all of them.  ``o`` (..., D)
     f32 is each rank's output normalised over its own keys and ``lse``
     (...) the log-sum-exp of its scaled scores there (-inf where it had
-    none).  The ranks' partials are gathered and folded in rank order in
-    f32: o = sum_r o_r e^(lse_r - M) / sum_r e^(lse_r - M), M the largest
-    finite lse; a rank with lse = -inf weighs 0, and a row with no key
-    anywhere gives 0."""
+    none).  The ranks' partials are gathered and folded in f32: o = sum_r
+    o_r e^(lse_r - M) / sum_r e^(lse_r - M), M the largest finite lse; a
+    rank with lse = -inf weighs 0, and a row with no key anywhere gives
+    0."""
     return fold_partials(_gather0(o.float(), group),
                          _gather0(lse.float(), group))
 
 
 def fold_partials(os_, ls):
     """:func:`merge_partials`' fold of partials already side by side: ``os_``
-    (n, ..., D) and ``ls`` (n, ...) f32, folded over n in order."""
+    (n, ..., D) and ``ls`` (n, ...) f32, reduced over n (the same order on
+    every rank)."""
     M = ls.amax(dim=0)
     M = torch.where(torch.isfinite(M), M, torch.zeros_like(M))
-    acc = torch.zeros_like(os_[0])
-    L = torch.zeros_like(ls[0])
-    for j in range(ls.shape[0]):
-        w = torch.where(ls[j] == -math.inf, torch.zeros_like(L),
-                        torch.exp(ls[j] - M))
-        L = L + w
-        acc = acc + w[..., None] * os_[j]
-    return torch.where(L[..., None] > 0, acc / L[..., None],
-                       torch.zeros_like(acc))
+    w = torch.exp(ls - M)               # e^-inf = 0: an empty rank weighs 0
+    L = w.sum(dim=0)[..., None]
+    acc = (w[..., None] * os_).sum(dim=0)
+    return torch.where(L > 0, acc / L, torch.zeros_like(acc))
 
 
 def _gather0(x, group):
@@ -130,11 +125,6 @@ class TensorParallel:
         """:func:`merge_partials` over 'model'."""
         return merge_partials(o, lse, self.group())
 
-    def splits(self, n: int) -> bool:
-        """Whether a dimension of ``n`` is split over 'model' (the rules
-        replicate one that does not divide)."""
-        return n % self.size == 0
-
     def block(self, n: int) -> slice:
         """This rank's block of a dimension of ``n`` split over 'model'."""
         step = n // self.size
@@ -162,11 +152,8 @@ class TensorParallel:
         val = logits.gather(-1, idx)[..., 0].float()
         idx = idx[..., 0].to(torch.int64) + self.rank * n
         vals, idxs = _gather0(val, self.group()), _gather0(idx, self.group())
-        best, pick = vals[0], idxs[0]
-        for j in range(1, vals.shape[0]):
-            better = vals[j] > best
-            best = torch.where(better, vals[j], best)
-            pick = torch.where(better, idxs[j], pick)
+        # argmax keeps the first of equal values: the lowest rank's column
+        pick = idxs.gather(0, vals.argmax(dim=0, keepdim=True))[0]
         return pick.to(torch.int32)
 
     # -- attention heads and windows --------------------------------------------

@@ -29,7 +29,7 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
 from repro_torch.kernels.router_topk import (router_topk_cuda,
                                              router_topk_plain)
 from repro_torch.kernels.ssm_scan import SSMScan
-from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_scan_op
+from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_scan
 
 
 def needs_grad(*tensors) -> bool:
@@ -96,14 +96,14 @@ def ssm_scan(u, dt, A, B_ssm, C_ssm, h0=None, *, h_out=None,
     S, N), from ``h0`` (B, d, N) or zero.  Returns (y (B, S, d) f32,
     h_final (B, d, N) f32); with ``h_out`` (which may be ``h0``) h_final
     is written there in its type, and y comes back in ``y_dtype``.  Under
-    grad it starts from zero (``SSMScan`` refuses the in-place mode).  One
-    traced op (``repro_torch::ssm_scan``), whatever the length."""
+    grad it starts from zero (``SSMScan`` refuses the in-place mode).  Under
+    a trace, one op (``repro_torch::ssm_scan``) whatever the length."""
     on_cpu(u)
     if needs_grad(*(t for t in (u, dt, A, B_ssm, C_ssm, h0)
                     if t is not None)):
         return SSMScan.apply(u, dt, A, B_ssm, C_ssm, h0, h_out, y_dtype)
-    return _ssm_scan_op(u, dt, A, B_ssm, C_ssm, h0, h_out=h_out,
-                        y_dtype=y_dtype)
+    return _ssm_scan(u, dt, A, B_ssm, C_ssm, h0, h_out=h_out,
+                     y_dtype=y_dtype)
 
 
 def router_topk(logits, expert_mask, k: int):

@@ -33,9 +33,10 @@ implementation (shapes and types only), so that a trace under
 ``FakeTensorMode`` (the dry run) never runs the plain versions' loops over
 time.  Their FLOPs are registered with ``torch.utils.flop_counter``: the
 formulas count what the plain loops' products count (:func:`scan_flops`,
-:func:`scan_bwd_flops`).  The ops dispatch as the functions did (the
-plain version for CPU tensors, the kernel for CUDA ones), so eager
-results are unchanged.
+:func:`scan_bwd_flops`).  :func:`ssm_scan` and :class:`SSMScan` take the
+ops only under a dispatch mode (a trace); eager, they call the plain
+version (CPU tensors) or the kernel (CUDA ones) directly, so a decode
+step pays no custom op's dispatch and its results are the functions'.
 """
 from __future__ import annotations
 
@@ -284,12 +285,30 @@ def _scan_bwd_flop_formula(u_shape, dt_shape, A_shape, *args,
     return scan_bwd_flops(u_shape, A_shape)
 
 
+def _tracing() -> bool:
+    """Whether a dispatch mode is on (the dry run's ``FakeTensorMode`` and
+    its tally): the scan must then be one op."""
+    return torch._C._len_torch_dispatch_stack() > 0
+
+
 def ssm_scan(u, dt, A, B_ssm, C_ssm, h0=None, *, h_out=None,
              y_dtype=torch.float32):
-    """The scan as one traced op: (y, h_final), h_final ``h_out`` itself
-    where given."""
+    """(y, h_final), h_final ``h_out`` itself where given: one traced op
+    under a trace, else the plain version or the kernel called directly."""
+    if not _tracing():
+        fn = ssm_scan_plain if u.device.type == "cpu" else ssm_scan_cuda
+        return fn(u, dt, A, B_ssm, C_ssm, h0, h_out=h_out, y_dtype=y_dtype)
     y, h = ssm_scan_op(u, dt, A, B_ssm, C_ssm, h0, h_out, y_dtype)
     return y, (h_out if h_out is not None else h)
+
+
+def ssm_scan_bwd(u, dt, A, B_ssm, C_ssm, dy, dh=None):
+    """(du, ddt, dA, dB, dC): as :func:`ssm_scan`, the op under a trace."""
+    if not _tracing():
+        fn = (ssm_scan_bwd_plain if u.device.type == "cpu"
+              else ssm_scan_bwd_cuda)
+        return fn(u, dt, A, B_ssm, C_ssm, dy, dh)
+    return ssm_scan_bwd_op(u, dt, A, B_ssm, C_ssm, dy, dh)
 
 
 class SSMScan(torch.autograd.Function):
@@ -320,6 +339,6 @@ class SSMScan(torch.autograd.Function):
         if dy is None:
             dy = torch.zeros(u.shape, dtype=acc_dtype(u.dtype),
                              device=u.device)
-        grads = ssm_scan_bwd_op(u, dt, A, B_ssm, C_ssm, dy.contiguous(),
-                                None if dh is None else dh.contiguous())
+        grads = ssm_scan_bwd(u, dt, A, B_ssm, C_ssm, dy.contiguous(),
+                             None if dh is None else dh.contiguous())
         return (*grads, None, None, None)

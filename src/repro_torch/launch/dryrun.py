@@ -50,8 +50,9 @@ From the trace (:func:`trace`):
   versions' traffic (a CPU tensor takes a kernel's plain version), so an
   attention over S keys counts its (S x S) probabilities; the selective
   scan and its gradient are one traced op each (``repro_torch::ssm_scan``,
-  ``ssm_scan_bwd``), their bytes their inputs and outputs and their FLOPs
-  by the formula of the plain loops' products (``kernels/ssm_scan.py``);
+  ``ssm_scan_bwd``, taken under a dispatch mode only), their bytes their
+  inputs and outputs and their FLOPs by the formula of the plain loops'
+  products (``kernels/ssm_scan.py``);
 * each collective at the four wrappers of ``distributed.collectives``,
   its per-rank bytes and group, through the JAX package's ring wire
   model (:func:`wire_bytes`), over NVLink when the group lies within one

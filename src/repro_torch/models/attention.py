@@ -428,14 +428,14 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
 def _mla_qkr(p, cfg: ModelConfig, x, positions, tp=None):
     """The shared query / latent / rope-key projections.  x: (B, S, D) or
     (B, D); positions broadcast against x's leading axes.  The heads are
-    the weights' (a rank's with ``tp``: ``wdq``'s columns are split, and
-    ``q_norm`` whole, so the query latent is gathered before the norm;
+    the weights' (a rank's with ``tp``: where ``wdq``'s columns are split,
+    ``q_norm`` is whole, so the query latent is gathered before the norm;
     ``wdkv`` and ``wkr`` are whole, so every rank forms the latent)."""
     m = cfg.mla
     H = p["wuk"].shape[-3]
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
     q_lat = x @ p["wdq"]
-    if tp is not None and tp.attn_tp:
+    if tp is not None and q_lat.shape[-1] != m.q_lora_rank:
         q_lat = tp.gather(q_lat, dim=-1)
     q_lat = rms_norm(q_lat, p["q_norm"], cfg.norm_eps)
     q_all = (q_lat @ p["wuq"]).reshape(*x.shape[:-1], H, dn + dr)

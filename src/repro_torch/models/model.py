@@ -306,11 +306,13 @@ class Model:
         t = params[key]
         return t if self.tp is None else self.tp.stream_layer(t, (key,))
 
-    def _split_tp(self, n: int):
-        """``tp`` where a width of ``n`` is split over 'model' (the rules
-        replicate a width that does not divide), else None."""
+    def _split_tp(self, local: int, whole: int):
+        """``tp`` where the rank's leaf holds a block (``local`` wide) of a
+        dimension ``whole`` wide, i.e. the rules split it over 'model' (they
+        replicate one that does not divide), else None: the shard's own
+        shape says so."""
         tp = self.tp
-        return tp if tp is not None and tp.splits(n) else None
+        return tp if tp is not None and local != whole else None
 
     def _no_tp(self, what: str):
         if self.tp is not None:
@@ -350,7 +352,9 @@ class Model:
                                                cap=cap, with_aux=True)
             aux.append(layer_aux)
         moe = self.cfg.moe
-        tp = self._split_tp(moe.num_shared_experts * moe.expert_d_ff)
+        tp = self._split_tp(p["shared"]["w_up"].shape[-1],
+                            moe.num_shared_experts * moe.expert_d_ff
+                            ) if "shared" in p else None
         return y + MoE.shared_expert_apply(p, self.cfg, x, tp)
 
     def _cap(self, n_tokens: int) -> int:
@@ -385,7 +389,7 @@ class Model:
         if mixer == "mamba":
             out, state = M.mamba_forward(p["mixer"], cfg, h,
                                          return_state=True, A=ssm_A,
-                                         tp=self._mamba_tp())
+                                         tp=self._mamba_tp(p["mixer"]))
             entry = state._asdict()
         elif not causal:            # the audio encoder's (GQA) blocks
             out = A.gqa_forward(p["mixer"], cfg, h, positions, causal=False,
@@ -406,11 +410,11 @@ class Model:
                                   tp=self.tp)
         return self._ffn(p, x, ffn_kind, runtime, cap, aux), entry
 
-    def _mamba_tp(self):
-        """``tp`` where the Mamba channels are split over 'model'."""
-        mb = self.cfg.mamba
-        return None if mb is None else self._split_tp(
-            mb.expand * self.cfg.d_model)
+    def _mamba_tp(self, p):
+        """``tp`` where the Mamba mixer ``p``'s channels are split over
+        'model'."""
+        return self._split_tp(p["out_proj"].shape[-2],
+                              self.cfg.mamba.expand * self.cfg.d_model)
 
     def _ffn_width(self, ffn_kind) -> int:
         cfg = self.cfg
@@ -429,7 +433,8 @@ class Model:
                           cap, aux)
             return x + y.reshape(x.shape)
         return x + Fn.ffn_apply(p["ffn"], h2, self.cfg.activation,
-                                self._split_tp(self._ffn_width(ffn_kind)))
+                                self._split_tp(p["ffn"]["w_up"].shape[-1],
+                                               self._ffn_width(ffn_kind)))
 
     def _gqa_fwd_cache(self, p, h, positions, max_seq=0):
         """Under ``tp`` the ring holds the rank's KV heads, or where they
@@ -975,7 +980,7 @@ class Model:
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if mixer == "mamba":
             x = x + M.mamba_decode(p["mixer"], cfg, h, self_csl, A=ssm_A,
-                                   tp=self._mamba_tp())
+                                   tp=self._mamba_tp(p["mixer"]))
         else:
             decode = (A.mla_decode if cfg.attention_type == "mla"
                       else A.gqa_decode)

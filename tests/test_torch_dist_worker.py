@@ -27,7 +27,8 @@ prefill of its rows of the job's batch, then a decode step for each of
 the job's ``feed`` tokens; it returns each step's logits (the rank's
 vocabulary columns) and greedy tokens (``TensorParallel.greedy``).  A
 ``merge`` job folds the ranks' attention partials of a ring's quarters
-(``merge_partials``).
+(``merge_partials``); a ``greedy`` job picks the token of logits whose
+columns are split over the ranks (``TensorParallel.greedy``).
 """
 import dataclasses
 import datetime
@@ -76,6 +77,9 @@ def tp_run(job, meshes):
         cfg = dataclasses.replace(cfg, moe_impl="gather_psum",
                                   moe=dataclasses.replace(cfg.moe,
                                                           **job["moe"]))
+    if job.get("mla"):
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, **job["mla"]))
     key = (tuple(job["mesh"]), tuple(job["axes"]))
     if key not in meshes:
         meshes[key] = make_mesh(*key, device="cpu")
@@ -115,17 +119,37 @@ def tp_run(job, meshes):
             "cache": {k: tuple(t.shape) for k, t in ckpt.flatten(cache)}}
 
 
+def _mesh_1x4(meshes):
+    from repro_torch.launch.mesh import make_mesh
+    key = ((1, 4), ("data", "model"))
+    if key not in meshes:
+        meshes[key] = make_mesh(*key, device="cpu")
+    return meshes[key]
+
+
+def greedy_run(job, meshes):
+    """The ``greedy`` job: this rank's quarter of the columns of the job's
+    logits through ``TensorParallel.greedy`` over 'model' of a 1 x 4
+    mesh."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.distributed.tensor_parallel import TensorParallel
+    mesh = _mesh_1x4(meshes)
+    tp = TensorParallel(mesh, ShardingRules(
+        mesh, get_smoke_config("qwen2-moe-a2.7b")))
+    logits = torch.from_numpy(job["logits"])
+    n = logits.shape[-1] // tp.size
+    return {"tokens": tp.greedy(
+        logits[:, tp.rank * n:(tp.rank + 1) * n]).numpy()}
+
+
 def merge_run(job, meshes):
     """The ``merge`` job: this rank's quarter of the job's ring through the
     plain ``paged_attention`` with ``lse_out``, then ``merge_partials``
     over 'model' of a 1 x 4 mesh."""
     from repro_torch.distributed.tensor_parallel import merge_partials
     from repro_torch.kernels.paged_attention import paged_attention_plain
-    from repro_torch.launch.mesh import make_mesh
-    key = ((1, 4), ("data", "model"))
-    if key not in meshes:
-        meshes[key] = make_mesh(*key, device="cpu")
-    mesh = meshes[key]
+    mesh = _mesh_1x4(meshes)
     r = mesh.get_local_rank("model")
     q, k, v, lens = (torch.from_numpy(job[n]) for n in ("q", "k", "v",
                                                         "lens"))
@@ -146,6 +170,8 @@ def run(job, meshes):
         return tp_run(job, meshes)
     if job["kind"] == "merge":
         return merge_run(job, meshes)
+    if job["kind"] == "greedy":
+        return greedy_run(job, meshes)
     model, md, params, mesh = job_model(job, meshes)
     tokens = torch.from_numpy(job["tokens"])
     rows = md.place(tokens.shape[0])

@@ -70,6 +70,35 @@ def test_ops_ssm_scan_in_place_dispatch():
         ssm_scan_cuda(u, dt, A, Bs, Cs, a, h_out=a, y_dtype=u.dtype)
 
 
+def test_eager_scan_calls_the_functions_not_the_custom_op(monkeypatch):
+    """Eager, ``ops.ssm_scan`` (forward, in-place mode, and under grad its
+    backward through ``SSMScan``) calls the plain versions directly, so a
+    decode step pays no custom op's dispatch; under a dispatch mode (the
+    dry run's ``FakeTensorMode``) it takes the op."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import ssm_scan as S
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the custom op ran eagerly")
+
+    monkeypatch.setattr(S, "ssm_scan_op", refuse)
+    monkeypatch.setattr(S, "ssm_scan_bwd_op", refuse)
+    u, dt, A, Bs, Cs, h0 = _scan_args(6, torch.float32, torch.float32)
+    y, h = ops.ssm_scan(u, dt, A, Bs, Cs)
+    want_y, want_h = ssm_scan_plain(u, dt, A, Bs, Cs)
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
+    st = h0.clone()
+    ops.ssm_scan(u, dt, A, Bs, Cs, st, h_out=st)
+    leaves = [t.clone().requires_grad_() for t in (u, dt, A, Bs, Cs)]
+    y, _ = ops.ssm_scan(*leaves)
+    y.sum().backward()
+    assert all(t.grad is not None for t in leaves)
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(t) for t in (u, dt, A, Bs, Cs)]
+        with pytest.raises(AssertionError, match="custom op"):
+            ops.ssm_scan(*fake)
+
+
 @pytest.fixture(scope="module")
 def mixer():
     cfg = jax_smoke_config(ARCH)

@@ -58,18 +58,25 @@ FSDP = ("nemotron-4-340b",)
 MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
 # the MoE banks: dropless, and 4 + 4 slots (so that they split 4 ways)
 MOE = dict(capacity_factor=100.0, num_redundant_experts=4)
+# deepseek-v3's query latent at a width no 'model' size here divides: the
+# rules keep wdq whole while its heads are split
+ODD_Q_LORA = {"q_lora_rank": 63}
 B, S_TOK, STEPS, MAX_SEQ = 4, 8, 3, 24
 LENGTHS = (8, 5, 8, 3)           # each row's tokens (a vlm's patches first)
 
 
-def _cfgs(arch):
-    """(repro's, the port's) smoke config, MoE banks as MOE."""
+def _cfgs(arch, mla=None):
+    """(repro's, the port's) smoke config, MoE banks as MOE, the MLA
+    config patched by ``mla``."""
     out = []
     for cfg in (jax_smoke_config(arch), get_smoke_config(arch)):
         if cfg.moe is not None:
             cfg = dataclasses.replace(
                 cfg, moe_impl="gather_psum",
                 moe=dataclasses.replace(cfg.moe, **MOE))
+        if mla:
+            cfg = dataclasses.replace(
+                cfg, mla=dataclasses.replace(cfg.mla, **mla))
         out.append(cfg)
     return out
 
@@ -116,12 +123,13 @@ def reference(tmp_path_factory):
     root = tmp_path_factory.mktemp("tp")
     kept = {}
 
-    def get(arch):
-        if arch not in kept:
-            jcfg, pcfg = _cfgs(arch)
+    def get(arch, mla=None):
+        key = (arch, tuple(sorted((mla or {}).items())))
+        if key not in kept:
+            jcfg, pcfg = _cfgs(arch, mla)
             jm = JaxModel(jcfg)
             jparams = _carried(jm, Model(pcfg, device="cpu").init(0))
-            path = str(root / f"{arch}.npz")
+            path = str(root / f"{arch}{'_mla' if mla else ''}.npz")
             jax_save(path, jparams)
             batch = _batch(jcfg, ARCHS.index(arch))
             last, cache = jax.jit(jm.prefill, static_argnames="max_seq")(
@@ -134,8 +142,8 @@ def reference(tmp_path_factory):
                 last, cache = step(jparams, cache, jnp.asarray(greedy[-1]))
                 logits.append(np.asarray(last))
                 greedy.append(np.asarray(jnp.argmax(last, -1), np.int32))
-            kept[arch] = (path, batch, logits, greedy)
-        return kept[arch]
+            kept[key] = (path, batch, logits, greedy)
+        return kept[key]
     return get
 
 
@@ -162,13 +170,14 @@ def _assemble(results, step, vpad):
     return out
 
 
-@pytest.mark.parametrize("mesh", MESHES)
-@pytest.mark.parametrize("arch", ARCHS)
-def test_tp_serve_steps_match_repro_local(arch, mesh, group, reference):
-    path, batch, want, greedy = reference(arch)
+def _tp_run(arch, mesh, group, reference, mla=None):
+    """The ranks' TP steps of ``arch`` against repro's local model: the
+    logits within TOL, the greedy tokens equal; returns the ranks'
+    results."""
+    path, batch, want, greedy = reference(arch, mla)
     out = group.run(kind="tp", arch=arch, mesh=MESHES[mesh],
                     axes=("data", "model"), ckpt=path,
-                    fsdp=arch in FSDP, moe=MOE, batch=batch,
+                    fsdp=arch in FSDP, moe=MOE, mla=mla, batch=batch,
                     max_seq=MAX_SEQ, feed=greedy[:STEPS])
     vpad = want[0].shape[-1]
     for step in range(STEPS + 1):
@@ -179,6 +188,13 @@ def test_tp_serve_steps_match_repro_local(arch, mesh, group, reference):
             lo, hi = r["rows"]
             np.testing.assert_array_equal(r["tokens"][step],
                                           greedy[step][lo:hi])
+    return out
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp_serve_steps_match_repro_local(arch, mesh, group, reference):
+    out = _tp_run(arch, mesh, group, reference)
     # a 'model' rank holds a slice of each split cache leaf
     model = MESHES[mesh][1]
     _, pcfg = _cfgs(arch)
@@ -241,3 +257,29 @@ def test_merge_partials_over_four_ranks(group):
         assert not np.isnan(r["o"]).any()
         np.testing.assert_allclose(r["o"], want, rtol=1e-5, atol=1e-6)
         np.testing.assert_array_equal(r["o"][2], 0.0)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_tp_mla_with_a_whole_query_latent_matches_repro_local(
+        mesh, group, reference):
+    """deepseek-v3 whose query latent (63) 'model' does not divide: the
+    rules keep ``wdq`` whole while its heads are split, and the ranks form
+    the latent without a gather, within TOL of repro's local model."""
+    _tp_run("deepseek-v3", mesh, group, reference, mla=ODD_Q_LORA)
+
+
+def test_greedy_over_four_ranks_takes_the_lowest_index_on_a_tie(group):
+    """``TensorParallel.greedy`` over logits whose 64 columns are split 4
+    ways equals ``argmax`` over the whole row: ties across ranks and
+    within one go to the lowest index, as ``launch/specs.py`` chooses."""
+    logits = np.random.default_rng(7).normal(size=(5, 64)).astype(
+        np.float32)
+    logits[0, [5, 37]] = 9.0           # ranks 0 and 2
+    logits[1, [50, 20, 21]] = 9.0      # ranks 3 and 1, twice in rank 1
+    logits[2] = 1.0                    # every column
+    logits[3, 63] = 9.0                # the last rank's last column
+    out = group.run(kind="greedy", logits=logits)
+    want = np.argmax(logits, -1).astype(np.int32)
+    assert list(want[:4]) == [5, 20, 0, 63]
+    for r in out:
+        np.testing.assert_array_equal(r["tokens"], want)
