@@ -15,7 +15,8 @@
     python3 chip_smoke.py --paths train_ssm  # Mamba and hybrid training
     python3 chip_smoke.py --paths dist    # the distributed MoE layer
     python3 chip_smoke.py --paths dryrun  # the dry run held to the card
-    python3 chip_smoke.py --paths tp      # tensor-parallel serve steps
+    python3 chip_smoke.py --paths train,tp  # tensor-parallel serve and
+                                            # train steps
     python3 chip_smoke.py --paths mla_composed,mla_megakernel,mla_serial
     python3 chip_smoke.py --profile       # + where the device time goes
 
@@ -301,7 +302,22 @@ Phases, in order; any failure raises and the script exits non-zero:
              dropping a rank's slice or ignoring the lse shown to miss
              by more), a short
              row's empty slices -inf with zeros; timed at a slice whose
-             every row is full.  Each path's kernels' launch counts are read from
+             every row is full.  Between the two halves the tp path
+             trains: the train path's qwen2-moe-a2.7b (2 full-width
+             layers, f32, its weights and 4 x 256-token batches) for 2
+             steps with ``Model(tp=...)`` and ``cfg.remat`` on the world
+             of one, against 2 steps of the kernel trainer without
+             them: bitwise, or (naming the first piece that differs)
+             the losses within 1e-6 relative and step 0's gradients
+             within 1e-5 of each leaf's scale; the params' largest
+             difference, both runs' peak memory and the tp run's
+             ``flash_prefill_bwd`` and ``expert_ffn_bwd`` launches
+             printed and checked.  After them the backward kernels at
+             a 16-way rank's shapes in f32: ``flash_prefill_bwd`` at
+             qwen's 1 head and deepseek-v3's 8, ``expert_ffn_bwd`` over
+             4 expert slots, ``ssm_scan_bwd`` at 512 of 8192 channels,
+             each held to its plain version and timed beside its bound
+             and the library's backward.  Each path's kernels' launch counts are read from
              its faulted run (``disagg``: the synchronous switch's;
              ``fleet``: the whole fleet run), counted from 0 just before
              it.  Each engine build
@@ -384,8 +400,8 @@ KERNEL_PATH = {"paged_attention": ("composed", "serial", "mla_composed",
                "flash_prefill": ("serial", "mla_serial", "hybrid", "vlm",
                                  "audio", "train", "dist", "dryrun", "tp"),
                "ssm_scan": ("ssm", "hybrid", "train_ssm"),
-               "flash_prefill_bwd": ("train",),
-               "expert_ffn_bwd": ("train",),
+               "flash_prefill_bwd": ("train", "tp"),
+               "expert_ffn_bwd": ("train", "tp"),
                "ssm_scan_bwd": ("train_ssm",)}
 IMPLS = ("composed", "megakernel")
 # the engine paths: EngineConfig options of each.  ``ssm`` serves
@@ -3360,7 +3376,8 @@ def phase_engine(torch, seed, layers, paths, profile=False):
     counts, by_path, rates, streams = {}, {}, {}, {}
     # streams a later path compares with: (path, "fault") for a faulted
     # run's, ("spec", "plain") for the plain engine on the pattern prompts
-    kept = {}
+    # the tp path reuses the train path's model, weights and batches
+    kept = {"tp_train": "tp" in paths}
     groups, group_of = {}, {}
     for p in paths:
         group_of[p] = (PATH_ARCH.get(p, QWEN_ARCH), PATH_LAYERS.get(p, layers))
@@ -3392,6 +3409,7 @@ def phase_engine(torch, seed, layers, paths, profile=False):
         finally:
             # what a path kept for a later path of its group
             kept.pop("qwen_bf16", None)
+            kept.pop("qwen_f32", None)
             if kept.pop("nccl", None) is not None:
                 import torch.distributed as dist
                 dist.destroy_process_group()
@@ -4658,7 +4676,7 @@ def train_grads(torch, m, params, batch):
             for k, t, g in zip(keys, ts, grads)]
 
 
-def train_against_plain(torch, cfg, seed, what):
+def train_against_plain(torch, cfg, seed, what, keep=None):
     """``train_loop.train`` of ``cfg`` in f32 on the card from
     ``Model.init(seed)``, batches ``make_batch(DataConfig(vocab,
     TRAIN_SEQ, TRAIN_BATCH), step)``, AdamW at lr 3e-4 after one warmup
@@ -4668,7 +4686,10 @@ def train_against_plain(torch, cfg, seed, what):
     written-out plain backward on the card (``plain_training_kernels``):
     every step's loss, ce, aux and grad_norm within TRAIN_RTOL, and step
     0's gradient of every leaf (``train_grads``) within TRAIN_RTOL of the
-    leaf's largest |gradient|.  Returns the kernel run's launch counts."""
+    leaf's largest |gradient|.  Returns the kernel run's launch counts;
+    with ``keep`` (a dict) leaves the config, the initial params (on the
+    card), the batches and the kernel run's peak memory there under
+    ``"qwen_f32"`` for the tp path."""
     from repro_torch.kernels import launches
     from repro_torch.models.model import Model
     from repro_torch.training.checkpoint import flatten
@@ -4746,6 +4767,8 @@ def train_against_plain(torch, cfg, seed, what):
         f"{peak / 2**30:.2f} GiB; final params vs the plain trainer's: "
         f"largest relative difference {rel:.3e} (max |d| / max |plain| a "
         f"leaf); launches {counts}")
+    if keep is not None:
+        keep["qwen_f32"] = (cfg, params, batches, peak)
     del params, m, batches
     _free(torch)
     return counts
@@ -4789,7 +4812,9 @@ def serve_train(torch, cfg, path, workdir, seed, profile, kept):
     the same way.  Returns (launch counts of ``cfg``'s kernel run, None,
     None)."""
     log(f"engine: path {path!r}: {cfg.name}, {cfg.num_layers} layers")
-    counts = train_against_plain(torch, cfg, seed, f"engine {path}")
+    counts = train_against_plain(
+        torch, cfg, seed, f"engine {path}",
+        keep=kept if path == "train" and kept.get("tp_train") else None)
     check_train_launches(f"engine {path}", cfg, counts)
 
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
@@ -5811,9 +5836,345 @@ def tp_context_parallel(torch, gen, *, H, Hkv, Dh, same, what):
     return row
 
 
+# the tp path's training half: qwen2-moe-a2.7b at full width, TRAIN_LAYERS
+# deep, f32, the train path's weights and batches (TRAIN_BATCH x
+# TRAIN_SEQ), TP_TRAIN_STEPS steps of ``train_loop.train`` with
+# ``Model(tp=...)`` on the world of one and ``cfg.remat`` set, against the
+# same steps of the kernel trainer without tp and without remat.  Where
+# the two are not bitwise, the losses are held within TP_TRAIN_LOSS_RTOL
+# (relative) and step 0's gradients within TP_TRAIN_GRAD_TOL of each
+# leaf's largest |gradient|
+TP_TRAIN_STEPS = 2
+TP_TRAIN_LOSS_RTOL = 1e-6
+TP_TRAIN_GRAD_TOL = 1e-5
+# the train path's peak card memory (max_memory_allocated, f32, 3 steps;
+# PR 26's and PR 29's runs on the H100), printed beside the tp runs'
+TRAIN_PEAK_GIB = 60.74
+# the backward kernels at a rank's shapes of the production mesh's
+# 'model' = TP_MODEL, f32: flash_prefill_bwd at TP_ROWS x TP_SEQ (qwen2-
+# moe-a2.7b's 1 head of 16; deepseek-v3's 8 of 128 at Dq 192, Dv 128),
+# expert_ffn_bwd over a rank's TP_FFN_SLOTS of qwen's 64 expert slots at
+# TP_FFN_ROWS rows each, ssm_scan_bwd over 512 of falcon-mamba-7b's 8192
+# channels; each held to its plain version on the inputs of the
+# simulated ranks TP_BWD_RANKS (BWD_TOL of each gradient's scale), the
+# last one's inputs timed
+TP_FFN_SLOTS, TP_FFN_ROWS = 4, 512
+TP_BWD_RANKS = (0, TP_MODEL - 1)
+
+
+def tp_train_inputs(torch, cfg, dev, kept, seed):
+    """The train path's (params on the card, batches, its peak memory) when
+    it ran first, else drawn the same way."""
+    held = kept.pop("qwen_f32", None)
+    if held is not None and held[0] == cfg:
+        return held[1], held[2], held[3], "the train path's"
+    from repro_torch.models.model import Model
+    from repro_torch.training.data import DataConfig, make_batch
+    dc = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    return (Model(cfg, torch.float32, device=dev).init(seed),
+            [make_batch(dc, step) for step in range(TRAIN_STEPS)], None,
+            f"drawn from seed {seed}")
+
+
+def tp_train_diagnose(torch, tp_model, local, params, batch):
+    """Where a tp run parts from the local one: each piece of the step on
+    its own, bitwise or not (step 0's batch)."""
+    import dataclasses
+    from repro_torch.models.layers import (cross_entropy_loss,
+                                           vocab_parallel_cross_entropy)
+    from repro_torch.models.model import Model
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.train_loop import grads_of
+    cfg = local.cfg
+    out = []
+    with torch.no_grad():
+        a = tp_model.logits_full(params, batch, with_aux=True, caches=False)
+        b = local.logits_full(params, batch, with_aux=True, caches=False)
+    out.append(("the forward's logits and aux (moe_dist and tp vs local)",
+                bool(torch.equal(a[0], b[0]) and torch.equal(a[2], b[2]))))
+    logits = b[0][:, :-1].detach().requires_grad_()
+    labels = batch["tokens"][:, 1:]
+    mask = batch["loss_mask"][:, 1:].float()
+    ce_tp = vocab_parallel_cross_entropy(logits, labels, mask,
+                                         cfg.vocab_size, tp_model.tp)
+    ce_l = cross_entropy_loss(logits, labels, mask, cfg.vocab_size)
+    g_tp, = torch.autograd.grad(ce_tp, logits)
+    g_l, = torch.autograd.grad(ce_l, logits)
+    out.append(("vocab_parallel_cross_entropy vs cross_entropy_loss, value "
+                "and gradient", bool(torch.equal(ce_tp, ce_l)
+                                     and torch.equal(g_tp, g_l))))
+    del a, b, logits, g_tp, g_l
+
+    def grads(m):
+        return dict(flatten(grads_of(m, params, batch)[3]))
+    want = grads(local)
+    for what, m in (
+            ("cfg.remat alone (local model)",
+             Model(dataclasses.replace(cfg, remat=True), torch.float32,
+                   device=local.device)),
+            ("moe_dist alone (no tp, no remat)",
+             Model(cfg, torch.float32, device=local.device,
+                   moe_dist=tp_model.moe_dist))):
+        got = grads(m)
+        out.append((what + ": step 0's gradients",
+                    all(torch.equal(got[k], want[k]) for k in want)))
+        del got
+    return out
+
+
+def tp_train(torch, cfg, mesh, dev, kept, seed):
+    """The tp path's training half (the note above TP_TRAIN_STEPS).
+    Returns the tp run's launch counts."""
+    import dataclasses
+    from repro_torch.distributed.collectives import make_moe_dist
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.distributed.tensor_parallel import TensorParallel
+    from repro_torch.kernels import launches
+    from repro_torch.models.model import Model
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import grads_of, train
+    params, batches, train_peak, source = tp_train_inputs(torch, cfg, dev,
+                                                          kept, seed)
+    batches = batches[:TP_TRAIN_STEPS]
+    opt = OptimizerConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+    remat = dataclasses.replace(cfg, remat=True)
+    # the fused local compute has no backward: the layer's plain dispatch
+    md = make_moe_dist(mesh, cfg.moe_impl.replace("_fused", ""))
+    md.place(TRAIN_BATCH)
+    tp = TensorParallel(mesh, ShardingRules(mesh, remat))
+    rows = tp.place(TRAIN_BATCH)
+    if (tp.world, rows) != (1, slice(0, TRAIN_BATCH)):
+        raise AssertionError(f"engine tp: a world of {tp.world}")
+    # a world of one's tp_shard of each leaf is the whole leaf
+    tp_model = Model(remat, torch.float32, device=dev, moe_dist=md, tp=tp)
+    local = Model(cfg, torch.float32, device=dev)
+    log(f"  training: {cfg.name} at full width, {cfg.num_layers} layers, "
+        f"f32 ({source} weights and batches), {TP_TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens with Model(tp=...), moe_dist "
+        f"{md.name} and cfg.remat on the world of one, against the kernel "
+        f"trainer without tp and without remat")
+    b0 = {k: torch.as_tensor(v).to(dev) for k, v in batches[0].items()}
+
+    def peak_over(fn, held=()):
+        """``fn()`` and its peak bytes on the card, less the bytes of the
+        tensors in ``held`` (the other run's, kept for the comparison):
+        each run's own peak, its initial params included."""
+        _free(torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated()
+                     - sum(t.numel() * t.element_size() for t in held))
+
+    def leaf_errs(got, want, relative):
+        """Per leaf max |got - want| (over max |want| with
+        ``relative``), on the card."""
+        out = {}
+        for k, w in want.items():
+            d = float((got[k] - w).abs().max())
+            out[k] = d / max(float(w.abs().max()), 1e-30) if relative else d
+        return out
+
+    # both runs' step 0 gradients side by side on the card, then each
+    # run's steps, the first run's params kept on the card: no host copy
+    g_tp, gpeak_tp = peak_over(lambda: dict(flatten(
+        grads_of(tp_model, params, b0)[3])))
+    g_l, gpeak_l = peak_over(lambda: dict(flatten(
+        grads_of(local, params, b0)[3])), g_tp.values())
+    g_err = leaf_errs(g_tp, g_l, True)
+    del g_tp, g_l
+    before = dict(launches)
+    (p_tp, h_tp), peak_tp = peak_over(lambda: train(
+        tp_model, iter(batches), TP_TRAIN_STEPS, opt, log_every=1,
+        params=params))
+    counts = {k: v - before.get(k, 0) for k, v in launches.items()
+              if v != before.get(k, 0)}
+    p_tp = dict(flatten(p_tp))
+    (p_l, h_l), peak_l = peak_over(lambda: train(
+        local, iter(batches), TP_TRAIN_STEPS, opt, log_every=1,
+        params=params), p_tp.values())
+    p_err = leaf_errs(p_tp, dict(flatten(p_l)), False)
+    del p_tp, p_l
+    same_loss = all(a[k] == b[k] for a, b in zip(h_tp, h_l)
+                    for k in ("loss", "ce", "aux", "grad_norm"))
+    bitwise = same_loss and not any(g_err.values()) and not any(
+        p_err.values())
+    for i, (a, b) in enumerate(zip(h_tp, h_l)):
+        log(f"    step {i}: tp loss {a['loss']!r} ce {a['ce']!r} aux "
+            f"{a['aux']!r} grad_norm {a['grad_norm']!r} ({a['elapsed_s']:.3f} "
+            f"s since the start); local loss {b['loss']!r} ce {b['ce']!r} "
+            f"aux {b['aux']!r} grad_norm {b['grad_norm']!r} "
+            f"({b['elapsed_s']:.3f} s)")
+    worst = sorted(g_err.items(), key=lambda kv: -kv[1])[:3]
+    log(f"    the two runs {'ARE' if bitwise else 'are NOT'} bitwise equal: "
+        f"losses {'equal' if same_loss else 'differ'}; step 0's gradients, "
+        f"largest |d| / max |g| of a leaf: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst)
+        + f"; params after step {TP_TRAIN_STEPS}: largest |d| "
+        f"{max(p_err.values()):.3e} ({max(p_err, key=p_err.get)})")
+    train_gib = (f"{train_peak / 2**30:.2f} GiB in this run's train path, "
+                 if train_peak else "")
+    log(f"    max_memory_allocated over the {TP_TRAIN_STEPS} steps: tp with "
+        f"remat {peak_tp / 2**30:.2f} GiB, local without remat "
+        f"{peak_l / 2**30:.2f} GiB (the train path's 3 steps: "
+        f"{train_gib}{TRAIN_PEAK_GIB} GiB in PR 29's run); over step 0's "
+        f"forward and backward alone (grads_of, no update): tp with remat "
+        f"{gpeak_tp / 2**30:.2f} GiB, local {gpeak_l / 2**30:.2f} GiB")
+    if not bitwise:
+        for what, same in tp_train_diagnose(torch, tp_model, local, params,
+                                            b0):
+            log(f"    {what}: {'bitwise' if same else 'DIFFERS'}")
+        for i, (a, b) in enumerate(zip(h_tp, h_l)):
+            for k in ("loss", "ce", "aux", "grad_norm"):
+                if not (math.isfinite(a[k]) and abs(a[k] - b[k])
+                        <= TP_TRAIN_LOSS_RTOL * abs(b[k])):
+                    raise AssertionError(f"engine tp train: step {i} {k} "
+                                         f"{a[k]!r} against {b[k]!r}")
+        bad = {k: v for k, v in g_err.items() if not v <= TP_TRAIN_GRAD_TOL}
+        if bad:
+            raise AssertionError(f"engine tp train: step 0's gradients off: "
+                                 f"{bad}")
+    L = cfg.num_layers
+    moe = local._num_moe_layers()
+    want = {"flash_prefill_bwd": L * TP_TRAIN_STEPS,
+            "expert_ffn_bwd": moe * TP_TRAIN_STEPS}
+    log(f"    the tp run's launches {counts} (remat: flash_prefill "
+        f"{counts.get('flash_prefill', 0)} for {L * TP_TRAIN_STEPS} "
+        f"layer-steps)")
+    if ({k: counts.get(k, 0) for k in want} != want
+            or counts.get("flash_prefill", 0) < 2 * L * TP_TRAIN_STEPS):
+        raise AssertionError(f"engine tp train: launches {counts}, expected "
+                             f"{want} and flash_prefill recomputed")
+    del params, batches, tp_model, local, b0
+    _free(torch)
+    return counts
+
+
+def tp_flash_bwd(torch, *, H, Dq, Dv, what, seed):
+    """flash_prefill_bwd at one rank's heads (``H``, K and V heads alike)
+    of a causal TP_ROWS x TP_SEQ prefill, f32, against the plain version
+    for each of TP_BWD_RANKS' seeded inputs; timed with the library's
+    backward (``autograd.grad`` through scaled_dot_product_attention)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import (flash_prefill_bwd_cuda,
+                                                   flash_prefill_bwd_plain,
+                                                   flash_prefill_cuda)
+    B, S = TP_ROWS, TP_SEQ
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    errs = []
+    for r in TP_BWD_RANKS:
+        gen = torch.Generator(device="cuda").manual_seed(seed + r)
+        q, k, v, do = (torch.randn(sh, generator=gen, device="cuda")
+                       for sh in ((B, S, H, Dq), (B, S, H, Dq), (B, S, H, Dv),
+                                  (B, S, H, Dv)))
+        o = flash_prefill_cuda(q, k, v, pos, pos, causal=True, window=0)
+        got = flash_prefill_bwd_cuda(q, k, v, o, do, pos, pos, causal=True,
+                                     window=0)
+        want = flash_prefill_bwd_plain(q, k, v, o, do, pos, pos,
+                                       causal=True, window=0)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs.append(_scaled_err(f"flash_prefill_bwd {what} rank {r} "
+                                    f"{name}", g, w, "float32"))
+        del got, want
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do_t = do.transpose(1, 2)
+    row = _row(errs, time_ms(torch, lambda: flash_prefill_bwd_cuda(
+                   q, k, v, o, do, pos, pos)),
+               time_ms(torch, lambda: flash_prefill_bwd_plain(
+                   q, k, v, o, do, pos, pos)),
+               flash_bwd_bound_ms(B, S, H, H, Dq, Dv, 0, 4, "float32"),
+               f"{what}: B {B}, S {S}, H = Hkv = {H}, Dq {Dq}, Dv {Dv}, "
+               f"f32, causal (library: autograd.grad through "
+               f"scaled_dot_product_attention)",
+               library_ms=time_ms(torch, lambda: torch.autograd.grad(
+                   o_lib, (qt, kt, vt), do_t, retain_graph=True)))
+    _log_row(f"flash_prefill_bwd (a rank of {TP_MODEL})", row)
+    del q, k, v, o, do, qt, kt, vt, o_lib
+    _free(torch)
+    return row
+
+
+def tp_ffn_bwd(torch, seed):
+    """expert_ffn_bwd over a rank's TP_FFN_SLOTS expert slots of
+    qwen2-moe-a2.7b at TP_FFN_ROWS rows each, f32, against the plain
+    version for each of TP_BWD_RANKS' seeded inputs; timed with the
+    library's backward (``autograd.grad`` through silu(bmm) * bmm, then
+    bmm)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.expert_ffn import (expert_ffn_bwd_cuda,
+                                                expert_ffn_bwd_plain)
+    E, C, D, Fd = TP_FFN_SLOTS, TP_FFN_ROWS, QWEN["D"], QWEN["F"]
+    errs = []
+    for r in TP_BWD_RANKS:
+        gen = torch.Generator(device="cuda").manual_seed(seed + r)
+        x = torch.randn((E, C, D), generator=gen, device="cuda")
+        g, u = (torch.randn((E, D, Fd), generator=gen, device="cuda")
+                / math.sqrt(D) for _ in range(2))
+        d = torch.randn((E, Fd, D), generator=gen, device="cuda") \
+            / math.sqrt(Fd)
+        dy = torch.randn((E, C, D), generator=gen, device="cuda")
+        got = expert_ffn_bwd_cuda(x, g, u, d, dy)
+        want = expert_ffn_bwd_plain(x, g, u, d, dy)
+        for name, a, w in zip(("dx", "dgate", "dup", "ddown"), got, want):
+            errs.append(_scaled_err(f"expert_ffn_bwd rank {r} {name}", a, w,
+                                    "float32"))
+        del got, want
+    ts = [t.detach().requires_grad_() for t in (x, g, u, d)]
+    y_lib = torch.bmm(F.silu(torch.bmm(ts[0], ts[1]))
+                      * torch.bmm(ts[0], ts[2]), ts[3])
+    row = _row(errs, time_ms(torch, lambda: expert_ffn_bwd_cuda(
+                   x, g, u, d, dy)),
+               time_ms(torch, lambda: expert_ffn_bwd_plain(x, g, u, d, dy)),
+               ffn_bwd_bound_ms(E, C, C, D, Fd, 4, "float32"),
+               f"qwen2-moe-a2.7b: {E} of 64 expert slots, C {C} rows each, "
+               f"D {D}, F {Fd}, f32 (library: autograd.grad through "
+               f"silu(bmm) * bmm, then bmm)",
+               library_ms=time_ms(torch, lambda: torch.autograd.grad(
+                   y_lib, ts, dy, retain_graph=True)))
+    _log_row(f"expert_ffn_bwd (a rank of {TP_MODEL})", row)
+    del x, g, u, d, dy, ts, y_lib
+    _free(torch)
+    return row
+
+
+def tp_ssm_bwd(torch, seed):
+    """ssm_scan_bwd over a rank's d_inner / TP_MODEL of falcon-mamba-7b's
+    channels, TP_ROWS x TP_SEQ, f32, against the plain version for each of
+    TP_BWD_RANKS' seeded inputs (no library call computes a selective
+    scan's gradient)."""
+    from repro_torch.kernels.ssm_scan import (ssm_scan_bwd_cuda,
+                                              ssm_scan_bwd_plain)
+    d = FALCON["d_inner"] // TP_MODEL
+    errs = []
+    for r in TP_BWD_RANKS:
+        args = ssm_case(torch, TP_ROWS, TP_SEQ, with_h0=False,
+                        dtype=torch.float32, seed=seed + r, d=d)[:5]
+        dy = torch.randn((TP_ROWS, TP_SEQ, d), generator=torch.Generator(
+            device="cuda").manual_seed(seed + 100 + r), device="cuda")
+        got = ssm_scan_bwd_cuda(*args, dy)
+        want = ssm_scan_bwd_plain(*args, dy)
+        for name, g, w in zip(("du", "ddt", "dA", "dB", "dC"), got, want):
+            errs.append(_scaled_err(f"ssm_scan_bwd rank {r} {name}", g, w,
+                                    "float32"))
+        del got, want
+    row = _row(errs, time_ms(torch, lambda: ssm_scan_bwd_cuda(*args, dy)),
+               time_ms(torch, lambda: ssm_scan_bwd_plain(*args, dy)),
+               ssm_bwd_bound_ms(args, dy, None),
+               f"falcon-mamba-7b: B {TP_ROWS}, S {TP_SEQ}, d {d} of "
+               f"{FALCON['d_inner']}, N {FALCON['N']}, f32 (library: none)")
+    _log_row(f"ssm_scan_bwd (a rank of {TP_MODEL})", row)
+    del args, dy
+    _free(torch)
+    return row
+
+
 def serve_tp(torch, cfg, path, workdir, seed, profile, kept):
-    """The ``tp`` path (no engine; the note above TP_ROWS).  Returns the
-    world-of-one runs' launch counts."""
+    """The ``tp`` path (no engine; the notes above TP_ROWS and
+    TP_TRAIN_STEPS).  Returns the world-of-one runs' launch counts."""
     import dataclasses
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -5835,6 +6196,7 @@ def serve_tp(torch, cfg, path, workdir, seed, profile, kept):
         mesh = make_mesh((1, 1), ("data", "model"), "cuda")
     else:
         mesh = group
+    lap = laps("engine tp")
     try:
         held = kept.pop("qwen_bf16", None)
         t0 = time.perf_counter()
@@ -5867,6 +6229,10 @@ def serve_tp(torch, cfg, path, workdir, seed, profile, kept):
             counts[k] = counts.get(k, 0) + v
         del p
         _free(torch)
+        lap("serve steps, world of one")
+        for k, v in tp_train(torch, cfg, mesh, dev, kept, seed).items():
+            counts[k] = counts.get(k, 0) + v
+        lap("train steps, world of one")
     finally:
         dist.destroy_process_group()
         if store is not None:
@@ -5890,6 +6256,18 @@ def serve_tp(torch, cfg, path, workdir, seed, profile, kept):
         "lse_latent": tp_context_parallel(torch, gen, H=128, Hkv=1,
                                           Dh=576, same=True,
                                           what="deepseek-v3 latent")}
+    lap("forward kernels at a rank's shapes")
+    log(f"  the backward kernels at a rank's shapes of 'model' = {TP_MODEL}, "
+        f"f32, each held to its plain version on the inputs of simulated "
+        f"ranks {TP_BWD_RANKS}")
+    TP_RESULTS["flash_prefill_bwd"] = {
+        "qwen": tp_flash_bwd(torch, H=1, Dq=128, Dv=128,
+                             what="qwen2-moe-a2.7b", seed=seed + 44),
+        "deepseek": tp_flash_bwd(torch, H=8, Dq=192, Dv=128,
+                                 what="deepseek-v3", seed=seed + 46)}
+    TP_RESULTS["expert_ffn_bwd"] = tp_ffn_bwd(torch, seed + 48)
+    TP_RESULTS["ssm_scan_bwd"] = tp_ssm_bwd(torch, seed + 50)
+    lap("backward kernels at a rank's shapes")
     for k in list(launches):
         launches[k] = before.get(k, 0)
     TP_RESULTS["paged_attention"]["lse_launches"] = counts.get(LSE, 0)

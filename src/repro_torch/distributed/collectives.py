@@ -32,9 +32,13 @@ and gathers what it cut afterwards, as GSPMD reshards at the
 Every collective of the layer runs through a ``torch.autograd.Function``
 whose backward is the transposed collective (all-gather <->
 reduce-scatter, all-reduce <-> all-reduce, all-to-all back the other
-way): backward of each rank's loss gives the gradient of the sum of the
-ranks' losses, per rank and leaf.  The fused local compute has no
-backward and refuses inputs that require grad.  A mesh on CUDA runs its
+way, a broadcast's gradients summed to its source): backward of each
+rank's loss gives the gradient of the sum of the ranks' losses, per rank
+and leaf.  The convention that follows: each rank differentiates ``loss
+/ world`` (its loss the global one, or its share of it), and a leaf's
+gradient is the sum of the gradients of every rank that holds the same
+block of it (``TensorParallel.reduce_grads`` takes that sum).  The fused
+local compute has no backward and refuses inputs that require grad.  A mesh on CUDA runs its
 collectives through NCCL, and nothing falls back to another backend or
 to the single-rank path.
 """
@@ -48,7 +52,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import batch_axes, local_shard
+from repro_torch.distributed.sharding import (batch_axes, batch_rows,
+                                              local_shard)
 from repro_torch.kernels import build
 from repro_torch.kernels.moe_fused import group_by_expert
 from repro_torch.launch.mesh import axis_sizes
@@ -128,10 +133,31 @@ def _all_reduce(x, group):
 
 def broadcast_(x, group, src: int):
     """``x`` of ``group``'s rank ``src`` written into ``x`` on every rank
-    of the group (in place; no gradient)."""
+    of the group (in place; no gradient: :func:`broadcast` has one)."""
     _note("broadcast", x, group)
     dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
     return x
+
+
+def _reduce_to(x, group, dst: int):
+    """The sum over ``group`` of ``x`` on its rank ``dst``; zeros on the
+    others (a broadcast's transpose)."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    _note("reduce", out, group)
+    dist.reduce(out, dst=dist.get_global_rank(group, dst),
+                op=dist.ReduceOp.SUM, group=group)
+    if dist.get_rank(group) != dst:
+        out.zero_()
+    return out
+
+
+def all_reduce_max(x, group):
+    """The elementwise largest ``x`` over ``group`` (no gradient: a
+    log-sum-exp's shift)."""
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    _note("all-reduce", out, group)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
 
 
 def _all_to_all(x, group):
@@ -186,6 +212,28 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_to_all(g, ctx.group), None
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, src):
+        ctx.group, ctx.src = group, src
+        return broadcast_(x.clone(memory_format=torch.contiguous_format),
+                          group, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_to(g, ctx.group, ctx.src), None, None
+
+
+def broadcast(x, group, src: int):
+    """``x`` of ``group``'s rank ``src`` on every rank of the group, as a
+    new tensor; under grad the ranks' gradients are summed to ``src``
+    (the other ranks' ``x`` get zeros)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Broadcast.apply(x, group, src)
+    return broadcast_(x.clone(memory_format=torch.contiguous_format),
+                      group, src)
 
 
 _FUNCTIONS = {_all_gather: _AllGather, _reduce_scatter: _ReduceScatter,
@@ -275,10 +323,8 @@ class MoEDist:
         """This rank's rows of a global batch of ``batch_size`` rows, as
         ``ShardingRules.batch_spec`` places them; the layer reckons the
         global token count from them until the next call."""
-        self.batch_axes = batch_axes(self.mesh, batch_size)
-        n, index = self._split(self.batch_axes)
-        rows = batch_size // n
-        return slice(index * rows, (index + 1) * rows)
+        self.batch_axes, rows = batch_rows(self.mesh, batch_size)
+        return rows
 
     def global_tokens(self, local_tokens: int) -> int:
         """The global token count of a share of ``local_tokens``."""
@@ -427,9 +473,13 @@ class MoEDist:
         offset = self.mesh.get_local_rank(self.ep_axis) * e_local
         compute = dispatch_fn(cfg)
         ys, aux = [], 0.0
-        for xc in x.split(T_loc // n_chunks):
+        # one chunk is x itself, and over a 'data' group of one rank the
+        # gather is x: no split or gather node, so that x's gradients add
+        # up in the order the single-rank layer's do
+        for xc in (x.split(T_loc // n_chunks) if n_chunks > 1 else (x,)):
             # dispatch: this chunk's tokens to every rank of the EP group
-            xg = xc if replicated else all_gather(xc, tp)
+            xg = (xc if replicated or self.tp_size == 1
+                  else all_gather(xc, tp))
             if with_aux:
                 weights, sel, a = route(p["router"], xg, runtime, moe,
                                         with_aux=True)

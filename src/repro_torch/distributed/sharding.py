@@ -56,6 +56,19 @@ def batch_axes(mesh, batch_size: int) -> Tuple[str, ...]:
     return ()
 
 
+def batch_rows(mesh, batch_size: int):
+    """(:func:`batch_axes` of a global batch of ``batch_size`` rows, this
+    rank's rows of it as a slice: its block along those axes, the first
+    major)."""
+    axes = batch_axes(mesh, batch_size)
+    sizes = axis_sizes(mesh)
+    n, index = 1, 0
+    for a in axes:
+        n, index = n * sizes[a], index * sizes[a] + mesh.get_local_rank(a)
+    rows = batch_size // n
+    return axes, slice(index * rows, (index + 1) * rows)
+
+
 class ShardingRules:
     def __init__(self, mesh, cfg: ModelConfig):
         self.mesh = mesh

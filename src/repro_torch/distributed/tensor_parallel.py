@@ -1,5 +1,5 @@
-"""Tensor parallelism outside the experts: the serve steps computed on
-``ShardingRules``' shards.
+"""Tensor parallelism outside the experts: the serve and train steps
+computed on ``ShardingRules``' shards.
 
 The counterpart of what XLA's partitioner (GSPMD) does to ``repro``'s
 placed step (``repro.launch.dryrun`` hands it every leaf placed by
@@ -15,8 +15,9 @@ sees them).  A rank holds ``sharding.tp_shard`` of each leaf and:
   all-reduced over 'model' (:meth:`TensorParallel.all_reduce`);
 * the vocabulary is split over 'model': :meth:`TensorParallel.embed`
   looks up the rank's rows and all-reduces, the logits stay the rank's
-  columns, and :meth:`TensorParallel.greedy` picks the token of the whole
-  padded row (the lowest index on a tie, as ``argmax``);
+  columns, :meth:`TensorParallel.greedy` picks the token of the whole
+  padded row (the lowest index on a tie, as ``argmax``) and
+  ``layers.vocab_parallel_cross_entropy`` the loss of the whole row;
 * attention is head-parallel where heads divide 'model'; a decode cache
   whose KV heads do not divide is split over its window instead
   (``ShardingRules.cache_specs``): each rank attends every head's query
@@ -25,23 +26,35 @@ sees them).  A rank holds ``sharding.tp_shard`` of each leaf and:
 * under FSDP (``rules.fsdp``, dense models whose non-expert weights
   exceed 12 GB a 'model' rank) a leaf is split over ('data', 'model'):
   :meth:`TensorParallel.stream_layer` regathers one layer's leaves to the TP
-  layout inside the layer loop, and nothing holds them after the layer.
+  layout inside the layer loop (inside the layer's checkpoint when
+  ``cfg.remat`` is set, so the backward regathers them again), and
+  nothing holds them after the layer.
 
 The MoE layer is the distributed one (``collectives.MoEDist``): its
 input, after the row-parallel all-reduce, is whole on every 'model' rank,
-as it expects.  The serve steps only: a train step would need the
-collectives' backward (``collectives`` has it), a vocab-parallel cross
-entropy and AdamW on the shards, which are not written.
+as it expects.
+
+A train step (``training.train_loop.make_train_step`` of a TP model)
+differentiates through the collectives' transposes (``collectives``'
+convention: each rank differentiates ``loss / world``, its loss the
+global one), sums each leaf's gradient over the ranks that hold the same
+block (:meth:`TensorParallel.reduce_grads`: over the DP axes and over
+'model' where the leaf is replicated there), and updates the rank's
+blocks with AdamW, whose global norm counts each distinct block once
+(:meth:`TensorParallel.block_squares`, the ranks' partial squares folded
+in rank order).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import ShardingRules, local_shard
+from repro_torch.distributed.sharding import (ShardingRules, batch_rows,
+                                              local_shard)
 from repro_torch.launch.mesh import axis_sizes
 
 
@@ -89,21 +102,24 @@ def gather_dim(x, dim: int, group):
 
 
 class TensorParallel:
-    """The 'model' axis of ``mesh`` as the serve steps use it, from the
-    placement ``rules`` (a ``ShardingRules`` of the mesh and the model's
-    config).  :meth:`bind` takes the model's parameter shapes, for
-    :meth:`stream_layer`."""
+    """The 'model' axis of ``mesh`` as the serve and train steps use it,
+    from the placement ``rules`` (a ``ShardingRules`` of the mesh and the
+    model's config).  :meth:`bind` takes the model's parameter shapes, for
+    :meth:`stream_layer` and the train step's gradient sums."""
 
     def __init__(self, mesh, rules: ShardingRules, axis: str = "model"):
         self.mesh, self.rules, self.axis = mesh, rules, axis
-        sizes = axis_sizes(mesh)
-        self.size = sizes[axis]
+        self.sizes = axis_sizes(mesh)
+        self.size = self.sizes[axis]
         self.rank = mesh.get_local_rank(axis)
-        self.data_size = sizes.get("data", 1)
+        self.data_size = self.sizes.get("data", 1)
+        self.world = math.prod(self.sizes.values())
         self.attn_tp, self.kv_tp = rules.attn_tp, rules.kv_tp
         self.fsdp = rules.fsdp
         self._groups: Optional[Dict] = None
         self.placed = self.layout = None
+        # the axes the batch rows are split over (:meth:`place`)
+        self.batch_axes = tuple(rules.dp)
 
     # -- groups and collectives ------------------------------------------------
 
@@ -121,9 +137,91 @@ class TensorParallel:
         """Each rank's block along ``dim`` -> the whole, in rank order."""
         return gather_dim(x, dim % x.dim(), self.group())
 
+    def all_reduce_max(self, x):
+        """The elementwise largest ``x`` over 'model' (no gradient)."""
+        return C.all_reduce_max(x, self.group())
+
     def merge(self, o, lse):
         """:func:`merge_partials` over 'model'."""
         return merge_partials(o, lse, self.group())
+
+    # -- the batch -------------------------------------------------------------
+
+    def place(self, batch_size: int) -> slice:
+        """This rank's rows of a global batch of ``batch_size`` rows, as
+        ``ShardingRules.batch_spec`` places them (every DP axis where they
+        divide it, else 'data', else none: the rows replicated);
+        :meth:`sum_batch` sums over those axes until the next call."""
+        self.batch_axes, rows = batch_rows(self.mesh, batch_size)
+        return rows
+
+    def sum_batch(self, x):
+        """``x``, a sum over the rank's rows, summed over the ranks that
+        hold the other rows (the axes :meth:`place` split them over)."""
+        for a in self.batch_axes:
+            if self.sizes[a] > 1:
+                x = C.all_reduce(x, self.group(a))
+        return x
+
+    # -- the train step's sums over blocks ------------------------------------------
+
+    def _split_axes(self, spec) -> tuple:
+        """The mesh axes (in mesh order) that a leaf placed by ``spec`` is
+        split over; its other axes hold replicas of its blocks."""
+        used = {a for entry in spec for a in _axes(entry)}
+        return tuple(a for a in self.mesh.mesh_dim_names if a in used)
+
+    def _by_leaf(self, tree):
+        """(path, leaf, placement) of each leaf of a tree shaped as the
+        parameters, in key order."""
+        if self.placed is None:
+            raise RuntimeError("TensorParallel: bind() the model's "
+                               "parameter shapes first")
+        return list(_walk(tree, self.placed))
+
+    def reduce_grads(self, grads):
+        """Each leaf's gradient summed over the ranks that hold the same
+        block: over every mesh axis its placement does not split (the DP
+        axes, and 'model' where the leaf is replicated there; an expert
+        block over 'pod' only), so every holder of a block ends with the
+        gradient of the global loss (``collectives``' convention)."""
+        out = {}
+        for path, g, spec in self._by_leaf(grads):
+            split = self._split_axes(spec)
+            for a in self.mesh.mesh_dim_names:
+                if a not in split and self.sizes[a] > 1:
+                    g = C.all_reduce(g, self.group(a))
+            _put(out, path, g)
+        return out
+
+    def block_squares(self, squares):
+        """``squares``: per leaf (a tree shaped as the parameters) the
+        rank's block's sum of squares, 0-d f32 -> the whole leaf's: the
+        blocks' partials gathered over the axes the leaf is split over
+        and folded in rank order (the first axis major), each distinct
+        block counted once; a replicated leaf's as it is.  Leaves split
+        over the same axes share one gather."""
+        items = self._by_leaf(squares)
+        out, by_axes = {}, {}
+        for path, sq, spec in items:
+            axes = tuple(a for a in self._split_axes(spec)
+                         if self.sizes[a] > 1)
+            by_axes.setdefault(axes, []).append((path, sq))
+        for axes, group in by_axes.items():
+            if not axes:
+                for path, sq in group:
+                    _put(out, path, sq)
+                continue
+            vec = torch.stack([sq for _, sq in group])
+            for a in reversed(axes):
+                vec = C.all_gather(vec[None], self.group(a))
+            vec = vec.reshape(-1, len(group))
+            total = vec[0]
+            for r in range(1, vec.shape[0]):
+                total = total + vec[r]
+            for i, (path, _) in enumerate(group):
+                _put(out, path, total[i])
+        return out
 
     def block(self, n: int) -> slice:
         """This rank's block of a dimension of ``n`` split over 'model'."""
@@ -217,7 +315,8 @@ class TensorParallel:
         ('data', 'model') to 'model' on a square mesh the 'model' gather
         of the rank's data row gives model block d, and a broadcast over
         'data' from data rank r hands every rank of column r its block r:
-        one TP block moved twice, not the whole leaf."""
+        one TP block moved twice, not the whole leaf (under grad the
+        broadcast's gradients are summed back to its source)."""
         src = tuple(src) + (None,) * (x.dim() - len(src))
         dst = tuple(dst) + (None,) * (x.dim() - len(dst))
         for dim, (s, d) in enumerate(zip(src, dst)):
@@ -226,8 +325,7 @@ class TensorParallel:
             if (_axes(s) == ("data", "model") and _axes(d) == ("model",)
                     and self.data_size == self.size):
                 y = gather_dim(x, dim, self.group("model"))
-                x = _broadcast(y.contiguous(), self.group("data"),
-                               self.rank)
+                x = C.broadcast(y, self.group("data"), self.rank)
                 continue
             for a in reversed(_axes(s)):
                 x = gather_dim(x, dim, self.group(a))
@@ -238,18 +336,26 @@ class TensorParallel:
         return x
 
 
-def _broadcast(x, group, src: int):
-    """``x`` of group rank ``src`` on every rank of ``group``."""
-    out = x.clone(memory_format=torch.contiguous_format)
-    C.broadcast_(out, group, src)
-    return out
-
-
 def _drop_lead(spec_tree):
     """Specs of one layer of a stacked (L, ...) group: the layer axis off."""
     if isinstance(spec_tree, dict):
         return {k: _drop_lead(v) for k, v in spec_tree.items()}
     return tuple(spec_tree)[1:] if len(spec_tree) else ()
+
+
+def _walk(tree, specs, path=()):
+    """(path, leaf, spec) of each leaf of ``tree``, keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], specs[k], path + (k,))
+    else:
+        yield path, tree, tuple(specs)
+
+
+def _put(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
 
 
 def _map_specs(fn, tree, src, dst, name=None):

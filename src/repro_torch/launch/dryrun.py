@@ -12,31 +12,26 @@ storage.  Nothing is allocated, whatever the model's size.  It is a
 trace by design, as ``repro``'s dry run is, and no device runs.
 
 Each argument is stored as ``ShardingRules`` places it, so
-``argument_bytes`` is the JAX package's per-device argument size.  What a
-rank runs depends on the kind:
-
-* prefill and decode: the port's tensor-parallel step
-  (``Model(tp=TensorParallel(mesh, rules))``,
-  ``distributed/tensor_parallel.py``), the counterpart of what GSPMD does
-  to the JAX package's placed step: the rank computes on its shards
-  (``sharding.tp_shard``: ``local_shard``'s blocks, Mamba's ``in_proj``
-  holding x and z of its channels, the same bytes), every collective
-  explicit, no split leaf and no cache slice gathered at the entry; the
-  prefill builds the rank's cache slice itself; under FSDP one layer's
-  leaves are regathered to the TP layout inside the layer loop.  With
-  ``force_attn_tp`` the attention leaves are stored split where their
-  last dimension divides; where the heads do not divide 'model' those
-  leaves alone are gathered at the entry (the JAX package's GSPMD pads
-  the heads instead), and the record says so.
-* train: a gather-at-entry model of a step, which no runtime of the port
-  executes: every split leaf but the expert bank and the batch rows
-  all-gathered whole at the entry, the whole leaves' gradients
-  all-reduced over the DP axes and cut back to the rank's shards.  Every
-  rank of a 'model' group repeats the same non-expert compute; its
-  collectives, wire and temp bytes are that model's.
-
-The expert bank goes through the distributed MoE layer (``MoEDist`` or
-``MoEDistA2A``) in both.  The record's ``placement`` says which.
+``argument_bytes`` is the JAX package's per-device argument size.  Every
+kind runs the port's tensor-parallel step (``Model(tp=TensorParallel(mesh,
+rules))``, ``distributed/tensor_parallel.py``), the counterpart of what
+GSPMD does to the JAX package's placed step: the rank computes on its
+shards (``sharding.tp_shard``: ``local_shard``'s blocks, Mamba's
+``in_proj`` holding x and z of its channels, the same bytes), every
+collective explicit, no split leaf and no cache slice gathered at the
+entry; the prefill builds the rank's cache slice itself; under FSDP one
+layer's leaves are regathered to the TP layout inside the layer loop.  A
+train step (``training.train_loop.make_train_step``) is the loss of the
+global batch (a vocab-parallel cross entropy), its backward through the
+collectives' transposes with every layer recomputed (``cfg.remat``, set
+for train shapes as the JAX package sets it; under FSDP the regather
+again), each leaf's gradient summed over its blocks' holders, and AdamW
+on the rank's blocks.  The expert bank goes through the distributed MoE
+layer (``MoEDist`` or ``MoEDistA2A``).  With ``force_attn_tp`` the
+attention leaves are stored split where their last dimension divides;
+where the heads do not divide 'model' a serve step gathers those leaves
+alone at the entry (the JAX package's GSPMD pads the heads instead), and
+the record says so; a train step refuses such a placement.
 
 From the trace (:func:`trace`):
 
@@ -95,11 +90,10 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ALL_ARCHS, INPUT_SHAPES, get_config
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import (ShardingRules, local_shard,
-                                              tp_shard)
+from repro_torch.distributed.sharding import ShardingRules, tp_shard
 from repro_torch.distributed.tensor_parallel import TensorParallel
 from repro_torch.hardware import NODE_RANKS, card_sheet
-from repro_torch.launch.mesh import axis_sizes, dp_axes, make_mesh
+from repro_torch.launch.mesh import dp_axes, make_mesh
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import make_step, step_arg_specs
 from repro_torch.models.model import Model
@@ -107,20 +101,17 @@ from repro_torch.models.moe import MoERuntime, physical_experts
 from repro_torch.training.optimizer import AdamWState
 
 PROCESS_GROUP = "fake (torch.testing._internal.distributed.fake_pg)"
-PLACEMENT = {
-    "train": ("a gather-at-entry model of a rank's step, which no runtime "
-              "of the port executes: ShardingRules' shards stored; every "
-              "split leaf but the expert bank and the batch rows all-"
-              "gathered whole at the step's entry; a train step's "
-              "gradients all-reduced over DP and cut back.  Its "
-              "collectives, wire and temp bytes are this model's, not the "
-              "JAX package's GSPMD step's"),
-    "serve": ("the port's tensor-parallel step on ShardingRules' shards "
-              "(Model(tp=TensorParallel)): each collective explicit, no "
-              "split leaf or cache slice gathered at the step's entry; "
-              "under FSDP one layer's leaves regathered to the TP layout "
-              "inside the layer loop; the expert bank through the "
-              "distributed MoE layer")}
+PLACEMENT = ("the port's tensor-parallel step on ShardingRules' shards "
+             "(Model(tp=TensorParallel)): each collective explicit, no "
+             "split leaf or cache slice gathered at the step's entry; "
+             "under FSDP one layer's leaves regathered to the TP layout "
+             "inside the layer loop; the expert bank through the "
+             "distributed MoE layer")
+PLACEMENT_TRAIN = ("; a train step: the global batch's loss (vocab-parallel "
+                   "cross entropy), every layer recomputed in the backward "
+                   "(cfg.remat; under FSDP its regather too), each leaf's "
+                   "gradient summed over its blocks' holders, AdamW on the "
+                   "rank's blocks")
 FORCED = ("; --force-attn-tp: the attention leaves stored split where "
           "their last dimension divides, and where the heads do not divide "
           "'model' those leaves alone gathered at the step's entry (the JAX "
@@ -147,6 +138,7 @@ def wire_bytes(op: str, size: float, n: int) -> float:
       collective-permute  S
       broadcast        S (the port's FSDP regather; no HLO op of the
                        JAX package's list)
+      reduce           S (that broadcast's transpose, in a train step)
     """
     if n <= 1:
         n = 2
@@ -446,69 +438,34 @@ def arg_placements(rules: ShardingRules, kind: str, args, B: int):
 
 
 class _RankStep:
-    """The step of ``kind`` as rank 0 runs it on its shards (the module's
-    docstring): a train step's whole leaves gathered at the entry and its
-    gradients cut back; a serve step the tensor-parallel model's
-    (:meth:`serve`)."""
+    """The tensor-parallel step of ``kind`` as rank 0 runs it on its
+    arguments as stored (the module's docstring)."""
 
-    def __init__(self, model: Model, kind: str, mesh, placed):
+    def __init__(self, model: Model, kind: str, mesh, placed, batch: int):
         self.model, self.kind, self.mesh = model, kind, mesh
-        self.placed = placed
-        self.groups = {a: mesh.get_group(a) for a in mesh.mesh_dim_names}
-        self.dp = dp_axes(mesh)
-        self.dp_size = math.prod(axis_sizes(mesh)[a] for a in self.dp)
-
-    def _whole(self, x, spec):
-        """``x`` all-gathered along each split dimension of ``spec`` (the
-        first axis of a pair major)."""
-        for dim, entry in enumerate(spec):
-            if entry is None:
-                continue
-            axes = (entry,) if isinstance(entry, str) else tuple(entry)
-            y = x.movedim(dim, 0)
-            for a in reversed(axes):
-                y = C.all_gather(y, self.groups[a])
-            x = y.movedim(0, dim).contiguous()
-        return x
-
-    def _cut(self, x, spec):
-        return local_shard(x, spec, self.mesh)
-
-    def gather(self, params):
-        return _map2(lambda p, x, sp: x if _is_expert(p) else
-                     self._whole(x, sp), params, self.placed[0])
-
-    def reduce_grads(self, grads):
-        """Whole leaves' gradients averaged over the DP axes, cut to this
-        rank's shards; the expert blocks' as the layer's collectives
-        left them."""
-        def one(path, g, spec):
-            if _is_expert(path):
-                return g
-            for a in self.dp:
-                g = C.all_reduce(g, self.groups[a])
-            return self._cut(g / self.dp_size, spec)
-        return _map2(one, grads, self.placed[0])
+        self.placed, self.batch = placed, batch
 
     def step(self):
-        if self.kind == "train":
-            return make_step(self.model, "train", gather=self.gather,
-                             reduce_grads=self.reduce_grads)
-        return self.serve()
-
-    def serve(self):
-        """The tensor-parallel serve step on the rank's arguments as
-        stored: ``Model(tp=...)`` of the true placement (``ShardingRules``
-        of the mesh without ``force_attn_tp``); the leaves that a forced
-        placement split where that one keeps them whole are gathered at
-        the entry (:attr:`gathered` names them), and no other."""
+        """``Model(tp=...)`` of the true placement (``ShardingRules`` of
+        the mesh without ``force_attn_tp``); the leaves that a forced
+        placement split where that one keeps them whole are gathered at a
+        serve step's entry (:attr:`gathered` names them), and no other."""
         cfg, mesh = self.model.cfg, self.mesh
         tp = TensorParallel(mesh, ShardingRules(mesh, cfg))
+        tp.place(self.batch)
         model = Model(cfg, self.model.dtype, device="cpu",
                       moe_dist=self.model.moe_dist, tp=tp)
         inner = make_step(model, self.kind)
         self.gathered = [p for p, s, w in _pairs(self.placed[0], tp.placed)
                          if tuple(s) != tuple(w)]
+        if self.kind == "train":
+            if self.gathered:
+                raise ValueError(
+                    "force_attn_tp: a train step updates the blocks it "
+                    "stores, and the tensor-parallel step keeps "
+                    + ", ".join("/".join(p) for p in self.gathered)
+                    + " whole")
+            return inner
 
         def entry(params):
             if not self.gathered:
@@ -555,7 +512,7 @@ def rank_step(cfg, shape, mesh, moe_impl: str, *, force_attn_tp=False,
     if force_attn_tp:
         # attention leaves stored split where their last dimension divides
         # (a serve step gathers at its entry those whose heads do not
-        # divide 'model'; a train step gathers every leaf)
+        # divide 'model'; a train step refuses them)
         rules.attn_tp = rules.kv_tp = True
     B = shape.global_batch
     if md is not None:
@@ -570,19 +527,16 @@ def rank_step(cfg, shape, mesh, moe_impl: str, *, force_attn_tp=False,
                     raise ValueError(f"{path}: ShardingRules places it "
                                      f"{got}, the MoE layer takes "
                                      f"{want[path[-1]]}")
-    # a serve step's rank holds the TP runtime's blocks (tp_shard: the same
-    # bytes); the train step's gather-at-entry model local_shard's
-    cut = (tp_shard if shape.kind != "train" else
-           lambda p, t, sp, m: local_shard(t, sp, m))
-    local = _map2(lambda p, t, sp: cut(p, t, sp, mesh), specs, placed)
-    rank = _RankStep(model, shape.kind, mesh, placed)
+    # the rank holds the TP runtime's blocks (tp_shard: local_shard's
+    # bytes), its AdamW moments those of its params
+    local = _map2(lambda p, t, sp: tp_shard(p, t, sp, mesh), specs, placed)
+    rank = _RankStep(model, shape.kind, mesh, placed, B)
     rec = trace(rank.step(), local, sheet=sheet, log=log)
-    gathered = getattr(rank, "gathered", [])
-    rec["placement"] = (PLACEMENT["train" if shape.kind == "train" else
-                                  "serve"]
+    rec["placement"] = (PLACEMENT
+                        + (PLACEMENT_TRAIN if shape.kind == "train" else "")
                         + (FORCED + ": " + ", ".join(
-                            "/".join(p) for p in gathered)
-                           if gathered else ""))
+                            "/".join(p) for p in rank.gathered)
+                           if rank.gathered else ""))
     return rec
 
 
@@ -721,8 +675,11 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
         "process_group": group_kind,
         "trace": TRACE,
         "placement": full["placement"],
-        "remat": ("the config's flag set as the JAX package sets it; the "
-                  "port keeps every activation for the backward"),
+        "remat": ("the config's flag set as the JAX package sets it (train "
+                  "shapes): each layer of the training forward runs under "
+                  "torch.utils.checkpoint and again in the backward, its "
+                  "FSDP regather included" if cfg.remat else
+                  "the config's flag unset (a serve step)"),
         "force_attn_tp": force_attn_tp,
         "save_hlo": save_hlo and "the traced op log (no HLO)",
         "elapsed_s": time.perf_counter() - t_start,
@@ -737,11 +694,9 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"{n_chips}; {TRACE}), not a timing: mesh "
               f"{rec['lower_s']:.1f}s  trace {rec['trace_s']:.1f}s "
               f"({rec['ops']} ops)")
-        print("  placement: " + ("a gather-at-entry model, not a runtime "
-                                 "of the port; collectives, wire and temp "
-                                 "are this model's" if shape.kind == "train"
-                                 else "the port's tensor-parallel step on "
-                                 "ShardingRules' shards"))
+        print("  placement: the port's tensor-parallel step on "
+              "ShardingRules' shards" + (" (remat on)" if cfg.remat
+                                         else ""))
         print(f"  memory/device: args "
               f"{mem['argument_bytes'] / gb:.2f} GiB"
               f"  temp {mem['temp_bytes'] / gb:.2f} GiB"

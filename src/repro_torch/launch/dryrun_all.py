@@ -115,8 +115,8 @@ def _cell(arch: str, shape: str) -> str:
 def summary() -> str:
     """The cached records as markdown, a row an arch and a column a
     shape (``_cell``)."""
-    rows = ["| arch (rank 0's trace: train the gather-at-entry model, "
-            "prefill and decode the tensor-parallel step) | "
+    rows = ["| arch (rank 0's trace of the tensor-parallel step; train "
+            "with remat) | "
             + " | ".join(INPUT_SHAPES) + " |",
             "|---|" + "---|" * len(INPUT_SHAPES)]
     for arch in ASSIGNED_ARCHS:

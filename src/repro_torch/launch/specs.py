@@ -63,17 +63,15 @@ def runtime_specs(model: Model) -> Optional[MoERuntime]:
 
 
 def make_step(model: Model, kind: str,
-              opt_cfg: Optional[OptimizerConfig] = None,
-              **train_hooks) -> Callable:
+              opt_cfg: Optional[OptimizerConfig] = None) -> Callable:
     """The step of ``kind``: ``train`` is ``training.train_loop``'s step
     (``(params, opt_state, batch) -> (params, opt_state, metrics)``, the
-    port's AdamW state; ``train_hooks`` go to ``make_train_step``),
+    port's AdamW state; a tensor-parallel model's on the rank's shards),
     ``prefill`` the ring prefill and ``decode`` one ring decode step, each
     followed by the greedy next token (:func:`greedy`)."""
     if kind == "train":
         from repro_torch.training.train_loop import make_train_step
-        return make_train_step(model, opt_cfg or OptimizerConfig(),
-                               **train_hooks)
+        return make_train_step(model, opt_cfg or OptimizerConfig())
     if kind == "prefill":
         def prefill_step(params, batch, runtime):
             last, cache = model.prefill(params, batch, runtime)

@@ -119,3 +119,59 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     nll = logz - gold
     mask = mask.float()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+class _VocabLogSumExp(torch.autograd.Function):
+    """logsumexp over a row whose columns are split over 'model' (each
+    rank's ``x`` its block): the row's largest value all-reduced with MAX
+    (a shift that the result does not depend on, so no gradient), the sum
+    of exp all-reduced; the same operations as ``torch.logsumexp`` on one
+    rank.  Every rank's result depends on every rank's block, so the
+    backward sums the ranks' incoming gradients before ``g e^(x -
+    logz)``, ``torch.logsumexp``'s own backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        m = tp.all_reduce_max(x.amax(dim=-1))
+        m.masked_fill_(m.abs() == math.inf, 0)
+        s = tp.all_reduce(torch.exp(x - m[..., None]).sum(dim=-1))
+        logz = s.log_().add_(m)
+        ctx.tp = tp
+        ctx.save_for_backward(x, logz)
+        return logz
+
+    @staticmethod
+    def backward(ctx, g):
+        x, logz = ctx.saved_tensors
+        g = ctx.tp.all_reduce(g)
+        return g[..., None] * torch.exp(x - logz[..., None]), None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 mask: torch.Tensor, vocab_size: int, tp
+                                 ) -> torch.Tensor:
+    """:func:`cross_entropy_loss` of the global batch where ``logits``
+    (B, S, Vpad / m) are this rank's columns of the padded vocabulary (a
+    'model' block of ``tp``, a ``TensorParallel``) and its rows one share
+    of the batch (``tp.place``).  The padded columns (>= ``vocab_size``)
+    are masked to -1e30 on whichever rank holds them; the log-sum-exp is
+    :class:`_VocabLogSumExp`; the gold logit comes from the rank whose
+    block holds the label (a masked pick, summed over 'model'); the
+    masked sum and the mask's count are summed over the batch's DP axes
+    (``tp.sum_batch``), so every rank returns the loss of the whole
+    batch."""
+    n = logits.shape[-1]
+    lo = tp.rank * n
+    logits = logits.float()
+    if lo + n > vocab_size:
+        col = torch.arange(lo, lo + n, device=logits.device) < vocab_size
+        logits = logits.masked_fill(~col, -1e30)
+    logz = _VocabLogSumExp.apply(logits, tp)
+    local = labels.long() - lo
+    ok = (local >= 0) & (local < n)
+    pick = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = tp.all_reduce(torch.where(ok, pick, pick.new_zeros(())))
+    nll = logz - gold
+    mask = mask.float()
+    total = tp.sum_batch((nll * mask).sum())
+    return total / torch.clamp(tp.sum_batch(mask.sum()), min=1.0)

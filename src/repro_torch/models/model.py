@@ -69,14 +69,17 @@ Megatron FFNs, channel-parallel Mamba; the caches are the rank's slices
 (``ShardingRules.cache_specs``), built by the prefill itself.  The MoE
 layers run through ``moe_dist``, which TP requires for MoE families.
 Under FSDP one layer's leaves are regathered at a time
-(``TensorParallel.stream_layer``).  The paged engine's steps and the loss take
-no ``tp``.
+(``TensorParallel.stream_layer``).  :meth:`Model.loss` runs under ``tp``
+too (the train step, ``training.train_loop``); the paged engine's steps
+take no ``tp``.
 
 :meth:`Model.loss` is ``repro``'s training loss: the full-sequence
 forward under grad (on the card through ``flash_prefill``, ``expert_ffn``
 and their backward kernels), next-token cross entropy, and the MoE
 layers' load-balance term, which :meth:`logits_full` sums when asked
-(``with_aux``).
+(``with_aux``).  With ``cfg.remat`` each layer of the training forward
+runs under ``torch.utils.checkpoint``, as ``repro`` checkpoints its layer
+body.
 """
 from __future__ import annotations
 
@@ -85,6 +88,7 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch.overrides import TorchFunctionMode
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -95,7 +99,8 @@ from repro_torch.models import mamba as M
 from repro_torch.models import moe as MoE
 from repro_torch.models.layers import (cross_entropy_loss, embed_init,
                                        embed_lookup, padded_vocab_size,
-                                       rms_norm, take_layer)
+                                       rms_norm, take_layer,
+                                       vocab_parallel_cross_entropy)
 
 
 
@@ -118,8 +123,8 @@ class Model:
         (``repro_torch.distributed.collectives.MoEDist`` or ``MoEDistA2A``)
         that runs every MoE layer over this rank's share of the batch and
         its block of the expert bank; None: a single rank.  tp: a
-        ``TensorParallel`` of the same mesh, for the serve steps on this
-        rank's shards; None: every leaf whole."""
+        ``TensorParallel`` of the same mesh, for the ring serve steps and
+        the loss on this rank's shards; None: every leaf whole."""
         cfg.validate()
         self.cfg = cfg
         self.moe_dist = moe_dist
@@ -297,8 +302,40 @@ class Model:
     def _layer(self, params, name: str, i: int):
         """Layer ``i`` of group ``name``: views of the stacked leaves, or
         under FSDP the layer's leaves regathered to the TP layout."""
-        p = take_layer(params[name], i)
+        return self._stream(take_layer(params[name], i), name, i)
+
+    def _stream(self, p, name: str, i: int):
+        """Layer ``i`` of group ``name`` as the rank stores it -> as the
+        layer computes with it (``TensorParallel.stream_layer``)."""
         return p if self.tp is None else self.tp.stream_layer(p, (name,), i)
+
+    def _run_layer(self, body, params, name: str, i: int, x, aux=None,
+                   keep_entry: bool = True):
+        """``body(p, x, aux=...) -> (x, entry)`` over layer ``i`` of group
+        ``name``, its leaves regathered inside (:meth:`_stream`).  With
+        ``cfg.remat`` under grad the call runs inside
+        ``torch.utils.checkpoint`` (non-reentrant), as ``repro`` wraps its
+        layer body in ``jax.checkpoint``: the backward runs it again, the
+        FSDP regather included, so no layer's activations nor regathered
+        leaves are held between the forward and the backward.  The
+        layer's load-balance losses come back from the call (a list of
+        its own, which a recomputation refills) and are added to ``aux``
+        once.  ``keep_entry=False`` drops the layer's cache entry (the
+        loss needs none)."""
+        def run(raw, x):
+            layer_aux = None if aux is None else []
+            x, entry = body(self._stream(raw, name, i), x, aux=layer_aux)
+            return x, entry if keep_entry else None, layer_aux
+
+        raw = take_layer(params[name], i)
+        if self.cfg.remat and torch.is_grad_enabled():
+            x, entry, layer_aux = checkpoint(run, raw, x, use_reentrant=False,
+                                             preserve_rng_state=False)
+        else:
+            x, entry, layer_aux = run(raw, x)
+        if aux is not None:
+            aux.extend(layer_aux)
+        return x, entry
 
     def _leaf(self, params, key: str):
         """A top-level leaf (``embed``, ``lm_head``), regathered under
@@ -318,7 +355,8 @@ class Model:
         if self.tp is not None:
             raise NotImplementedError(
                 f"Model.{what}: the tensor-parallel runtime covers the ring "
-                f"serve steps (prefill, init_cache, decode_step) only")
+                f"serve steps (prefill, init_cache, decode_step) and the "
+                f"loss; the paged engine's steps take no tp")
 
     def _ring_slice(self, ring_tree, W: int):
         """A prefill's whole rings (B, W, ...) -> this rank's slots of a
@@ -464,7 +502,7 @@ class Model:
         return out, entry
 
     def _trunk(self, params, x, positions, runtime, *, max_seq=0,
-               enc_out=None, enc_positions=None, aux=None):
+               enc_out=None, enc_positions=None, aux=None, caches=True):
         """Every decoder layer group, layer by layer (the audio encoder is
         :meth:`_encode`'s).  Returns (x, caches): per group the stacked
         (L, B, S, Hkv, Dh) raw K and V (MLA: the (L, B, S, 1, R + dr)
@@ -473,9 +511,10 @@ class Model:
         K and V, "ssm": (L, n_mamba, B, ...) state}``.  ``enc_out`` goes
         to the groups with cross-attention.  ``aux``: a list that takes
         each MoE layer's load-balance loss in layer order (a hybrid
-        period's MoE sublayers included), or None."""
+        period's MoE sublayers included), or None.  ``caches=False``
+        builds no cache (returns an empty dict)."""
         cap = self._cap(x.shape[0] * x.shape[1])
-        caches: Dict[str, Any] = {}
+        out: Dict[str, Any] = {}
         for name, n, mixer, ffn_kind, cross in self.layer_groups():
             if name == "enc_layers":
                 continue
@@ -483,25 +522,30 @@ class Model:
             if mixer == "hybrid":
                 rates = self._period_rates(params, name)
                 for i in range(n):
-                    x, entry = self._period_fwd(
-                        self._layer(params, name, i), x, positions, runtime,
-                        cap, {sub: a[i] for sub, a in rates.items()},
-                        max_seq, aux)
+                    body = functools.partial(
+                        self._period_fwd, positions=positions,
+                        runtime=runtime, cap=cap,
+                        rates={sub: a[i] for sub, a in rates.items()},
+                        max_seq=max_seq)
+                    x, entry = self._run_layer(body, params, name, i, x, aux,
+                                               caches)
                     entries.append(entry)
             else:
                 rates = (self.ssm_rates(params, name) if mixer == "mamba"
                          else None)
                 for i in range(n):
-                    x, entry = self._block_fwd(
-                        self._layer(params, name, i), x, positions,
-                        mixer=mixer, ffn_kind=ffn_kind, runtime=runtime,
-                        cap=cap, ssm_A=None if rates is None else rates[i],
+                    body = functools.partial(
+                        self._block_fwd, positions=positions, mixer=mixer,
+                        ffn_kind=ffn_kind, runtime=runtime, cap=cap,
+                        ssm_A=None if rates is None else rates[i],
                         enc_out=enc_out if cross else None,
-                        enc_positions=enc_positions, max_seq=max_seq,
-                        aux=aux)
+                        enc_positions=enc_positions, max_seq=max_seq)
+                    x, entry = self._run_layer(body, params, name, i, x, aux,
+                                               caches)
                     entries.append(entry)
-            caches[name] = _stack(entries)
-        return x, caches
+            if caches:
+                out[name] = _stack(entries)
+        return x, out
 
     def _period_fwd(self, p, x, positions, runtime, cap, rates, max_seq=0,
                     aux=None):
@@ -528,11 +572,11 @@ class Model:
         positions = torch.arange(frames.shape[1], dtype=torch.int32,
                                  device=frames.device)
         x = frames
+        body = functools.partial(self._block_fwd, positions=positions,
+                                 mixer="attn", ffn_kind="dense",
+                                 runtime=runtime, cap=0, causal=False)
         for i in range(cfg.encoder_layers):
-            x, _ = self._block_fwd(
-                self._layer(params, "enc_layers", i), x, positions,
-                mixer="attn", ffn_kind="dense", runtime=runtime, cap=0,
-                causal=False)
+            x, _ = self._run_layer(body, params, "enc_layers", i, x)
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     def _cross_kv(self, params, enc_out):
@@ -572,7 +616,7 @@ class Model:
         return x, positions
 
     def logits_full(self, params, batch, runtime=None, *, max_seq=0,
-                    with_aux=False):
+                    with_aux=False, caches=True):
         """Full-sequence forward over ``batch["tokens"]`` (B, S), a vlm's
         ``patches`` before them, an audio model's decoder attending to
         the encoding of ``batch["frames"]``.  Returns (logits (B, S,
@@ -580,7 +624,9 @@ class Model:
         model's decoder entry is ``{"self": ..., "cross":
         :meth:`_cross_kv`}``), and with ``with_aux`` also the MoE
         layers' load-balance losses summed in layer order (0-d f32; zero
-        without MoE layers), as ``repro``'s third output."""
+        without MoE layers), as ``repro``'s third output.  ``caches=False``
+        builds none (an empty dict in their place).  Under ``tp`` the
+        logits are the rank's columns of the padded vocabulary."""
         cfg = self.cfg
         runtime = runtime if runtime is not None else self.default_runtime()
         x, positions = self._embed_inputs(params, batch)
@@ -591,20 +637,21 @@ class Model:
             enc_positions = torch.arange(enc_out.shape[1],
                                          dtype=torch.int32, device=x.device)
         aux = [] if with_aux else None
-        x, caches = self._trunk(params, x, positions, runtime,
-                                max_seq=max_seq, enc_out=enc_out,
-                                enc_positions=enc_positions, aux=aux)
+        x, built = self._trunk(params, x, positions, runtime,
+                               max_seq=max_seq, enc_out=enc_out,
+                               enc_positions=enc_positions, aux=aux,
+                               caches=caches)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        if cfg.family == "audio":
-            caches["layers"] = {"self": caches["layers"],
-                                "cross": self._cross_kv(params, enc_out)}
+        if cfg.family == "audio" and caches:
+            built["layers"] = {"self": built["layers"],
+                               "cross": self._cross_kv(params, enc_out)}
         logits = x @ self._leaf(params, "lm_head")
         if not with_aux:
-            return logits, caches
+            return logits, built
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer_aux in aux:
             total = total + layer_aux
-        return logits, caches, total
+        return logits, built, total
 
     # -- training ------------------------------------------------------------
 
@@ -613,16 +660,27 @@ class Model:
         ``batch["loss_mask"]`` is 1 (a vlm's over its text positions only,
         after the patches), plus ``aux_loss_coef * aux / max(n_moe, 1)``
         with ``aux`` the MoE layers' summed load-balance loss.  Returns
-        ``(total, {"ce": ce, "aux": aux})``, 0-d f32 tensors."""
+        ``(total, {"ce": ce, "aux": aux})``, 0-d f32 tensors.
+
+        Under ``tp`` the batch is this rank's rows (``tp.place``), the
+        logits its vocabulary columns, and the loss the whole batch's, as
+        ``repro``'s: ``vocab_parallel_cross_entropy`` over the global
+        mask's count, the aux the distributed MoE layer's mean over every
+        rank (``MoEDist``).  With ``cfg.remat`` each layer is recomputed
+        in the backward (:meth:`_run_layer`)."""
         cfg = self.cfg
-        self._no_tp("loss")
         logits, _, aux = self.logits_full(params, batch, runtime,
-                                          with_aux=True)
+                                          with_aux=True, caches=False)
         if cfg.family == "vlm":
             logits = logits[:, cfg.num_patches:]
         labels = batch["tokens"][:, 1:]
         mask = batch["loss_mask"][:, 1:].float()
-        ce = cross_entropy_loss(logits[:, :-1], labels, mask, cfg.vocab_size)
+        if self.tp is None:
+            ce = cross_entropy_loss(logits[:, :-1], labels, mask,
+                                    cfg.vocab_size)
+        else:
+            ce = vocab_parallel_cross_entropy(logits[:, :-1], labels, mask,
+                                              cfg.vocab_size, self.tp)
         aux_coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
         total = ce + aux_coef * aux / max(self._num_moe_layers(), 1)
         return total, {"ce": ce, "aux": aux}

@@ -8,6 +8,16 @@ moments, then decoupled weight decay on every leaf.  ``m`` and ``v``
 take each parameter's type, as ``zeros_like`` gives them there.  Leaves
 pair up by their sorted key paths (``checkpoint.flatten``), the order
 ``jax.tree_util`` flattens a dict in.
+
+On a rank of a tensor-parallel mesh (``tp``, a
+``distributed.tensor_parallel.TensorParallel``) the leaves are the rank's
+blocks (``sharding.tp_shard``) and their gradients already summed over
+the blocks' holders (``TensorParallel.reduce_grads``): the global norm
+adds each whole leaf's squares, its blocks' partials gathered and folded
+in rank order (``TensorParallel.block_squares``), and the clip and the
+update then act on the rank's blocks, ``m`` and ``v`` of their shapes.
+Without ``tp`` the update is the one-rank update, operation for
+operation.
 """
 from __future__ import annotations
 
@@ -68,22 +78,27 @@ def schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, tp=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32, summed leaf by
-    leaf in key order."""
+    leaf in key order; with ``tp`` each leaf's squares are its whole
+    leaf's (the module's docstring)."""
+    squares = tree_map(lambda x: torch.sum(torch.square(x.float())), tree)
+    if tp is not None:
+        squares = tp.block_squares(squares)
     total = None
-    for x in leaves(tree):
-        sq = torch.sum(torch.square(x.float()))
+    for sq in leaves(squares):
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptimizerConfig, grads, state: AdamWState, params):
+def adamw_update(cfg: OptimizerConfig, grads, state: AdamWState, params,
+                 tp=None):
     """Returns ``(new_params, new_state, metrics)``; ``metrics`` holds the
     step's ``lr`` and the gradients' ``grad_norm`` before clipping, as
-    0-d f32 tensors."""
-    gnorm = global_norm(grads)
+    0-d f32 tensors.  ``tp``: the leaves are a tensor-parallel rank's
+    blocks (the module's docstring)."""
+    gnorm = global_norm(grads, tp)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     b1, b2 = cfg.betas

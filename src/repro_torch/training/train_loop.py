@@ -7,7 +7,8 @@ collects the gradients: on the card the attention and expert FFN of that
 forward go through the ``flash_prefill`` and ``expert_ffn`` kernels and
 their backward kernels (``ops``' autograd Functions).  The update runs
 under ``no_grad`` (:func:`~repro_torch.training.optimizer.adamw_update`).
-PyTorch runs eagerly: there is no ``jit``.
+PyTorch runs eagerly: there is no ``jit``.  A tensor-parallel model's
+step runs on the rank's shards (:func:`make_train_step`).
 """
 from __future__ import annotations
 
@@ -28,38 +29,55 @@ def as_leaves(params):
     return tree_map(lambda p: p.detach().requires_grad_(True), params)
 
 
+def grads_of(model: Model, params, batch, runtime=None):
+    """The forward and backward of ``model.loss`` at ``params``: returns
+    ``(leaves, loss, metrics, grads)``, the leaves the gradients are of
+    (``as_leaves(params)``), the loss and its metrics (detached) and the
+    gradients in the parameters' tree (a leaf the loss does not reach
+    gets zeros, as under JAX).  Under
+    ``model.tp`` the loss is the global batch's on every rank and each
+    rank differentiates ``loss / world`` (``distributed.collectives``'
+    convention): its gradients are the rank's blocks' before
+    ``TensorParallel.reduce_grads`` sums them over their holders."""
+    leaves_in = as_leaves(params)
+    with torch.enable_grad():
+        loss, metrics = model.loss(leaves_in, batch, runtime)
+    keys, leaves = zip(*flatten(leaves_in))
+    scaled = loss if model.tp is None else loss / model.tp.world
+    grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
+    grads = unflatten((k, torch.zeros_like(p) if g is None else g)
+                      for k, p, g in zip(keys, leaves, grads))
+    return (leaves_in, loss.detach(),
+            {k: v.detach() for k, v in metrics.items()}, grads)
+
+
 def make_train_step(model: Model, opt_cfg: OptimizerConfig,
-                    runtime=None, *, gather: Optional[Callable] = None,
-                    reduce_grads: Optional[Callable] = None) -> Callable:
+                    runtime=None) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``; ``batch`` holds tensors on the model's device.
 
     The MoE runtime is threaded through so a degraded system (masked
     experts after a recovery) can keep serving-consistent fine-tuning, as
-    in ``repro``.  ``gather`` / ``reduce_grads`` (both None on one rank)
-    serve a rank that stores its leaves split (``launch.dryrun``):
-    ``gather`` makes the leaves the forward takes from the rank's, and
-    ``reduce_grads`` takes their gradients back to the rank's leaves,
-    which AdamW then updates."""
+    in ``repro``.  For a tensor-parallel model (``Model(tp=...)``,
+    ``distributed.tensor_parallel``) ``params`` and the AdamW state are
+    the rank's blocks (``sharding.tp_shard``) and ``batch`` its rows
+    (``tp.place``): the step is the counterpart of what GSPMD makes of
+    ``repro``'s jitted step on ``ShardingRules``' placement, each
+    collective explicit: the loss of the global batch, the gradients
+    summed over each block's holders (``TensorParallel.reduce_grads``),
+    AdamW on the blocks with the global norm (``adamw_update(...,
+    tp=...)``)."""
+    tp = model.tp
 
     def train_step(params, opt_state, batch):
-        leaves_in = as_leaves(params if gather is None else gather(params))
-        with torch.enable_grad():
-            loss, metrics = model.loss(leaves_in, batch, runtime)
-        keys, leaves = zip(*flatten(leaves_in))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        # a leaf the loss does not reach gets zeros, as under JAX
-        grads = unflatten((k, torch.zeros_like(p) if g is None else g)
-                          for k, p, g in zip(keys, leaves, grads))
-        if reduce_grads is not None:
-            grads = reduce_grads(grads)
-        else:
-            params = leaves_in
+        params, loss, metrics, grads = grads_of(model, params, batch,
+                                                runtime)
+        if tp is not None:
+            grads = tp.reduce_grads(grads)
         params, opt_state, opt_metrics = adamw_update(
-            opt_cfg, grads, opt_state, params)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+            opt_cfg, grads, opt_state, params, tp)
         metrics.update(opt_metrics)
-        metrics["loss"] = loss.detach()
+        metrics["loss"] = loss
         return params, opt_state, metrics
 
     return train_step

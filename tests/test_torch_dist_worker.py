@@ -28,7 +28,10 @@ the job's ``feed`` tokens; it returns each step's logits (the rank's
 vocabulary columns) and greedy tokens (``TensorParallel.greedy``).  A
 ``merge`` job folds the ranks' attention partials of a ring's quarters
 (``merge_partials``); a ``greedy`` job picks the token of logits whose
-columns are split over the ranks (``TensorParallel.greedy``).
+columns are split over the ranks (``TensorParallel.greedy``).  A
+``train`` job (``tests/test_torch_tp_train.py``) takes the TP train step
+on the same model for each of the job's batches; a ``saved`` job records
+what ``Model.loss``'s forward saves for its backward.
 """
 import dataclasses
 import datetime
@@ -62,14 +65,16 @@ def job_model(job, meshes):
     return Model(cfg, device="cpu", moe_dist=md), md, params, mesh
 
 
-def tp_run(job, meshes):
-    """The ``tp`` job (the module's docstring)."""
+def tp_model(job, meshes):
+    """The job's smoke ``arch`` with ``Model(tp=...)`` on this rank's
+    ``tp_shard`` of the job's checkpoint (the module's docstring): returns
+    (model, the rank's params, its rows of the job's batch (a slice),
+    mesh)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.collectives import make_moe_dist
-    from repro_torch.distributed.sharding import (ShardingRules, batch_axes,
-                                                  tp_shard)
+    from repro_torch.distributed.sharding import ShardingRules, tp_shard
     from repro_torch.distributed.tensor_parallel import TensorParallel
-    from repro_torch.launch.mesh import axis_sizes, dp_axes, make_mesh
+    from repro_torch.launch.mesh import dp_axes, make_mesh
     from repro_torch.models.model import Model
     from repro_torch.training import checkpoint as ckpt
     cfg = get_smoke_config(job["arch"])
@@ -80,6 +85,7 @@ def tp_run(job, meshes):
     if job.get("mla"):
         cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
             cfg.mla, **job["mla"]))
+    cfg = dataclasses.replace(cfg, remat=bool(job.get("remat")))
     key = (tuple(job["mesh"]), tuple(job["axes"]))
     if key not in meshes:
         meshes[key] = make_mesh(*key, device="cpu")
@@ -99,12 +105,20 @@ def tp_run(job, meshes):
     if cfg.moe is not None:
         md = make_moe_dist(mesh, "gather_psum", dp_axes=dp_axes(mesh))
         md.place(B)
-    sizes, n, index = axis_sizes(mesh), 1, 0
-    for a in batch_axes(mesh, B):
-        n, index = n * sizes[a], index * sizes[a] + mesh.get_local_rank(a)
-    rows = slice(index * (B // n), (index + 1) * (B // n))
     tp = TensorParallel(mesh, rules)
-    model = Model(cfg, device="cpu", moe_dist=md, tp=tp)
+    rows = tp.place(B)
+    return Model(cfg, device="cpu", moe_dist=md, tp=tp), params, rows, mesh
+
+
+def _coords(mesh):
+    return {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+
+
+def tp_run(job, meshes):
+    """The ``tp`` job (the module's docstring)."""
+    from repro_torch.training import checkpoint as ckpt
+    model, params, rows, mesh = tp_model(job, meshes)
+    tp = model.tp
     batch = {k: torch.from_numpy(v)[rows] for k, v in job["batch"].items()}
     last, cache = model.prefill(params, batch, max_seq=job["max_seq"])
     logits, tokens = [last.numpy()], [tp.greedy(last).numpy()]
@@ -114,9 +128,82 @@ def tp_run(job, meshes):
         logits.append(last.numpy())
         tokens.append(tp.greedy(last).numpy())
     return {"rows": (rows.start, rows.stop), "logits": logits,
-            "tokens": tokens, "coords": {a: mesh.get_local_rank(a)
-                                         for a in mesh.mesh_dim_names},
+            "tokens": tokens, "coords": _coords(mesh),
             "cache": {k: tuple(t.shape) for k, t in ckpt.flatten(cache)}}
+
+
+def _numpy(tree):
+    from repro_torch.training.checkpoint import flatten
+    return {k: t.detach().numpy().copy() for k, t in flatten(tree)}
+
+
+def train_run(job, meshes):
+    """The ``train`` job: the TP train step (``make_train_step`` of
+    ``Model(tp=...)``, ``cfg.remat`` as the job says) for each of the
+    job's batches, AdamW from ``init_adamw`` of the rank's blocks.  Returns
+    each step's metrics, step 0's gradients before and after
+    ``TensorParallel.reduce_grads`` (``grads_of`` at the first step's
+    params: the rank's blocks of the gradient of ``loss / world``), the
+    params after the last step, and each leaf's placement."""
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.optimizer import OptimizerConfig, init_adamw
+    from repro_torch.training.train_loop import grads_of, make_train_step
+    model, params, rows, mesh = tp_model(job, meshes)
+    tp = model.tp
+    batches = [{k: torch.from_numpy(v)[rows] for k, v in b.items()}
+               for b in job["batches"]]
+    _, _, _, raw = grads_of(model, params, batches[0])
+    step = make_train_step(model, OptimizerConfig(**job["opt"]))
+    opt = init_adamw(params)
+    metrics = []
+    for b in batches:
+        params, opt, m = step(params, opt, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"rows": (rows.start, rows.stop), "coords": _coords(mesh),
+            "metrics": metrics, "raw": _numpy(raw),
+            "reduced": _numpy(tp.reduce_grads(raw)),
+            "params": _numpy(params), "moments": {
+                k: tuple(t.shape) for k, t in flatten(opt.m)},
+            "specs": dict(flatten(tp.placed))}
+
+
+def saved_run(job, meshes):
+    """The ``saved`` job: the shapes of the tensors that ``Model.loss``'s
+    forward saves for its backward outside any checkpoint (a
+    ``saved_tensors_hooks`` around it; a checkpointed layer's own saves
+    are the checkpoint's, and dropped), and the shape of each layer leaf
+    that the FSDP regather makes (the TP layout) where it differs from
+    the rank's stored block, and that leaf's whole shape (one layer)."""
+    from repro_torch.models.layers import take_layer
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.train_loop import as_leaves
+    model, params, rows, mesh = tp_model(job, meshes)
+    tp = model.tp
+    batch = {k: torch.from_numpy(v)[rows] for k, v in job["batch"].items()}
+    saved = []
+
+    def pack(t):
+        saved.append(tuple(t.shape))
+        return t
+    leaves = as_leaves(params)
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        with torch.enable_grad():
+            loss, _ = model.loss(leaves, batch)
+    loss.backward()
+    regathered, whole = set(), set()
+    specs = model.param_specs()
+    with torch.no_grad():
+        for name, n, *_ in model.layer_groups():
+            for i in range(n):
+                raw = take_layer(params[name], i)
+                full = tp.stream_layer(raw, (name,), i)
+                for (_, a), (_, b), (_, w) in zip(
+                        flatten(raw), flatten(full), flatten(specs[name])):
+                    if a.shape != b.shape:
+                        regathered.add(tuple(b.shape))
+                        whole.add(tuple(w.shape[1:]))
+    return {"saved": saved, "regathered": sorted(regathered),
+            "whole": sorted(whole)}
 
 
 def _mesh_1x4(meshes):
@@ -168,6 +255,10 @@ def run(job, meshes):
     from repro_torch.training.train_loop import as_leaves
     if job["kind"] == "tp":
         return tp_run(job, meshes)
+    if job["kind"] == "train":
+        return train_run(job, meshes)
+    if job["kind"] == "saved":
+        return saved_run(job, meshes)
     if job["kind"] == "merge":
         return merge_run(job, meshes)
     if job["kind"] == "greedy":

@@ -19,10 +19,13 @@ against the JAX package's, on the CPU.
   do not split 16 ways) has the ``argument_bytes`` that ``repro``'s
   ``PartitionSpec``s give (``build_in_shardings`` on a stub mesh, as
   ``tests/test_torch_sharding.py`` gets them), and no split parameter
-  leaf is all-gathered by a serve step (the tensor-parallel step; the
-  train step's gather-at-entry model gathers them); for a dense arch a
-  train rank's FLOPs x data size equal the unsharded trace's, and a
-  serve rank's FLOPs are the model share that the shapes give; the
+  leaf is all-gathered by any step (each kind is the tensor-parallel
+  step; no FSDP there, whose regather would); for a dense arch a serve
+  rank's FLOPs are the model share that the shapes give, and a train
+  rank's (``cfg.remat`` set, as ``run_dryrun`` sets it) three times the
+  prefill rank's (the forward and a backward of two products each) plus
+  the recomputed layers' (the forward less each layer's last product,
+  whose output no backward needs: the checkpoint stops early); the
   full-depth trace equals the 2- and 4-unit extrapolation on a
   homogeneous stack; the selective scan is one traced op whose FLOPs
   equal the plain loop's.
@@ -305,8 +308,9 @@ def smoke_ranks():
         with dryrun.fake_group(math.prod(mesh_shape)):
             mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
             for kind, shape in SMOKE_SHAPES.items():
-                out[arch, kind] = dryrun.rank_step(cfg, shape, mesh,
-                                                   "gather_psum")
+                out[arch, kind] = dryrun.rank_step(
+                    dataclasses.replace(cfg, remat=kind == "train"), shape,
+                    mesh, "gather_psum")
     assert not torch.distributed.is_initialized()
     cfg = get_smoke_config("internlm2-20b")
     model = Model(cfg, torch.bfloat16, device="cpu")
@@ -332,23 +336,21 @@ def test_rank_argument_bytes_equal_repros_placement(arch, kind, smoke_ranks,
     assert rec["argument_bytes"] == want
     assert rec["flops"] > 0 and rec["wire"] > 0
     ops = set(rec["collectives"])
-    # a train step gathers the whole leaves at its entry; a serve step
-    # all-gathers activations (the greedy token's candidates, a split
-    # ring's partials); the MoE layer's dispatch and combine on top
+    # a step all-gathers activations (the greedy token's candidates, a
+    # split ring's partials, a train step's norm partials); the MoE
+    # layer's dispatch and combine on top
     assert "all-gather" in ops and "all-reduce" in ops
     if arch != "internlm2-20b":
         assert "reduce-scatter" in ops
-    # no split parameter leaf (nor a layer of one) all-gathered whole by a
-    # serve step, as the collectives' log records the gathers' results;
-    # the train step's gather-at-entry model does gather them
+    # no split parameter leaf (nor a layer of one) all-gathered whole by
+    # any step, as the collectives' log records the gathers' results
     leaves = _split_leaf_shapes(arch, SMOKE_MESHES[arch])
     gathered = {tuple(sorted(shape)) for op, _, _, shape in
                 rec["collective_log"] if op == "all-gather"}
-    if kind == "train":
-        assert gathered & leaves
-    else:
-        assert not gathered & leaves, sorted(gathered & leaves)
-        assert "the port's tensor-parallel step" in rec["placement"]
+    assert not gathered & leaves, sorted(gathered & leaves)
+    assert "the port's tensor-parallel step" in rec["placement"]
+    assert ("AdamW on the rank's blocks" in rec["placement"]) == (
+        kind == "train")
 
 
 def _split_leaf_shapes(arch, mesh_shape):
@@ -370,13 +372,33 @@ def _split_leaf_shapes(arch, mesh_shape):
 
 @pytest.mark.parametrize("kind", ["train"])
 def test_dense_rank_flops_are_the_data_share(kind, smoke_ranks):
-    """The train step's gather-at-entry model: a dense rank runs its batch
-    share's whole compute, so its FLOPs x the data axis equal the
-    unsharded step's.  (The serve steps are tensor-parallel:
-    test_tp_rank_flops_are_the_model_share.)"""
+    """The train step is tensor-parallel too: a dense rank runs its batch
+    share (1 / data of the rows) on its model share of the products, the
+    prefill rank's; its FLOPs are that forward, a backward of two
+    products a product (the CPU's attention is the plain einsums), and
+    with ``cfg.remat`` each layer's forward again less its last product
+    (``w_down``, whose output no backward reads: the checkpoint's
+    recomputation stops early)."""
     rec = smoke_ranks["internlm2-20b", kind]
-    want = smoke_ranks["unsharded", kind]["flops"]
-    assert rec["flops"] * SMOKE_MESHES["internlm2-20b"][0] == want
+    model = SMOKE_MESHES["internlm2-20b"][1]
+    forward = _internlm_serve_flops("prefill", model)
+    head, down = _internlm_pieces("prefill", model)
+    layers = get_smoke_config("internlm2-20b").num_layers
+    assert rec["flops"] == 3 * forward + (forward - head - layers * down)
+    # the model share: the step without the recomputation, times the
+    # data size, is below the unsharded step's
+    assert 3 * forward * 16 < smoke_ranks["unsharded", kind]["flops"]
+
+
+def _internlm_pieces(kind, model):
+    """(the head's FLOPs, one layer's ``w_down`` product's) on a serve
+    rank of :func:`_internlm_serve_flops`."""
+    cfg = get_smoke_config("internlm2-20b")
+    shape = SMOKE_SHAPES[kind]
+    T = shape.global_batch // 16 * (shape.seq_len if kind == "prefill"
+                                    else 1)
+    return (2 * T * cfg.d_model * (2048 // model),
+            2 * T * cfg.d_model * (cfg.d_ff // model))
 
 
 def _internlm_serve_flops(kind, model):
